@@ -1,0 +1,418 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py [--scale 20] [--seed 0]
+
+Phases, each printing one JSON line; any failure exits non-zero:
+
+1. device   — fails unless CUDA is available; the card's name and power
+              limit as ``nvidia-smi`` gives them.
+2. build    — builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
+              into ``build/repro_torch/`` (nvcc, sm_90a) and reports seconds.
+3. data     — a Graph500-style R-MAT graph (scale 20, edge factor 16,
+              weighted) from ``generate.rmat_stream``, partitioned into 4
+              shards with edge blocks as the host drive loop builds them.
+4. kernels  — each kernel against its plain PyTorch version on the card, at
+              the main path's shapes (shard 0's edge blocks and CSR tiles),
+              for pagerank (sum, K=1) and sssp_bf (min, K=4): min must be
+              bit-equal, sum within rtol/atol below; kernel, plain, library
+              (one ``scatter_reduce`` merging the same messages, as a
+              yardstick) times and the bound (bytes over the memory rate).
+5. e2e      — the host drive loop end to end on 4 shards: pagerank through
+              ``daemon="cuda"`` (BSP), sssp_bf through ``daemon="cuda"``
+              (GAS) and through ``BlockedDaemon(kernel="cuda")`` (BSP), each
+              held against the port's ``run_reference`` on the card.  Each
+              composition first runs one warm-up iteration (set-up: the
+              daemon's CSR compaction); the launch counters are zeroed just
+              before the timed run and must be non-zero after it.
+
+Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+# Sum merges: kernel and plain version add the same non-negative float32
+# messages in different orders (a kernel's run walk or atomics against the
+# plain scatter), so they agree to a relative error of a few ulps times the
+# row's message count.
+SUM_RTOL, SUM_ATOL = 1e-4, 1e-12
+PR_RTOL, PR_ATOL = 1e-4, 1e-12  # pagerank state after the same iterations
+EDGE_FACTOR = 16    # Graph500's edges per vertex
+SHARDS = 4
+PR_ITERATIONS = 10  # pagerank runs a fixed count (it converges slowly)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: int, ops: int) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the float32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def edge_bytes(emask) -> int:
+    """Edge-slot bytes a kernel must read: a live slot's src index, dst
+    index, weight and mask (16 B); a dead or padded slot's mask alone
+    (4 B).  With the src rows the live edges gather and the partials and
+    counts written, this is the byte count of the bound."""
+    live = int(emask.sum())
+    return live * 16 + (emask.numel() - live) * 4
+
+
+def compare(name, got, want, counts_got, counts_want, monoid_name):
+    import torch
+
+    if not torch.equal(counts_got, counts_want):
+        raise AssertionError(f"{name}: counts differ")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite partials")
+    err = (got - want).abs()
+    max_abs = float(err.max()) if err.numel() else 0.0
+    if monoid_name == "sum":
+        tol = SUM_ATOL + SUM_RTOL * want.abs()
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"{name}: sum outside rtol={SUM_RTOL} "
+                                 f"atol={SUM_ATOL}, max abs err {max_abs}")
+    elif not torch.equal(got, want):
+        raise AssertionError(f"{name}: {monoid_name} not bit-equal "
+                             f"(max abs err {max_abs})")
+    return max_abs, tolerance(monoid_name)
+
+
+def tolerance(monoid_name: str) -> str:
+    if monoid_name == "sum":
+        return f"rtol={SUM_RTOL} atol={SUM_ATOL}"
+    return "bit-equal"
+
+
+def library_merge_ms(msgs, seg, live, num_segments, monoid):
+    """One ``scatter_reduce`` that merges the same messages into the same
+    slots — the library yardstick (the merge alone, on precomputed
+    messages); the port never calls it."""
+    import torch
+
+    reduce = {"sum": "sum", "min": "amin", "max": "amax", "or": "amax"}
+    idx = seg[live].long()[:, None].expand(-1, msgs.shape[1])
+    vals = msgs[live]
+    out = torch.full((num_segments, msgs.shape[1]), monoid.identity,
+                     dtype=torch.float32, device=msgs.device)
+    return cuda_time_ms(lambda: out.scatter_reduce(
+        0, idx, vals, reduce=reduce[monoid.name], include_self=True))
+
+
+def phase_csr_tile(ts, program, state, aux, active, label):
+    import torch
+
+    from repro_torch.kernels import edge_block as ebk
+
+    dev = state.device
+    csr = {k: torch.from_numpy(v).to(dev) for k, v in ts.arrays().items()}
+    svids = csr["svids"].long()
+    vsrc = state[svids].contiguous()
+    vaux = aux[svids].contiguous()
+    rowst = state[csr["rows"].long()].contiguous()
+    emask = csr["emask"] & active[csr["gsrc"].long()]
+    emf = emask.to(torch.float32)
+    args = (vsrc, vaux, rowst, csr["lsrc"], csr["seg"], csr["w"], emf)
+    got, got_c = ebk.csr_tile(*args, program=program)
+    want, want_c = ebk.csr_tile_plain(*args, program=program)
+    torch.cuda.synchronize()
+    max_abs, tol = compare(f"csr_tile/{label}", got, want, got_c, want_c,
+                      program.monoid.name)
+    ms = cuda_time_ms(lambda: ebk.csr_tile(*args, program=program))
+    plain_ms = cuda_time_ms(lambda: ebk.csr_tile_plain(*args,
+                                                       program=program),
+                            reps=5)
+    t, et = csr["lsrc"].shape
+    st, k, a = vsrc.shape[1], vsrc.shape[2], vaux.shape[2]
+    rt = rowst.shape[1]
+    live_src = torch.unique(
+        (torch.arange(t, device=dev)[:, None] * st + csr["lsrc"])[emask])
+    nbytes = edge_bytes(emask) + live_src.numel() * (k + a) * 4 \
+        + t * rt * (k + 1) * 4
+    ops = int(emask.sum()) * k * 2
+    msgs = program.msg_gen(
+        torch.take_along_dim(vsrc, csr["lsrc"].long()[..., None], 1
+                             ).reshape(-1, k),
+        None, csr["w"].reshape(-1, 1),
+        torch.take_along_dim(vaux, csr["lsrc"].long()[..., None], 1
+                             ).reshape(-1, a))
+    seg = (csr["seg"].long() + torch.arange(t, device=dev)[:, None] * rt)
+    library_ms = library_merge_ms(msgs, seg.reshape(-1), emask.reshape(-1),
+                                  t * rt, program.monoid)
+    return dict(kernel="csr_tile", case=label, tiles=t, ET=et, RT=rt, ST=st,
+                K=k, A=a, live_edges=int(emask.sum()), max_abs_err=max_abs,
+                tolerance=tol,
+                kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bytes=nbytes, ops=ops, **bound(nbytes, ops))
+
+
+def phase_edge_block(bs, program, state, aux, active, label):
+    import torch
+
+    from repro_torch.kernels import edge_block as ebk
+
+    dev = state.device
+    vids = torch.from_numpy(bs.vids).to(dev).long()
+    lsrc = torch.from_numpy(bs.lsrc).to(dev)
+    ldst = torch.from_numpy(bs.ldst).to(dev)
+    w = torch.from_numpy(bs.weights).to(dev)
+    emask = (torch.from_numpy(bs.emask).to(dev)
+             & active[torch.from_numpy(bs.gsrc).to(dev).long()])
+    vstate = state[vids].contiguous()
+    vaux = aux[vids].contiguous()
+    emf = emask.to(torch.float32)
+    args = (vstate, vaux, lsrc, ldst, w, emf)
+    got, got_c = ebk.edge_block(*args, program=program)
+    want, want_c = ebk.edge_block_plain(*args, program=program)
+    torch.cuda.synchronize()
+    max_abs, tol = compare(f"edge_block/{label}", got, want, got_c, want_c,
+                      program.monoid.name)
+    ms = cuda_time_ms(lambda: ebk.edge_block(*args, program=program))
+    plain_ms = cuda_time_ms(lambda: ebk.edge_block_plain(*args,
+                                                         program=program),
+                            reps=5)
+    nb, b = lsrc.shape
+    vb, k, a = vstate.shape[1], vstate.shape[2], vaux.shape[2]
+    live_src = torch.unique(
+        (torch.arange(nb, device=dev)[:, None] * vb + lsrc)[emask])
+    nbytes = edge_bytes(emask) + live_src.numel() * (k + a) * 4 \
+        + nb * vb * (k + 1) * 4
+    ops = int(emask.sum()) * k * 2
+    msgs = program.msg_gen(
+        torch.take_along_dim(vstate, lsrc.long()[..., None], 1
+                             ).reshape(-1, k),
+        None, w.reshape(-1, 1),
+        torch.take_along_dim(vaux, lsrc.long()[..., None], 1).reshape(-1, a))
+    seg = ldst.long() + torch.arange(nb, device=dev)[:, None] * vb
+    library_ms = library_merge_ms(msgs, seg.reshape(-1), emask.reshape(-1),
+                                  nb * vb, program.monoid)
+    return dict(kernel="edge_block", case=label, blocks=nb, B=b, VB=vb, K=k,
+                A=a, live_edges=int(emask.sum()), max_abs_err=max_abs,
+                tolerance=tol,
+                kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bytes=nbytes, ops=ops, **bound(nbytes, ops))
+
+
+def run_e2e(label, graph, program, daemon, model, parts, ref_state, sum_tol,
+            device="cuda"):
+    import numpy as np
+    import torch
+
+    from repro_torch import plug
+    from repro_torch.kernels import edge_block as ebk
+
+    t0 = time.perf_counter()
+    mw = plug.Middleware(graph, program, daemon=daemon, model=model,
+                         partitions=parts, device=device)
+    # one warm-up iteration: the daemon compacts each shard's CSR tiles on
+    # its first call, which is set-up and stays out of the timed run
+    mw.run(max_iterations=1)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    ebk.edge_block.launches = 0
+    ebk.csr_tile.launches = 0
+    res = mw.run()
+    torch.cuda.synchronize()
+    launches = {"edge_block": ebk.edge_block.launches,
+                "csr_tile": ebk.csr_tile.launches}
+    state = np.asarray(res.state)
+    if state.shape != (graph.num_vertices, program.state_width):
+        raise AssertionError(f"{label}: state shape {state.shape}")
+    if not np.isfinite(state).all():
+        raise AssertionError(f"{label}: non-finite state")
+    if sum_tol is None:
+        if not np.array_equal(state, ref_state):
+            raise AssertionError(f"{label}: not bit-equal to run_reference")
+        max_abs = 0.0
+    else:
+        rtol, atol = sum_tol
+        max_abs = float(np.abs(state - ref_state).max())
+        if not np.allclose(state, ref_state, rtol=rtol, atol=atol):
+            raise AssertionError(f"{label}: outside rtol={rtol} atol={atol} "
+                                 f"of run_reference (max abs {max_abs})")
+    return res, launches, dict(
+        phase="e2e", run=label, setup_s=setup_s, iterations=res.iterations,
+        converged=res.converged, wall_s=res.wall_time,
+        per_iteration_s=res.wall_time / max(res.iterations, 1),
+        daemon_busy_s=sum(sum(r.get("shard_busy_s", ()))
+                          for r in res.per_iteration),
+        max_abs_err_vs_reference=max_abs, launches=launches,
+        launches_per_iteration={k: v / max(res.iterations, 1)
+                                for k, v in launches.items()},
+        rounds_skipped=res.stats.rounds_skipped)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scale", type=int, default=20,
+                    help="log2 of the vertex count (Graph500 scale)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    # -- 1. device ---------------------------------------------------------
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True
+    ).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "name": kind, "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    import numpy as np
+
+    from repro_torch import plug
+    from repro_torch.graph import generate
+    from repro_torch.graph.algorithms import pagerank, sssp_bf
+    from repro_torch.graph.compaction import tiles_from_blockset
+    from repro_torch.kernels import build
+    from repro_torch.kernels import edge_block as ebk
+    from repro_torch.kernels.ops import CSRConfig
+
+    # -- 2. build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    build.library()
+    regs = [ln.strip() for ln in build.ptxas_report().splitlines()
+            if "registers" in ln]
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "nvcc_seconds": build.build_seconds, "ptxas": regs})
+
+    # -- 3. data -----------------------------------------------------------
+    t0 = time.perf_counter()
+    n = 1 << args.scale
+    g = generate.rmat_stream(n, EDGE_FACTOR * n, seed=args.seed)
+    t_gen = time.perf_counter() - t0
+    parts = plug.HostUpperSystem().partition(g, SHARDS)
+    t_part = time.perf_counter() - t0 - t_gen
+    probe = plug.Middleware(g, pagerank(g), daemon="cuda", partitions=parts,
+                            device="cuda")
+    bs = probe.blocksets[0]
+    ts = tiles_from_blockset(bs, n, edge_tile=CSRConfig().edge_tile)
+    emit({"phase": "data", "vertices": n, "edges": g.num_edges,
+          "shards": SHARDS, "block_size": probe.block_size,
+          "vblock_size": probe.vblock_size, "shard0_blocks": bs.num_blocks,
+          "shard0_tiles": ts.num_tiles, "ET": ts.edge_tile,
+          "RT": ts.row_tile, "ST": ts.src_tile, "generate_s": t_gen,
+          "partition_s": t_part,
+          "blocks_and_tiles_s": time.perf_counter() - t0 - t_gen - t_part})
+    del probe
+
+    # -- 4. kernels at the main path's shapes ------------------------------
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(args.seed)
+    pr = pagerank(g, max_iterations=PR_ITERATIONS)
+    pr_state, pr_aux = (torch.from_numpy(a).to(dev) for a in pr.init(g))
+    sources = [0, 1, 2, 3]
+    sp = sssp_bf(g, sources=sources)
+    # a mid-run sssp state: finite distances and a partial frontier
+    sp_state = torch.from_numpy(
+        rng.uniform(0.0, 100.0, (n, 4)).astype(np.float32)).to(dev)
+    sp_aux = torch.zeros((n, 1), dtype=torch.float32, device=dev)
+    sp_active = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+    all_active = torch.ones(n, dtype=torch.bool, device=dev)
+    cases = []
+    for fn, shape in ((phase_csr_tile, ts), (phase_edge_block, bs)):
+        for prog, st, ax, act, label in (
+                (pr, pr_state, pr_aux, all_active, "pagerank_sum_k1"),
+                (sp, sp_state, sp_aux, sp_active, "sssp_min_k4")):
+            rec = fn(shape, prog, st, ax, act, label)
+            emit({"phase": "kernel", **rec})
+            cases.append(rec)
+    del ts
+
+    # -- 5. end to end -----------------------------------------------------
+    e2e_launches = {"edge_block": 0, "csr_tile": 0}
+    t0 = time.perf_counter()
+    pr_ref, pr_ref_it = plug.run_reference(g, pr, device="cuda")
+    sp_ref, sp_ref_it = plug.run_reference(g, sp, device="cuda")
+    emit({"phase": "reference", "pagerank_iterations": pr_ref_it,
+          "sssp_iterations": sp_ref_it,
+          "seconds": time.perf_counter() - t0})
+    runs = (("pagerank/cuda/bsp", pr, "cuda", "bsp", pr_ref,
+             (PR_RTOL, PR_ATOL), "csr_tile"),
+            ("sssp_bf/cuda/gas", sp, "cuda", "gas", sp_ref, None,
+             "csr_tile"),
+            ("sssp_bf/blocked-cuda/bsp", sp, plug.BlockedDaemon(kernel="cuda"),
+             "bsp", sp_ref, None, "edge_block"))
+    for label, prog, daemon, model, ref, tol, kernel in runs:
+        res, launches, rec = run_e2e(label, g, prog, daemon, model, parts,
+                                     ref, tol)
+        if prog is pr and res.iterations != pr_ref_it:
+            raise AssertionError(f"{label}: {res.iterations} iterations, "
+                                 f"reference ran {pr_ref_it}")
+        if launches[kernel] == 0:
+            raise AssertionError(f"{label}: {kernel} was never launched")
+        emit(rec)
+        for k, v in launches.items():
+            e2e_launches[k] += v
+
+    # -- the kernels line --------------------------------------------------
+    sources_of = {
+        "csr_tile": ("src/repro_torch/kernels/csrc/csr_tile.cu",
+                     "src/repro/kernels/edge_block.py:189"),
+        "edge_block": ("src/repro_torch/kernels/csrc/edge_block.cu",
+                       "src/repro/kernels/edge_block.py:81"),
+    }
+    kernels = []
+    for name, (source, replaces) in sources_of.items():
+        mine = [c for c in cases if c["kernel"] == name]
+        main = next(c for c in mine if c["case"] == "sssp_min_k4")
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": e2e_launches[name],
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "cases": {c["case"]: {k: c[k] for k in (
+                "kernel_ms", "plain_ms", "bound_ms", "library_ms",
+                "max_abs_err")} for c in mine},
+        })
+    emit({"kernels": kernels})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,238 @@
+"""The two GX-Plug graph kernels: wrappers over the CUDA C++ sources in
+``csrc/`` and their plain PyTorch versions.
+
+* :func:`edge_block` — the edge-block daemon program (``csrc/edge_block.cu``),
+  replacing the TPU kernel ``src/repro/kernels/edge_block.py::edge_block_pallas``.
+* :func:`csr_tile` — the fused CSR-tile daemon program (``csrc/csr_tile.cu``),
+  replacing ``src/repro/kernels/edge_block.py::csr_tile_pallas``.
+
+Each wrapper checks device, dtype, shape and contiguity.  On CPU tensors it
+runs the plain version (:func:`edge_block_plain`, :func:`csr_tile_plain`);
+on CUDA tensors it launches the kernel or raises — there is no fallback.
+Each wrapper counts its launches in a plain integer attribute
+(``edge_block.launches``, ``csr_tile.launches``), incremented only where
+the kernel is launched.  The kernels' bounds and design are in the notes at
+the top of each ``.cu`` file; their times on the card are in PERF.md.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.template import GEN_OPS, VertexProgram, segment_sum
+from repro_torch.kernels import build
+
+# Monoid name → the kernels' MonoidOp ("or" over {0,1} indicators is max).
+_MONOID_OPS = {"sum": 0, "min": 1, "max": 2, "or": 2}
+_MAX_K = 16  # csrc/common.cuh kMaxK
+_CSR_SMEM_MAX = 227 * 1024  # shared memory one CTA may use on sm_90
+
+
+def _csr_smem_bytes(et: int, k: int) -> int:
+    """csrc/csr_tile.cu csr_smem_bytes: seg, K messages and a live byte per
+    edge slot, staged in shared memory."""
+    return et * (4 + 4 * k + 1)
+
+
+def _monoid_op(program: VertexProgram) -> int:
+    try:
+        return _MONOID_OPS[program.monoid.name]
+    except KeyError:
+        raise ValueError(
+            f"monoid {program.monoid.name!r} has no kernel merge rule; "
+            f"known: {sorted(_MONOID_OPS)}") from None
+
+
+def _gen_op(program: VertexProgram) -> int:
+    if program.gen_op not in GEN_OPS:
+        raise ValueError(
+            f"program {program.name!r} has gen_op={program.gen_op!r}; the "
+            f"CUDA kernels implement {sorted(GEN_OPS)}")
+    return GEN_OPS[program.gen_op]
+
+
+def _check(named: dict, shapes: dict, device: torch.device,
+           unread: tuple = ()) -> None:
+    """Dtype, shape and device of every tensor; contiguity of every one the
+    kernel reads (those not in ``unread``)."""
+    for name, t in named.items():
+        want_dtype, want_shape = shapes[name]
+        if t.dtype != want_dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}, expected {want_dtype}")
+        if tuple(t.shape) != want_shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{want_shape}")
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, expected {device}")
+        if name not in unread and not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+
+
+def _gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[t, idx[t, e], :]`` for a (T, R, C) table and (T, E) idx."""
+    return torch.take_along_dim(table, idx.long()[..., None], dim=1)
+
+
+def _merge(program: VertexProgram, msgs, live, seg, num_segments: int):
+    """Masked segmented merge → (partial, counts); message-free slots read
+    the monoid identity (the kernels' contract)."""
+    monoid = program.monoid
+    msgs = torch.where(live[:, None], msgs,
+                       torch.full_like(msgs, monoid.identity))
+    partial = monoid.segment_reduce(msgs, seg, num_segments)
+    counts = segment_sum(live.to(torch.int32), seg, num_segments)
+    partial = torch.where((counts > 0)[:, None], partial,
+                          torch.full_like(partial, monoid.identity))
+    return partial, counts
+
+
+# --------------------------------------------------------------------------
+# edge block
+# --------------------------------------------------------------------------
+def edge_block_plain(vstate, vaux, lsrc, ldst, w, emask_f32, *,
+                     program: VertexProgram):
+    """Plain version of :func:`edge_block` (same signature and result as
+    the JAX ``edge_block_pallas``)."""
+    _monoid_op(program)
+    nb, vb, k = vstate.shape
+    b = lsrc.shape[1]
+    s = _gather_rows(vstate, lsrc).reshape(nb * b, k)
+    d = _gather_rows(vstate, ldst).reshape(nb * b, k)
+    sa = _gather_rows(vaux, lsrc).reshape(nb * b, -1)
+    msgs = program.msg_gen(s, d, w.reshape(nb * b, 1), sa)
+    seg = (ldst.long() + torch.arange(nb, device=ldst.device)[:, None] * vb)
+    partial, counts = _merge(program, msgs, emask_f32.reshape(-1) > 0,
+                             seg.reshape(-1), nb * vb)
+    return partial.reshape(nb, vb, k), counts.reshape(nb, vb)
+
+
+def edge_block(vstate, vaux, lsrc, ldst, w, emask_f32, *,
+               program: VertexProgram):
+    """Per edge block: gather src rows of the paired vertex block, MSGGen,
+    merge by block-local ``ldst``.
+
+    Args: vstate (nb, VB, K) f32, vaux (nb, VB, A≥1) f32, lsrc/ldst (nb, B)
+    i32, w (nb, B, 1) f32, emask_f32 (nb, B) f32.
+    Returns: partial (nb, VB, K) f32, counts (nb, VB) i32.
+    """
+    mon = _monoid_op(program)
+    nb, vb, k = vstate.shape
+    a = vaux.shape[2]
+    b = lsrc.shape[1]
+    _check(dict(vstate=vstate, vaux=vaux, lsrc=lsrc, ldst=ldst, w=w,
+                emask_f32=emask_f32),
+           dict(vstate=(torch.float32, (nb, vb, k)),
+                vaux=(torch.float32, (nb, vb, a)),
+                lsrc=(torch.int32, (nb, b)), ldst=(torch.int32, (nb, b)),
+                w=(torch.float32, (nb, b, 1)),
+                emask_f32=(torch.float32, (nb, b))), vstate.device)
+    if vstate.device.type == "cpu":
+        return edge_block_plain(vstate, vaux, lsrc, ldst, w, emask_f32,
+                                program=program)
+    if vstate.device.type != "cuda":
+        raise ValueError(f"edge_block runs on cuda or cpu, got {vstate.device}")
+    gen = _gen_op(program)
+    if k < 1 or a < 1:
+        raise ValueError(f"edge_block needs K >= 1 and A >= 1, got K={k}, "
+                         f"A={a}")
+    partial = torch.full((nb, vb, k), program.monoid.identity,
+                         dtype=torch.float32, device=vstate.device)
+    counts = torch.zeros((nb, vb), dtype=torch.int32, device=vstate.device)
+    if nb * b == 0:
+        return partial, counts
+    lib = build.library()
+    with torch.cuda.device(vstate.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gx_edge_block(
+            vstate.data_ptr(), vaux.data_ptr(), lsrc.data_ptr(),
+            ldst.data_ptr(), w.data_ptr(), emask_f32.data_ptr(),
+            partial.data_ptr(), counts.data_ptr(), nb, b, vb, k, a, gen, mon,
+            stream)
+    build.check(rc, "gx_edge_block")
+    edge_block.launches += 1
+    return partial, counts
+
+
+edge_block.launches = 0
+
+
+# --------------------------------------------------------------------------
+# CSR tile
+# --------------------------------------------------------------------------
+def csr_tile_plain(vsrc, vaux, rowst, lsrc, seg, w, emask_f32, *,
+                   program: VertexProgram):
+    """Plain version of :func:`csr_tile` (the JAX ``csr_tile_pallas`` and
+    its XLA twin ``_csr_tiles_xla``): gathers by index and merges per tile
+    by the sorted ``seg``."""
+    _monoid_op(program)
+    t, st, k = vsrc.shape
+    rt = rowst.shape[1]
+    et = lsrc.shape[1]
+    s, sa = _gather_rows(vsrc, lsrc), _gather_rows(vaux, lsrc)
+    d = _gather_rows(rowst, seg)
+    msgs = program.msg_gen(s.reshape(t * et, k), d.reshape(t * et, k),
+                           w.reshape(t * et, 1), sa.reshape(t * et, -1))
+    segg = seg.long() + torch.arange(t, device=seg.device)[:, None] * rt
+    partial, counts = _merge(program, msgs, (emask_f32 > 0).reshape(-1),
+                             segg.reshape(-1), t * rt)
+    return partial.reshape(t, rt, k), counts.reshape(t, rt)
+
+
+def csr_tile(vsrc, vaux, rowst, lsrc, seg, w, emask_f32, *,
+             program: VertexProgram):
+    """Per dst-sorted CSR tile: gather src rows through ``lsrc``, MSGGen,
+    merge by the sorted tile-local ``seg``.
+
+    Args: vsrc (T, ST, K) f32, vaux (T, ST, A≥1) f32, rowst (T, RT, K) f32,
+    lsrc/seg (T, ET) i32, w (T, ET, 1) f32, emask_f32 (T, ET) f32.
+    Returns: partial (T, RT, K) f32, counts (T, RT) i32 — per-tile row
+    partials; split hub rows still need the cross-tile combine.
+
+    ``rowst`` (the tiles' dst rows) feeds only the plain version's
+    ``msg_gen``: no kernel message function reads dst state, so on CUDA
+    tensors only its shape is used and it may be a broadcast view.
+    """
+    mon = _monoid_op(program)
+    t, st, k = vsrc.shape
+    a = vaux.shape[2]
+    rt = rowst.shape[1]
+    et = lsrc.shape[1]
+    _check(dict(vsrc=vsrc, vaux=vaux, rowst=rowst, lsrc=lsrc, seg=seg, w=w,
+                emask_f32=emask_f32),
+           dict(vsrc=(torch.float32, (t, st, k)),
+                vaux=(torch.float32, (t, st, a)),
+                rowst=(torch.float32, (t, rt, k)),
+                lsrc=(torch.int32, (t, et)), seg=(torch.int32, (t, et)),
+                w=(torch.float32, (t, et, 1)),
+                emask_f32=(torch.float32, (t, et))), vsrc.device,
+           unread=() if vsrc.device.type == "cpu" else ("rowst",))
+    if vsrc.device.type == "cpu":
+        return csr_tile_plain(vsrc, vaux, rowst, lsrc, seg, w, emask_f32,
+                              program=program)
+    if vsrc.device.type != "cuda":
+        raise ValueError(f"csr_tile runs on cuda or cpu, got {vsrc.device}")
+    gen = _gen_op(program)
+    if not 1 <= k <= _MAX_K or a < 1:
+        raise ValueError(f"csr_tile needs 1 <= K <= {_MAX_K} and A >= 1, "
+                         f"got K={k}, A={a}")
+    if _csr_smem_bytes(et, k) > _CSR_SMEM_MAX:
+        raise ValueError(f"csr_tile stages {_csr_smem_bytes(et, k)} bytes "
+                         f"per tile (ET={et}, K={k}) in shared memory; at "
+                         f"most {_CSR_SMEM_MAX} fit")
+    partial = torch.empty((t, rt, k), dtype=torch.float32, device=vsrc.device)
+    counts = torch.empty((t, rt), dtype=torch.int32, device=vsrc.device)
+    if t * et * rt * st == 0:
+        return partial.fill_(program.monoid.identity), counts.zero_()
+    lib = build.library()
+    with torch.cuda.device(vsrc.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gx_csr_tile(
+            vsrc.data_ptr(), vaux.data_ptr(), lsrc.data_ptr(), seg.data_ptr(),
+            w.data_ptr(), emask_f32.data_ptr(), partial.data_ptr(),
+            counts.data_ptr(), t, et, st, rt, k, a, gen, mon,
+            float(program.monoid.identity), stream)
+    build.check(rc, "gx_csr_tile")
+    csr_tile.launches += 1
+    return partial, counts
+
+
+csr_tile.launches = 0

@@ -1,0 +1,364 @@
+"""The middleware: agents + the host drive loop composed from the three
+protocols, as in the JAX package's ``plug/middleware.py``.
+
+``Middleware`` owns what the paper's *agent* role owns — per-shard host
+state (vertex table replicas, LRU boundary caches, block sets, byte
+accounting) and the iteration drive loop — and delegates device compute to
+the :class:`~repro_torch.plug.protocols.Daemon`, partitioning / exchange /
+global merge to the :class:`~repro_torch.plug.protocols.UpperSystem`, and
+Gen/Merge/Apply ordering to the
+:class:`~repro_torch.plug.protocols.ComputationModel`.
+
+This slice ports the host path, :class:`HostDriveLoop`: every iteration
+calls each shard's daemon on the device, brings the aggregates to the host,
+runs the candidate apply for skip detection, and the upper system's merge.
+The device-resident fused loops (``daemon="sharded"`` + ``upper="mesh"``,
+the async model, out-of-core) and the elastic and dynamic-graph machinery
+come with later slices and raise ``NotImplementedError`` naming their
+ROADMAP item.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core import pipeline as pl
+from repro_torch.core.balance import CapacityEstimator, lemma2_fractions
+from repro_torch.core.blocks import build_blocks
+from repro_torch.core.pow2 import next_pow2
+from repro_torch.core.sync import LRUVertexCache, SyncStats, can_skip_sync
+from repro_torch.core.template import VertexProgram
+from repro_torch.device import resolve_device
+from repro_torch.graph.structure import EdgePartition, Graph
+from repro_torch.plug.computation import get_model
+from repro_torch.plug.daemons import get_daemon
+from repro_torch.plug.protocols import (PlugOptions, Result,
+                                        not_ported_error)
+from repro_torch.plug.uppers import get_upper_system
+
+
+def make_apply_fn(program: VertexProgram, device="cuda"):
+    """MSGApply on ``device``: host arrays in, host arrays out."""
+    dev = resolve_device(device)
+    ident = program.monoid.identity
+
+    def apply_fn(state, merged, has_msg, aux, it):
+        state, merged, has_msg, aux = (torch.as_tensor(x, device=dev)
+                                       for x in (state, merged, has_msg, aux))
+        # Vertices with no message keep identity-merged values;
+        # msg_apply implementations treat identity correctly (min/max) or
+        # use has_msg.
+        merged = torch.where(has_msg[:, None], merged,
+                             torch.full_like(merged, ident))
+        new, active = program.msg_apply(state, merged, has_msg[:, None],
+                                        aux, it)
+        return new.cpu().numpy(), active.cpu().numpy()
+
+    return apply_fn
+
+
+class Middleware:
+    """Drives a VertexProgram through pluggable components.
+
+    Args:
+      graph, program: the workload.
+      daemon: accelerator backend — a registry name (``"reference"``,
+        ``"cuda"``, ``"blocked"``, …) or an unbound Daemon instance.
+      upper: upper system — ``"host"`` or an instance.
+      model: computation model — ``"bsp"`` / ``"gas"`` or an instance.
+      partitions: explicit edge partitions; defaults to the upper
+        system's partitioner over ``num_shards``.
+      capacities: per-shard per-entity costs c_j; shard sizes follow
+        Lemma 2.  Ignored when explicit ``partitions`` are given.
+      options: :class:`~repro_torch.plug.protocols.PlugOptions`.
+      device: where the daemon and MSGApply run; ``"cuda"`` (the
+        default) raises on a machine without a GPU.
+      monitor, failures, mutations, oocore: the fused loop's elastic,
+        dynamic-graph and out-of-core options — not ported yet; passing
+        one raises ``NotImplementedError``.
+    """
+
+    def __init__(
+        self,
+        graph: Graph,
+        program: VertexProgram,
+        *,
+        daemon="reference",
+        upper="host",
+        model="bsp",
+        partitions: list[EdgePartition] | None = None,
+        num_shards: int = 1,
+        capacities=None,
+        monitor=None,
+        failures=None,
+        mutations=None,
+        oocore=None,
+        options: PlugOptions | None = None,
+        device="cuda",
+    ):
+        for name, value, item in (("monitor=", monitor, 9),
+                                  ("failures=", failures, 9),
+                                  ("mutations=", mutations, 10),
+                                  ("oocore=", oocore, 11)):
+            if value is not None:
+                raise not_ported_error(name, item)
+        self.device = resolve_device(device)
+        self.graph = graph
+        self.program = program
+        self.options = options or PlugOptions()
+        self.daemon = get_daemon(daemon) if isinstance(daemon, str) else daemon
+        self.upper = (get_upper_system(upper) if isinstance(upper, str)
+                      else upper)
+        self.model = get_model(model) if isinstance(model, str) else model
+
+        if partitions is None:
+            if capacities is not None:
+                c = np.asarray(capacities, dtype=np.float64)
+                if c.shape != (num_shards,):
+                    raise ValueError(
+                        f"capacities must have shape ({num_shards},), got "
+                        f"{c.shape}")
+                partitions = self.upper.partition(
+                    graph, num_shards, fractions=lemma2_fractions(c))
+            else:
+                partitions = self.upper.partition(graph, num_shards)
+        self.partitions = list(partitions)
+        self.num_shards = len(self.partitions)
+        self.n = graph.num_vertices
+        self.k = program.state_width
+        self._setup_blocks()
+
+        self.daemon.bind(program, self.n, device=self.device)
+        self.upper.bind(program, self.num_shards)
+        self._apply_fn = make_apply_fn(program, self.device)
+        self.stats = SyncStats()
+        self._caches: list[LRUVertexCache] = []  # created per-run by run()
+        self._estimator = CapacityEstimator(self.num_shards)
+        self._loop = HostDriveLoop(self)
+
+    # -- setup ------------------------------------------------------------
+    def _resolve_block_size(self) -> int:
+        o = self.options
+        if o.block_size == "auto":
+            d = max(1, max(p.num_edges for p in self.partitions))
+            best_b, _ = pl.optimal_integer_blocks(d, o.k1, o.k2, o.k3, o.a)
+            return int(min(max(best_b, 64), 1 << 16))
+        return int(o.block_size)
+
+    def _setup_blocks(self) -> None:
+        b = self._resolve_block_size()
+        self.block_size = b
+        self.blocksets = [build_blocks(p, b) for p in self.partitions]
+        # One vertex-block width for all shards → one launch shape.
+        vb = max(bs.vblock_size for bs in self.blocksets)
+        self.blocksets = [build_blocks(p, b, vblock_size=vb)
+                          for p in self.partitions]
+        self.vblock_size = vb
+
+    # -- the drive loop ---------------------------------------------------
+    def run(self, max_iterations: int | None = None, *,
+            init=None, frontier=None) -> Result:
+        """Drives the program to convergence.
+
+        ``init`` overrides ``program.init`` for this run only
+        (``init(graph) -> (state0, aux)``, same shapes); ``frontier``
+        overrides the initial active mask (default: every vertex).
+        """
+        # Fresh per-run accounting: stats and LRU caches reset at loop entry.
+        self.stats = SyncStats()
+        self._caches = [
+            LRUVertexCache(self.options.cache_capacity)
+            for _ in range(self.num_shards)
+        ]
+        return self._loop.run(max_iterations, init=init, frontier=frontier)
+
+    # -- later slices -----------------------------------------------------
+    def migrate(self, *, killed=(), stragglers=(), joined=()) -> dict:
+        raise not_ported_error("Middleware.migrate", 9)
+
+    def rebalance(self, capacities=None) -> np.ndarray:
+        raise not_ported_error("Middleware.rebalance", 9)
+
+    def apply_mutations(self, batch):
+        raise not_ported_error("Middleware.apply_mutations", 10)
+
+    def run_dynamic(self, batch, *, max_iterations: int | None = None):
+        raise not_ported_error("Middleware.run_dynamic", 10)
+
+
+class HostDriveLoop:
+    """The per-shard host path.
+
+    Aggregates round-trip through the host every iteration; in exchange
+    this loop carries the paper's full inter-iteration machinery — LRU
+    boundary caches, lazy-upload byte accounting, candidate apply +
+    synchronization skipping — plus per-shard busy-time records feeding
+    the Lemma-2 capacity estimator.
+    """
+
+    def __init__(self, mw: Middleware):
+        self.mw = mw
+        # active-set size buckets already seen: the first call of a bucket
+        # may pay a one-off cost (the kernels' build, allocator growth)
+        # inside the busy-time window and must not reach the estimator
+        self._seen_buckets: set[int] = set()
+
+    # -- one shard's Gen + per-block Merge ---------------------------------
+    def _shard_aggregate(self, j: int, state_j: np.ndarray, aux: np.ndarray,
+                         active_j: np.ndarray | None, record: dict):
+        """Agent work for shard j → (N,K) aggregate, (N,) counts, and the
+        boundary read ids of the blocks that ran (the exchange's query
+        set)."""
+        mw = self.mw
+        bs = mw.blocksets[j]
+        o = mw.options
+        if (mw.program.frontier_driven and o.frontier_block_skipping
+                and active_j is not None):
+            blk_active = np.any(active_j[bs.gsrc] & bs.emask, axis=1)
+            sel = np.nonzero(blk_active)[0]
+        else:
+            sel = np.arange(bs.num_blocks)
+        record["blocks_total"] = record.get("blocks_total", 0) + bs.num_blocks
+        record["blocks_run"] = record.get("blocks_run", 0) + int(sel.size)
+        if sel.size == 0:
+            agg = np.full((mw.n, mw.k), mw.program.monoid.identity,
+                          np.float32)
+            return agg, np.zeros(mw.n, np.int32), np.empty(0, np.int64)
+
+        # LRU cache accounting for boundary reads (Sec. III-B2).
+        read_ids = np.unique(bs.gsrc[sel][bs.emask[sel]])
+        boundary_reads = read_ids[mw.partitions[j].boundary_mask[read_ids]]
+        rowbytes = 4 * mw.k + 8
+        if o.sync_caching:
+            cache = mw._caches[j]
+            hit = cache.lookup(boundary_reads.astype(np.int64))
+            cache.insert(boundary_reads[~hit].astype(np.int64))
+            mw.stats.cache_hits += int(hit.sum())
+            mw.stats.cache_misses += int((~hit).sum())
+            mw.stats.download_bytes_cache += int((~hit).sum()) * rowbytes
+        mw.stats.download_bytes_nocache += int(boundary_reads.size) * rowbytes
+
+        bucket = next_pow2(int(sel.size))
+        first_seen = bucket not in self._seen_buckets
+        self._seen_buckets.add(bucket)
+        t_busy = time.perf_counter()
+        agg, cnt = mw.daemon.run_blocks(state_j, aux, bs, sel, record)
+        busy = time.perf_counter() - t_busy
+        entities = int(sel.size) * bs.block_size
+        shards = mw.num_shards
+        record.setdefault("shard_busy_s", [0.0] * shards)[j] += busy
+        record.setdefault("shard_entities", [0] * shards)[j] += entities
+        if not first_seen:
+            mw._estimator.update(j, entities, busy)
+        return agg, cnt, boundary_reads.astype(np.int64)
+
+    def run(self, max_iterations: int | None = None, *,
+            init=None, frontier=None) -> Result:
+        mw = self.mw
+        prog = mw.program
+        o = mw.options
+        mw.upper.reset()
+        max_it = max_iterations or prog.max_iterations
+        state0, aux = (init or prog.init)(mw.graph)
+        states = [state0.copy() for _ in range(mw.num_shards)]
+        active0 = (np.ones(mw.n, dtype=bool) if frontier is None
+                   else np.asarray(frontier, dtype=bool))
+        actives = [active0.copy() for _ in range(mw.num_shards)]
+        skip_ok = o.sync_skipping and prog.supports_sync_skipping()
+        per_iter: list[dict] = []
+        rowbytes = 4 * mw.k + 8
+        t0 = time.perf_counter()
+        it = 0
+        converged = False
+
+        def gather(rec: dict):
+            return [
+                self._shard_aggregate(j, states[j], aux, actives[j], rec)
+                for j in range(mw.num_shards)
+            ]
+
+        pending = mw.model.prologue(gather)
+
+        for it in range(1, max_it + 1):
+            rec: dict = {"iteration": it}
+            for c in mw._caches:
+                c.tick()
+            results = mw.model.aggregates(gather, pending, rec)
+            pending = None
+
+            aggs = [r[0] for r in results]
+            cnts = [r[1] for r in results]
+            reads = [r[2] for r in results]
+
+            # Local candidate apply (needed for skip detection).
+            new_states, new_actives, updated_ids = [], [], []
+            for j in range(mw.num_shards):
+                ns, act = mw._apply_fn(states[j], aggs[j], cnts[j] > 0, aux,
+                                       it)
+                new_states.append(ns)
+                new_actives.append(act)
+                updated_ids.append(np.nonzero(act)[0])
+
+            boundary_masks = [p.boundary_mask for p in mw.partitions]
+            skipped = skip_ok and mw.num_shards > 1 and can_skip_sync(
+                updated_ids, boundary_masks)
+            mw.stats.rounds_total += 1
+            rec["skipped"] = bool(skipped)
+
+            if skipped:
+                mw.stats.rounds_skipped += 1
+                states = new_states
+                actives = new_actives
+            else:
+                # Global merge ("upper system synchronization").
+                states, actives = self._global_sync(
+                    states, aggs, cnts, aux, it,
+                    updated_ids, boundary_masks, reads, rowbytes, rec)
+
+            rec["active"] = int(np.max([a.sum() for a in actives]))
+            per_iter.append(rec)
+            if all(a.sum() == 0 for a in actives):
+                converged = True
+                break
+            pending = mw.model.epilogue(gather, rec)
+
+        final = mw.upper.resolve(states)
+        return Result(
+            state=final,
+            iterations=it,
+            converged=converged,
+            stats=mw.stats,
+            wall_time=time.perf_counter() - t0,
+            per_iteration=per_iter,
+        )
+
+    def _global_sync(self, states, aggs, cnts, aux, it,
+                     updated_ids, boundary_masks, reads, rowbytes, rec):
+        mw = self.mw
+        o = mw.options
+        # Byte accounting: dense exchange vs lazy upload (Alg. 3).
+        mw.stats.dense_bytes += mw.num_shards * mw.n * mw.k * 4
+        # The query set is the boundary reads of the blocks that ran.
+        queried = list(reads)
+        upd_boundary = [
+            u[boundary_masks[j][u]].astype(np.int64)
+            for j, u in enumerate(updated_ids)
+        ]
+        gqq, uploads = mw.upper.exchange(upd_boundary, queried)
+        mw.stats.lazy_bytes += int(sum(u.size for u in uploads)) * rowbytes
+        mw.stats.lazy_bytes += int(gqq.size) * 8  # query-queue broadcast
+        if o.sync_caching:
+            # Invalidate every updated boundary vertex, not just this
+            # round's uploads: cached copies are stale the moment it changes.
+            changed = np.unique(np.concatenate(
+                [u for u in upd_boundary] or [np.empty(0, np.int64)]))
+            for c in mw._caches:
+                c.invalidate(changed)
+
+        base, agg, cnt = mw.upper.merge(states, aggs, cnts)
+        ns, act = mw._apply_fn(base, agg, cnt > 0, aux, it)
+        return [ns.copy() for _ in range(mw.num_shards)], [
+            act.copy() for _ in range(mw.num_shards)
+        ]

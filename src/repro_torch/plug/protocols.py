@@ -1,0 +1,160 @@
+"""The three plug-in seams of the middleware (DESIGN.md §2), as in the JAX
+package's ``plug/protocols.py``:
+
+* :class:`Daemon` — the accelerator backend, bound to one
+  :class:`~repro_torch.core.template.VertexProgram` and a torch device, then
+  answering ``run_blocks``: the shard's merged (N, K) message aggregate and
+  per-vertex message counts for a selection of edge blocks.
+* :class:`UpperSystem` — partitioning, the lazy exchange plan and the
+  cross-shard global merge.
+* :class:`ComputationModel` — the strategy ordering Gen/Merge/Apply.
+
+The shard-, mask-, out-of-core- and elastic capabilities of the JAX package
+belong to the device-resident fused loop and come with it (ROADMAP Queue A
+items 6, 8, 9 and 11).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, Protocol, Sequence, Tuple, runtime_checkable
+
+import numpy as np
+
+from repro_torch.core.blocks import BlockSet
+from repro_torch.core.sync import SyncStats
+from repro_torch.core.template import VertexProgram
+from repro_torch.graph.structure import EdgePartition, Graph
+
+
+@dataclasses.dataclass
+class PlugOptions:
+    """Options of the middleware itself — component-neutral knobs only."""
+
+    block_size: int | str = "auto"  # edges per block; "auto" → Lemma 1
+    sync_caching: bool = True
+    sync_skipping: bool = True
+    cache_capacity: int = 1 << 14
+    frontier_block_skipping: bool = True
+    # calibrated Lemma-1 coefficients (entities = edges)
+    k1: float = 2e-8
+    k2: float = 6e-8
+    k3: float = 2e-8
+    a: float = 2e-4
+
+
+@dataclasses.dataclass
+class Result:
+    """What a middleware run returns."""
+
+    state: np.ndarray  # (N, K) final vertex state
+    iterations: int
+    converged: bool
+    stats: SyncStats
+    wall_time: float
+    per_iteration: list[dict]
+
+
+@runtime_checkable
+class Daemon(Protocol):
+    """Accelerator backend: block programs behind one ``run_blocks``."""
+
+    name: str
+
+    def bind(self, program: VertexProgram, num_vertices: int, *,
+             device="cuda") -> "Daemon":
+        """Prepares the daemon for one program on ``device``; returns self."""
+        ...
+
+    def run_blocks(self, state: np.ndarray, aux: np.ndarray,
+                   blockset: BlockSet, sel: np.ndarray,
+                   record: dict) -> Tuple[np.ndarray, np.ndarray]:
+        """Gen + Merge over the selected blocks of one shard.
+
+        Args:
+          state, aux: the shard's (N, K) / (N, A) host vertex table.
+          blockset: the shard's packed edge blocks.
+          sel: int array of block indices to run (frontier-active blocks).
+          record: per-iteration dict the daemon may append timings to.
+        Returns:
+          (agg, cnt): (N, K) monoid-merged messages and (N,) int counts,
+          as host arrays.
+        """
+        ...
+
+
+@runtime_checkable
+class UpperSystem(Protocol):
+    """Distributed-system side: partition, exchange, global merge."""
+
+    name: str
+
+    def partition(self, graph: Graph, num_shards: int,
+                  fractions: np.ndarray | None = None) -> List[EdgePartition]:
+        """Partitions edges into shards; ``fractions`` (summing to 1)
+        requests capacity-aware shard sizes (Lemma 2, Sec. III-C)."""
+        ...
+
+    def bind(self, program: VertexProgram, num_shards: int) -> "UpperSystem":
+        ...
+
+    def reset(self) -> None:
+        """Called at the start of every run; clears per-run state."""
+        ...
+
+    def exchange(self, updated_boundary: List[np.ndarray],
+                 queried: List[np.ndarray]) -> Tuple[np.ndarray, List[np.ndarray]]:
+        """Lazy exchange plan: (global query queue, per-shard uploads)."""
+        ...
+
+    def merge(self, states: List[np.ndarray], aggs: List[np.ndarray],
+              cnts: List[np.ndarray]):
+        """Cross-shard merge → (base_state, merged_agg, total_cnt)."""
+        ...
+
+    def resolve(self, states: List[np.ndarray]) -> np.ndarray:
+        """Final answer from per-shard state replicas."""
+        ...
+
+
+# ``gather`` passed to a ComputationModel: calls every shard's daemon and
+# returns the per-shard (agg, cnt, read_ids) results for this iteration.
+GatherFn = Callable[[dict], Sequence[tuple]]
+
+
+@runtime_checkable
+class ComputationModel(Protocol):
+    """Orders Gen / Merge / Apply across the superstep boundary."""
+
+    name: str
+    order: tuple
+
+    def prologue(self, gather: GatherFn):
+        """Runs before the drive loop; returns the initial pending
+        aggregates (GAS scatters here) or None (BSP)."""
+        ...
+
+    def aggregates(self, gather: GatherFn, pending, record: dict):
+        """Returns the aggregates consumed by this iteration's Merge."""
+        ...
+
+    def epilogue(self, gather: GatherFn, record: dict):
+        """Runs after Apply (non-converged iterations); returns the
+        pending aggregates for the next iteration or None."""
+        ...
+
+
+def not_ported_error(what: str, item: int) -> NotImplementedError:
+    """The error for a component the port does not have yet, naming the
+    ROADMAP item that ports it."""
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP Queue A item "
+        f"{item})")
+
+
+def not_ported(what: str, item: int):
+    """A registry factory that raises :func:`not_ported_error`."""
+
+    def factory(**kwargs):
+        raise not_ported_error(what, item)
+
+    return factory

@@ -22,3 +22,8 @@ def clustered_graph():
 @pytest.fixture(scope="session")
 def uniform_graph():
     return generate.uniform(512, 4096, seed=11)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skipped without one")

@@ -1,0 +1,181 @@
+"""The port stands alone: it never imports JAX or the JAX package, it never
+carries on on the CPU when CUDA was asked for, and its kernel wrappers take
+their plain versions only for CPU tensors."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import plug
+from repro_torch.graph import algorithms, generate
+from repro_torch.kernels import edge_block as ebk
+from repro_torch.kernels import ops
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def test_importing_every_port_module_leaves_jax_out():
+    """In a fresh interpreter: import the package and every submodule,
+    then ``jax`` and ``repro`` must be absent from ``sys.modules``."""
+    code = (
+        "import pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names:\n"
+        "    __import__(n)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
+        "or m.startswith('repro.'))\n"
+        "assert len(names) >= 20, names\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+_IMPORT = re.compile(
+    r"^\s*(?:import|from)\s+(jax|jaxlib|repro)(?:\.|\s|$)"
+    r"|import_module\(\s*['\"](jax|repro)\b", re.M)
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in [*PORT.rglob("*.py"),
+                                        ROOT / "chip_smoke.py"]))
+def test_no_jax_or_repro_import(path):
+    text = (ROOT / path).read_text()
+    assert not _IMPORT.findall(text), path
+
+
+def _graph():
+    return generate.rmat(64, 400, seed=3)
+
+
+def test_cuda_device_raises_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device='cuda' is valid here")
+    g = _graph()
+    prog = algorithms.sssp_bf(g)
+    with pytest.raises(RuntimeError, match="cuda"):
+        plug.Middleware(g, prog)               # the default device
+    with pytest.raises(RuntimeError, match="cuda"):
+        plug.Middleware(g, prog, daemon="cuda", device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        plug.run_reference(g, prog)
+
+
+def test_wrappers_take_the_plain_path_on_cpu_tensors_only():
+    g = _graph()
+    prog = algorithms.sssp_bf(g, sources=[0, 1])
+    rng = np.random.default_rng(0)
+    nb, vb, b = 2, 16, 32
+    arrs = [torch.from_numpy(a) for a in (
+        rng.uniform(0, 5, (nb, vb, 2)).astype(np.float32),
+        np.zeros((nb, vb, 1), np.float32),
+        rng.integers(0, vb, (nb, b)).astype(np.int32),
+        rng.integers(0, vb, (nb, b)).astype(np.int32),
+        rng.uniform(1, 2, (nb, b, 1)).astype(np.float32),
+        np.ones((nb, b), np.float32))]
+    launches = (ebk.edge_block.launches, ebk.csr_tile.launches)
+    got = ebk.edge_block(*arrs, program=prog)
+    want = ebk.edge_block_plain(*arrs, program=prog)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    targs = [arrs[0], arrs[1], arrs[0], arrs[2], torch.sort(arrs[3])[0],
+             arrs[4], arrs[5]]
+    got = ebk.csr_tile(*targs, program=prog)
+    want = ebk.csr_tile_plain(*targs, program=prog)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert (ebk.edge_block.launches, ebk.csr_tile.launches) == launches
+
+
+def test_wrappers_check_dtype_shape_and_contiguity():
+    prog = algorithms.wcc(_graph())
+    good = [torch.zeros(2, 8, 1), torch.zeros(2, 8, 1),
+            torch.zeros(2, 4, dtype=torch.int32),
+            torch.zeros(2, 4, dtype=torch.int32), torch.ones(2, 4, 1),
+            torch.ones(2, 4)]
+    ebk.edge_block(*good, program=prog)
+    bad_dtype = list(good)
+    bad_dtype[2] = bad_dtype[2].long()
+    with pytest.raises(TypeError, match="lsrc"):
+        ebk.edge_block(*bad_dtype, program=prog)
+    bad_shape = list(good)
+    bad_shape[4] = torch.ones(2, 4)
+    with pytest.raises(ValueError, match="w"):
+        ebk.edge_block(*bad_shape, program=prog)
+    strided = list(good)
+    strided[0] = torch.zeros(2, 8, 2)[:, :, :1]
+    with pytest.raises(ValueError, match="contiguous"):
+        ebk.edge_block(*strided, program=prog)
+    mixed = list(good)
+    mixed[1] = torch.zeros(2, 8, 1, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        ebk.edge_block(*mixed, program=prog)
+
+
+def test_csr_aggregate_off_the_cpu_launches_the_kernel_or_raises():
+    """Off the CPU, csr_aggregate runs the CSR-tile kernel: on a device
+    the kernel does not run on it raises instead of taking a plain path."""
+    prog = algorithms.sssp_bf(_graph(), sources=[0])
+    t, et, rt, st, n = 2, 8, 4, 8, 64
+    meta = dict(device="meta")
+    csr = {"svids": torch.zeros(t, st, dtype=torch.int32, **meta),
+           "rows": torch.zeros(t, rt, dtype=torch.int32, **meta),
+           "lsrc": torch.zeros(t, et, dtype=torch.int32, **meta),
+           "seg": torch.zeros(t, et, dtype=torch.int32, **meta),
+           "w": torch.zeros(t, et, 1, **meta),
+           "emask": torch.zeros(t, et, dtype=torch.bool, **meta)}
+    launches = ebk.csr_tile.launches
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.csr_aggregate(torch.zeros(n, 1, **meta), torch.zeros(n, 0, **meta),
+                          csr, program=prog, num_vertices=n,
+                          config=ops.CSRConfig())
+    assert ebk.csr_tile.launches == launches
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"lowering": "xla"}, {"merge": "segment"}, {"gather": "dense"},
+    {"merge": "onehot"}])
+def test_csr_config_rejects_unknown_or_kernel_less_choices(kwargs):
+    """The port's CSR aggregation has one lowering (the kernel, its plain
+    version on CPU tensors): a lowering, merge or gather choice is refused."""
+    with pytest.raises(TypeError):
+        ops.CSRConfig(**kwargs)
+
+
+@pytest.mark.parametrize("kwargs, item", [
+    ({"upper": "mesh"}, 6),
+    ({"daemon": "sharded"}, 6),
+    ({"daemon": "pipelined"}, 7),
+    ({"daemon": "naive"}, 7),
+    ({"model": "async"}, 8),
+    ({"monitor": object()}, 9),
+    ({"failures": object()}, 9),
+    ({"mutations": object()}, 10),
+    ({"oocore": object()}, 11),
+])
+def test_later_slices_raise_not_implemented(kwargs, item):
+    g = _graph()
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        plug.Middleware(g, algorithms.bfs(g), device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("method, item", [
+    ("migrate", 9), ("rebalance", 9), ("apply_mutations", 10),
+    ("run_dynamic", 10)])
+def test_later_slice_methods_raise_not_implemented(method, item):
+    g = _graph()
+    mw = plug.Middleware(g, algorithms.bfs(g), device="cpu")
+    args = () if method in ("migrate", "rebalance") else (None,)
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        getattr(mw, method)(*args)
