@@ -26,13 +26,39 @@ Phases, each printing one JSON line; any failure exits non-zero:
               daemon's CSR compaction); the launch counters are zeroed just
               before the timed run and must be non-zero after it.
 
-Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+6. attention — a qwen2-72b attention layer at ``train_4k`` (B=1, Hq=64,
+              Hkv=8, S=4096, D=128, bf16, causal) through
+              ``kernels.ops.flash_attention``, with the launch counter zeroed
+              just before and read just after; then the kernel against
+              ``impl="reference"`` (bf16: |Δ| ≤ 2^-7·|want| + 1e-5 at every
+              element, one bf16 ulp of the output), and one non-causal
+              float32 case at whisper-base's head dim (D=64, Hq=Hkv=8,
+              S=4096; max |Δ| ≤ 1e-4·max(1, max |want|)).  Kernel,
+              entry point, plain and library
+              (``scaled_dot_product_attention``, a yardstick the port never
+              calls) times and the bound.
+7. ssd       — a mamba2-1.3b SSD layer (B=1, S=4096, H=64, P=64, G=1,
+              N=128, chunk 256, f32) through ``kernels.ops.ssd_scan``, counted
+              as above; held against ``impl="reference"`` and the sequential
+              ``ref.ssd_scan_reference``, and ``ssd_chunk`` against
+              ``ssd_chunk_plain`` on all four outputs (max |Δ| ≤
+              1e-4·max(1, max |want|) each).  These inputs are those of
+              tests/test_kernels.py (dt = softplus(N(0,1))), under which a
+              256-long chunk's decay underflows to 0; a second set with dt
+              in Mamba2's range 1e-3..1e-1 keeps decay and gate normal
+              floats and holds them per element within 1e-4·|want|, and
+              runs the same checks.  No single PyTorch call computes the
+              SSD, so it has no library time.
+
+Float32 matrix products run in full float32 (TF32 off) throughout.  Then the
+``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -43,6 +69,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 on the tensor cores, dense
 # Sum merges: kernel and plain version add the same non-negative float32
 # messages in different orders (a kernel's run walk or atomics against the
 # plain scatter), so they agree to a relative error of a few ulps times the
@@ -52,6 +79,21 @@ PR_RTOL, PR_ATOL = 1e-4, 1e-12  # pagerank state after the same iterations
 EDGE_FACTOR = 16    # Graph500's edges per vertex
 SHARDS = 4
 PR_ITERATIONS = 10  # pagerank runs a fixed count (it converges slowly)
+# (label, B, Hq, Hkv, S, D, dtype, causal); the first is the main path
+ATTN_CASES = (("qwen2-72b/bf16/causal", 1, 64, 8, 4096, 128, "bfloat16", True),
+              ("whisper-base-d64/f32/full", 1, 8, 8, 4096, 64, "float32",
+               False))
+# bf16 outputs: kernel and plain version round float32 results that differ
+# by float32 summation order to bf16, so they differ by at most one bf16 ulp
+# (≤ 2^-7·|want|) plus that float32 difference
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
+F32_RTOL = 1e-4     # max |Δ| ≤ F32_RTOL · max(1, max |want|)
+# mamba2-1.3b: d_inner 4096 = 64 heads of P=64, N=128, G=1, chunk 256
+SSD = dict(b=1, s=4096, h=64, p=64, g=1, n=128, chunk=256)
+# Mamba2's dt range (dt_min, dt_max of the reference Mamba2 layer): a
+# chunk's Σ|a|·dt stays O(1), so decay and gate are live
+SSD_DT_RANGE = (1e-3, 1e-1)
+LIVE_MIN = 1e-30    # a per-element relative check needs |want| above this
 
 
 def emit(obj) -> None:
@@ -74,11 +116,12 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: int, ops: int) -> dict:
+def bound(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the float32 rate."""
+    memory rate and the operations over the rate the operands allow
+    (float32 unless told otherwise)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -227,6 +270,210 @@ def phase_edge_block(bs, program, state, aux, active, label):
                 bytes=nbytes, ops=ops, **bound(nbytes, ops))
 
 
+def check_close(name, got, want, *, rtol=0.0, atol=None,
+                live=False) -> dict:
+    """Raises unless |got − want| ≤ atol + rtol·|want| at every element
+    (``atol`` by default F32_RTOL · max(1, max |want|)), on another shape
+    or dtype, or on a non-finite value.  With ``live`` it also raises if
+    some |want| is below LIVE_MIN, where a relative check says nothing.
+    Returns the max |Δ|, the largest share of its element's tolerance
+    that any |Δ| takes (``tol_share``, ≤ 1 to pass), the tolerance and the
+    range of |want|."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)}, "
+                             f"expected {want.dtype} {tuple(want.shape)}")
+    if not bool(got.isfinite().all()):
+        raise AssertionError(f"{name}: non-finite values")
+    gf, wf = got.float(), want.float()
+    mag = wf.abs()
+    if atol is None:
+        atol = F32_RTOL * max(1.0, float(mag.max()))
+    if live and float(mag.min()) < LIVE_MIN:
+        raise AssertionError(f"{name}: |want| down to {float(mag.min())}, "
+                             f"below {LIVE_MIN}: the check is not live")
+    err = (gf - wf).abs()
+    share = err / (atol + rtol * mag).clamp_min(LIVE_MIN)
+    over = int((share > 1).sum())
+    if over:
+        raise AssertionError(f"{name}: |Δ| above {atol} + {rtol}·|want| at "
+                             f"{over} elements (max |Δ| {float(err.max())})")
+    return {"max_abs_err": float(err.max()), "tol_share": float(share.max()),
+            "atol": atol, "rtol": rtol, "want_abs_min": float(mag.min()),
+            "want_abs_max": float(mag.max())}
+
+
+def phase_attention(label, b, hq, hkv, s, d, dtype_name, causal, seed):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
+               for h in (hq, hkv, hkv))
+    # the main path: the entry point, counted alone
+    fa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = fa.flash_attention.launches
+    if launches == 0:
+        raise AssertionError(f"attention/{label}: kernel never launched")
+    want = ops.flash_attention(q, k, v, causal=causal, impl="reference")
+    tol = (dict(rtol=BF16_RTOL, atol=BF16_ATOL) if dtype == torch.bfloat16
+           else {})
+    chk = check_close(f"attention/{label}", out, want, **tol)
+    del want
+    kernel_ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v,
+                                                        causal=causal),
+                             reps=10, warmup=2)
+    entry_ms = cuda_time_ms(lambda: ops.flash_attention(q, k, v,
+                                                        causal=causal),
+                            reps=10, warmup=2)
+    plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(
+        q, k, v, causal=causal), reps=3, warmup=1)
+    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=True))
+    pairs = s * (s + 1) // 2 if causal else s * s
+    ops_count = 4 * d * pairs * b * hq
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    return dict(
+        phase="attention", case=label, B=b, Hq=hq, Hkv=hkv, S=s, D=d,
+        dtype=dtype_name, causal=causal, launches=launches,
+        first_call_s=first_s, max_abs_err=chk["max_abs_err"], check=chk,
+        kernel_ms=kernel_ms, entry_ms=entry_ms, plain_ms=plain_ms,
+        library_ms=library_ms,
+        library_call="scaled_dot_product_attention(enable_gqa=True)",
+        bytes=nbytes, ops=ops_count, ops_per_s=rate,
+        **bound(nbytes, ops_count, rate))
+
+
+def ssd_inputs(seed, dt_range=None):
+    """x, dt, a, B, C at mamba2-1.3b width, from ``seed``: as
+    tests/test_kernels.py makes them (0.5·N(0,1) x, softplus(N(0,1)) dt,
+    a = −exp(0.3·N(0,1)), 0.3·N(0,1) B and C), or with dt log-uniform in
+    ``dt_range``."""
+    import torch
+
+    dev = torch.device("cuda")
+    b, s, h, p, g, n = (SSD[k] for k in ("b", "s", "h", "p", "g", "n"))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = 0.5 * randn(b, s, h, p)
+    if dt_range is None:
+        dt = torch.nn.functional.softplus(randn(b, s, h))
+    else:
+        lo, hi = (math.log(v) for v in dt_range)
+        dt = torch.exp(lo + (hi - lo) * torch.rand(
+            (b, s, h), generator=gen, device=dev))
+    a = -torch.exp(0.3 * randn(h))
+    return x, dt, a, 0.3 * randn(b, s, g, n), 0.3 * randn(b, s, g, n)
+
+
+def check_ssd(label, y, inputs, live) -> tuple[dict, float, tuple]:
+    """``y`` of ``ops.ssd_scan`` against ``impl="reference"`` and the
+    sequential ``ref.ssd_scan_reference``, and ``ssd_chunk`` against
+    ``ssd_chunk_plain`` on all four outputs.  With ``live``, decay and gate
+    are held per element within F32_RTOL·|want| (and must be normal
+    floats).  Returns the checks, the sequential reference's seconds and
+    the chunk step's arguments."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as ssd
+
+    b, s, h, p, g, n, chunk = (SSD[k] for k in ("b", "s", "h", "p", "g", "n",
+                                                "chunk"))
+    nc = s // chunk
+    x, dt, a, bm, cm = inputs
+    checks = {}
+    y_ref = ops.ssd_scan(x, dt, a, bm, cm, chunk=chunk, impl="reference")
+    checks["y_vs_reference"] = check_close(f"ssd/{label}/y vs reference", y,
+                                           y_ref)
+    del y_ref
+    t0 = time.perf_counter()
+    y_seq = ref.ssd_scan_reference(x, dt, a, bm, cm)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    checks["y_vs_sequential"] = check_close(f"ssd/{label}/y vs sequential",
+                                            y, y_seq)
+    del y_seq
+    args = (x.reshape(b, nc, chunk, h, p), dt.reshape(b, nc, chunk, h), a,
+            bm.reshape(b, nc, chunk, g, n), cm.reshape(b, nc, chunk, g, n))
+    got = ssd.ssd_chunk(*args)
+    want = ssd.ssd_chunk_plain(*args)
+    torch.cuda.synchronize()
+    for name, gt, wt in zip(("y", "state", "decay", "gate"), got, want):
+        tol = (dict(rtol=F32_RTOL, atol=0.0, live=True)
+               if live and name in ("decay", "gate") else {})
+        checks[f"chunk_{name}"] = check_close(
+            f"ssd/{label}/ssd_chunk {name}", gt, wt, **tol)
+    return checks, seq_s, args
+
+
+def phase_ssd(seed):
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+
+    b, s, h, p, g, n, chunk = (SSD[k] for k in ("b", "s", "h", "p", "g", "n",
+                                                "chunk"))
+    nc = s // chunk
+    inputs = ssd_inputs(seed)
+    # the main path: the entry point, counted alone
+    ssd.ssd_chunk.launches = 0
+    t0 = time.perf_counter()
+    y = ops.ssd_scan(*inputs, chunk=chunk)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = ssd.ssd_chunk.launches
+    if launches == 0:
+        raise AssertionError("ssd: kernel never launched")
+    checks, seq_s, args = check_ssd("test_kernels-inputs", y, inputs,
+                                    live=False)
+    del y
+    kernel_ms = cuda_time_ms(lambda: ssd.ssd_chunk(*args))
+    entry_ms = cuda_time_ms(lambda: ops.ssd_scan(*inputs, chunk=chunk))
+    plain_ms = cuda_time_ms(lambda: ssd.ssd_chunk_plain(*args), reps=3,
+                            warmup=1)
+    del args
+    # decay and gate live: dt in Mamba2's range, a second seed
+    live_inputs = ssd_inputs(seed + 1, SSD_DT_RANGE)
+    live_checks, _, _ = check_ssd(
+        "mamba2-dt-range", ops.ssd_scan(*live_inputs, chunk=chunk),
+        live_inputs, live=True)
+    del live_inputs
+    # C·Bᵀ once per (batch, chunk, group); per (batch, chunk, head) the
+    # gated product with x and the state
+    tri = chunk * (chunk + 1) // 2
+    ops_count = (b * nc * g * 2 * n * tri
+                 + b * nc * h * (2 * p * tri + 2 * chunk * n * p))
+    # x, y; states; dt, gate; B, C read by group; decay; a
+    nbytes = 4 * (2 * b * s * h * p + b * nc * h * n * p + 2 * b * s * h
+                  + 2 * b * s * g * n + b * nc * h + h)
+    every = {**checks, **{f"live_{k}": v for k, v in live_checks.items()}}
+    return dict(
+        phase="ssd", case="mamba2-1.3b/f32", launches=launches,
+        first_call_s=first_s, sequential_reference_s=seq_s,
+        **SSD, dt_range_live=SSD_DT_RANGE,
+        max_abs_err=max(c["max_abs_err"] for c in every.values()),
+        checks=every,
+        kernel_ms=kernel_ms, entry_ms=entry_ms, plain_ms=plain_ms,
+        library_ms=None,
+        library_note="no single PyTorch call computes the SSD chunk step",
+        bytes=nbytes, ops=ops_count, ops_per_s=F32_OPS_PER_S,
+        **bound(nbytes, ops_count))
+
+
 def run_e2e(label, graph, program, daemon, model, parts, ref_state, sum_tol,
             device="cuda"):
     import numpy as np
@@ -284,6 +531,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -385,6 +635,18 @@ def main(argv=None) -> int:
         for k, v in launches.items():
             e2e_launches[k] += v
 
+    # -- 6. attention at qwen2-72b width (and whisper-base's head dim) -----
+    attn = []
+    for case in ATTN_CASES:
+        rec = phase_attention(*case, seed=args.seed)
+        emit(rec)
+        attn.append(rec)
+        torch.cuda.empty_cache()
+
+    # -- 7. ssd at mamba2-1.3b width ---------------------------------------
+    ssd_rec = phase_ssd(args.seed)
+    emit(ssd_rec)
+
     # -- the kernels line --------------------------------------------------
     sources_of = {
         "csr_tile": ("src/repro_torch/kernels/csrc/csr_tile.cu",
@@ -407,6 +669,30 @@ def main(argv=None) -> int:
                 "kernel_ms", "plain_ms", "bound_ms", "library_ms",
                 "max_abs_err")} for c in mine},
         })
+    main_attn = attn[0]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:69",
+        "launches": main_attn["launches"],
+        "max_abs_err": main_attn["max_abs_err"],
+        "ms": main_attn["kernel_ms"], "plain_ms": main_attn["plain_ms"],
+        "bound_ms": main_attn["bound_ms"], "bound_by": main_attn["bound_by"],
+        "library_ms": main_attn["library_ms"],
+        "cases": {c["case"]: {k: c[k] for k in (
+            "kernel_ms", "entry_ms", "plain_ms", "bound_ms", "library_ms",
+            "max_abs_err")} for c in attn},
+    })
+    kernels.append({
+        "name": "ssd_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:61",
+        "launches": ssd_rec["launches"],
+        "max_abs_err": ssd_rec["max_abs_err"],
+        "ms": ssd_rec["kernel_ms"], "plain_ms": ssd_rec["plain_ms"],
+        "bound_ms": ssd_rec["bound_ms"], "bound_by": ssd_rec["bound_by"],
+        "library_ms": None, "entry_ms": ssd_rec["entry_ms"],
+    })
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,7 +6,8 @@ sits at the same path.  It imports ``torch`` and ``numpy`` only; the JAX
 package is the reference it is tested against (``tests/test_torch_*.py``).
 
 The entry points run on the GPU (``device="cuda"``) unless the caller asks
-for the CPU.  The two graph kernels — the fused CSR-tile program and the
-edge-block program — are hand-written CUDA C++ for ``sm_90a`` under
-``kernels/csrc/``, built with ``nvcc`` at first use (``kernels/build.py``).
+for the CPU.  The kernels — the fused CSR-tile and edge-block graph
+programs, flash attention and the Mamba2 SSD chunk step — are hand-written
+CUDA C++ for ``sm_90a`` under ``kernels/csrc/``, built with ``nvcc`` at first
+use (``kernels/build.py``).
 """

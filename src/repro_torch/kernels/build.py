@@ -30,6 +30,10 @@ _SIGNATURES = {
     "gx_csr_tile": [_P] * 8 + [_I] * 8 + [_F, _P],
     # vstate vaux lsrc ldst w emask partial counts nb B VB K A gen monoid stream
     "gx_edge_block": [_P] * 8 + [_I] * 7 + [_P],
+    # q k v out BHq Hq Hkv S D dtype causal scale stream
+    "gx_flash_attention": [_P] * 4 + [_I] * 7 + [_F, _P],
+    # x dt a b c y state decay gate B NC L H P G N stream
+    "gx_ssd_chunk": [_P] * 9 + [_I] * 7 + [_P],
 }
 
 _lib = None

@@ -1,0 +1,113 @@
+"""Flash attention (forward): the wrapper over ``csrc/flash_attention.cu``
+and its plain PyTorch version.
+
+Replaces the TPU kernel ``src/repro/kernels/flash_attention.py::
+flash_attention_pallas``.  The wrapper checks device, dtype, shape and
+contiguity; on CPU tensors it runs :func:`flash_attention_plain`, on CUDA
+tensors it launches the kernel or raises — there is no fallback.  It counts
+its launches in ``flash_attention.launches``.  The kernel's bound and design
+are in the note at the top of the ``.cu`` file; its times on the card are in
+PERF.md.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+#: Head dims the CUDA kernel is compiled for (``csrc/flash_attention.cu``).
+HEAD_DIMS = (32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(q, k, v):
+    """Shapes (Hq a multiple of Hkv, as the JAX package asks), dtype,
+    device and contiguity; returns (b, hq, hkv, s, d)."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be (B, H, S, D): got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    if tuple(k.shape) != (b, hkv, s, d) or tuple(v.shape) != (b, hkv, s, d):
+        raise ValueError(f"k and v must be (B, Hkv, S, D) = "
+                         f"{(b, hkv, s, d)}: got {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if hkv < 1 or hq % hkv != 0:
+        raise ValueError(f"Hq={hq} must be a multiple of Hkv={hkv}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q: dtype {q.dtype}, expected float32 or bfloat16")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}, expected {q.dtype} "
+                            "(q's)")
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, expected {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    return b, hq, hkv, s, d
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          scale: float | None = None):
+    """Plain version of :func:`flash_attention`: dense softmax attention in
+    float32, one KV head (and the ``Hq // Hkv`` query heads that share it)
+    at a time, so the logits take (B, Hq/Hkv, S, S) floats and not
+    (B, Hq, S, S).  Masked logits are ``-inf``; output in q's dtype."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    group = hq // hkv
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    mask = (torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+            if causal else None)
+    out = torch.empty_like(q)
+    for j in range(hkv):
+        heads = slice(j * group, (j + 1) * group)
+        qf = q[:, heads].float() * scale            # (B, group, S, D)
+        kf = k[:, j:j + 1].float()                  # (B, 1, S, D)
+        logits = torch.matmul(qf, kf.transpose(-1, -2))
+        if mask is not None:
+            logits = logits.masked_fill(~mask, float("-inf"))
+        probs = torch.softmax(logits, dim=-1)
+        out[:, heads] = torch.matmul(probs, v[:, j:j + 1].float()).to(q.dtype)
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    scale: float | None = None):
+    """Forward attention with an online softmax; GQA by index, no repeat.
+
+    Args: q (B, Hq, S, D); k, v (B, Hkv, S, D) with Hq % Hkv == 0; all
+    three float32 or all bfloat16, contiguous, on one device.  ``scale``
+    defaults to 1/sqrt(D).  The CUDA kernel tiles by 64 rows and bounds-
+    checks a partial last tile, so any S is accepted.  Returns (B, Hq, S, D) in q's dtype.
+    """
+    b, hq, hkv, s, d = _check(q, k, v)
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, got "
+                         f"{q.device}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention's CUDA kernel takes head dims "
+                         f"{HEAD_DIMS}, got D={d}")
+    out = torch.empty_like(q)
+    if b * hq * s == 0:
+        return out
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gx_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b * hq, hq, hkv, s, d, _DTYPES[q.dtype], int(causal),
+            float(scale), stream)
+    build.check(rc, "gx_flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -2,14 +2,20 @@
 without a CUDA device — the kernels have no CPU mode).
 
 Each kernel is held against its plain PyTorch version on the same CUDA
-tensors, for every message function × monoid: min/max/or bit-equal, sum
-within rtol=1e-5, atol=1e-6 (the kernels add in another order than the
-plain version's scatter).  This file imports no JAX, so it runs on a
+tensors.  The graph kernels, for every message function × monoid: min/max/or
+bit-equal, sum within rtol=1e-5, atol=1e-6 (the kernels add in another order
+than the plain version's scatter).  Flash attention: atol 2e-5 in float32;
+in bfloat16 |Δ| ≤ 2^-7·|want| + 1e-5 at every element (both round float32
+results to bf16, at most one ulp apart).  The SSD chunk step: max |Δ| ≤
+1e-4·max(1, max |want|) on each output (float32 sums and the cumsum in
+another order); with dt in Mamba2's range, where decay and gate do not
+underflow, those two within 1e-4·|want| at every element.  This file imports no JAX, so it runs on a
 machine with PyTorch alone:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -20,6 +26,9 @@ from repro_torch.core import template
 from repro_torch.graph import algorithms, generate
 from repro_torch.graph.compaction import build_csr_tiles
 from repro_torch.kernels import edge_block as ebk
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan as ssd
 
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-6
 # gen_op → (program, state width K)
@@ -179,3 +188,120 @@ def test_csr_tile_kernel_stages_wide_tiles_beyond_48kb(cuda):
     big = _tile_inputs(cuda, 31, 16, "min", n=300, e=5000, edge_tile=4096)
     with pytest.raises(ValueError, match="shared memory"):
         ebk.csr_tile(*big, program=prog)
+
+
+# --------------------------------------------------------------------------
+# flash attention and the SSD chunk step
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [64, 192, 1000])  # 1000: not a multiple of 64
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (6, 1)],
+                         ids=["mha", "gqa", "mqa"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_flash_attention_kernel_matches_plain(cuda, d, dtype, causal, hq,
+                                              hkv, s):
+    gen = torch.Generator(device=cuda).manual_seed(d + s + hq)
+    q, k, v = (torch.randn((2, h, s, d), generator=gen, device=cuda
+                           ).to(dtype) for h in (hq, hkv, hkv))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    # bf16: both round float32 results to bf16, at most one ulp apart
+    rtol, atol = (2.0 ** -7, 1e-5) if dtype == torch.bfloat16 else (0, 2e-5)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_refuses_other_head_dims(cuda):
+    q = torch.zeros((1, 2, 64, 48), device=cuda)
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention(q, q, q)
+    assert fa.flash_attention.launches == before
+
+
+def _ssd_chunk_inputs(dev, seed, b, nc, l, h, p, g, n, dt="softplus"):
+    """As tests/test_kernels.py makes them (dt = softplus(N(0,1))), or with
+    dt log-uniform in Mamba2's range 1e-3..1e-1 ("mamba2"), where a chunk's
+    decay and gate stay normal floats."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = 0.5 * randn(b, nc, l, h, p)
+    if dt == "softplus":
+        dts = torch.nn.functional.softplus(randn(b, nc, l, h))
+    else:
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        dts = torch.exp(lo + (hi - lo) * torch.rand((b, nc, l, h),
+                                                    generator=gen,
+                                                    device=dev))
+    return (x, dts, -torch.exp(0.3 * randn(h)),
+            0.3 * randn(b, nc, l, g, n), 0.3 * randn(b, nc, l, g, n))
+
+
+def _assert_f32_close(got, want, name, live=False):
+    """max |Δ| ≤ 1e-4·max(1, max |want|); with ``live``, |Δ| ≤ 1e-4·|want|
+    at every element, and every |want| a normal float."""
+    if live:
+        assert float(want.abs().min()) > 1e-30, f"{name}: underflows"
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=0, msg=name)
+        return
+    err = float((got - want).abs().max())
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    assert err <= tol, f"{name}: max |diff| {err} > {tol}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["softplus", "mamba2"])
+@pytest.mark.parametrize("chunk", [16, 64, 96, 256])  # 96: not whole tiles
+@pytest.mark.parametrize("groups", ["one", "per_head"])
+@pytest.mark.parametrize("h,p,n", [(4, 32, 16), (2, 64, 128), (2, 16, 8),
+                                   (2, 128, 32)])
+def test_ssd_chunk_kernel_matches_plain(cuda, chunk, groups, h, p, n, dt):
+    g = 1 if groups == "one" else h
+    arrs = _ssd_chunk_inputs(cuda, chunk + h, 2, 3, chunk, h, p, g, n, dt)
+    before = ssd.ssd_chunk.launches
+    got = ssd.ssd_chunk(*arrs)
+    want = ssd.ssd_chunk_plain(*arrs)
+    torch.cuda.synchronize()
+    assert ssd.ssd_chunk.launches == before + 1
+    for name, gt, wt in zip(("y", "state", "decay", "gate"), got, want):
+        assert gt.shape == wt.shape, name
+        _assert_f32_close(gt, wt, name,
+                          live=dt == "mamba2" and name in ("decay", "gate"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dts", ["softplus", "mamba2"])
+@pytest.mark.parametrize("g", [1, 4])
+def test_ssd_scan_matches_sequential_reference(cuda, g, dts):
+    b, s, h, p, n, chunk = 2, 512, 4, 32, 16, 256
+    x, dt, a, bm, cm = _ssd_chunk_inputs(cuda, 3, b, 1, s, h, p, g, n, dts)
+    x, dt, bm, cm = (t.reshape(b, s, *t.shape[3:]) for t in (x, dt, bm, cm))
+    got = ops.ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+    want = ref.ssd_scan_reference(x, dt, a, bm, cm)
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_model_kernels_count_launches_on_cuda_tensors_only(cuda):
+    q = torch.randn((1, 2, 64, 32))
+    arrs = _ssd_chunk_inputs(torch.device("cpu"), 0, 1, 2, 16, 2, 16, 1, 8)
+    before = (fa.flash_attention.launches, ssd.ssd_chunk.launches)
+    fa.flash_attention(q, q, q)
+    ssd.ssd_chunk(*arrs)
+    assert (fa.flash_attention.launches, ssd.ssd_chunk.launches) == before
+    fa.flash_attention(q.to(cuda), q.to(cuda), q.to(cuda))
+    ssd.ssd_chunk(*(t.to(cuda) for t in arrs))
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, ssd.ssd_chunk.launches) == (
+        before[0] + 1, before[1] + 1)

@@ -14,7 +14,9 @@ import torch
 from repro_torch import plug
 from repro_torch.graph import algorithms, generate
 from repro_torch.kernels import edge_block as ebk
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan as ssd
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -141,6 +143,63 @@ def test_csr_aggregate_off_the_cpu_launches_the_kernel_or_raises():
                           csr, program=prog, num_vertices=n,
                           config=ops.CSRConfig())
     assert ebk.csr_tile.launches == launches
+
+
+def _attn_args():
+    rng = np.random.default_rng(1)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            for shape in ((1, 4, 32, 16), (1, 2, 32, 16), (1, 2, 32, 16))]
+
+
+def _ssd_args():
+    rng = np.random.default_rng(2)
+    b, nc, l, h, p, g, n = 1, 2, 8, 2, 4, 1, 3
+    return [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.standard_normal((b, nc, l, h, p)),
+        rng.uniform(0.1, 1.0, (b, nc, l, h)), -rng.uniform(0.5, 1.5, h),
+        rng.standard_normal((b, nc, l, g, n)),
+        rng.standard_normal((b, nc, l, g, n)))]
+
+
+def test_model_kernel_wrappers_take_the_plain_path_on_cpu_tensors_only():
+    launches = (fa.flash_attention.launches, ssd.ssd_chunk.launches)
+    q, k, v = _attn_args()
+    for causal in (True, False):
+        assert torch.equal(fa.flash_attention(q, k, v, causal=causal),
+                           fa.flash_attention_plain(q, k, v, causal=causal))
+    args = _ssd_args()
+    got, want = ssd.ssd_chunk(*args), ssd.ssd_chunk_plain(*args)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert (fa.flash_attention.launches, ssd.ssd_chunk.launches) == launches
+
+
+def test_model_kernel_wrappers_check_dtype_device_and_contiguity():
+    q, k, v = _attn_args()
+    with pytest.raises(TypeError, match="k: dtype"):
+        fa.flash_attention(q, k.double(), v)
+    with pytest.raises(TypeError, match="v: dtype"):
+        fa.flash_attention(q, k, v.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="q: dtype"):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                           k, v)
+    with pytest.raises(ValueError, match="meta"):
+        fa.flash_attention(q, k.to("meta"), v)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fa.flash_attention(*(t.to("meta") for t in (q, k, v)))
+    args = _ssd_args()
+    for i, name in enumerate(("x", "dt", "a", "b_mat", "c_mat")):
+        mixed = list(args)
+        mixed[i] = mixed[i].double()
+        with pytest.raises(TypeError, match=name):
+            ssd.ssd_chunk(*mixed)
+    strided = list(args)
+    strided[0] = args[0].transpose(3, 4).contiguous().transpose(3, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd.ssd_chunk(*strided)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ssd.ssd_chunk(*(t.to("meta") for t in args))
 
 
 @pytest.mark.parametrize("kwargs", [
