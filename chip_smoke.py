@@ -8,7 +8,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. device   — fails unless CUDA is available; the card's name and power
               limit as ``nvidia-smi`` gives them.
 2. build    — builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
-              into ``build/repro_torch/`` (nvcc, sm_90a) and reports seconds.
+              into ``build/repro_torch/`` (nvcc, sm_90a) and reports seconds;
+              counts the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
+              instructions in each bf16 attention kernel from
+              ``cuobjdump -sass`` of the library, and fails if either is
+              missing.
 3. data     — a Graph500-style R-MAT graph (scale 20, edge factor 16,
               weighted) from ``generate.rmat_stream``, partitioned into 4
               shards with edge blocks as the host drive loop builds them.
@@ -36,7 +40,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               S=4096; max |Δ| ≤ 1e-4·max(1, max |want|)).  Kernel,
               entry point, plain and library
               (``scaled_dot_product_attention``, a yardstick the port never
-              calls) times and the bound.
+              calls) times and the bound; for information, the share of
+              the same tolerance that SDPA's output takes against the same
+              reference (no check: SDPA rounds P to bf16).
 7. ssd       — a mamba2-1.3b SSD layer (B=1, S=4096, H=64, P=64, G=1,
               N=128, chunk 256, f32) through ``kernels.ops.ssd_scan``, counted
               as above; held against ``impl="reference"`` and the sequential
@@ -94,6 +100,10 @@ SSD = dict(b=1, s=4096, h=64, p=64, g=1, n=128, chunk=256)
 # chunk's Σ|a|·dt stays O(1), so decay and gate are live
 SSD_DT_RANGE = (1e-3, 1e-1)
 LIVE_MIN = 1e-30    # a per-element relative check needs |want| above this
+# the bf16 attention kernel (csrc/flash_attention_sm90.cu) and the SASS
+# instructions that show it runs on wgmma and TMA loads
+SASS_KERNEL = "attn_sm90_kernel"
+SASS_OPS = ("HGMMA", "UTMALDG")
 
 
 def emit(obj) -> None:
@@ -270,6 +280,14 @@ def phase_edge_block(bs, program, state, aux, active, label):
                 bytes=nbytes, ops=ops, **bound(nbytes, ops))
 
 
+def tol_share(got, want, rtol, atol):
+    """|got − want|, its share of atol + rtol·|want| per element, and the
+    count of elements whose share is above 1."""
+    err = (got.float() - want.float()).abs()
+    share = err / (atol + rtol * want.float().abs()).clamp_min(LIVE_MIN)
+    return err, share, int((share > 1).sum())
+
+
 def check_close(name, got, want, *, rtol=0.0, atol=None,
                 live=False) -> dict:
     """Raises unless |got − want| ≤ atol + rtol·|want| at every element
@@ -291,9 +309,7 @@ def check_close(name, got, want, *, rtol=0.0, atol=None,
     if live and float(mag.min()) < LIVE_MIN:
         raise AssertionError(f"{name}: |want| down to {float(mag.min())}, "
                              f"below {LIVE_MIN}: the check is not live")
-    err = (gf - wf).abs()
-    share = err / (atol + rtol * mag).clamp_min(LIVE_MIN)
-    over = int((share > 1).sum())
+    err, share, over = tol_share(gf, wf, rtol, atol)
     if over:
         raise AssertionError(f"{name}: |Δ| above {atol} + {rtol}·|want| at "
                              f"{over} elements (max |Δ| {float(err.max())})")
@@ -327,7 +343,13 @@ def phase_attention(label, b, hq, hkv, s, d, dtype_name, causal, seed):
     tol = (dict(rtol=BF16_RTOL, atol=BF16_ATOL) if dtype == torch.bfloat16
            else {})
     chk = check_close(f"attention/{label}", out, want, **tol)
-    del want
+    # SDPA against the same reference and tolerance: information, no check
+    sdpa = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                          enable_gqa=True)
+    _, share, over = tol_share(sdpa, want, chk["rtol"], chk["atol"])
+    sdpa_chk = {"tol_share": float(share.max()), "elements_over": over,
+                "elements": want.numel()}
+    del want, sdpa, share
     kernel_ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v,
                                                         causal=causal),
                              reps=10, warmup=2)
@@ -346,11 +368,40 @@ def phase_attention(label, b, hq, hkv, s, d, dtype_name, causal, seed):
         phase="attention", case=label, B=b, Hq=hq, Hkv=hkv, S=s, D=d,
         dtype=dtype_name, causal=causal, launches=launches,
         first_call_s=first_s, max_abs_err=chk["max_abs_err"], check=chk,
+        library_check=sdpa_chk,
         kernel_ms=kernel_ms, entry_ms=entry_ms, plain_ms=plain_ms,
         library_ms=library_ms,
         library_call="scaled_dot_product_attention(enable_gqa=True)",
         bytes=nbytes, ops=ops_count, ops_per_s=rate,
         **bound(nbytes, ops_count, rate))
+
+
+def sass_counts():
+    """Counts of SASS_OPS in each bf16 attention kernel of the built library
+    (``cuobjdump -sass``), keyed by its template arguments, "D<head
+    dim>/causal" or "D<head dim>/full"; raises if one lacks either."""
+    import re
+
+    from repro_torch.kernels import build
+
+    sass = subprocess.run(
+        [build.cuda_tool("cuobjdump"), "-sass", str(build.library_path())],
+        capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        if SASS_KERNEL not in name:
+            continue
+        d, causal = re.search(r"ILi(\d+)ELb([01])E", name).groups()
+        key = f"D{d}/{'causal' if causal == '1' else 'full'}"
+        counts[key] = {op: len(re.findall(rf"\b{op}\b", body))
+                       for op in SASS_OPS}
+    if not counts:
+        raise AssertionError(f"no {SASS_KERNEL} in the library's SASS")
+    for key, c in counts.items():
+        if not all(c.values()):
+            raise AssertionError(f"{SASS_KERNEL} {key}: SASS counts {c}")
+    return counts
 
 
 def ssd_inputs(seed, dt_range=None):
@@ -563,8 +614,10 @@ def main(argv=None) -> int:
     build.library()
     regs = [ln.strip() for ln in build.ptxas_report().splitlines()
             if "registers" in ln]
+    sass = sass_counts()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": build.build_seconds, "ptxas": regs})
+          "nvcc_seconds": build.build_seconds, "ptxas": regs,
+          "attn_sm90_sass": sass})
 
     # -- 3. data -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -672,16 +725,28 @@ def main(argv=None) -> int:
     main_attn = attn[0]
     kernels.append({
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:69",
         "launches": main_attn["launches"],
         "max_abs_err": main_attn["max_abs_err"],
         "ms": main_attn["kernel_ms"], "plain_ms": main_attn["plain_ms"],
         "bound_ms": main_attn["bound_ms"], "bound_by": main_attn["bound_by"],
         "library_ms": main_attn["library_ms"],
+        "design": {
+            "bf16": "flash_attention_sm90.cu: 3-stage TMA ring of "
+                    "128-key k/v tiles, wgmma m64n128k16 q·kᵀ, online "
+                    "softmax in registers, P·V as bf16 hi + lo wgmmas with "
+                    "A from registers; 2 consumer warpgroups taking turns "
+                    "+ 1 producer warpgroup",
+            "f32": "flash_attention.cu: float32 FMAs from shared memory",
+            "sass": sass,
+        },
         "cases": {c["case"]: {k: c[k] for k in (
             "kernel_ms", "entry_ms", "plain_ms", "bound_ms", "library_ms",
-            "max_abs_err")} for c in attn},
+            "max_abs_err")} | {"tol_share": c["check"]["tol_share"],
+                               "library_tol_share":
+                                   c["library_check"]["tol_share"]}
+                  for c in attn},
     })
     kernels.append({
         "name": "ssd_chunk", "route": "cuda",

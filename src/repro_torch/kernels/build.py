@@ -41,15 +41,17 @@ _lib = None
 build_seconds = 0.0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): on PATH or
+    under CUDA_HOME (default /usr/local/cuda)."""
+    found = shutil.which(name)
     if found:
         return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / name
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels build on a machine "
-                       "with the CUDA toolkit (PATH or CUDA_HOME)")
+    raise RuntimeError(f"{name} not found: the CUDA kernels build on a "
+                       "machine with the CUDA toolkit (PATH or CUDA_HOME)")
 
 
 def _sources() -> list[Path]:
@@ -68,7 +70,7 @@ def _build(out: Path) -> None:
     """Compiles every source in parallel into a directory of this process's
     own, so that processes building at once never share an object file,
     then links and moves the library into place."""
-    nvcc = _nvcc()
+    nvcc = cuda_tool()
     work = BUILD_DIR / f"tmp-{os.getpid()}"
     work.mkdir(parents=True, exist_ok=True)
     procs = []
@@ -104,12 +106,17 @@ def ptxas_report() -> str:
                      for p in sorted(BUILD_DIR.glob("*.log")))
 
 
+def library_path() -> Path:
+    """Where the library of these sources and flags lives once built."""
+    return BUILD_DIR / f"libgxplug_{_digest()}.so"
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
     global _lib, build_seconds
     if _lib is not None:
         return _lib
-    out = BUILD_DIR / f"libgxplug_{_digest()}.so"
+    out = library_path()
     if not out.exists():
         t0 = time.perf_counter()
         _build(out)

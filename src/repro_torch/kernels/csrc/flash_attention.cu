@@ -1,4 +1,7 @@
-// Flash attention (forward): online softmax over key tiles, GQA by index.
+// Flash attention (forward) in float32: online softmax over key tiles, GQA
+// by index.  bfloat16 inputs take the Hopper kernel of
+// flash_attention_sm90.cu; this file holds the float32 kernel and the C entry
+// that routes each dtype to its one kernel.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention_pallas (_kernel).  The TPU version walks a sequential
@@ -8,11 +11,11 @@
 // inside the block, carrying those three in shared memory and registers.
 //
 // Design (a first kernel that is right, not yet fast):
-//   * q (B·Hq, S, D), k and v (B·Hkv, S, D), float32 or bfloat16; every
-//     product and sum in float32 FMAs (no tensor cores yet).  The CTA stages
-//     its q tile, pre-multiplied by `scale` as the TPU kernel does, and one
-//     64-row k and v tile at a time in shared memory as float32, rows padded
-//     to D+1 floats so a warp's 16 key rows fall in 16 banks.
+//   * q (B·Hq, S, D), k and v (B·Hkv, S, D), float32, D in {16, 32, 64,
+//     128); every product and sum in float32 FMAs.  The CTA stages its q
+//     tile, pre-multiplied by `scale` as the TPU kernel does, and one 64-row
+//     k and v tile at a time in shared memory, rows padded to D+1 floats so
+//     a warp's 16 key rows fall in 16 banks.
 //   * 256 threads.  For the logits each thread owns a 4x4 block of the
 //     (64, 64) tile (query rows 4*ty.., key columns tx + 16*j).  Each warp then
 //     takes 8 query rows through the online softmax (warp-shuffle max and
@@ -28,22 +31,22 @@
 //     row in a tile never adds exp(0) = 1 for its masked keys.
 //   * S need not be a multiple of 64: rows past S load as zeros, keys past S
 //     get the sentinel, and rows past S are never stored.
-//   * l is clamped at 1e-30 before the divide; the output is rounded to q's
-//     dtype (__float2bfloat16_rn for bfloat16).
+//   * l is clamped at 1e-30 before the divide.
 //   * kv head of row bh: batch bh / Hq, kv head (bh % Hq) / (Hq / Hkv) — no
 //     repeated copy of k or v.
 //
 // Bound on the card: operations.  Per causal (query, key) pair it does 4·D
-// flops (2·D for q·k, 2·D for p·v); at qwen2-72b's width (64 heads, D=128,
-// S=4096, bf16) that is 2.75e11 flops against 0.15 GB of q, k, v and out,
-// so the tensor cores' 989 TFLOP/s bound it, not the 3.35 TB/s of memory.
-// This kernel runs on the FMA units from shared memory (at most 67 TFLOP/s,
-// and each FMA here needs half a shared-memory load), so it sits far above
-// that bound; wgmma on bf16 tiles with a TMA ring is the redesign.
-#include <cuda_bf16.h>
+// flops (2·D for q·k, 2·D for p·v) on float32 operands, so the FMA units'
+// 67 TFLOP/s bound it (whisper-base's head dim, D=64, S=4096, 8 heads,
+// full: 3.4e10 flops, 0.513 ms, against 0.034 GB at 3.35 TB/s).  It runs
+// from shared memory, one shared load for every two FMAs in the logits
+// loop; tensor cores on float32 (3xTF32 or a bf16 triple split) are the
+// redesign.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "flash_attention.cuh"
 
 namespace gxattn {
 
@@ -51,21 +54,6 @@ constexpr int kBQ = 64;        // query rows per CTA
 constexpr int kBK = 64;        // key rows per tile
 constexpr int kThreads = 256;  // 16 x 16 threads; 8 warps
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <class T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // Shared-memory layout, in floats.
 template <int D>
@@ -83,16 +71,7 @@ struct AttnSmem {
   static constexpr size_t kBytes = kFloats * sizeof(float);
 };
 
-struct AttnParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* out;
-  int hq, hkv, s;
-  float scale;
-};
-
-template <class T, int D, bool CAUSAL>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads) attn_kernel(AttnParams p) {
   using L = AttnSmem<D>;
   constexpr int kCJ = D / 16;  // output columns per thread
@@ -113,10 +92,10 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(AttnParams p) {
   const int kvh = (bh / p.hq) * p.hkv + (bh % p.hq) / group;
   const int64_t qoff = static_cast<int64_t>(bh) * p.s * D;
   const int64_t kvoff = static_cast<int64_t>(kvh) * p.s * D;
-  const T* qg = static_cast<const T*>(p.q) + qoff;
-  const T* kg = static_cast<const T*>(p.k) + kvoff;
-  const T* vg = static_cast<const T*>(p.v) + kvoff;
-  T* og = static_cast<T*>(p.out) + qoff;
+  const float* qg = static_cast<const float*>(p.q) + qoff;
+  const float* kg = static_cast<const float*>(p.k) + kvoff;
+  const float* vg = static_cast<const float*>(p.v) + kvoff;
+  float* og = static_cast<float*>(p.out) + qoff;
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -126,7 +105,7 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(AttnParams p) {
     const int r = e / D, c = e % D;
     const int qpos = q0 + r;
     qs[r * L::kStride + c] =
-        qpos < p.s ? to_f32(qg[static_cast<int64_t>(qpos) * D + c]) * p.scale
+        qpos < p.s ? qg[static_cast<int64_t>(qpos) * D + c] * p.scale
                    : 0.0f;
   }
   if (tid < kBQ) {
@@ -150,8 +129,8 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(AttnParams p) {
       const int kpos = k0 + r;
       const bool in = kpos < p.s;
       const int64_t g = static_cast<int64_t>(kpos) * D + c;
-      ks[r * L::kStride + c] = in ? to_f32(kg[g]) : 0.0f;
-      vs[r * L::kStride + c] = in ? to_f32(vg[g]) : 0.0f;
+      ks[r * L::kStride + c] = in ? kg[g] : 0.0f;
+      vs[r * L::kStride + c] = in ? vg[g] : 0.0f;
     }
     __syncthreads();
 
@@ -244,15 +223,14 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(AttnParams p) {
     const float l = fmaxf(ls[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < kCJ; ++j) {
-      og[static_cast<int64_t>(qpos) * D + tx + 16 * j] =
-          from_f32<T>(acc[i][j] / l);
+      og[static_cast<int64_t>(qpos) * D + tx + 16 * j] = acc[i][j] / l;
     }
   }
 }
 
-template <class T, int D, bool CAUSAL>
+template <int D, bool CAUSAL>
 cudaError_t launch(const AttnParams& p, int bhq, cudaStream_t stream) {
-  auto kernel = attn_kernel<T, D, CAUSAL>;
+  auto kernel = attn_kernel<D, CAUSAL>;
   const size_t smem = AttnSmem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -263,20 +241,20 @@ cudaError_t launch(const AttnParams& p, int bhq, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <class T, int D>
+template <int D>
 cudaError_t launch_causal(const AttnParams& p, int bhq, int causal,
                           cudaStream_t stream) {
-  return causal ? launch<T, D, true>(p, bhq, stream)
-                : launch<T, D, false>(p, bhq, stream);
+  return causal ? launch<D, true>(p, bhq, stream)
+                : launch<D, false>(p, bhq, stream);
 }
 
-template <class T>
-cudaError_t launch_dim(const AttnParams& p, int bhq, int d, int causal,
+cudaError_t launch_f32(const AttnParams& p, int bhq, int d, int causal,
                        cudaStream_t stream) {
   switch (d) {
-    case 32: return launch_causal<T, 32>(p, bhq, causal, stream);
-    case 64: return launch_causal<T, 64>(p, bhq, causal, stream);
-    case 128: return launch_causal<T, 128>(p, bhq, causal, stream);
+    case 16: return launch_causal<16>(p, bhq, causal, stream);
+    case 32: return launch_causal<32>(p, bhq, causal, stream);
+    case 64: return launch_causal<64>(p, bhq, causal, stream);
+    case 128: return launch_causal<128>(p, bhq, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -285,7 +263,8 @@ cudaError_t launch_dim(const AttnParams& p, int bhq, int d, int causal,
 
 // C entry (bound with ctypes by repro_torch/kernels/build.py).  q, k, v and
 // out are contiguous (B·Hq, S, D) / (B·Hkv, S, D) tensors of one dtype
-// (0 float32, 1 bfloat16) on the current device; returns the
+// (0 float32: the FMA kernel above; 1 bfloat16: the Hopper kernel of
+// flash_attention_sm90.cu) on the current device; returns the
 // cudaGetLastError() of the launch (0 on success).
 extern "C" int gx_flash_attention(const void* q, const void* k, const void* v,
                                   void* out, int bhq, int hq, int hkv, int s,
@@ -300,9 +279,9 @@ extern "C" int gx_flash_attention(const void* q, const void* k, const void* v,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch_dim<float>(p, bhq, d, causal, st);
+    err = launch_f32(p, bhq, d, causal, st);
   } else if (dtype == 1) {
-    err = launch_dim<__nv_bfloat16>(p, bhq, d, causal, st);
+    err = launch_bf16_sm90(p, bhq, d, causal, st);
   } else {
     err = cudaErrorInvalidValue;
   }

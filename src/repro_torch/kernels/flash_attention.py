@@ -1,12 +1,15 @@
-"""Flash attention (forward): the wrapper over ``csrc/flash_attention.cu``
-and its plain PyTorch version.
+"""Flash attention (forward): the wrapper over the CUDA kernels and their
+plain PyTorch version.
 
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py::
-flash_attention_pallas``.  The wrapper checks device, dtype, shape and
-contiguity; on CPU tensors it runs :func:`flash_attention_plain`, on CUDA
-tensors it launches the kernel or raises — there is no fallback.  It counts
-its launches in ``flash_attention.launches``.  The kernel's bound and design
-are in the note at the top of the ``.cu`` file; its times on the card are in
+flash_attention_pallas``.  Each dtype has one kernel: bfloat16 the Hopper
+kernel of ``csrc/flash_attention_sm90.cu`` (wgmma and a TMA ring), float32
+the FMA kernel of ``csrc/flash_attention.cu``.  The wrapper checks device,
+dtype, shape and contiguity; on CPU tensors it runs
+:func:`flash_attention_plain`, on CUDA tensors it launches the kernel or
+raises — there is no fallback.  It counts its launches in
+``flash_attention.launches``.  The kernels' bounds and designs are in the
+notes at the top of the ``.cu`` files; their times on the card are in
 PERF.md.
 """
 from __future__ import annotations
@@ -15,8 +18,8 @@ import torch
 
 from repro_torch.kernels import build
 
-#: Head dims the CUDA kernel is compiled for (``csrc/flash_attention.cu``).
-HEAD_DIMS = (32, 64, 128)
+#: Head dims both CUDA kernels are compiled for.
+HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -81,8 +84,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
     Args: q (B, Hq, S, D); k, v (B, Hkv, S, D) with Hq % Hkv == 0; all
     three float32 or all bfloat16, contiguous, on one device.  ``scale``
-    defaults to 1/sqrt(D).  The CUDA kernel tiles by 64 rows and bounds-
-    checks a partial last tile, so any S is accepted.  Returns (B, Hq, S, D) in q's dtype.
+    defaults to 1/sqrt(D).  The CUDA kernels take D in ``HEAD_DIMS`` and
+    any S (a partial last tile reads zeros past S and is masked).  Returns
+    (B, Hq, S, D) in q's dtype.
     """
     b, hq, hkv, s, d = _check(q, k, v)
     if scale is None:
@@ -93,7 +97,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"flash_attention runs on cuda or cpu, got "
                          f"{q.device}")
     if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention's CUDA kernel takes head dims "
+        raise ValueError(f"flash_attention's CUDA kernels take head dims "
                          f"{HEAD_DIMS}, got D={d}")
     out = torch.empty_like(q)
     if b * hq * s == 0:

@@ -6,7 +6,8 @@ tensors.  The graph kernels, for every message function × monoid: min/max/or
 bit-equal, sum within rtol=1e-5, atol=1e-6 (the kernels add in another order
 than the plain version's scatter).  Flash attention: atol 2e-5 in float32;
 in bfloat16 |Δ| ≤ 2^-7·|want| + 1e-5 at every element (both round float32
-results to bf16, at most one ulp apart).  The SSD chunk step: max |Δ| ≤
+results to bf16, at most one ulp apart; the bf16 kernel multiplies P·V as
+bf16 hi + lo parts on the tensor cores for that reason).  The SSD chunk step: max |Δ| ≤
 1e-4·max(1, max |want|) on each output (float32 sums and the cumsum in
 another order); with dt in Mamba2's range, where decay and gate do not
 underflow, those two within 1e-4·|want| at every element.  This file imports no JAX, so it runs on a
@@ -216,6 +217,39 @@ def test_flash_attention_kernel_matches_plain(cuda, d, dtype, causal, hq,
     rtol, atol = (2.0 ** -7, 1e-5) if dtype == torch.bfloat16 else (0, 2e-5)
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
+
+
+# (B, Hq, Hkv, S, D): the seams of the bf16 Hopper kernel — one key and
+# one partial tile (S=1, 17), a ragged last tile whose rows past S belong to
+# the next head in memory (B=2, S=1000: only the 3-D tensor map's
+# zero-fill keeps them out), a long causal walk through the stage ring
+# (S=4096), and qwen2-72b's 8:1 GQA at D=128
+BF16_SEAMS = [
+    (1, 2, 1, 1, 128),
+    (1, 4, 2, 17, 64),
+    (2, 4, 4, 1000, 32),
+    (2, 2, 2, 1000, 128),
+    (1, 2, 1, 4096, 128),
+    (1, 16, 2, 512, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,hq,hkv,s,d", BF16_SEAMS)
+def test_flash_attention_bf16_kernel_seams(cuda, b, hq, hkv, s, d, causal):
+    gen = torch.Generator(device=cuda).manual_seed(s + d + hq)
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device=cuda
+                           ).to(torch.bfloat16) for h in (hq, hkv, hkv))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    # one bf16 ulp per element, as in test_flash_attention_kernel_matches_plain
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-5,
+                               rtol=2.0 ** -7)
 
 
 @pytest.mark.cuda

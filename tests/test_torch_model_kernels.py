@@ -30,6 +30,8 @@ ATTN_SHAPES = [
     (1, 4, 4, 128, 32),     # MHA
     (2, 8, 2, 256, 64),     # GQA 4:1
     (2, 6, 1, 192, 64),     # MQA, non-pow2 seq blocks
+    (2, 4, 2, 64, 16),      # the reduced configs' heads (d_model 64 / 4)
+    (1, 8, 1, 128, 128),    # qwen2-72b's 8:1 GQA at its head dim
 ]
 SSD_SHAPES = [
     (1, 64, 2, 16, 1, 8, 16),
