@@ -12,7 +12,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               counts the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
               instructions in each bf16 attention kernel from
               ``cuobjdump -sass`` of the library, and fails if either is
-              missing.
+              missing; fails unless every reduction in the edge-block
+              kernel's sum instantiations at K=1 is one vector ``F32x2``
+              (value and count together).
 3. data     — a Graph500-style R-MAT graph (scale 20, edge factor 16,
               weighted) from ``generate.rmat_stream``, partitioned into 4
               shards with edge blocks as the host drive loop builds them.
@@ -22,6 +24,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
               bit-equal, sum within rtol/atol below; kernel, plain, library
               (one ``scatter_reduce`` merging the same messages, as a
               yardstick) times and the bound (bytes over the memory rate).
+              The edge block runs twice: all 64 blocks in one launch
+              (nb=64), and one launch per block (nb=1), the shape
+              ``BlockedDaemon`` launches, timed per launch over all blocks;
+              there ``device_ms`` is the same launches' time queued behind a
+              sleep kernel, without the host's gaps between them.
 5. e2e      — the host drive loop end to end on 4 shards: pagerank through
               ``daemon="cuda"`` (BSP), sssp_bf through ``daemon="cuda"``
               (GAS) and through ``BlockedDaemon(kernel="cuda")`` (BSP), each
@@ -35,9 +42,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
               ``kernels.ops.flash_attention``, with the launch counter zeroed
               just before and read just after; then the kernel against
               ``impl="reference"`` (bf16: |Δ| ≤ 2^-7·|want| + 1e-5 at every
-              element, one bf16 ulp of the output), and one non-causal
+              element, one bf16 ulp of the output), one non-causal
               float32 case at whisper-base's head dim (D=64, Hq=Hkv=8,
-              S=4096; max |Δ| ≤ 1e-4·max(1, max |want|)).  Kernel,
+              S=4096; max |Δ| ≤ 1e-4·max(1, max |want|)), and a
+              zamba2-2.7b attention layer (B=1, Hq=Hkv=32, D=2560/32=80,
+              S=4096, bf16, causal), which runs the D=128 kernel with the
+              columns past 80 zero-filled.  Kernel,
               entry point, plain and library
               (``scaled_dot_product_attention``, a yardstick the port never
               calls) times and the bound; for information, the share of
@@ -88,7 +98,9 @@ PR_ITERATIONS = 10  # pagerank runs a fixed count (it converges slowly)
 # (label, B, Hq, Hkv, S, D, dtype, causal); the first is the main path
 ATTN_CASES = (("qwen2-72b/bf16/causal", 1, 64, 8, 4096, 128, "bfloat16", True),
               ("whisper-base-d64/f32/full", 1, 8, 8, 4096, 64, "float32",
-               False))
+               False),
+              ("zamba2-2.7b/bf16/causal", 1, 32, 32, 4096, 80, "bfloat16",
+               True))
 # bf16 outputs: kernel and plain version round float32 results that differ
 # by float32 summation order to bf16, so they differ by at most one bf16 ulp
 # (≤ 2^-7·|want|) plus that float32 difference
@@ -104,6 +116,11 @@ LIVE_MIN = 1e-30    # a per-element relative check needs |want| above this
 # instructions that show it runs on wgmma and TMA loads
 SASS_KERNEL = "attn_sm90_kernel"
 SASS_OPS = ("HGMMA", "UTMALDG")
+# the edge-block kernel's instantiations for the sum monoid at K=1 (any
+# message function: edge_block_kernel<OP, kSum=0, KT=1>) and the vector
+# reduction each live edge must take there
+RED_KERNEL = r"edge_block_kernelILi\d+ELi0ELi1E"
+RED_VECTOR = "F32x2"
 
 
 def emit(obj) -> None:
@@ -124,6 +141,30 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int = 5, sleep_cycles: int = 20_000_000):
+    """Device time of ``fn``'s launches with the host's gaps taken out: the
+    launches are queued behind a sleep kernel of ``sleep_cycles`` (~10 ms)
+    and timed from the sleep's end.  Returns the mean over ``reps`` and
+    whether the host had queued them all before the sleep ended every time
+    (else the time still holds host gaps)."""
+    import torch
+
+    fn()
+    total, ahead = 0.0, True
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
+        start.record()
+        fn()
+        end.record()
+        ahead &= not start.query()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps, ahead
 
 
 def bound(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> dict:
@@ -171,19 +212,23 @@ def tolerance(monoid_name: str) -> str:
     return "bit-equal"
 
 
-def library_merge_ms(msgs, seg, live, num_segments, monoid):
-    """One ``scatter_reduce`` that merges the same messages into the same
-    slots — the library yardstick (the merge alone, on precomputed
-    messages); the port never calls it."""
+def library_merge_ms(parts, monoid):
+    """One ``scatter_reduce`` per (msgs, seg, live, num_segments) part,
+    merging the same messages into the same slots, all parts in turn — the
+    library yardstick (the merge alone, on precomputed messages); the port
+    never calls it."""
     import torch
 
     reduce = {"sum": "sum", "min": "amin", "max": "amax", "or": "amax"}
-    idx = seg[live].long()[:, None].expand(-1, msgs.shape[1])
-    vals = msgs[live]
-    out = torch.full((num_segments, msgs.shape[1]), monoid.identity,
-                     dtype=torch.float32, device=msgs.device)
-    return cuda_time_ms(lambda: out.scatter_reduce(
-        0, idx, vals, reduce=reduce[monoid.name], include_self=True))
+    calls = []
+    for msgs, seg, live, num_segments in parts:
+        out = torch.full((num_segments, msgs.shape[1]), monoid.identity,
+                         dtype=torch.float32, device=msgs.device)
+        calls.append((out, seg[live].long()[:, None].expand(
+            -1, msgs.shape[1]), msgs[live]))
+    return cuda_time_ms(lambda: [out.scatter_reduce(
+        0, idx, vals, reduce=reduce[monoid.name], include_self=True)
+        for out, idx, vals in calls])
 
 
 def phase_csr_tile(ts, program, state, aux, active, label):
@@ -224,8 +269,8 @@ def phase_csr_tile(ts, program, state, aux, active, label):
         torch.take_along_dim(vaux, csr["lsrc"].long()[..., None], 1
                              ).reshape(-1, a))
     seg = (csr["seg"].long() + torch.arange(t, device=dev)[:, None] * rt)
-    library_ms = library_merge_ms(msgs, seg.reshape(-1), emask.reshape(-1),
-                                  t * rt, program.monoid)
+    library_ms = library_merge_ms(
+        [(msgs, seg.reshape(-1), emask.reshape(-1), t * rt)], program.monoid)
     return dict(kernel="csr_tile", case=label, tiles=t, ET=et, RT=rt, ST=st,
                 K=k, A=a, live_edges=int(emask.sum()), max_abs_err=max_abs,
                 tolerance=tol,
@@ -233,7 +278,12 @@ def phase_csr_tile(ts, program, state, aux, active, label):
                 bytes=nbytes, ops=ops, **bound(nbytes, ops))
 
 
-def phase_edge_block(bs, program, state, aux, active, label):
+def phase_edge_block(bs, program, state, aux, active, label,
+                     per_block=False):
+    """All blocks in one launch, or (``per_block``) one launch per block
+    as ``BlockedDaemon`` makes them, each held against the plain version;
+    with ``per_block`` every time, the bytes and the bound are per launch,
+    the mean over all blocks launched one after another."""
     import torch
 
     from repro_torch.kernels import edge_block as ebk
@@ -249,35 +299,51 @@ def phase_edge_block(bs, program, state, aux, active, label):
     vaux = aux[vids].contiguous()
     emf = emask.to(torch.float32)
     args = (vstate, vaux, lsrc, ldst, w, emf)
-    got, got_c = ebk.edge_block(*args, program=program)
-    want, want_c = ebk.edge_block_plain(*args, program=program)
-    torch.cuda.synchronize()
-    max_abs, tol = compare(f"edge_block/{label}", got, want, got_c, want_c,
-                      program.monoid.name)
-    ms = cuda_time_ms(lambda: ebk.edge_block(*args, program=program))
-    plain_ms = cuda_time_ms(lambda: ebk.edge_block_plain(*args,
-                                                         program=program),
-                            reps=5)
     nb, b = lsrc.shape
+    calls = ([tuple(x[i:i + 1].clone() for x in args) for i in range(nb)]
+             if per_block else [args])
+    max_abs, tol = 0.0, tolerance(program.monoid.name)
+    for i, c in enumerate(calls):
+        got, got_c = ebk.edge_block(*c, program=program)
+        want, want_c = ebk.edge_block_plain(*c, program=program)
+        torch.cuda.synchronize()
+        max_abs = max(max_abs, compare(f"edge_block/{label}/{i}", got, want,
+                                       got_c, want_c, program.monoid.name)[0])
+
+    def each(fn):
+        return lambda: [fn(*c, program=program) for c in calls]
+
+    launches = len(calls)
+    ms = cuda_time_ms(each(ebk.edge_block)) / launches
+    # back-to-back small launches wait on the host: their device time alone
+    device_ms, host_ahead = queued_ms(each(ebk.edge_block))
+    plain_ms = cuda_time_ms(each(ebk.edge_block_plain), reps=5) / launches
     vb, k, a = vstate.shape[1], vstate.shape[2], vaux.shape[2]
     live_src = torch.unique(
         (torch.arange(nb, device=dev)[:, None] * vb + lsrc)[emask])
-    nbytes = edge_bytes(emask) + live_src.numel() * (k + a) * 4 \
-        + nb * vb * (k + 1) * 4
-    ops = int(emask.sum()) * k * 2
+    nbytes = (edge_bytes(emask) + live_src.numel() * (k + a) * 4
+              + nb * vb * (k + 1) * 4) // launches
+    ops = int(emask.sum()) * k * 2 // launches
     msgs = program.msg_gen(
         torch.take_along_dim(vstate, lsrc.long()[..., None], 1
                              ).reshape(-1, k),
         None, w.reshape(-1, 1),
         torch.take_along_dim(vaux, lsrc.long()[..., None], 1).reshape(-1, a))
-    seg = ldst.long() + torch.arange(nb, device=dev)[:, None] * vb
-    library_ms = library_merge_ms(msgs, seg.reshape(-1), emask.reshape(-1),
-                                  nb * vb, program.monoid)
+    if per_block:
+        msgs = msgs.reshape(nb, b, k)
+        parts = [(msgs[i], ldst[i], emask[i], vb) for i in range(nb)]
+    else:
+        seg = ldst.long() + torch.arange(nb, device=dev)[:, None] * vb
+        parts = [(msgs, seg.reshape(-1), emask.reshape(-1), nb * vb)]
+    library_ms = library_merge_ms(parts, program.monoid) / launches
     return dict(kernel="edge_block", case=label, blocks=nb, B=b, VB=vb, K=k,
-                A=a, live_edges=int(emask.sum()), max_abs_err=max_abs,
-                tolerance=tol,
-                kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bytes=nbytes, ops=ops, **bound(nbytes, ops))
+                A=a, live_edges=int(emask.sum()), launches_timed=launches,
+                max_abs_err=max_abs, tolerance=tol,
+                kernel_ms=ms, launches_per_s=1e3 / ms,
+                device_ms=device_ms / launches, host_ahead=host_ahead,
+                plain_ms=plain_ms,
+                library_ms=library_ms, bytes=nbytes, ops=ops,
+                **bound(nbytes, ops))
 
 
 def tol_share(got, want, rtol, atol):
@@ -376,22 +442,33 @@ def phase_attention(label, b, hq, hkv, s, d, dtype_name, causal, seed):
         **bound(nbytes, ops_count, rate))
 
 
-def sass_counts():
-    """Counts of SASS_OPS in each bf16 attention kernel of the built library
-    (``cuobjdump -sass``), keyed by its template arguments, "D<head
-    dim>/causal" or "D<head dim>/full"; raises if one lacks either."""
-    import re
-
+def library_sass() -> str:
+    """``cuobjdump -sass`` of the built library."""
     from repro_torch.kernels import build
 
-    sass = subprocess.run(
+    return subprocess.run(
         [build.cuda_tool("cuobjdump"), "-sass", str(build.library_path())],
         capture_output=True, text=True, check=True).stdout
-    counts = {}
+
+
+def sass_functions(sass: str, pattern: str):
+    """(name, body) of each function in ``sass`` whose name matches."""
+    import re
+
     for part in sass.split("Function : ")[1:]:
         name, _, body = part.partition("\n")
-        if SASS_KERNEL not in name:
-            continue
+        if re.search(pattern, name):
+            yield name.strip(), body
+
+
+def sass_counts(sass: str):
+    """Counts of SASS_OPS in each bf16 attention kernel of the built library,
+    keyed by its template arguments, "D<head dim>/causal" or "D<head
+    dim>/full"; raises if one lacks either."""
+    import re
+
+    counts = {}
+    for name, body in sass_functions(sass, SASS_KERNEL):
         d, causal = re.search(r"ILi(\d+)ELb([01])E", name).groups()
         key = f"D{d}/{'causal' if causal == '1' else 'full'}"
         counts[key] = {op: len(re.findall(rf"\b{op}\b", body))
@@ -401,6 +478,26 @@ def sass_counts():
     for key, c in counts.items():
         if not all(c.values()):
             raise AssertionError(f"{SASS_KERNEL} {key}: SASS counts {c}")
+    return counts
+
+
+def red_counts(sass: str):
+    """The reductions (``RED``/``ATOM`` mnemonics and their counts) in each
+    sum instantiation of the edge-block kernel at K=1; raises unless each
+    has some and every one is the vector RED_VECTOR form."""
+    import re
+
+    counts = {}
+    for name, body in sass_functions(sass, RED_KERNEL):
+        ops = {}
+        for op in re.findall(r"\b((?:RED|ATOM)[A-Za-z0-9_.]*)", body):
+            ops[op] = ops.get(op, 0) + 1
+        counts[name] = ops
+        if not ops or any(RED_VECTOR not in op for op in ops):
+            raise AssertionError(f"{name}: reductions {ops}, expected only "
+                                 f"{RED_VECTOR}")
+    if not counts:
+        raise AssertionError(f"no {RED_KERNEL} in the library's SASS")
     return counts
 
 
@@ -614,10 +711,13 @@ def main(argv=None) -> int:
     build.library()
     regs = [ln.strip() for ln in build.ptxas_report().splitlines()
             if "registers" in ln]
-    sass = sass_counts()
+    lib_sass = library_sass()
+    sass = sass_counts(lib_sass)
+    reds = red_counts(lib_sass)
+    del lib_sass
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": build.build_seconds, "ptxas": regs,
-          "attn_sm90_sass": sass})
+          "attn_sm90_sass": sass, "edge_block_sum_k1_reductions": reds})
 
     # -- 3. data -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -653,11 +753,14 @@ def main(argv=None) -> int:
     sp_active = torch.from_numpy(rng.random(n) < 0.5).to(dev)
     all_active = torch.ones(n, dtype=torch.bool, device=dev)
     cases = []
-    for fn, shape in ((phase_csr_tile, ts), (phase_edge_block, bs)):
+    for fn, shape, kw, suffix in (
+            (phase_csr_tile, ts, {}, ""),
+            (phase_edge_block, bs, {}, ""),
+            (phase_edge_block, bs, {"per_block": True}, "/nb1")):
         for prog, st, ax, act, label in (
                 (pr, pr_state, pr_aux, all_active, "pagerank_sum_k1"),
                 (sp, sp_state, sp_aux, sp_active, "sssp_min_k4")):
-            rec = fn(shape, prog, st, ax, act, label)
+            rec = fn(shape, prog, st, ax, act, label + suffix, **kw)
             emit({"phase": "kernel", **rec})
             cases.append(rec)
     del ts
@@ -707,10 +810,13 @@ def main(argv=None) -> int:
         "edge_block": ("src/repro_torch/kernels/csrc/edge_block.cu",
                        "src/repro/kernels/edge_block.py:81"),
     }
+    # the case at the shape the main path launches: every tile at once for
+    # the CSR tile, one block per launch for the edge block
+    main_case = {"csr_tile": "sssp_min_k4", "edge_block": "sssp_min_k4/nb1"}
     kernels = []
     for name, (source, replaces) in sources_of.items():
         mine = [c for c in cases if c["kernel"] == name]
-        main = next(c for c in mine if c["case"] == "sssp_min_k4")
+        main = next(c for c in mine if c["case"] == main_case[name])
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": e2e_launches[name],
@@ -737,8 +843,11 @@ def main(argv=None) -> int:
                     "128-key k/v tiles, wgmma m64n128k16 q·kᵀ, online "
                     "softmax in registers, P·V as bf16 hi + lo wgmmas with "
                     "A from registers; 2 consumer warpgroups taking turns "
-                    "+ 1 producer warpgroup",
-            "f32": "flash_attention.cu: float32 FMAs from shared memory",
+                    "+ 1 producer warpgroup; head dims 8..128 in steps of "
+                    "8 on instantiations at 16/32/64/128, TMA zero-filling "
+                    "the columns past d",
+            "f32": "flash_attention.cu: float32 FMAs from shared memory, "
+                   "instantiations at every multiple of 16 up to 128",
             "sass": sass,
         },
         "cases": {c["case"]: {k: c[k] for k in (

@@ -28,8 +28,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # vsrc vaux lsrc seg w emask partial counts T ET ST RT K A gen monoid ident stream
     "gx_csr_tile": [_P] * 8 + [_I] * 8 + [_F, _P],
-    # vstate vaux lsrc ldst w emask partial counts nb B VB K A gen monoid stream
-    "gx_edge_block": [_P] * 8 + [_I] * 7 + [_P],
+    # vstate vaux lsrc ldst w emask partial counts staging nb B VB K A gen
+    # monoid ident stream
+    "gx_edge_block": [_P] * 9 + [_I] * 7 + [_F, _P],
+    # K
+    "gx_edge_block_staging_width": [_I],
     # q k v out BHq Hq Hkv S D dtype causal scale stream
     "gx_flash_attention": [_P] * 4 + [_I] * 7 + [_F, _P],
     # x dt a b c y state decay gate B NC L H P G N stream

@@ -11,11 +11,13 @@
 // inside the block, carrying those three in shared memory and registers.
 //
 // Design (a first kernel that is right, not yet fast):
-//   * q (B·Hq, S, D), k and v (B·Hkv, S, D), float32, D in {16, 32, 64,
-//     128); every product and sum in float32 FMAs.  The CTA stages its q
-//     tile, pre-multiplied by `scale` as the TPU kernel does, and one 64-row
-//     k and v tile at a time in shared memory, rows padded to D+1 floats so
-//     a warp's 16 key rows fall in 16 banks.
+//   * q (B·Hq, S, d), k and v (B·Hkv, S, d), float32, d any multiple of 8
+//     up to 128, run by the instantiation at D = d rounded up to 16 (16, 32,
+//     ..., 128): columns d..D-1 load as zeros, which add nothing to q·kᵀ,
+//     and are not stored.  Every product and sum in float32 FMAs.  The CTA
+//     stages its q tile, pre-multiplied by `scale` as the TPU kernel does,
+//     and one 64-row k and v tile at a time in shared memory, rows padded
+//     to D+1 floats so a warp's 16 key rows fall in 16 banks.
 //   * 256 threads.  For the logits each thread owns a 4x4 block of the
 //     (64, 64) tile (query rows 4*ty.., key columns tx + 16*j).  Each warp then
 //     takes 8 query rows through the online softmax (warp-shuffle max and
@@ -90,8 +92,9 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(AttnParams p) {
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
   const int group = p.hq / p.hkv;
   const int kvh = (bh / p.hq) * p.hkv + (bh % p.hq) / group;
-  const int64_t qoff = static_cast<int64_t>(bh) * p.s * D;
-  const int64_t kvoff = static_cast<int64_t>(kvh) * p.s * D;
+  const int hd = p.d;  // the real head dim, <= D
+  const int64_t qoff = static_cast<int64_t>(bh) * p.s * hd;
+  const int64_t kvoff = static_cast<int64_t>(kvh) * p.s * hd;
   const float* qg = static_cast<const float*>(p.q) + qoff;
   const float* kg = static_cast<const float*>(p.k) + kvoff;
   const float* vg = static_cast<const float*>(p.v) + kvoff;
@@ -105,8 +108,8 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(AttnParams p) {
     const int r = e / D, c = e % D;
     const int qpos = q0 + r;
     qs[r * L::kStride + c] =
-        qpos < p.s ? qg[static_cast<int64_t>(qpos) * D + c] * p.scale
-                   : 0.0f;
+        qpos < p.s && c < hd ? qg[static_cast<int64_t>(qpos) * hd + c] * p.scale
+                            : 0.0f;
   }
   if (tid < kBQ) {
     ms[tid] = kNegInf;
@@ -127,8 +130,8 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(AttnParams p) {
     for (int e = tid; e < kBK * D; e += kThreads) {
       const int r = e / D, c = e % D;
       const int kpos = k0 + r;
-      const bool in = kpos < p.s;
-      const int64_t g = static_cast<int64_t>(kpos) * D + c;
+      const bool in = kpos < p.s && c < hd;
+      const int64_t g = static_cast<int64_t>(kpos) * hd + c;
       ks[r * L::kStride + c] = in ? kg[g] : 0.0f;
       vs[r * L::kStride + c] = in ? vg[g] : 0.0f;
     }
@@ -223,7 +226,8 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(AttnParams p) {
     const float l = fmaxf(ls[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < kCJ; ++j) {
-      og[static_cast<int64_t>(qpos) * D + tx + 16 * j] = acc[i][j] / l;
+      const int c = tx + 16 * j;
+      if (c < hd) og[static_cast<int64_t>(qpos) * hd + c] = acc[i][j] / l;
     }
   }
 }
@@ -248,13 +252,17 @@ cudaError_t launch_causal(const AttnParams& p, int bhq, int causal,
                 : launch<D, false>(p, bhq, stream);
 }
 
-cudaError_t launch_f32(const AttnParams& p, int bhq, int d, int causal,
+cudaError_t launch_f32(const AttnParams& p, int bhq, int causal,
                        cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch_causal<16>(p, bhq, causal, stream);
-    case 32: return launch_causal<32>(p, bhq, causal, stream);
-    case 64: return launch_causal<64>(p, bhq, causal, stream);
-    case 128: return launch_causal<128>(p, bhq, causal, stream);
+  switch ((p.d + 15) / 16) {
+    case 1: return launch_causal<16>(p, bhq, causal, stream);
+    case 2: return launch_causal<32>(p, bhq, causal, stream);
+    case 3: return launch_causal<48>(p, bhq, causal, stream);
+    case 4: return launch_causal<64>(p, bhq, causal, stream);
+    case 5: return launch_causal<80>(p, bhq, causal, stream);
+    case 6: return launch_causal<96>(p, bhq, causal, stream);
+    case 7: return launch_causal<112>(p, bhq, causal, stream);
+    case 8: return launch_causal<128>(p, bhq, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -272,16 +280,16 @@ extern "C" int gx_flash_attention(const void* q, const void* k, const void* v,
                                   void* stream) {
   using namespace gxattn;
   if (bhq < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || bhq % hq != 0 ||
-      s < 1 || (s + kBQ - 1) / kBQ > 65535) {
+      s < 1 || (s + kBQ - 1) / kBQ > 65535 || !head_dim_ok(d)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const AttnParams p{q, k, v, out, hq, hkv, s, scale};
+  const AttnParams p{q, k, v, out, hq, hkv, s, d, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch_f32(p, bhq, d, causal, st);
+    err = launch_f32(p, bhq, causal, st);
   } else if (dtype == 1) {
-    err = launch_bf16_sm90(p, bhq, d, causal, st);
+    err = launch_bf16_sm90(p, bhq, causal, st);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -12,13 +12,17 @@ struct AttnParams {
   const void* v;
   void* out;
   int hq, hkv, s;
+  int d;  // head dim; each kernel instantiation D >= d zero-pads the rest
   float scale;
 };
 
-// The Hopper kernel of flash_attention_sm90.cu: q, k, v, out bfloat16,
-// d in {16, 32, 64, 128}.  Returns the launch's error (cudaSuccess when it
-// was queued).
-cudaError_t launch_bf16_sm90(const AttnParams& p, int bhq, int d, int causal,
+// Head dims both kernels take: multiples of 8 from 8 to 128.
+inline bool head_dim_ok(int d) { return d >= 8 && d <= 128 && d % 8 == 0; }
+
+// The Hopper kernel of flash_attention_sm90.cu: q, k, v, out bfloat16, p.d
+// a head dim head_dim_ok takes.  Returns the launch's error (cudaSuccess
+// when it was queued).
+cudaError_t launch_bf16_sm90(const AttnParams& p, int bhq, int causal,
                              cudaStream_t stream);
 
 }  // namespace gxattn

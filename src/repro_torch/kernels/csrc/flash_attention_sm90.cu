@@ -49,6 +49,14 @@
 //     up, both walk all of the CTA's key tiles: under a causal mask the
 //     first warpgroup's last tile is masked at least in part.
 //   * Epilogue: O / l, rounded to bf16, stored from registers for rows < S.
+//   * Head dims: instantiations at D = 16, 32, 64 and 128; a head dim d
+//     that is a multiple of 8 runs the smallest D >= d (zamba2-2.7b's 80
+//     runs D = 128).  The tensor maps span the real d columns (row stride
+//     2d bytes, a multiple of TMA's 16), so TMA fills columns d..D-1 of q,
+//     k and v with zeros: they add nothing to q·kᵀ and give zero columns of
+//     O, which the epilogue does not store.  The expect-tx counts stay the
+//     full boxes', as for rows past S.  Such a head dim costs the flops of
+//     D, 1.6x the work at d = 80.
 //
 // Why P is split.  The port holds bf16 outputs per element to one bf16 ulp
 // (|Δ| <= 2^-7·|want| + 1e-5) against float32 attention, as the JAX kernel
@@ -454,7 +462,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
                      __nv_bfloat16* __restrict__ out, int hq, int hkv, int s,
-                     float scale_log2) {
+                     int hd, float scale_log2) {
   using T = Tiles<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -610,14 +618,16 @@ __global__ void __launch_bounds__(kThreads, 1)
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
         l[r] = fmaxf(l[r], 1e-30f);
       }
-      __nv_bfloat16* og = out + static_cast<int64_t>(bh) * s * D;
+      // hd is a multiple of 8, so a column pair is wholly inside or out
+      __nv_bfloat16* og = out + static_cast<int64_t>(bh) * s * hd;
 #pragma unroll
       for (int i = 0; i < D / 2; i += 2) {
         const int r = (i / 2) % 2;
         const int row = row0 + 8 * r;
-        if (row < s) {
+        const int col = 8 * (i / 4) + col0;
+        if (row < s && col < hd) {
           *reinterpret_cast<__nv_bfloat162*>(
-              og + static_cast<int64_t>(row) * D + 8 * (i / 4) + col0) =
+              og + static_cast<int64_t>(row) * hd + col) =
               __floats2bfloat162_rn(o[i] / l[r], o[i + 1] / l[r]);
         }
       }
@@ -653,8 +663,8 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D map over a contiguous (heads, S, D) bf16 tensor, boxes of
-// box_cols x box_rows x 1; rows past S read as zeros.
+// A 3-D map over a contiguous (heads, S, d) bf16 tensor, boxes of
+// box_cols x box_rows x 1; rows past S and columns past d read as zeros.
 bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
               int heads, int s, int d, int box_cols, int box_rows,
               CUtensorMapSwizzle swizzle) {
@@ -680,11 +690,11 @@ cudaError_t launch(const AttnParams& p, int bhq, cudaStream_t stream) {
   if (encode == nullptr) return cudaErrorNotSupported;
   const int bhkv = bhq / p.hq * p.hkv;
   CUtensorMap tq, tk, tv;
-  if (!make_map(encode, &tq, p.q, bhq, p.s, D, T::kBoxCols, kRows,
+  if (!make_map(encode, &tq, p.q, bhq, p.s, p.d, T::kBoxCols, kRows,
                 T::kSwizzle) ||
-      !make_map(encode, &tk, p.k, bhkv, p.s, D, T::kBoxCols, kBK,
+      !make_map(encode, &tk, p.k, bhkv, p.s, p.d, T::kBoxCols, kBK,
                 T::kSwizzle) ||
-      !make_map(encode, &tv, p.v, bhkv, p.s, D, T::kBoxCols, kBK,
+      !make_map(encode, &tv, p.v, bhkv, p.s, p.d, T::kBoxCols, kBK,
                 T::kSwizzle)) {
     return cudaErrorInvalidValue;
   }
@@ -700,7 +710,7 @@ cudaError_t launch(const AttnParams& p, int bhq, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const dim3 grid(bhq, (p.s + kBQ - 1) / kBQ);
   kernel<<<grid, kThreads, T::kSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(p.out), p.hq, p.hkv, p.s,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(p.out), p.hq, p.hkv, p.s, p.d,
       p.scale * kLog2e);
   return cudaGetLastError();
 }
@@ -714,20 +724,18 @@ cudaError_t launch_causal(const AttnParams& p, int bhq, int causal,
 
 }  // namespace
 
-cudaError_t launch_bf16_sm90(const AttnParams& p, int bhq, int d, int causal,
+cudaError_t launch_bf16_sm90(const AttnParams& p, int bhq, int causal,
                              cudaStream_t stream) {
   // TMA reads from 16-byte aligned addresses; the epilogue stores 4 bytes
   for (const void* ptr : {p.q, p.k, p.v, static_cast<const void*>(p.out)}) {
     if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
       return cudaErrorMisalignedAddress;
   }
-  switch (d) {
-    case 16: return launch_causal<16>(p, bhq, causal, stream);
-    case 32: return launch_causal<32>(p, bhq, causal, stream);
-    case 64: return launch_causal<64>(p, bhq, causal, stream);
-    case 128: return launch_causal<128>(p, bhq, causal, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  if (!head_dim_ok(p.d)) return cudaErrorInvalidValue;
+  if (p.d <= 16) return launch_causal<16>(p, bhq, causal, stream);
+  if (p.d <= 32) return launch_causal<32>(p, bhq, causal, stream);
+  if (p.d <= 64) return launch_causal<64>(p, bhq, causal, stream);
+  return launch_causal<128>(p, bhq, causal, stream);
 }
 
 }  // namespace gxattn

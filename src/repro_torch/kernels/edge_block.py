@@ -24,13 +24,6 @@ from repro_torch.kernels import build
 # Monoid name → the kernels' MonoidOp ("or" over {0,1} indicators is max).
 _MONOID_OPS = {"sum": 0, "min": 1, "max": 2, "or": 2}
 _MAX_K = 16  # csrc/common.cuh kMaxK
-_CSR_SMEM_MAX = 227 * 1024  # shared memory one CTA may use on sm_90
-
-
-def _csr_smem_bytes(et: int, k: int) -> int:
-    """csrc/csr_tile.cu csr_smem_bytes: seg, K messages and a live byte per
-    edge slot, staged in shared memory."""
-    return et * (4 + 4 * k + 1)
 
 
 def _monoid_op(program: VertexProgram) -> int:
@@ -131,22 +124,28 @@ def edge_block(vstate, vaux, lsrc, ldst, w, emask_f32, *,
     if vstate.device.type != "cuda":
         raise ValueError(f"edge_block runs on cuda or cpu, got {vstate.device}")
     gen = _gen_op(program)
-    if k < 1 or a < 1:
-        raise ValueError(f"edge_block needs K >= 1 and A >= 1, got K={k}, "
-                         f"A={a}")
-    partial = torch.full((nb, vb, k), program.monoid.identity,
-                         dtype=torch.float32, device=vstate.device)
-    counts = torch.zeros((nb, vb), dtype=torch.int32, device=vstate.device)
-    if nb * b == 0:
-        return partial, counts
+    if not 1 <= k <= _MAX_K or a < 1:
+        raise ValueError(f"edge_block needs 1 <= K <= {_MAX_K} and A >= 1, "
+                         f"got K={k}, A={a}")
+    partial = torch.empty((nb, vb, k), dtype=torch.float32,
+                          device=vstate.device)
+    counts = torch.empty((nb, vb), dtype=torch.int32, device=vstate.device)
+    if nb * b * vb == 0:
+        return partial.fill_(program.monoid.identity), counts.zero_()
     lib = build.library()
+    # sum: the kernel merges messages and counts into float staging rows
+    # (csrc/edge_block.cu) and writes partial and counts from them
+    staging = (torch.empty(nb * vb * lib.gx_edge_block_staging_width(k),
+                           dtype=torch.float32, device=vstate.device)
+               if mon == _MONOID_OPS["sum"] else None)
     with torch.cuda.device(vstate.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gx_edge_block(
             vstate.data_ptr(), vaux.data_ptr(), lsrc.data_ptr(),
             ldst.data_ptr(), w.data_ptr(), emask_f32.data_ptr(),
-            partial.data_ptr(), counts.data_ptr(), nb, b, vb, k, a, gen, mon,
-            stream)
+            partial.data_ptr(), counts.data_ptr(),
+            None if staging is None else staging.data_ptr(), nb, b, vb, k, a,
+            gen, mon, float(program.monoid.identity), stream)
     build.check(rc, "gx_edge_block")
     edge_block.launches += 1
     return partial, counts
@@ -214,10 +213,6 @@ def csr_tile(vsrc, vaux, rowst, lsrc, seg, w, emask_f32, *,
     if not 1 <= k <= _MAX_K or a < 1:
         raise ValueError(f"csr_tile needs 1 <= K <= {_MAX_K} and A >= 1, "
                          f"got K={k}, A={a}")
-    if _csr_smem_bytes(et, k) > _CSR_SMEM_MAX:
-        raise ValueError(f"csr_tile stages {_csr_smem_bytes(et, k)} bytes "
-                         f"per tile (ET={et}, K={k}) in shared memory; at "
-                         f"most {_CSR_SMEM_MAX} fit")
     partial = torch.empty((t, rt, k), dtype=torch.float32, device=vsrc.device)
     counts = torch.empty((t, rt), dtype=torch.int32, device=vsrc.device)
     if t * et * rt * st == 0:

@@ -18,8 +18,10 @@ import torch
 
 from repro_torch.kernels import build
 
-#: Head dims both CUDA kernels are compiled for.
-HEAD_DIMS = (16, 32, 64, 128)
+#: Head dims both CUDA kernels take: multiples of 8 up to 128, as the JAX
+#: kernel's (8, 128) tiling allows.  Each runs an instantiation at a head dim
+#: D >= d whose extra columns are zeros (csrc/flash_attention*.cu).
+HEAD_DIMS = tuple(range(8, 129, 8))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -84,8 +86,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
     Args: q (B, Hq, S, D); k, v (B, Hkv, S, D) with Hq % Hkv == 0; all
     three float32 or all bfloat16, contiguous, on one device.  ``scale``
-    defaults to 1/sqrt(D).  The CUDA kernels take D in ``HEAD_DIMS`` and
-    any S (a partial last tile reads zeros past S and is masked).  Returns
+    defaults to 1/sqrt(D) of the real D.  The CUDA kernels take D in
+    ``HEAD_DIMS`` and any S (a partial last tile reads zeros past S and is
+    masked).  Returns
     (B, Hq, S, D) in q's dtype.
     """
     b, hq, hkv, s, d = _check(q, k, v)

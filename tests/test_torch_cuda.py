@@ -97,6 +97,34 @@ def _tile_inputs(dev, seed, k, monoid, n=80, e=600, edge_tile=32):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrs]
 
 
+# In-degrees of consecutive dst rows, in dst order: runs of 1, 31, 32, 33,
+# 64, 65, 511 and 512 edges around a warp's 32 lanes and a tile's 512
+# slots; a hub row of 700 edges, split across two tiles; a row whose edges
+# are all masked (SEAM_DEAD_DST); and tiles cut early, whose tails are
+# padding.
+SEAM_DEGREES = (1, 31, 32, 33, 64, 65, 511, 512, 700, 40, 1, 2, 300)
+SEAM_DEAD_DST = 9 * 7 + 3
+
+
+def seam_tiles(seed: int, k: int, monoid: str):
+    """The CSR tiles (ET 512) of SEAM_DEGREES over 2,048 vertices, and the
+    csr_tile arguments as numpy arrays: K-wide source states and a frontier
+    mask with SEAM_DEAD_DST's edges and 10% of the others dead."""
+    rng = np.random.default_rng(seed)
+    n = 2048
+    dst = np.repeat(np.arange(len(SEAM_DEGREES), dtype=np.int32) * 7 + 3,
+                    SEAM_DEGREES)
+    src = rng.integers(0, n, dst.size).astype(np.int32)
+    w = rng.uniform(1.0, 10.0, dst.size).astype(np.float32)
+    ts = build_csr_tiles(src, dst, w, n, edge_tile=512)
+    state = _values(rng, (n, k), monoid)
+    aux = rng.uniform(0.0, 5.0, (n, 1)).astype(np.float32)
+    emask = (ts.emask & (ts.gdst != SEAM_DEAD_DST)
+             & (rng.random(ts.emask.shape) < 0.9))
+    return ts, (state[ts.svids], aux[ts.svids], state[ts.rows], ts.lsrc,
+                ts.seg, ts.w, emask.astype(np.float32))
+
+
 def _assert_match(monoid, got, want, got_c, want_c):
     assert torch.equal(got_c, want_c)
     if monoid == "sum":
@@ -178,17 +206,101 @@ def test_middleware_kernels_match_reference(cuda, prog_name):
 
 @pytest.mark.cuda
 def test_csr_tile_kernel_stages_wide_tiles_beyond_48kb(cuda):
-    """ET=1024 at K=16 stages 70 KB of messages per tile, past the 48 KB a
-    launch gets without opting in; a tile past the 227 KB limit raises."""
+    """Tiles wider than the kernel's 512-slot round, at K=16: ET=1024 and
+    ET=4096 run in several rounds, carrying open runs from one to the
+    next, and match the plain version."""
     prog = algorithms.sssp_bf(_graph(), sources=list(range(16)))
-    arrs = _tile_inputs(cuda, 29, 16, "min", n=300, e=4000, edge_tile=1024)
+    for seed, e, et in ((29, 4000, 1024), (31, 5000, 4096)):
+        arrs = _tile_inputs(cuda, seed, 16, "min", n=300, e=e, edge_tile=et)
+        got, got_c = ebk.csr_tile(*arrs, program=prog)
+        want, want_c = ebk.csr_tile_plain(*arrs, program=prog)
+        torch.cuda.synchronize()
+        _assert_match("min", got, want, got_c, want_c)
+
+
+# Every K the kernels' dispatch treats apart: template constants 1, 4, 8;
+# the run-time K of the others; in the edge block's sum, staging rows of
+# one float2 (K=1), one float4 (2, 3), float4s and a scalar count (4, 8) or
+# float4s alone (5, 7), up to kMaxK = 16.
+SEAM_KS = (1, 2, 3, 4, 5, 7, 8, 9, 16)
+
+
+def _sssp_program(k, monoid):
+    prog = algorithms.sssp_bf(_graph(), sources=list(range(k)))
+    return dataclasses.replace(prog, monoid=template.MONOIDS[monoid])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("monoid", MONOIDS)
+@pytest.mark.parametrize("k", SEAM_KS)
+def test_csr_tile_kernel_seams(cuda, k, monoid):
+    """Runs of 1..700 slots around warps and tiles, a split hub row, a dead
+    run and padded tails (SEAM_DEGREES), at every K of the dispatch."""
+    prog = _sssp_program(k, monoid)
+    _, arrs = seam_tiles(k, k, monoid)
+    arrs = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in arrs]
     got, got_c = ebk.csr_tile(*arrs, program=prog)
     want, want_c = ebk.csr_tile_plain(*arrs, program=prog)
     torch.cuda.synchronize()
-    _assert_match("min", got, want, got_c, want_c)
-    big = _tile_inputs(cuda, 31, 16, "min", n=300, e=5000, edge_tile=4096)
-    with pytest.raises(ValueError, match="shared memory"):
-        ebk.csr_tile(*big, program=prog)
+    _assert_match(monoid, got, want, got_c, want_c)
+
+
+def _hot_block_inputs(dev, seed, k, monoid, nb, b, vb=40):
+    """Edge blocks whose destinations put a third of the edges on one hot
+    row; b need not be a multiple of 4."""
+    arrs = _block_inputs(dev, seed, k, monoid, nb=nb, vb=vb, b=b)
+    hot = torch.rand((nb, b), generator=torch.Generator().manual_seed(seed))
+    arrs[3] = torch.where(hot.to(dev) < 1 / 3, torch.zeros_like(arrs[3]),
+                          arrs[3]).contiguous()
+    return arrs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("monoid", MONOIDS)
+@pytest.mark.parametrize("k", SEAM_KS)
+@pytest.mark.parametrize("nb,b", [(1, 256), (3, 256), (3, 61)],
+                         ids=["nb1", "nb3", "nb3-b61"])
+def test_edge_block_kernel_seams(cuda, nb, b, k, monoid):
+    """One block (as BlockedDaemon launches it) and three, with one hot
+    destination row, at every K of the dispatch; b=61 takes the scalar
+    loads."""
+    prog = _sssp_program(k, monoid)
+    arrs = _hot_block_inputs(cuda, 41 + k, k, monoid, nb, b)
+    before = ebk.edge_block.launches
+    got, got_c = ebk.edge_block(*arrs, program=prog)
+    want, want_c = ebk.edge_block_plain(*arrs, program=prog)
+    torch.cuda.synchronize()
+    assert ebk.edge_block.launches == before + 1
+    _assert_match(monoid, got, want, got_c, want_c)
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("monoid", ["sum", "min"])
+def test_graph_kernels_take_unaligned_views(cuda, monoid):
+    """Tensors that do not start on 16 bytes run the run-time-K kernels
+    with scalar loads, and give the same result."""
+    prog = _sssp_program(4, monoid)
+    _, tiles = seam_tiles(4, 4, monoid)
+    tiles = [_unaligned(torch.from_numpy(np.ascontiguousarray(a)).to(cuda))
+             for a in tiles]
+    got, got_c = ebk.csr_tile(*tiles, program=prog)
+    want, want_c = ebk.csr_tile_plain(*tiles, program=prog)
+    blocks = [_unaligned(a) for a in _hot_block_inputs(cuda, 5, 4, monoid,
+                                                        3, 256)]
+    bgot, bgot_c = ebk.edge_block(*blocks, program=prog)
+    bwant, bwant_c = ebk.edge_block_plain(*blocks, program=prog)
+    torch.cuda.synchronize()
+    _assert_match(monoid, got, want, got_c, want_c)
+    _assert_match(monoid, bgot, bwant, bgot_c, bwant_c)
 
 
 # --------------------------------------------------------------------------
@@ -201,7 +313,7 @@ def test_csr_tile_kernel_stages_wide_tiles_beyond_48kb(cuda):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
 def test_flash_attention_kernel_matches_plain(cuda, d, dtype, causal, hq,
                                               hkv, s):
     gen = torch.Generator(device=cuda).manual_seed(d + s + hq)
@@ -223,7 +335,8 @@ def test_flash_attention_kernel_matches_plain(cuda, d, dtype, causal, hq,
 # one partial tile (S=1, 17), a ragged last tile whose rows past S belong to
 # the next head in memory (B=2, S=1000: only the 3-D tensor map's
 # zero-fill keeps them out), a long causal walk through the stage ring
-# (S=4096), and qwen2-72b's 8:1 GQA at D=128
+# (S=4096), qwen2-72b's 8:1 GQA at D=128, and zamba2-2.7b's D=80, which
+# runs the D=128 kernel with TMA zero-filling columns 80..127
 BF16_SEAMS = [
     (1, 2, 1, 1, 128),
     (1, 4, 2, 17, 64),
@@ -231,6 +344,8 @@ BF16_SEAMS = [
     (2, 2, 2, 1000, 128),
     (1, 2, 1, 4096, 128),
     (1, 16, 2, 512, 128),
+    (2, 4, 4, 1000, 80),
+    (1, 8, 8, 4096, 80),
 ]
 
 
@@ -253,8 +368,31 @@ def test_flash_attention_bf16_kernel_seams(cuda, b, hq, hkv, s, d, causal):
 
 
 @pytest.mark.cuda
-def test_flash_attention_kernel_refuses_other_head_dims(cuda):
-    q = torch.zeros((1, 2, 64, 48), device=cuda)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_flash_attention_kernel_head_dims(cuda, d, dtype, causal):
+    """Every head dim the kernels take (multiples of 8 up to 128), each run
+    by an instantiation at D >= d with zero columns past d; S=200 leaves a
+    ragged last tile.  Tolerances as in
+    test_flash_attention_kernel_matches_plain."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (torch.randn((2, h, 200, d), generator=gen, device=cuda
+                           ).to(dtype) for h in (4, 2, 2))
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    rtol, atol = (2.0 ** -7, 1e-5) if dtype == torch.bfloat16 else (0, 2e-5)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [12, 136])  # not a multiple of 8; above 128
+def test_flash_attention_kernel_refuses_other_head_dims(cuda, d):
+    q = torch.zeros((1, 2, 64, d), device=cuda)
     before = fa.flash_attention.launches
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_attention(q, q, q)

@@ -28,6 +28,7 @@ from repro_torch.core import template as ttemplate
 from repro_torch.graph import algorithms as talg
 from repro_torch.kernels import edge_block as teb
 from repro_torch.kernels import ops as tops
+from test_torch_cuda import SEAM_DEAD_DST, SEAM_DEGREES, seam_tiles
 
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-6
 
@@ -243,3 +244,43 @@ def test_program_without_gen_op_raises_on_cuda_path_only():
     assert partial.shape == (3, 40, 1)
     with pytest.raises(ValueError, match="gen_op"):
         teb._gen_op(pt)
+
+
+# --------------------------------------------------------------------------
+# CSR tiles at the seams of a warp-cooperative segmented reduce
+# --------------------------------------------------------------------------
+# Layouts at the seams of the CUDA kernel's warp-cooperative segmented
+# reduce (tests/test_torch_cuda.py builds them; no card is needed for that)
+# K → the program whose message function the case runs
+SEAM_PROGRAMS = {1: "pagerank", 3: "label_prop", 4: "sssp_bf",
+                 8: "label_prop", 16: "sssp_bf"}
+
+
+def test_seam_tiles_cover_the_seams():
+    ts, arrs = seam_tiles(0, 1, "sum")
+    assert ts.edge_tile == 512 and ts.num_tiles >= 6
+    hub = SEAM_DEGREES.index(700) * 7 + 3
+    assert (ts.gdst == hub).any(axis=1).sum() == 2      # split hub row
+    assert (~ts.emask).any(axis=1).sum() >= 3           # padded tiles
+    assert ts.emask.all(axis=1).sum() >= 1              # a full 512 run
+    assert not arrs[-1][ts.gdst == SEAM_DEAD_DST].any()
+
+
+@pytest.mark.parametrize("monoid", MONOIDS)
+@pytest.mark.parametrize("k", sorted(SEAM_PROGRAMS))
+def test_csr_tile_seams_match_pallas(k, monoid):
+    gj, gt = _graphs()
+    name = SEAM_PROGRAMS[k]
+    kw = {"sssp_bf": {"sources": list(range(k))},
+          "label_prop": {"num_classes": k}}.get(name, {})
+    pj = dataclasses.replace(getattr(jalg, name)(gj, **kw),
+                             monoid=jtemplate.MONOIDS[monoid])
+    pt = dataclasses.replace(getattr(talg, name)(gt, **kw),
+                             monoid=ttemplate.MONOIDS[monoid])
+    assert pt.state_width == k
+    _, arrs = seam_tiles(k, k, monoid)
+    want, want_c = jeb.csr_tile_pallas(*map(jnp.asarray, arrs), program=pj,
+                                       interpret=True)
+    got, got_c = teb.csr_tile(*map(torch.from_numpy, arrs), program=pt)
+    _assert_match(monoid, got.numpy(), np.asarray(want), got_c.numpy(),
+                  np.asarray(want_c))

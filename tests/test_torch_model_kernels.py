@@ -32,6 +32,7 @@ ATTN_SHAPES = [
     (2, 6, 1, 192, 64),     # MQA, non-pow2 seq blocks
     (2, 4, 2, 64, 16),      # the reduced configs' heads (d_model 64 / 4)
     (1, 8, 1, 128, 128),    # qwen2-72b's 8:1 GQA at its head dim
+    (1, 4, 2, 128, 80),     # zamba2-2.7b's head dim (2560 / 32)
 ]
 SSD_SHAPES = [
     (1, 64, 2, 16, 1, 8, 16),
