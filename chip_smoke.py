@@ -12,7 +12,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               counts the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
               instructions in each bf16 attention kernel from
               ``cuobjdump -sass`` of the library, and fails if either is
-              missing; fails unless every reduction in the edge-block
+              missing; counts the TF32 ``HMMA`` (``mma.sync`` m16n8k8)
+              instructions in each float32 attention kernel and fails if
+              one has none; fails unless every reduction in the edge-block
               kernel's sum instantiations at K=1 is one vector ``F32x2``
               (value and count together).
 3. data     — a Graph500-style R-MAT graph (scale 20, edge factor 16,
@@ -44,13 +46,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
               ``impl="reference"`` (bf16: |Δ| ≤ 2^-7·|want| + 1e-5 at every
               element, one bf16 ulp of the output), one non-causal
               float32 case at whisper-base's head dim (D=64, Hq=Hkv=8,
-              S=4096; max |Δ| ≤ 1e-4·max(1, max |want|)), and a
-              zamba2-2.7b attention layer (B=1, Hq=Hkv=32, D=2560/32=80,
-              S=4096, bf16, causal), which runs the D=128 kernel with the
-              columns past 80 zero-filled.  Kernel,
+              S=4096; max |Δ| ≤ 1e-4·max(1, max |want|)), which runs the
+              3xTF32 kernel (three TF32 tensor-core products per matrix
+              product), and a zamba2-2.7b attention layer (B=1, Hq=Hkv=32,
+              D=2560/32=80, S=4096, bf16, causal), which runs the D=128
+              kernel with the columns past 80 zero-filled.  Kernel,
               entry point, plain and library
               (``scaled_dot_product_attention``, a yardstick the port never
-              calls) times and the bound; for information, the share of
+              calls) times and the bound (bf16: the flops at 989 TFLOP/s;
+              float32: three TF32 products' flops at 495 TFLOP/s, with the
+              flops at the FMA units' 67 TFLOP/s beside it as
+              ``fma_bound_ms``); for information, the share of
               the same tolerance that SDPA's output takes against the same
               reference (no check: SDPA rounds P to bf16).
 7. ssd       — a mamba2-1.3b SSD layer (B=1, S=4096, H=64, P=64, G=1,
@@ -86,6 +92,10 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM bf16 on the tensor cores, dense
+TF32_OPS_PER_S = 495e12     # H100 SXM TF32 on the tensor cores, dense
+# float32 attention takes each matrix product as three TF32 products
+# (csrc/flash_attention.cu: a_s·b_b + a_b·b_s + a_b·b_b)
+TF32_PRODUCTS = 3
 # Sum merges: kernel and plain version add the same non-negative float32
 # messages in different orders (a kernel's run walk or atomics against the
 # plain scatter), so they agree to a relative error of a few ulps times the
@@ -116,6 +126,9 @@ LIVE_MIN = 1e-30    # a per-element relative check needs |want| above this
 # instructions that show it runs on wgmma and TMA loads
 SASS_KERNEL = "attn_sm90_kernel"
 SASS_OPS = ("HGMMA", "UTMALDG")
+# the float32 attention kernel and its mma.sync m16n8k8 TF32 instructions
+F32_SASS_KERNEL = "attn_tf32_kernel"
+TF32_HMMA = r"\bHMMA\.[0-9A-Z.]*TF32"
 # the edge-block kernel's instantiations for the sum monoid at K=1 (any
 # message function: edge_block_kernel<OP, kSum=0, KT=1>) and the vector
 # reduction each live edge must take there
@@ -429,7 +442,14 @@ def phase_attention(label, b, hq, hkv, s, d, dtype_name, causal, seed):
     pairs = s * (s + 1) // 2 if causal else s * s
     ops_count = 4 * d * pairs * b * hq
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    if dtype == torch.bfloat16:
+        rate, tc_ops, extra = BF16_OPS_PER_S, ops_count, {}
+    else:
+        rate, tc_ops = TF32_OPS_PER_S, TF32_PRODUCTS * ops_count
+        extra = {"tensor_core_ops": tc_ops,
+                 "bound_basis": f"{TF32_PRODUCTS} TF32 products per matrix "
+                                f"product at {TF32_OPS_PER_S:.3g} flop/s",
+                 "fma_bound_ms": bound(nbytes, ops_count)["bound_ms"]}
     return dict(
         phase="attention", case=label, B=b, Hq=hq, Hkv=hkv, S=s, D=d,
         dtype=dtype_name, causal=causal, launches=launches,
@@ -438,8 +458,8 @@ def phase_attention(label, b, hq, hkv, s, d, dtype_name, causal, seed):
         kernel_ms=kernel_ms, entry_ms=entry_ms, plain_ms=plain_ms,
         library_ms=library_ms,
         library_call="scaled_dot_product_attention(enable_gqa=True)",
-        bytes=nbytes, ops=ops_count, ops_per_s=rate,
-        **bound(nbytes, ops_count, rate))
+        bytes=nbytes, ops=ops_count, ops_per_s=rate, **extra,
+        **bound(nbytes, tc_ops, rate))
 
 
 def library_sass() -> str:
@@ -461,23 +481,45 @@ def sass_functions(sass: str, pattern: str):
             yield name.strip(), body
 
 
+def attn_instance(name: str) -> str:
+    """An attention kernel's template arguments from its mangled name:
+    "D<head dim>/causal" or "D<head dim>/full"."""
+    import re
+
+    d, causal = re.search(r"ILi(\d+)ELb([01])E", name).groups()
+    return f"D{d}/{'causal' if causal == '1' else 'full'}"
+
+
 def sass_counts(sass: str):
     """Counts of SASS_OPS in each bf16 attention kernel of the built library,
-    keyed by its template arguments, "D<head dim>/causal" or "D<head
-    dim>/full"; raises if one lacks either."""
+    keyed by ``attn_instance``; raises if one lacks either."""
     import re
 
     counts = {}
     for name, body in sass_functions(sass, SASS_KERNEL):
-        d, causal = re.search(r"ILi(\d+)ELb([01])E", name).groups()
-        key = f"D{d}/{'causal' if causal == '1' else 'full'}"
-        counts[key] = {op: len(re.findall(rf"\b{op}\b", body))
-                       for op in SASS_OPS}
+        counts[attn_instance(name)] = {
+            op: len(re.findall(rf"\b{op}\b", body)) for op in SASS_OPS}
     if not counts:
         raise AssertionError(f"no {SASS_KERNEL} in the library's SASS")
     for key, c in counts.items():
         if not all(c.values()):
             raise AssertionError(f"{SASS_KERNEL} {key}: SASS counts {c}")
+    return counts
+
+
+def tf32_mma_counts(sass: str):
+    """Count of TF32 ``HMMA`` instructions in each float32 attention
+    kernel of the built library, keyed by ``attn_instance``; raises if one
+    has none."""
+    import re
+
+    counts = {attn_instance(name): len(re.findall(TF32_HMMA, body))
+              for name, body in sass_functions(sass, F32_SASS_KERNEL)}
+    if not counts:
+        raise AssertionError(f"no {F32_SASS_KERNEL} in the library's SASS")
+    for key, c in counts.items():
+        if not c:
+            raise AssertionError(f"{F32_SASS_KERNEL} {key}: no TF32 HMMA")
     return counts
 
 
@@ -713,11 +755,13 @@ def main(argv=None) -> int:
             if "registers" in ln]
     lib_sass = library_sass()
     sass = sass_counts(lib_sass)
+    tf32_sass = tf32_mma_counts(lib_sass)
     reds = red_counts(lib_sass)
     del lib_sass
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": build.build_seconds, "ptxas": regs,
-          "attn_sm90_sass": sass, "edge_block_sum_k1_reductions": reds})
+          "attn_sm90_sass": sass, "attn_tf32_hmma": tf32_sass,
+          "edge_block_sum_k1_reductions": reds})
 
     # -- 3. data -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -846,15 +890,20 @@ def main(argv=None) -> int:
                     "+ 1 producer warpgroup; head dims 8..128 in steps of "
                     "8 on instantiations at 16/32/64/128, TMA zero-filling "
                     "the columns past d",
-            "f32": "flash_attention.cu: float32 FMAs from shared memory, "
+            "f32": "flash_attention.cu: 3xTF32 on mma.sync m16n8k8 (each "
+                   "product as a_s·b_b + a_b·b_s + a_b·b_b, cvt.rna split), "
+                   "4 warps of 16 query rows, 64-key k/v tiles by cp.async "
+                   "double-buffered with zero-fill, q split once into "
+                   "shared memory, P from the S accumulator in registers; "
                    "instantiations at every multiple of 16 up to 128",
-            "sass": sass,
+            "sass": sass, "f32_sass_tf32_hmma": tf32_sass,
         },
         "cases": {c["case"]: {k: c[k] for k in (
             "kernel_ms", "entry_ms", "plain_ms", "bound_ms", "library_ms",
             "max_abs_err")} | {"tol_share": c["check"]["tol_share"],
                                "library_tol_share":
                                    c["library_check"]["tol_share"]}
+                  | {k: c[k] for k in ("fma_bound_ms",) if k in c}
                   for c in attn},
     })
     kernels.append({

@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention_pallas (_kernel) for bfloat16 q, k, v; float32 inputs take
-// the FMA kernel of flash_attention.cu.  It computes what _kernel computes:
+// the 3xTF32 kernel of flash_attention.cu.  It computes what _kernel computes:
 // forward attention with an online softmax, causal or full; a query head's
 // KV head by index, kvh = (bh / Hq)·Hkv + (bh % Hq) / (Hq / Hkv), with no
 // repeated copy; key tiles wholly above a CTA's diagonal skipped; masked

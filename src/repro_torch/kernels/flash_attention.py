@@ -4,8 +4,9 @@ plain PyTorch version.
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py::
 flash_attention_pallas``.  Each dtype has one kernel: bfloat16 the Hopper
 kernel of ``csrc/flash_attention_sm90.cu`` (wgmma and a TMA ring), float32
-the FMA kernel of ``csrc/flash_attention.cu``.  The wrapper checks device,
-dtype, shape and contiguity; on CPU tensors it runs
+the kernel of ``csrc/flash_attention.cu`` (3xTF32 on ``mma.sync``: each
+product as three TF32 tensor-core products, float32 accuracy).  The
+wrapper checks device, dtype, shape and contiguity; on CPU tensors it runs
 :func:`flash_attention_plain`, on CUDA tensors it launches the kernel or
 raises — there is no fallback.  It counts its launches in
 ``flash_attention.launches``.  The kernels' bounds and designs are in the

@@ -367,6 +367,41 @@ def test_flash_attention_bf16_kernel_seams(cuda, b, hq, hkv, s, d, causal):
                                rtol=2.0 ** -7)
 
 
+# (B, Hq, Hkv, S, D): the seams of the float32 3xTF32 kernel — one key and
+# one partial tile (S=1, 17), a ragged last tile whose rows past S belong to
+# the next head in memory (B=2, S=1000: only cp.async's zero-fill keeps them
+# out), a long causal walk through the double buffer (S=4096), 8:1 GQA at
+# D=128 (the instantiation with the most registers), and D=80, which runs
+# the D=80 instantiation
+F32_SEAMS = [
+    (1, 2, 1, 1, 128),
+    (1, 4, 2, 17, 64),
+    (2, 4, 4, 1000, 32),
+    (2, 2, 2, 1000, 128),
+    (1, 2, 1, 4096, 64),
+    (1, 16, 2, 512, 128),
+    (2, 4, 4, 1000, 80),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,hq,hkv,s,d", F32_SEAMS)
+def test_flash_attention_f32_kernel_seams(cuda, b, hq, hkv, s, d, causal):
+    gen = torch.Generator(device=cuda).manual_seed(s + d + hq)
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device=cuda)
+               for h in (hq, hkv, hkv))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    # as in test_flash_attention_kernel_matches_plain (float32 sums in
+    # another order; three TF32 products keep float32's accuracy)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -395,6 +430,21 @@ def test_flash_attention_kernel_refuses_other_head_dims(cuda, d):
     q = torch.zeros((1, 2, 64, d), device=cuda)
     before = fa.flash_attention.launches
     with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention(q, q, q)
+    assert fa.flash_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_kernel_refuses_unaligned_views(cuda, dtype):
+    """Both kernels read 16 bytes at a time (cp.async, TMA): a contiguous
+    view that starts off a 16-byte boundary is refused, not misread."""
+    n = 2 * 64 * 16
+    q = torch.randn(n + 1, device=cuda).to(dtype)[1:].view(1, 2, 64, 16)
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    before = fa.flash_attention.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
         fa.flash_attention(q, q, q)
     assert fa.flash_attention.launches == before
 
