@@ -13,8 +13,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               instructions in each bf16 attention kernel from
               ``cuobjdump -sass`` of the library, and fails if either is
               missing; counts the TF32 ``HMMA`` (``mma.sync`` m16n8k8)
-              instructions in each float32 attention kernel and fails if
-              one has none; fails unless every reduction in the edge-block
+              instructions in each float32 attention kernel and in each
+              SSD chunk kernel (one per head dim P), and fails if one has
+              none; fails unless every reduction in the edge-block
               kernel's sum instantiations at K=1 is one vector ``F32x2``
               (value and count together).
 3. data     — a Graph500-style R-MAT graph (scale 20, edge factor 16,
@@ -69,8 +70,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
               256-long chunk's decay underflows to 0; a second set with dt
               in Mamba2's range 1e-3..1e-1 keeps decay and gate normal
               floats and holds them per element within 1e-4·|want|, and
-              runs the same checks.  No single PyTorch call computes the
-              SSD, so it has no library time.
+              runs the same checks.  The chunk step runs the 3xTF32 kernel
+              (C·Bᵀ once per block of 16 heads, every product as three TF32
+              tensor-core products), so its bound is three TF32 products'
+              flops at 495 TFLOP/s, with the FMA units' bound beside it as
+              ``fma_bound_ms``.  No single PyTorch call computes the SSD,
+              so it has no library time.
 
 Float32 matrix products run in full float32 (TF32 off) throughout.  Then the
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
@@ -93,8 +98,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM bf16 on the tensor cores, dense
 TF32_OPS_PER_S = 495e12     # H100 SXM TF32 on the tensor cores, dense
-# float32 attention takes each matrix product as three TF32 products
-# (csrc/flash_attention.cu: a_s·b_b + a_b·b_s + a_b·b_b)
+# float32 attention and the SSD chunk step take each matrix product as
+# three TF32 products (csrc/tf32.cuh: a_s·b_b + a_b·b_s + a_b·b_b)
 TF32_PRODUCTS = 3
 # Sum merges: kernel and plain version add the same non-negative float32
 # messages in different orders (a kernel's run walk or atomics against the
@@ -126,8 +131,10 @@ LIVE_MIN = 1e-30    # a per-element relative check needs |want| above this
 # instructions that show it runs on wgmma and TMA loads
 SASS_KERNEL = "attn_sm90_kernel"
 SASS_OPS = ("HGMMA", "UTMALDG")
-# the float32 attention kernel and its mma.sync m16n8k8 TF32 instructions
+# the float32 attention kernel, the SSD chunk kernel, and their mma.sync
+# m16n8k8 TF32 instructions
 F32_SASS_KERNEL = "attn_tf32_kernel"
+SSD_SASS_KERNEL = "ssd_chunk_kernel"
 TF32_HMMA = r"\bHMMA\.[0-9A-Z.]*TF32"
 # the edge-block kernel's instantiations for the sum monoid at K=1 (any
 # message function: edge_block_kernel<OP, kSum=0, KT=1>) and the vector
@@ -507,19 +514,28 @@ def sass_counts(sass: str):
     return counts
 
 
-def tf32_mma_counts(sass: str):
-    """Count of TF32 ``HMMA`` instructions in each float32 attention
-    kernel of the built library, keyed by ``attn_instance``; raises if one
-    has none."""
+def ssd_instance(name: str) -> str:
+    """An SSD chunk kernel's template argument from its mangled name:
+    "P<head dim>"."""
     import re
 
-    counts = {attn_instance(name): len(re.findall(TF32_HMMA, body))
-              for name, body in sass_functions(sass, F32_SASS_KERNEL)}
+    return "P" + re.search(r"ILi(\d+)EE", name).group(1)
+
+
+def tf32_mma_counts(sass: str, kernel: str = F32_SASS_KERNEL,
+                    instance=attn_instance):
+    """Count of TF32 ``HMMA`` instructions in each instantiation of
+    ``kernel`` in the built library, keyed by ``instance`` of its name;
+    raises if there is none or one has none."""
+    import re
+
+    counts = {instance(name): len(re.findall(TF32_HMMA, body))
+              for name, body in sass_functions(sass, kernel)}
     if not counts:
-        raise AssertionError(f"no {F32_SASS_KERNEL} in the library's SASS")
+        raise AssertionError(f"no {kernel} in the library's SASS")
     for key, c in counts.items():
         if not c:
-            raise AssertionError(f"{F32_SASS_KERNEL} {key}: no TF32 HMMA")
+            raise AssertionError(f"{kernel} {key}: no TF32 HMMA")
     return counts
 
 
@@ -651,6 +667,7 @@ def phase_ssd(seed):
     nbytes = 4 * (2 * b * s * h * p + b * nc * h * n * p + 2 * b * s * h
                   + 2 * b * s * g * n + b * nc * h + h)
     every = {**checks, **{f"live_{k}": v for k, v in live_checks.items()}}
+    tc_ops = TF32_PRODUCTS * ops_count
     return dict(
         phase="ssd", case="mamba2-1.3b/f32", launches=launches,
         first_call_s=first_s, sequential_reference_s=seq_s,
@@ -660,8 +677,12 @@ def phase_ssd(seed):
         kernel_ms=kernel_ms, entry_ms=entry_ms, plain_ms=plain_ms,
         library_ms=None,
         library_note="no single PyTorch call computes the SSD chunk step",
-        bytes=nbytes, ops=ops_count, ops_per_s=F32_OPS_PER_S,
-        **bound(nbytes, ops_count))
+        bytes=nbytes, ops=ops_count, ops_per_s=TF32_OPS_PER_S,
+        tensor_core_ops=tc_ops,
+        bound_basis=f"{TF32_PRODUCTS} TF32 products per matrix product at "
+                    f"{TF32_OPS_PER_S:.3g} flop/s",
+        fma_bound_ms=bound(nbytes, ops_count)["bound_ms"],
+        **bound(nbytes, tc_ops, TF32_OPS_PER_S))
 
 
 def run_e2e(label, graph, program, daemon, model, parts, ref_state, sum_tol,
@@ -756,12 +777,13 @@ def main(argv=None) -> int:
     lib_sass = library_sass()
     sass = sass_counts(lib_sass)
     tf32_sass = tf32_mma_counts(lib_sass)
+    ssd_sass = tf32_mma_counts(lib_sass, SSD_SASS_KERNEL, ssd_instance)
     reds = red_counts(lib_sass)
     del lib_sass
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": build.build_seconds, "ptxas": regs,
           "attn_sm90_sass": sass, "attn_tf32_hmma": tf32_sass,
-          "edge_block_sum_k1_reductions": reds})
+          "ssd_tf32_hmma": ssd_sass, "edge_block_sum_k1_reductions": reds})
 
     # -- 3. data -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -915,6 +937,16 @@ def main(argv=None) -> int:
         "ms": ssd_rec["kernel_ms"], "plain_ms": ssd_rec["plain_ms"],
         "bound_ms": ssd_rec["bound_ms"], "bound_by": ssd_rec["bound_by"],
         "library_ms": None, "entry_ms": ssd_rec["entry_ms"],
+        "fma_bound_ms": ssd_rec["fma_bound_ms"],
+        "design": "ssd_scan.cu: 3xTF32 on mma.sync m16n8k8 (each product "
+                  "as a_s·b_b + a_b·b_s + a_b·b_b), 256 threads a CTA; one "
+                  "launch of y CTAs (batch, chunk, group, block of 16 "
+                  "heads, 64 target rows; heaviest first) that form C·Bᵀ "
+                  "once into shared memory and W = C·Bᵀ ∘ gate ∘ dt per head "
+                  "in registers, then state CTAs (batch, chunk, head, 128 "
+                  "state rows); tiles by cp.async, double-buffered, "
+                  "zero-filled past L and N",
+        "sass_tf32_hmma": ssd_sass,
     })
     emit({"kernels": kernels})
     print(smi, flush=True)

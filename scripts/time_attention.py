@@ -21,7 +21,8 @@ built into that checkout's ``build/``), so two checkouts can be compared in
 one call, in turns (A, B, B, A).  Exits 2 without a GPU.
 
 The second form copies SRC_ROOT's ``src/repro_torch`` to DEST_ROOT and
-patches the float32 kernel (``csrc/flash_attention.cu``) into a cut-down or
+patches the float32 kernel (``csrc/flash_attention.cu`` and the split in
+``csrc/tf32.cuh``, which the SSD kernel shares) into a cut-down or
 altered copy, to see where its time goes (``CUTS`` below names them and
 says which are wrong on purpose); each patch fails loudly on a source it
 does not fit.  Time the copy with ``PYTHONPATH=DEST_ROOT/src``.
@@ -47,6 +48,8 @@ CASES = ((1, 64, 8, 4096, 128, True, "bfloat16"),
 TOLERANCE = {"bfloat16": (2.0 ** -7, 1e-5), "float32": (0.0, 2e-5)}
 
 _F32 = "kernels/csrc/flash_attention.cu"
+# the split and mma3, shared with the SSD kernel
+_TF32 = "kernels/csrc/tf32.cuh"
 _SPLIT = ("  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
           "  small = __float_as_uint(x - __uint_as_float(big));\n")
 _KEY_TILE = ("  return smem_bytes(D, 64) <= kSmemFor2   ? 64\n"
@@ -57,20 +60,20 @@ _KEY_TILE = ("  return smem_bytes(D, 64) <= kSmemFor2   ? 64\n"
 CUTS = {
     # the split by cvt.rna.tf32.f32 for big and for small (right, not cut:
     # the rounding the integer split reproduces, as PTX spells it)
-    "f32_cvt_rna": [(_F32, _SPLIT,
+    "f32_cvt_rna": [(_TF32, _SPLIT,
                      "  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(big) : "
                      "\"f\"(x));\n  big &= 0xffffe000u;\n"
                      "  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(small) "
                      ": \"f\"(x - __uint_as_float(big)));\n")],
     # small rounded to nearest as well, by the same two integer instructions
     # (right: the split the CPU emulation's round_tf32 describes for both)
-    "f32_round_small": [(_F32, _SPLIT,
+    "f32_round_small": [(_TF32, _SPLIT,
                          "  big = (__float_as_uint(x) + 0x1000u) & "
                          "0xffffe000u;\n  small = (__float_as_uint(x - "
                          "__uint_as_float(big)) + 0x1000u) & 0xffffe000u;\n")],
     # big truncated, one instruction (right to ~2^-20, not the rounding
     # chosen)
-    "f32_trunc": [(_F32, _SPLIT,
+    "f32_trunc": [(_TF32, _SPLIT,
                    "  big = __float_as_uint(x) & 0xffffe000u;\n"
                    "  small = __float_as_uint(x - __uint_as_float(big));\n")],
     # softmax by expf (right: the FMA kernel's exp)
@@ -80,7 +83,7 @@ CUTS = {
     "f32_no_pv": [(_F32, "        mma3(o[j], pb, ps, bb0, bb1, bs0, bs1);\n",
                    "")],
     # two products, a_s·b_b left out (wrong on purpose: TF32 accuracy on a)
-    "f32_two_products": [(_F32, "  mma(c, as, bb0, bb1);\n", "")],
+    "f32_two_products": [(_TF32, "  mma(c, as, bb0, bb1);\n", "")],
     # one key-tile size at every head dim (right)
     "f32_key_tile_64": [(_F32, _KEY_TILE, "  return 64;\n")],
     "f32_key_tile_32": [(_F32, _KEY_TILE, "  return 32;\n")],

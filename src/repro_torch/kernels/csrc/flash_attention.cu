@@ -73,6 +73,7 @@
 #include <cstdint>
 
 #include "flash_attention.cuh"
+#include "tf32.cuh"
 
 namespace gxattn {
 namespace {
@@ -114,59 +115,14 @@ struct Smem {
   static_assert(kBytes == smem_bytes(D, kBK), "layout and size agree");
 };
 
-// ---- the split and the PTX wrappers -------------------------------------
-// x = big + small.  big is x rounded to TF32 as cvt.rna.tf32.f32 rounds a
-// finite value (nearest, ties away from zero: add half a TF32 ulp to the
-// bits and clear the low 13), in two integer instructions; cvt.rna itself
-// is emulated in about five on sm_90, with its inf and NaN checks.  small =
-// x - big is exact in float32, and the tensor cores read its top 19 bits.
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-// 2^x (ex2.approx: ~2 ulp; the MUFU without exp2f's range handling).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a·b at float32 accuracy: a_s·b_b + a_b·b_s + a_b·b_b.
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ab)[4],
-                                     const uint32_t (&as)[4], uint32_t bb0,
-                                     uint32_t bb1, uint32_t bs0,
-                                     uint32_t bs1) {
-  mma(c, as, bb0, bb1);
-  mma(c, ab, bs0, bs1);
-  mma(c, ab, bb0, bb1);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool in) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+// The split, mma/mma3, exp2_approx and the cp.async copies are in
+// tf32.cuh, shared with ssd_scan.cu.
+using gxtf32::cp_async16;
+using gxtf32::cp_async_commit;
+using gxtf32::cp_async_wait;
+using gxtf32::exp2_approx;
+using gxtf32::mma3;
+using gxtf32::split;
 
 // One kBK-row k or v tile from row k0 on, by 16-byte cp.async; rows past S
 // and columns past d are zero-filled (nothing is read for them).

@@ -72,9 +72,13 @@ def ssd_chunk(x, dt, a, b_mat, c_mat):
       b_mat/c_mat (B, NC, L, G, N) with H % G == 0 — head ``h`` reads group
       ``h // (H // G)``; G == H is the JAX kernel's heads-expanded layout.
     Returns: y (B, NC, L, H, P), state (B, NC, H, N, P), decay (B, NC, H),
-    carry gate (B, NC, L, H), all float32.  On the card a chunk whose tiles
-    do not fit in shared memory (L=256 at P=N=128 uses 116 KiB) is refused
-    by the C entry, as a RuntimeError.
+    carry gate (B, NC, L, H), all float32.  On the card one call is one
+    launch of ``csrc/ssd_scan.cu``, whose y CTAs and state CTAs run side by
+    side.  Its shared memory grows with L and P, not N (L=256 uses 108 KiB
+    at P=64, 140 KiB at P=128); a chunk that does not fit the card's
+    227 KiB (L > 704 at P=64) is refused by the C entry, as a RuntimeError,
+    before anything launches.  Views that do not start on 16 bytes, and N
+    not a multiple of 4, are read one float at a time.
     """
     bsz, nc, l, h, p, g, n = _check(x, dt, a, b_mat, c_mat)
     if x.device.type == "cpu":
@@ -84,10 +88,9 @@ def ssd_chunk(x, dt, a, b_mat, c_mat):
     if p not in HEAD_DIMS:
         raise ValueError(f"ssd_chunk's CUDA kernel takes head dims "
                          f"P in {HEAD_DIMS}, got P={p}")
-    if l < 1 or n < 1 or h > 65535 or bsz > 65535:
-        raise ValueError(f"ssd_chunk's CUDA kernel needs L >= 1, N >= 1 and "
-                         f"H, B <= 65535 (its grid is (NC, H, B)); got "
-                         f"L={l}, N={n}, H={h}, B={bsz}")
+    if l < 1 or n < 1:
+        raise ValueError(f"ssd_chunk's CUDA kernel needs L >= 1 and N >= 1; "
+                         f"got L={l}, N={n}")
     dev = x.device
     y = torch.empty((bsz, nc, l, h, p), dtype=torch.float32, device=dev)
     state = torch.empty((bsz, nc, h, n, p), dtype=torch.float32, device=dev)

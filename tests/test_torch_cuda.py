@@ -502,6 +502,66 @@ def test_ssd_chunk_kernel_matches_plain(cuda, chunk, groups, h, p, n, dt):
                           live=dt == "mamba2" and name in ("decay", "gate"))
 
 
+# (label, B, NC, L, H, P, G, N): the 3xTF32 kernel's seams — N not a
+# multiple of 8 (and of 4: rows read one float at a time), chunks that are
+# not whole 64-row tiles, head blocks (R = min(8, H/G) heads sharing one
+# C·Bᵀ panel) inside groups, a partial last head block, N past one 64-row
+# state block and past any one stage, and mamba2-1.3b's shape
+SSD_SEAMS = [("n5", 2, 2, 96, 4, 32, 1, 5),
+             ("n12-g2", 2, 2, 64, 4, 64, 2, 12),
+             ("l1", 2, 3, 1, 4, 32, 1, 16),
+             ("l17", 2, 3, 17, 4, 16, 4, 8),
+             ("h8-g2", 1, 2, 128, 8, 32, 2, 16),
+             ("h6-g1", 1, 2, 128, 6, 32, 1, 16),
+             ("h12-g1-partial", 1, 2, 160, 12, 16, 1, 8),
+             ("n1000", 1, 1, 128, 2, 32, 1, 1000),
+             ("mamba2-1.3b", 1, 2, 256, 64, 64, 1, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["softplus", "mamba2"])
+@pytest.mark.parametrize("label,b,nc,l,h,p,g,n", SSD_SEAMS,
+                         ids=[c[0] for c in SSD_SEAMS])
+def test_ssd_chunk_kernel_seams(cuda, label, b, nc, l, h, p, g, n, dt):
+    arrs = _ssd_chunk_inputs(cuda, l + h + n, b, nc, l, h, p, g, n, dt)
+    before = ssd.ssd_chunk.launches
+    got = ssd.ssd_chunk(*arrs)
+    want = ssd.ssd_chunk_plain(*arrs)
+    torch.cuda.synchronize()
+    assert ssd.ssd_chunk.launches == before + 1
+    for name, gt, wt in zip(("y", "state", "decay", "gate"), got, want):
+        assert gt.shape == wt.shape, name
+        _assert_f32_close(gt, wt, f"{label} {name}",
+                          live=dt == "mamba2" and name in ("decay", "gate"))
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_kernel_reads_unaligned_views(cuda):
+    """Inputs that start 4 bytes past a 16-byte boundary are read one float
+    at a time, and give the same result."""
+    arrs = [_unaligned(t) for t in _ssd_chunk_inputs(cuda, 7, 2, 2, 96, 4,
+                                                      32, 2, 16)]
+    assert all(t.is_contiguous() for t in arrs)
+    assert arrs[0].data_ptr() % 16 != 0 and arrs[3].data_ptr() % 16 != 0
+    got = ssd.ssd_chunk(*arrs)
+    want = ssd.ssd_chunk_plain(*arrs)
+    torch.cuda.synchronize()
+    for name, gt, wt in zip(("y", "state", "decay", "gate"), got, want):
+        _assert_f32_close(gt, wt, name)
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_kernel_refuses_chunk_over_shared_memory(cuda):
+    """The kernel's shared memory grows with L (its C·Bᵀ panel) and not
+    with N: a 1024-long chunk needs more than 227 KiB a CTA and is refused
+    before anything launches."""
+    arrs = _ssd_chunk_inputs(cuda, 0, 1, 1, 1024, 2, 64, 1, 8)
+    before = ssd.ssd_chunk.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ssd.ssd_chunk(*arrs)
+    assert ssd.ssd_chunk.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dts", ["softplus", "mamba2"])
 @pytest.mark.parametrize("g", [1, 4])
