@@ -39,6 +39,39 @@ Phases, each printing one JSON line; any failure exits non-zero:
               composition first runs one warm-up iteration (set-up: the
               daemon's CSR compaction); the launch counters are zeroed just
               before the timed run and must be non-zero after it.
+5b. fused   — the device-resident fused loop on the same graph, shards and
+              references: ``daemon="sharded"`` + ``upper="mesh"`` drives
+              ``DriveLoop``.  pagerank (10 iterations, BSP) and sssp_bf (to
+              its fixed point, GAS) through ``ShardedDaemon(kernel="cuda")``,
+              and sssp_bf (BSP) through ``ShardedDaemon(kernel=
+              "reference")``.  Each fails unless the middleware chose the
+              fused loop and every record says ``fused``, unless its state
+              matches ``run_reference`` (sssp bit-equal, pagerank within
+              rtol/atol below, same iteration count), and, for
+              ``kernel="cuda"``, unless ``csr_tile`` launched exactly once an
+              iteration (one launch over all 4 shards' stacked tiles).  It
+              prints ``init_s`` (the middleware's construction: stacking,
+              compaction and placement), ``setup_s`` (that and one warm-up
+              iteration), ``per_iteration_s`` beside the host loop's for the
+              same program in phase 5, launches per iteration and the
+              device→host fetches per iteration (calls that bring a CUDA
+              tensor to the host, counted by size).  Then, for each run,
+              ``profile``: ``torch.profiler`` over one more run — device
+              time per CUDA kernel, memset and memcpy an iteration (the
+              top 8), their sum, and the device's idle share of the
+              profiled and of the timed run's wall time; and for
+              ``kernel="cuda"`` ``parts_ms``: the step cut into its parts
+              at the first iteration's inputs, each timed alone (mask,
+              index casts, gathers, ``csr_tile``, the cross-tile combine,
+              ``merge_partials``, apply, the fetch, the whole step), beside
+              altered parts that compute the same values: the combine over
+              only the rows that received a message
+              (``padded_row_share`` is the rest), and the gathers by
+              ``index_select`` and as K scalar gathers.  Then ``csr_tile``
+              against its plain version at the fused loop's shape (all
+              shards' tiles stacked, S·nt of them, dead tiles included),
+              as in phase 4; this is the CSR tile's main case in the
+              ``kernels`` line.
 
 6. attention — a qwen2-72b attention layer at ``train_4k`` (B=1, Hq=64,
               Hkv=8, S=4096, D=128, bf16, causal) through
@@ -84,6 +117,7 @@ Float32 matrix products run in full float32 (TF32 off) throughout.  Then the
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -251,13 +285,16 @@ def library_merge_ms(parts, monoid):
         for out, idx, vals in calls])
 
 
-def phase_csr_tile(ts, program, state, aux, active, label):
+def phase_csr_tile(tiles, program, state, aux, active, label):
+    """``tiles``: the per-tile arrays (``CSRTileSet.arrays()`` layout, numpy
+    or device tensors) of one shard, or of all shards stacked as the fused
+    loop launches them."""
     import torch
 
     from repro_torch.kernels import edge_block as ebk
 
     dev = state.device
-    csr = {k: torch.from_numpy(v).to(dev) for k, v in ts.arrays().items()}
+    csr = {k: torch.as_tensor(v, device=dev) for k, v in tiles.items()}
     svids = csr["svids"].long()
     vsrc = state[svids].contiguous()
     vaux = aux[svids].contiguous()
@@ -685,8 +722,196 @@ def phase_ssd(seed):
         **bound(nbytes, tc_ops, TF32_OPS_PER_S))
 
 
+# the tensor methods that bring a tensor to the host (``to`` only when its
+# target is the CPU)
+FETCHES = ("cpu", "tolist", "item", "__bool__", "__int__", "__float__",
+           "__index__")
+
+
+@contextlib.contextmanager
+def counting_fetches(calls: list):
+    """Appends (method, numel) to ``calls`` for each call that brings a CUDA
+    tensor to the host, while the block runs."""
+    import torch
+
+    def counted(name, orig):
+        def method(self, *args, **kwargs):
+            if self.is_cuda:
+                calls.append((name, self.numel()))
+            return orig(self, *args, **kwargs)
+        return method
+
+    def to(self, *args, **kwargs):
+        target = kwargs.get("device", args[0] if args else None)
+        if (self.is_cuda and isinstance(target, (str, torch.device))
+                and torch.device(target).type == "cpu"):
+            calls.append(("to", self.numel()))
+        return saved["to"](self, *args, **kwargs)
+
+    saved = {name: getattr(torch.Tensor, name) for name in FETCHES + ("to",)}
+    try:
+        for name in FETCHES:
+            setattr(torch.Tensor, name, counted(name, saved[name]))
+        torch.Tensor.to = to
+        yield calls
+    finally:
+        for name, orig in saved.items():
+            setattr(torch.Tensor, name, orig)
+
+
+def fused_profile(mw) -> dict:
+    """Device time per CUDA kernel (and memset/memcpy) per iteration over
+    one run, and the device's busy and idle share of its wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = mw.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    its = res.iterations
+    per_kernel = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if us:
+            per_kernel[ev.key[:100]] = us / its
+    busy_s = sum(per_kernel.values()) * 1e-6 * its
+    top = dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8])
+    return {"iterations": its, "wall_s": wall,
+            "device_busy_s_per_iteration": busy_s / its,
+            "device_idle_share": 1.0 - busy_s / wall,
+            "kernels": len(per_kernel),
+            "top_device_us_per_iteration": top}
+
+
+def fused_parts_ms(mw, state, aux, active) -> dict:
+    """The fused step's parts at one iteration's inputs, each timed alone."""
+    import torch
+
+    from repro_torch.core.template import segment_sum
+    from repro_torch.kernels import edge_block as ebk
+    from repro_torch.kernels import ops
+    from repro_torch.plug.daemons import _CSR_FIELDS
+    from repro_torch.plug.middleware import apply_step
+
+    prog, n, k = mw.program, mw.n, mw.program.state_width
+    monoid = prog.monoid
+    loop = mw._loop
+    stacked = mw.daemon.stacked
+    c = stacked["csr"]
+    act = active if loop._use_frontier else None
+
+    def mask():
+        em = c["emask"] & act[c["gsrc"]] if act is not None else c["emask"]
+        return em, em.any(dim=2).sum(dim=1, dtype=torch.int32)
+
+    em, _ = mask()
+    csr = {f: c[f].flatten(0, 1) for f in _CSR_FIELDS}
+    csr["emask"] = em.flatten(0, 1)
+    aux1 = ops._pad_aux(state, aux)
+
+    def casts():
+        return (csr["svids"].long(), csr["rows"].long(),
+                csr["emask"].to(torch.float32))
+
+    svids, rows, emf = casts()
+
+    def gather():
+        return state[svids], aux1[svids]
+
+    vsrc, vaux = gather()
+    # as csr_aggregate hands it: only the plain version reads dst rows
+    rowst = (state[rows] if state.device.type == "cpu"
+             else state.new_zeros(()).expand(*rows.shape, k))
+
+    def kernel():
+        return ebk.csr_tile(vsrc, vaux, rowst, csr["lsrc"], csr["seg"],
+                            csr["w"], emf, program=prog)
+
+    partial, counts = kernel()
+    flat = rows.reshape(-1)
+
+    def combine():
+        agg = monoid.segment_reduce(partial.reshape(-1, k), flat, n)
+        cnt = segment_sum(counts.reshape(-1), flat, n)
+        return torch.where((cnt > 0)[:, None], agg,
+                           torch.full_like(agg, monoid.identity)), cnt
+
+    agg, cnt = combine()
+    live = torch.nonzero(counts.reshape(-1) > 0).reshape(-1)
+    live_rows = flat[live]
+
+    def combine_live_rows():
+        agg = monoid.segment_reduce(partial.reshape(-1, k)[live], live_rows,
+                                    n)
+        cnt = segment_sum(counts.reshape(-1)[live], live_rows, n)
+        return torch.where((cnt > 0)[:, None], agg,
+                           torch.full_like(agg, monoid.identity)), cnt
+
+    agg_live, cnt_live = combine_live_rows()
+    if not (torch.equal(cnt_live, cnt) and (
+            torch.equal(agg_live, agg) if monoid.idempotent
+            else torch.allclose(agg_live, agg, rtol=SUM_RTOL,
+                                atol=SUM_ATOL))):
+        raise AssertionError("fused parts: the combine over live rows "
+                             "differs from the combine")
+
+    def gather_index_select():
+        flat_ids = svids.reshape(-1)
+        return (state.index_select(0, flat_ids).view(*svids.shape, k),
+                aux1.index_select(0, flat_ids).view(*svids.shape, -1))
+
+    cols = torch.arange(k, device=state.device)
+    acols = torch.arange(aux1.shape[1], device=state.device)
+
+    def gather_flat():
+        ids = svids[..., None]
+        return (state.reshape(-1)[ids * k + cols],
+                aux1.reshape(-1)[ids * aux1.shape[1] + acols])
+
+    for variant in (gather_index_select, gather_flat):
+        if not all(torch.equal(a, b) for a, b in zip(variant(), gather())):
+            raise AssertionError(f"fused parts: {variant.__name__} differs "
+                                 "from the gathers")
+
+    def merge():
+        return mw.upper.merge_partials(agg[None], cnt[None])
+
+    def apply():
+        new, new_active = apply_step(prog, state, agg, cnt > 0, aux, 1)
+        n_active = new_active.sum()
+        return torch.cat([torch.stack([(n_active == 0).long(), n_active]),
+                          torch.zeros(SHARDS, dtype=torch.long,
+                                      device=state.device)])
+
+    flags = apply()
+    return {
+        "mask_and_tiles_run": cuda_time_ms(mask),
+        "index_casts": cuda_time_ms(casts),
+        "gathers": cuda_time_ms(gather),
+        "csr_tile": cuda_time_ms(kernel),
+        "cross_tile_combine": cuda_time_ms(combine),
+        "cross_tile_combine_live_rows": cuda_time_ms(combine_live_rows),
+        "padded_row_share": 1.0 - live.numel() / flat.numel(),
+        "gathers_index_select": cuda_time_ms(gather_index_select),
+        "gathers_flat": cuda_time_ms(gather_flat),
+        "merge_partials": cuda_time_ms(merge),
+        "apply_and_flags": cuda_time_ms(apply),
+        "fetch": cuda_time_ms(flags.tolist),
+        "whole_step": cuda_time_ms(lambda: loop._advance(
+            state, active, aux, 1, stacked)[2].tolist()),
+        "tiles": int(c["lsrc"].shape[0] * c["lsrc"].shape[1]),
+        "ET": int(c["lsrc"].shape[2]), "RT": int(c["rows"].shape[2]),
+        "ST": int(c["svids"].shape[2]),
+    }
+
+
 def run_e2e(label, graph, program, daemon, model, parts, ref_state, sum_tol,
-            device="cuda"):
+            device="cuda", upper="host"):
     import numpy as np
     import torch
 
@@ -694,16 +919,24 @@ def run_e2e(label, graph, program, daemon, model, parts, ref_state, sum_tol,
     from repro_torch.kernels import edge_block as ebk
 
     t0 = time.perf_counter()
-    mw = plug.Middleware(graph, program, daemon=daemon, model=model,
-                         partitions=parts, device=device)
+    mw = plug.Middleware(graph, program, daemon=daemon, upper=upper,
+                         model=model, partitions=parts, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     # one warm-up iteration: the daemon compacts each shard's CSR tiles on
-    # its first call, which is set-up and stays out of the timed run
+    # its first call (the fused daemon in the constructor), which is set-up
+    # and stays out of the timed run
     mw.run(max_iterations=1)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    fetches: list = []
     ebk.edge_block.launches = 0
     ebk.csr_tile.launches = 0
-    res = mw.run()
+    if mw._fused:
+        with counting_fetches(fetches):
+            res = mw.run()
+    else:
+        res = mw.run()
     torch.cuda.synchronize()
     launches = {"edge_block": ebk.edge_block.launches,
                 "csr_tile": ebk.csr_tile.launches}
@@ -722,8 +955,17 @@ def run_e2e(label, graph, program, daemon, model, parts, ref_state, sum_tol,
         if not np.allclose(state, ref_state, rtol=rtol, atol=atol):
             raise AssertionError(f"{label}: outside rtol={rtol} atol={atol} "
                                  f"of run_reference (max abs {max_abs})")
-    return res, launches, dict(
-        phase="e2e", run=label, setup_s=setup_s, iterations=res.iterations,
+    its = max(res.iterations, 1)
+    fused = {}
+    if mw._fused:
+        big = [c for c in fetches if c[1] >= graph.num_vertices]
+        fused = dict(fused_kind=mw._fused_kind, init_s=init_s,
+                     fetches_per_iteration=(len(fetches) - len(big)) / its,
+                     vertex_sized_fetches=len(big),
+                     fetch_methods=sorted({c[0] for c in fetches}))
+    return res, launches, mw, dict(
+        phase="e2e", run=label, **fused, setup_s=setup_s,
+        iterations=res.iterations,
         converged=res.converged, wall_s=res.wall_time,
         per_iteration_s=res.wall_time / max(res.iterations, 1),
         daemon_busy_s=sum(sum(r.get("shard_busy_s", ()))
@@ -820,7 +1062,7 @@ def main(argv=None) -> int:
     all_active = torch.ones(n, dtype=torch.bool, device=dev)
     cases = []
     for fn, shape, kw, suffix in (
-            (phase_csr_tile, ts, {}, ""),
+            (phase_csr_tile, ts.arrays(), {}, ""),
             (phase_edge_block, bs, {}, ""),
             (phase_edge_block, bs, {"per_block": True}, "/nb1")):
         for prog, st, ax, act, label in (
@@ -845,9 +1087,10 @@ def main(argv=None) -> int:
              "csr_tile"),
             ("sssp_bf/blocked-cuda/bsp", sp, plug.BlockedDaemon(kernel="cuda"),
              "bsp", sp_ref, None, "edge_block"))
+    host_per_it = {}
     for label, prog, daemon, model, ref, tol, kernel in runs:
-        res, launches, rec = run_e2e(label, g, prog, daemon, model, parts,
-                                     ref, tol)
+        res, launches, _, rec = run_e2e(label, g, prog, daemon, model, parts,
+                                        ref, tol)
         if prog is pr and res.iterations != pr_ref_it:
             raise AssertionError(f"{label}: {res.iterations} iterations, "
                                  f"reference ran {pr_ref_it}")
@@ -856,6 +1099,76 @@ def main(argv=None) -> int:
         emit(rec)
         for k, v in launches.items():
             e2e_launches[k] += v
+        if daemon == "cuda":
+            host_per_it[prog.name] = (label, rec["per_iteration_s"])
+
+    # -- 5b. the device-resident fused loop --------------------------------
+    fused_launches = {"edge_block": 0, "csr_tile": 0}
+    stacked_tiles = None
+    fused_runs = (
+        ("pagerank/sharded-cuda/mesh/bsp", pr, "cuda", "bsp", pr_ref,
+         (PR_RTOL, PR_ATOL)),
+        ("sssp_bf/sharded-cuda/mesh/gas", sp, "cuda", "gas", sp_ref, None),
+        ("sssp_bf/sharded-reference/mesh/bsp", sp, "reference", "bsp",
+         sp_ref, None))
+    for label, prog, kernel, model, ref, tol in fused_runs:
+        res, launches, mw, rec = run_e2e(
+            label, g, prog, plug.get_daemon("sharded", kernel=kernel), model,
+            parts, ref, tol, upper="mesh")
+        if mw._fused_kind != "bsp" or not all(
+                r.get("fused") for r in res.per_iteration):
+            raise AssertionError(f"{label}: ran the host loop, not the fused "
+                                 f"one (_fused_kind={mw._fused_kind!r})")
+        if prog is pr and res.iterations != pr_ref_it:
+            raise AssertionError(f"{label}: {res.iterations} iterations, "
+                                 f"reference ran {pr_ref_it}")
+        want = res.iterations if kernel == "cuda" else 0
+        if launches["csr_tile"] != want or launches["edge_block"] != 0:
+            raise AssertionError(f"{label}: launches {launches} over "
+                                 f"{res.iterations} iterations, expected "
+                                 f"csr_tile {want}")
+        if rec["vertex_sized_fetches"] != 1 or \
+                rec["fetches_per_iteration"] != 1:
+            raise AssertionError(f"{label}: device→host fetches "
+                                 f"{rec['fetches_per_iteration']} an "
+                                 f"iteration and {rec['vertex_sized_fetches']}"
+                                 " vertex-sized, expected 1 and 1")
+        host_label, host_s = host_per_it[prog.name]
+        per_it = rec["per_iteration_s"]
+        prof = fused_profile(mw)
+        rec.update(phase="fused", host_loop_run=host_label,
+                   host_loop_per_iteration_s=host_s,
+                   host_over_fused=host_s / per_it, profile=prof,
+                   # the profiler slows the host: the busy time against
+                   # the unprofiled run's wall time too
+                   device_idle_share_unprofiled=(
+                       1.0 - prof["device_busy_s_per_iteration"] / per_it))
+        if kernel == "cuda":
+            state0, aux0 = prog.init(g)
+            rec["parts_ms"] = fused_parts_ms(
+                mw, torch.as_tensor(state0, device=dev),
+                torch.as_tensor(aux0, device=dev),
+                torch.ones(n, dtype=torch.bool, device=dev))
+        emit(rec)
+        for k, v in launches.items():
+            fused_launches[k] += v
+            e2e_launches[k] += v
+        if kernel == "cuda" and stacked_tiles is None:
+            # all shards' tiles as the fused loop hands them to csr_tile
+            stacked_tiles = {k: v.flatten(0, 1) for k, v in
+                             mw.daemon.stacked["csr"].items()}
+        del mw
+        torch.cuda.empty_cache()
+    # the CSR tile at the fused loop's shape: S·nt stacked tiles, the
+    # smaller shards ending in whole dead tiles
+    for prog, st, ax, act, label in (
+            (pr, pr_state, pr_aux, all_active, "pagerank_sum_k1/fused"),
+            (sp, sp_state, sp_aux, sp_active, "sssp_min_k4/fused")):
+        rec = phase_csr_tile(stacked_tiles, prog, st, ax, act, label)
+        emit({"phase": "kernel", **rec})
+        cases.append(rec)
+    del stacked_tiles
+    torch.cuda.empty_cache()
 
     # -- 6. attention at qwen2-72b width (and whisper-base's head dim) -----
     attn = []
@@ -876,9 +1189,11 @@ def main(argv=None) -> int:
         "edge_block": ("src/repro_torch/kernels/csrc/edge_block.cu",
                        "src/repro/kernels/edge_block.py:81"),
     }
-    # the case at the shape the main path launches: every tile at once for
-    # the CSR tile, one block per launch for the edge block
-    main_case = {"csr_tile": "sssp_min_k4", "edge_block": "sssp_min_k4/nb1"}
+    # the case at the shape the main path launches: every shard's tiles at
+    # once (the fused loop) for the CSR tile, one block per launch for the
+    # edge block
+    main_case = {"csr_tile": "sssp_min_k4/fused",
+                 "edge_block": "sssp_min_k4/nb1"}
     kernels = []
     for name, (source, replaces) in sources_of.items():
         mine = [c for c in cases if c["kernel"] == name]
@@ -886,6 +1201,7 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": e2e_launches[name],
+            "launches_fused": fused_launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],

@@ -262,3 +262,29 @@ def tiles_from_blockset(bs: BlockSet, num_vertices: int, *,
     blk = np.repeat(np.arange(bs.num_blocks, dtype=np.int32), bs.block_size)
     return build_csr_tiles(src, dst, w, num_vertices, edge_tile=edge_tile,
                            hub_threshold=hub_threshold, eblock=blk[live])
+
+
+def pad_tileset(ts: CSRTileSet, *, num_tiles: int, row_tile: int,
+                src_tile: int) -> CSRTileSet:
+    """Pads a tile set to a common (nt, RT, ST) envelope (dead tiles /
+    slots), so per-shard tile sets stack rectangularly on a shard axis.
+    Dead slots follow the padding convention above; ``eblock`` reads -1
+    there."""
+    if (num_tiles < ts.num_tiles or row_tile < ts.row_tile
+            or src_tile < ts.src_tile):
+        raise ValueError(
+            f"pad target ({num_tiles},{row_tile},{src_tile}) smaller than "
+            f"({ts.num_tiles},{ts.row_tile},{ts.src_tile})")
+
+    def pad(a, tile_dim, fill=0):
+        out = np.full((num_tiles, tile_dim, *a.shape[2:]), fill, a.dtype)
+        out[: a.shape[0], : a.shape[1]] = a
+        return out
+
+    return dataclasses.replace(
+        ts, num_tiles=num_tiles, row_tile=row_tile, src_tile=src_tile,
+        rows=pad(ts.rows, row_tile), seg=pad(ts.seg, ts.edge_tile),
+        lsrc=pad(ts.lsrc, ts.edge_tile), svids=pad(ts.svids, src_tile),
+        w=pad(ts.w, ts.edge_tile), emask=pad(ts.emask, ts.edge_tile),
+        gsrc=pad(ts.gsrc, ts.edge_tile), gdst=pad(ts.gdst, ts.edge_tile),
+        eblock=pad(ts.eblock, ts.edge_tile, fill=-1))

@@ -13,34 +13,47 @@
                    ``"cuda"`` (the CSR-tile CUDA kernel; the JAX
                    package's ``"pallas"``), ``"blocked"``
                    (Download→Compute→Upload; ``BlockedDaemon(kernel=
-                   "cuda")`` runs the edge-block CUDA kernel)
-``upper=``         ``"host"``
+                   "cuda")`` runs the edge-block CUDA kernel),
+                   ``"sharded"`` (all shards stacked on one axis;
+                   ``ShardedDaemon(kernel="cuda")`` launches the CSR-tile
+                   kernel once an iteration over every shard's tiles)
+``upper=``         ``"host"``, ``"mesh"`` (merges device partials)
 ``model=``         ``"bsp"``, ``"gas"``
 =================  =====================================================
 
+``daemon="sharded"`` with ``upper="mesh"`` runs the device-resident fused
+:class:`DriveLoop`:
+
+    mw = plug.Middleware(g, pagerank(g),
+                         daemon=plug.get_daemon("sharded", kernel="cuda"),
+                         upper="mesh", num_shards=4)
+
 ``device="cuda"`` is the default; ``device="cpu"`` runs the plain PyTorch
-versions of the kernels.  The fused mesh path, the async model and the
-other daemons come with later slices (ROADMAP Queue A).
+versions of the kernels.  The async model and the other daemons come with
+later slices (ROADMAP Queue A).
 """
 from repro_torch.plug.computation import (BSP, GAS, get_model, model_names,
                                           register_model)
-from repro_torch.plug.daemons import (BlockedDaemon, VectorizedDaemon,
-                                      daemon_names, get_daemon,
-                                      register_daemon)
-from repro_torch.plug.middleware import (HostDriveLoop, Middleware,
-                                         make_apply_fn)
+from repro_torch.plug.daemons import (BlockedDaemon, ShardedDaemon,
+                                      VectorizedDaemon, daemon_names,
+                                      get_daemon, register_daemon)
+from repro_torch.plug.middleware import (DriveLoop, HostDriveLoop,
+                                         Middleware, make_apply_fn)
 from repro_torch.plug.protocols import (ComputationModel, Daemon,
-                                        PlugOptions, Result, UpperSystem)
+                                        DevicePartialUpper, PlugOptions,
+                                        Result, ShardCapableDaemon,
+                                        UpperSystem)
 from repro_torch.plug.reference import run_reference
-from repro_torch.plug.uppers import (HostUpperSystem, get_upper_system,
-                                     register_upper_system,
+from repro_torch.plug.uppers import (HostUpperSystem, MeshUpperSystem,
+                                     get_upper_system, register_upper_system,
                                      upper_system_names)
 
 __all__ = [
     "BSP", "GAS", "BlockedDaemon", "ComputationModel", "Daemon",
-    "HostDriveLoop", "HostUpperSystem", "Middleware", "PlugOptions",
-    "Result", "UpperSystem", "VectorizedDaemon", "daemon_names",
-    "get_daemon", "get_model", "get_upper_system", "make_apply_fn",
-    "model_names", "register_daemon", "register_model",
+    "DevicePartialUpper", "DriveLoop", "HostDriveLoop", "HostUpperSystem",
+    "MeshUpperSystem", "Middleware", "PlugOptions", "Result",
+    "ShardCapableDaemon", "ShardedDaemon", "UpperSystem", "VectorizedDaemon",
+    "daemon_names", "get_daemon", "get_model", "get_upper_system",
+    "make_apply_fn", "model_names", "register_daemon", "register_model",
     "register_upper_system", "run_reference", "upper_system_names",
 ]

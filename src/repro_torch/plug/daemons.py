@@ -12,13 +12,20 @@ Every daemon implements ``bind(program, n, device=...)`` then
   per-edge mask over the fixed tile layout (``kernels.ops.csr_aggregate``).
 * ``BlockedDaemon`` — the paper's Download → Compute → Upload per block;
   ``kernel="cuda"`` runs the edge-block kernel on each block.
+* ``ShardedDaemon`` — every shard's block tensors stacked on a leading
+  shard axis and placed on the device once; ``run_all_shards`` does
+  gather + Gen + segmented Merge + the per-device combine for all shards in
+  one pass and hands (m, N, K) partials to the upper system.  Its extra
+  capability (``plug.protocols.ShardCapableDaemon``) is what the middleware
+  detects to drive the device-resident fused loop.
 
-The sharded, pipelined and naive daemons come with later slices (ROADMAP
-Queue A items 6 and 7); their registry names raise ``NotImplementedError``.
+The pipelined and naive daemons come with a later slice (ROADMAP Queue A
+item 7); their registry names raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import functools
+import hashlib
 
 import numpy as np
 import torch
@@ -29,7 +36,7 @@ from repro_torch.core.template import VertexProgram, segment_sum
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-from repro_torch.plug.protocols import not_ported
+from repro_torch.plug.protocols import divisor_mesh, not_ported
 
 KERNELS = ("reference", "cuda")
 
@@ -230,6 +237,245 @@ class BlockedDaemon:
         return agg.numpy(), cnt.astype(np.int32)
 
 
+class ShardedDaemon(VectorizedDaemon):
+    """Every shard's blocks as ONE pass on the device.
+
+    ``bind_shards`` stacks all shards' block tensors on a leading shard
+    axis (padded with dead blocks to a common block count) and moves each
+    stack to the device once.  ``run_all_shards`` then does gather + Gen +
+    segmented Merge *plus the per-device combine* for all shards: the
+    shards' partials fold into one (N, K) aggregate per device of the
+    shard axis, and the (m, N, K) partials go to the upper system's
+    ``merge_partials``.  The axis spans ``m`` devices
+    (:func:`~repro_torch.plug.protocols.divisor_mesh`: 1 in the port).
+
+    ``kernel="cuda"`` runs the CSR-tile kernel instead of the block
+    program: ``bind_shards`` also compacts every shard's blockset into
+    dst-grouped tiles, pads the tile sets to a common (nt, RT, ST)
+    envelope and stacks them, so an iteration is ONE ``csr_tile`` launch
+    over all S·nt tiles.  Frontier skipping becomes a per-edge mask
+    (``emask & active[gsrc]``), trajectory-identical to the block path's
+    block-granularity skipping for the idempotent monoids that drive
+    frontiers, and ``blocks_run`` counts active *tiles*.
+
+    ``run_blocks`` is inherited from :class:`VectorizedDaemon`, so with an
+    upper system that cannot merge device partials (``upper="host"``) the
+    same instance runs the classic per-shard path.
+    """
+
+    name = "sharded"
+
+    def __init__(self, kernel: str = "reference", mesh=None,
+                 axis: str = "shard", csr_config=None):
+        super().__init__(kernel, csr_config=csr_config)
+        self.mesh = mesh
+        self.axis = axis
+        self._stacked = None
+        self._stacked_digests: dict = {}
+        self._donor = None
+        self.adopted_fields = 0  # stacked tensors adopted from the donor
+        self.num_shards = 0
+        self.m = 0
+        # per-blockset compacted tiles: a re-bind reuses each BlockSet's
+        # tiles instead of compacting it again (the counters show which)
+        self._tile_cache: dict = {}
+        self.tiles_recut = 0
+        self.tilesets_reused = 0
+
+    def share_from(self, donor: "ShardedDaemon | None"):
+        """Declares a donor whose stacked device tensors this daemon may
+        ADOPT at its next :meth:`bind_shards` instead of placing its own
+        copies: one graph, several middlewares, one set of block tensors on
+        the device.  Adoption is per field and verified (same device, mesh
+        and axis, and a digest of the host-side stack equal to the
+        donor's), so a donor bound to another graph or partitioning adds
+        nothing.  Returns self."""
+        self._donor = donor
+        return self
+
+    def bind(self, program: VertexProgram, num_vertices: int, *,
+             device="cuda"):
+        super().bind(program, num_vertices, device=device)
+        # tiles were compacted against the old program and vertex count
+        self._stacked = None
+        self._tile_cache = {}
+        return self
+
+    @property
+    def stacked(self):
+        """The bound block tensors, stacked on the shard axis and on the
+        device (a dict; ``"csr"`` holds the stacked tiles)."""
+        return self._stacked
+
+    def bind_shards(self, blocksets, *, mesh=None, axis=None):
+        """Stacks every shard's block tensors on a leading axis and places
+        them on the device once.  Shards with fewer blocks are padded with
+        dead blocks (``emask`` all False: identity partials, zero counts),
+        so one rectangular layout serves all shards.  Returns self."""
+        if axis is not None:
+            self.axis = axis
+        if mesh is not None:
+            self.mesh = mesh
+        s = len(blocksets)
+        vbs = {bs.vblock_size for bs in blocksets}
+        bbs = {bs.block_size for bs in blocksets}
+        if len(vbs) != 1 or len(bbs) != 1:
+            raise ValueError(
+                "bind_shards needs one (block, vblock) shape across shards; "
+                f"got B={sorted(bbs)} VB={sorted(vbs)}")
+        self.m = divisor_mesh(s, self.mesh)
+        self.mesh = self.m
+        self.num_shards = s
+
+        # Digest-verified adoption (see share_from).  Digests are recorded
+        # whether or not there is a donor, so this daemon can be one.
+        donor = self._donor
+        donor_ok = (donor is not None and donor is not self
+                    and donor._stacked is not None
+                    and donor.device == self.device
+                    and donor.mesh == self.mesh and donor.axis == self.axis)
+        self._stacked_digests = {}
+        self.adopted_fields = 0
+
+        def place_or_adopt(name, a):
+            d = hashlib.sha1(np.ascontiguousarray(a).tobytes()).hexdigest()
+            self._stacked_digests[name] = d
+            if donor_ok and donor._stacked_digests.get(name) == d:
+                adopted = _stacked_field(donor._stacked, name)
+                if adopted is not None and tuple(adopted.shape) == a.shape:
+                    self.adopted_fields += 1
+                    return adopted
+            return torch.from_numpy(a).to(self.device)
+
+        self._stacked = {k: place_or_adopt(k, a)
+                         for k, a in _host_block_stacks(blocksets).items()}
+        if self.kernel == "cuda":
+            self._stacked["csr"] = self._stack_csr_tiles(blocksets,
+                                                         place_or_adopt)
+        return self
+
+    def _stack_csr_tiles(self, blocksets, place):
+        """Compacts every shard's blockset into CSR tiles (cached per
+        BlockSet object: ``tiles_recut`` / ``tilesets_reused`` count the
+        split), pads them to a common (nt, RT, ST) envelope and places the
+        stacked fields the tile body reads."""
+        from repro_torch.graph.compaction import (pad_tileset,
+                                                  tiles_from_blockset)
+
+        cfg = self.csr_config or kops.CSRConfig()
+        tiles = []
+        for bs in blocksets:
+            hit = self._tile_cache.get(id(bs))
+            if hit is not None and hit[0] is bs:
+                self.tilesets_reused += 1
+                tiles.append(hit[1])
+                continue
+            t = tiles_from_blockset(bs, self.n, edge_tile=cfg.edge_tile,
+                                    hub_threshold=cfg.hub_threshold)
+            self.tiles_recut += 1
+            # the blockset is held strongly so an id() key cannot alias
+            self._tile_cache[id(bs)] = (bs, t)
+            tiles.append(t)
+        live = {id(bs) for bs in blocksets}
+        self._tile_cache = {k: v for k, v in self._tile_cache.items()
+                            if k in live}
+        nt = max(t.num_tiles for t in tiles)
+        rt = max(t.row_tile for t in tiles)
+        st = max(t.src_tile for t in tiles)
+        arrays = [pad_tileset(t, num_tiles=nt, row_tile=rt,
+                              src_tile=st).arrays() for t in tiles]
+        return {k: place("csr/" + k, np.stack([a[k] for a in arrays]))
+                for k in _CSR_FIELDS}
+
+    def run_all_shards(self, state, aux, active=None, *, stacked=None):
+        """Gen + Merge for ALL shards in one pass on the device.
+
+        Args:
+          state, aux: the (N, K) / (N, A) vertex table, device tensors.
+          active: (N,) bool frontier for skipping, or None to run every
+            block (programs that are not frontier-driven).
+          stacked: ``self.stacked`` as the fused loop threads it through.
+        Returns:
+          ``(partials (m, N, K), counts (m, N) int32, blocks_run (S,)
+          int32)`` on the device; blocks_run counts tiles for
+          ``kernel="cuda"``.
+        """
+        st = self._stacked if stacked is None else stacked
+        if st is None:
+            raise RuntimeError(
+                "ShardedDaemon.run_all_shards called before bind_shards")
+        if self.kernel == "cuda":
+            return self._csr_body(state, aux, active, st["csr"])
+        return self._block_body(state, aux, active, st)
+
+    def _block_body(self, state, aux, act, st):
+        """Block program over all stacked blocks + per-device combine.  A
+        block with no active source contributes nothing this iteration,
+        the host path's block granularity."""
+        vids, emask = st["vids"], st["emask"]
+        s, nb, vb = vids.shape
+        b = emask.shape[2]
+        if act is not None:
+            blk_active = (act[st["gsrc"]] & emask).any(dim=2)
+            emask = emask & blk_active[..., None]
+        else:
+            blk_active = emask.any(dim=2)
+        vids = vids.reshape(s * nb, vb)
+        partial, counts = self.block_fn(
+            state, aux, vids, st["lsrc"].reshape(s * nb, b),
+            st["ldst"].reshape(s * nb, b),
+            st["weights"].reshape(s * nb, b, 1), emask.reshape(s * nb, b))
+        agg, cnt = self._combine_fn(partial, counts, vids)
+        return (agg[None], cnt[None],
+                blk_active.sum(dim=1, dtype=torch.int32))
+
+    def _csr_body(self, state, aux, act, c):
+        """The CSR-tile kernel over all S·nt stacked tiles in ONE launch,
+        + per-device combine (inside ``csr_aggregate``)."""
+        em = c["emask"] & act[c["gsrc"]] if act is not None else c["emask"]
+        tiles_run = em.any(dim=2).sum(dim=1, dtype=torch.int32)
+        csr = {k: c[k].flatten(0, 1) for k in _CSR_FIELDS}
+        csr["emask"] = em.flatten(0, 1)
+        agg, cnt = kops.csr_aggregate(state, aux, csr, program=self.program,
+                                      num_vertices=self.n,
+                                      config=self.csr_config
+                                      or kops.CSRConfig())
+        return agg[None], cnt[None], tiles_run
+
+
+# the tile fields the sharded CSR body reads (``gdst`` serves the JAX
+# package's flat merge only, which the port does not have)
+_CSR_FIELDS = ("rows", "seg", "lsrc", "svids", "w", "emask", "gsrc")
+
+
+def _host_block_stacks(blocksets) -> dict:
+    """Every shard's block arrays stacked on a leading shard axis, padded
+    to a common block count with dead blocks — host numpy."""
+    nb_max = max(bs.num_blocks for bs in blocksets)
+
+    def stack(field, fill=0):
+        arrs = []
+        for bs in blocksets:
+            a = getattr(bs, field)
+            pad = nb_max - a.shape[0]
+            if pad:
+                a = np.concatenate(
+                    [a, np.full((pad,) + a.shape[1:], fill, a.dtype)])
+            arrs.append(a)
+        return np.stack(arrs)
+
+    return {"vids": stack("vids"), "lsrc": stack("lsrc"),
+            "ldst": stack("ldst"), "weights": stack("weights"),
+            "emask": stack("emask", fill=False), "gsrc": stack("gsrc")}
+
+
+def _stacked_field(st: dict, name: str):
+    """Resolves a flat field name ("vids", "csr/rows") in a stacked dict."""
+    if name.startswith("csr/"):
+        return st.get("csr", {}).get(name[4:])
+    return st.get(name)
+
+
 # --------------------------------------------------------------------------
 # registry
 # --------------------------------------------------------------------------
@@ -263,6 +509,6 @@ register_daemon("reference", functools.partial(VectorizedDaemon,
 # the counterpart of the JAX package's "pallas" daemon
 register_daemon("cuda", functools.partial(VectorizedDaemon, kernel="cuda"))
 register_daemon("blocked", BlockedDaemon)
-register_daemon("sharded", not_ported('daemon="sharded"', 6))
+register_daemon("sharded", ShardedDaemon)
 register_daemon("pipelined", not_ported('daemon="pipelined"', 7))
 register_daemon("naive", not_ported('daemon="naive"', 7))

@@ -1,5 +1,5 @@
-"""The middleware: agents + the host drive loop composed from the three
-protocols, as in the JAX package's ``plug/middleware.py``.
+"""The middleware: agents + drive loops composed from the three protocols,
+as in the JAX package's ``plug/middleware.py``.
 
 ``Middleware`` owns what the paper's *agent* role owns — per-shard host
 state (vertex table replicas, LRU boundary caches, block sets, byte
@@ -9,13 +9,23 @@ global merge to the :class:`~repro_torch.plug.protocols.UpperSystem`, and
 Gen/Merge/Apply ordering to the
 :class:`~repro_torch.plug.protocols.ComputationModel`.
 
-This slice ports the host path, :class:`HostDriveLoop`: every iteration
-calls each shard's daemon on the device, brings the aggregates to the host,
-runs the candidate apply for skip detection, and the upper system's merge.
-The device-resident fused loops (``daemon="sharded"`` + ``upper="mesh"``,
-the async model, out-of-core) and the elastic and dynamic-graph machinery
-come with later slices and raise ``NotImplementedError`` naming their
-ROADMAP item.
+Two drive loops implement the iteration:
+
+* :class:`HostDriveLoop` — the classic per-shard path: every iteration
+  calls each shard's daemon, brings the aggregates to the host, runs the
+  candidate apply for skip detection and the upper system's merge.  Full
+  byte and cache accounting lives here.
+* :class:`DriveLoop` — the device-resident fused path, detected when the
+  daemon can ``run_all_shards``
+  (:class:`~repro_torch.plug.protocols.ShardCapableDaemon`), the upper
+  system can ``merge_partials``
+  (:class:`~repro_torch.plug.protocols.DevicePartialUpper`) over an exact
+  wire, and the model is BSP or GAS: each iteration runs gather + Gen +
+  segmented Merge for all shards, the partial merge, Apply and the
+  convergence check on the device, and fetches one small tensor.
+
+The async model, out-of-core, elasticity and dynamic graphs raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -32,28 +42,53 @@ from repro_torch.core.sync import LRUVertexCache, SyncStats, can_skip_sync
 from repro_torch.core.template import VertexProgram
 from repro_torch.device import resolve_device
 from repro_torch.graph.structure import EdgePartition, Graph
-from repro_torch.plug.computation import get_model
+from repro_torch.plug.computation import BSP, GAS, get_model
 from repro_torch.plug.daemons import get_daemon
-from repro_torch.plug.protocols import (PlugOptions, Result,
+from repro_torch.plug.protocols import (DevicePartialUpper, PlugOptions,
+                                        Result, ShardCapableDaemon,
                                         not_ported_error)
 from repro_torch.plug.uppers import get_upper_system
 
+# Computation-model orders the fused loop realizes.  BSP and GAS produce
+# identical state trajectories on the same template (``plug.computation``),
+# so one fused step serves both; any other model keeps the host loop, which
+# calls the model's hooks.
+_FUSABLE_ORDERS = {("gen", "merge", "apply"), ("merge", "apply", "gen")}
+_MODEL_HOOKS = ("prologue", "aggregates", "epilogue")
+
+
+def _model_is_fusable(model) -> bool:
+    """True iff the model's trajectory is the one the fused step realizes:
+    a BSP/GAS order AND the three hooks exactly as BSP or GAS implements
+    them — a subclass overriding a hook keeps the host loop that calls
+    it."""
+    if tuple(getattr(model, "order", ())) not in _FUSABLE_ORDERS:
+        return False
+    cls = type(model)
+    return any(
+        all(getattr(cls, h, None) is getattr(base, h) for h in _MODEL_HOOKS)
+        for base in (BSP, GAS))
+
+
+def apply_step(program: VertexProgram, state, merged, has_msg, aux, it):
+    """MSGApply on tensors, where they lie → ``(new_state, active)``; both
+    drive loops apply through it."""
+    # Vertices with no message keep identity-merged values; msg_apply
+    # implementations treat identity correctly (min/max) or use has_msg.
+    merged = torch.where(has_msg[:, None], merged,
+                         torch.full_like(merged, program.monoid.identity))
+    return program.msg_apply(state, merged, has_msg[:, None], aux, it)
+
 
 def make_apply_fn(program: VertexProgram, device="cuda"):
-    """MSGApply on ``device``: host arrays in, host arrays out."""
+    """:func:`apply_step` on ``device`` for the host loop: host arrays in,
+    host arrays out."""
     dev = resolve_device(device)
-    ident = program.monoid.identity
 
     def apply_fn(state, merged, has_msg, aux, it):
-        state, merged, has_msg, aux = (torch.as_tensor(x, device=dev)
-                                       for x in (state, merged, has_msg, aux))
-        # Vertices with no message keep identity-merged values;
-        # msg_apply implementations treat identity correctly (min/max) or
-        # use has_msg.
-        merged = torch.where(has_msg[:, None], merged,
-                             torch.full_like(merged, ident))
-        new, active = program.msg_apply(state, merged, has_msg[:, None],
-                                        aux, it)
+        new, active = apply_step(
+            program, *(torch.as_tensor(x, device=dev)
+                       for x in (state, merged, has_msg, aux)), it)
         return new.cpu().numpy(), active.cpu().numpy()
 
     return apply_fn
@@ -78,6 +113,10 @@ class Middleware:
       monitor, failures, mutations, oocore: the fused loop's elastic,
         dynamic-graph and out-of-core options — not ported yet; passing
         one raises ``NotImplementedError``.
+
+    With a shard-capable daemon (``daemon="sharded"``), a device-partial
+    upper system (``upper="mesh"``) and a BSP/GAS model, ``run`` drives the
+    fused :class:`DriveLoop`; otherwise the :class:`HostDriveLoop`.
     """
 
     def __init__(
@@ -136,7 +175,12 @@ class Middleware:
         self.stats = SyncStats()
         self._caches: list[LRUVertexCache] = []  # created per-run by run()
         self._estimator = CapacityEstimator(self.num_shards)
-        self._loop = HostDriveLoop(self)
+        self._fused_kind = self._detect_fused()
+        self._fused = self._fused_kind is not None
+        if self._fused:
+            self.daemon.bind_shards(self.blocksets, mesh=self.upper.mesh,
+                                    axis=self.upper.axis)
+        self._loop = (DriveLoop if self._fused else HostDriveLoop)(self)
 
     # -- setup ------------------------------------------------------------
     def _resolve_block_size(self) -> int:
@@ -156,6 +200,16 @@ class Middleware:
         self.blocksets = [build_blocks(p, b, vblock_size=vb)
                           for p in self.partitions]
         self.vblock_size = vb
+
+    def _detect_fused(self) -> str | None:
+        """``"bsp"`` when this composition gets the fused device-resident
+        loop — a shard-capable daemon, an upper system that merges device
+        partials over an exact wire, and a BSP/GAS model — else None (the
+        host loop, which drives the model's hooks)."""
+        caps = (isinstance(self.daemon, ShardCapableDaemon)
+                and isinstance(self.upper, DevicePartialUpper)
+                and getattr(self.upper, "wire", "exact") == "exact")
+        return "bsp" if caps and _model_is_fusable(self.model) else None
 
     # -- the drive loop ---------------------------------------------------
     def run(self, max_iterations: int | None = None, *,
@@ -362,3 +416,108 @@ class HostDriveLoop:
         return [ns.copy() for _ in range(mw.num_shards)], [
             act.copy() for _ in range(mw.num_shards)
         ]
+
+
+class _FusedLoopBase:
+    """What the device-resident fused drive loops share.
+
+    A subclass defines :meth:`_advance`, one iteration on the device.  The
+    base owns the rest: placing state, aux and the frontier on the device,
+    the ``init=`` / ``frontier=`` overrides, the iteration loop, ONE
+    device→host fetch an iteration, the per-iteration records and the
+    single final transfer of the state.  The JAX package's between-iteration
+    structure poll (elastic migration and graph mutations, ROADMAP Queue A
+    items 9 and 10) is not ported.
+    """
+
+    def __init__(self, mw: Middleware):
+        self.mw = mw
+
+    def _advance(self, state, active, aux, it, stacked):
+        """One iteration → ``(state', active', flags)``, ``flags`` one small
+        int64 device tensor ``[done, n_active, *blocks_run]``."""
+        raise NotImplementedError
+
+    def run(self, max_iterations: int | None = None, *,
+            init=None, frontier=None) -> Result:
+        mw = self.mw
+        prog = mw.program
+        mw.upper.reset()
+        max_it = max_iterations or prog.max_iterations
+        state0, aux = (init or prog.init)(mw.graph)
+        active0 = (np.ones(mw.n, dtype=bool) if frontier is None
+                   else np.asarray(frontier, dtype=bool))
+        if active0.shape != (mw.n,):
+            raise ValueError(f"frontier must have shape ({mw.n},), got "
+                             f"{active0.shape}")
+        dev = mw.device
+        state, aux, active = (torch.as_tensor(a, device=dev)
+                              for a in (state0, aux, active0))
+        stacked = mw.daemon.stacked
+        blocks_total = int(sum(bs.num_blocks for bs in mw.blocksets))
+        per_iter: list[dict] = []
+        t0 = time.perf_counter()
+        it = 0
+        converged = False
+
+        for it in range(1, max_it + 1):
+            state, active, flags = self._advance(state, active, aux, it,
+                                                 stacked)
+            mw.stats.rounds_total += 1
+            # the iteration's ONE device→host fetch: every record scalar
+            # rides it (each int()/bool() of a tensor would be a sync)
+            done, n_active, *shard_blocks = flags.tolist()
+            per_iter.append({"iteration": it, "fused": True,
+                             "blocks_total": blocks_total,
+                             "blocks_run": sum(shard_blocks),
+                             "shard_blocks_run": shard_blocks,
+                             "active": n_active})
+            if done:
+                converged = True
+                break
+
+        final = state.cpu().numpy()  # the run's one transfer of the state
+        return Result(
+            state=final,
+            iterations=it,
+            converged=converged,
+            stats=mw.stats,
+            wall_time=time.perf_counter() - t0,
+            per_iteration=per_iter,
+        )
+
+
+class DriveLoop(_FusedLoopBase):
+    """The device-resident fused drive loop (the sharded fast path).
+
+    Each iteration: the daemon's ``run_all_shards`` (gather + Gen +
+    segmented Merge + the per-device combine for every shard), the upper
+    system's ``merge_partials``, :func:`apply_step` and the convergence
+    check, all on the device.  State and frontier stay there between
+    iterations; only ``[done, n_active, *blocks_run]`` crosses to the host,
+    and the final state crosses once after the loop.
+
+    The merge runs inside every step, so shard replicas never diverge:
+    there is no candidate apply, no sync round to skip and no download to
+    cache, and ``stats`` carries ``rounds_total`` only.  The
+    :class:`HostDriveLoop` keeps the full byte accounting.
+    """
+
+    def __init__(self, mw: Middleware):
+        super().__init__(mw)
+        self._use_frontier = (mw.program.frontier_driven
+                              and mw.options.frontier_block_skipping)
+
+    def _advance(self, state, active, aux, it, stacked):
+        mw = self.mw
+        partials, counts, blocks_run = mw.daemon.run_all_shards(
+            state, aux, active if self._use_frontier else None,
+            stacked=stacked)
+        agg, cnt = mw.upper.merge_partials(partials, counts)
+        # base == state: replicas are merged every step, never diverge
+        new_state, new_active = apply_step(mw.program, state, agg, cnt > 0,
+                                           aux, it)
+        n_active = new_active.sum()
+        flags = torch.cat([torch.stack([(n_active == 0).long(), n_active]),
+                           blocks_run.long()])
+        return new_state, new_active, flags

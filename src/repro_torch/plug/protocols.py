@@ -9,9 +9,12 @@ package's ``plug/protocols.py``:
   cross-shard global merge.
 * :class:`ComputationModel` — the strategy ordering Gen/Merge/Apply.
 
-The shard-, mask-, out-of-core- and elastic capabilities of the JAX package
-belong to the device-resident fused loop and come with it (ROADMAP Queue A
-items 6, 8, 9 and 11).
+Two optional capabilities switch the middleware to the device-resident
+fused loop: :class:`ShardCapableDaemon` (``run_all_shards`` over every
+shard stacked on one leading axis) and :class:`DevicePartialUpper`
+(``merge_partials`` of the per-device partials).  The mask-, out-of-core-
+and elastic capabilities of the JAX package come with ROADMAP Queue A items
+8, 11 and 9.
 """
 from __future__ import annotations
 
@@ -114,6 +117,68 @@ class UpperSystem(Protocol):
     def resolve(self, states: List[np.ndarray]) -> np.ndarray:
         """Final answer from per-shard state replicas."""
         ...
+
+
+@runtime_checkable
+class ShardCapableDaemon(Protocol):
+    """Optional daemon capability: run EVERY shard as one device program.
+
+    A daemon that also has these members (``ShardedDaemon`` does) is
+    feature-detected by the middleware, which then drives the
+    device-resident fused loop: vertex state never round-trips through the
+    host, and the daemon hands (m, N, K) per-device partials straight to
+    the upper system's ``merge_partials``.  ``mesh`` is the shard axis'
+    device count (:func:`divisor_mesh`); ``stacked`` the device tensors
+    ``bind_shards`` placed, which the loop threads through every step.
+    """
+
+    mesh: object
+    stacked: object
+
+    def bind_shards(self, blocksets, *, mesh=None, axis=None):
+        """Stacks every shard's block tensors on a leading axis and places
+        them on the device once."""
+        ...
+
+    def run_all_shards(self, state, aux, active=None, *, stacked=None):
+        """All shards' Gen + Merge + per-device combine on device tensors
+        → ``(partials (m, N, K), counts (m, N), blocks_run (S,))``;
+        ``active`` is the (N,) frontier, or None to run every block."""
+        ...
+
+
+@runtime_checkable
+class DevicePartialUpper(Protocol):
+    """Optional upper-system capability: merge device-resident partials.
+
+    ``merge_partials`` takes the (m, N, K) / (m, N) per-device partials a
+    shard-capable daemon produced, where they lie, and reduces them over
+    the leading axis to ``(agg (N, K), cnt (N,))`` on the same device.
+    The middleware hands the upper's ``mesh`` / ``axis`` to the daemon's
+    ``bind_shards`` so both halves of the fused step share one layout.
+    """
+
+    mesh: object
+    axis: str
+
+    def merge_partials(self, partials, counts):
+        ...
+
+
+def divisor_mesh(num_items: int, mesh=None) -> int:
+    """The shard axis' device count: the largest divisor of ``num_items``
+    that fits the devices the port drives.  The port runs in one process on
+    one device, so this is 1, and every stacked shard folds on that
+    device.  The sharded daemon and the mesh upper system both take their
+    axis from here.  ``mesh`` other than None or 1 asks for a reduction
+    across devices or ranks (``torch.distributed``), which is ROADMAP
+    Queue A item 13's and raises :func:`not_ported_error`."""
+    if mesh not in (None, 1):
+        raise not_ported_error(f"mesh={mesh!r} (a shard axis over more "
+                               "than one device)", 13)
+    if num_items < 1:
+        raise ValueError(f"need at least one shard, got {num_items}")
+    return 1
 
 
 # ``gather`` passed to a ComputationModel: calls every shard's daemon and

@@ -6,8 +6,12 @@ in the JAX package's ``plug/uppers.py``.
   per-shard host arrays.  It stays on the host by design: the host drive
   loop's aggregates are host arrays.
 
-The mesh upper system (collective merges across devices) comes with the
-device-resident fused loop (ROADMAP Queue A item 6).
+* ``MeshUpperSystem`` — the merge as a reduction over a leading shard
+  axis: ``merge`` for the host loop's per-shard arrays, and
+  ``merge_partials`` for the fused loop's device-resident (m, N, K)
+  partials, which stay where the daemon left them.  The axis spans the one
+  device the port drives (``protocols.divisor_mesh``); the reduction across
+  devices or ranks and the compressed wire are ROADMAP Queue A item 13's.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from repro_torch.core.sync import lazy_exchange_plan
 from repro_torch.core.template import VertexProgram
 from repro_torch.graph.partition import partition_contiguous
 from repro_torch.graph.structure import Graph
-from repro_torch.plug.protocols import not_ported
+from repro_torch.plug.protocols import divisor_mesh, not_ported_error
 
 
 class HostUpperSystem:
@@ -69,6 +73,72 @@ class HostUpperSystem:
         return self._fold(states)
 
 
+class MeshUpperSystem(HostUpperSystem):
+    """The global merge as a reduction over a leading shard axis.
+
+    Shard arrays are stacked on axis 0 and folded with the monoid, as the
+    JAX package's ``shard_map`` merge folds each device's shards before its
+    ``pmin``/``pmax``/``psum``.  The axis spans ``m`` devices
+    (:func:`~repro_torch.plug.protocols.divisor_mesh`: 1 in the port), so
+    every fold happens on the device the partials lie on.
+
+    ``wire="exact"`` (the default) keeps the merge lossless;
+    ``wire="compressed"`` (the int8 error-feedback all-reduce) raises
+    ``NotImplementedError`` at ``bind``, and ``bits`` is kept for it.
+    """
+
+    name = "mesh"
+    WIRES = ("exact", "compressed")
+
+    def __init__(self, mesh=None, *, axis: str = "shard",
+                 wire: str = "exact", bits: int = 8):
+        if wire not in self.WIRES:
+            raise ValueError(f"wire must be one of {self.WIRES}, got {wire!r}")
+        self.mesh = mesh
+        self.axis = axis
+        self.wire = wire
+        self.bits = bits
+        self.m = 0
+        self.wire_stats = {"exact_bytes": 0, "compressed_bytes": 0}
+
+    def bind(self, program: VertexProgram, num_shards: int):
+        super().bind(program, num_shards)
+        if self.wire == "compressed":
+            raise not_ported_error('MeshUpperSystem(wire="compressed")', 13)
+        self.m = divisor_mesh(num_shards, self.mesh)
+        self.mesh = self.m
+        return self
+
+    def reset(self):
+        # per-run state: the wire counters restart with every run
+        self.wire_stats = {"exact_bytes": 0, "compressed_bytes": 0}
+
+    def _fold_axis(self, stack: torch.Tensor) -> torch.Tensor:
+        """Folds a stacked (S, ...) tensor over axis 0 in shard order: the
+        monoid's combine, or + for a sum."""
+        op = self.monoid.combine if self.monoid.idempotent else torch.add
+        return functools.reduce(op, stack.unbind(0))
+
+    def merge(self, states, aggs, cnts):
+        """The classic path's merge of per-shard host arrays →
+        ``(base, agg, cnt)`` host arrays.  Idempotent monoids fold the
+        replicas' states and the aggregates with ``combine``; a sum takes
+        state 0 as the base (its replicas never diverge) and adds the
+        aggregates; counts add."""
+        st, ag, cn = (torch.from_numpy(np.stack([np.asarray(a) for a in x]))
+                      for x in (states, aggs, cnts))
+        base = self._fold_axis(st) if self.monoid.idempotent else st[0]
+        cnt = cn.sum(0, dtype=torch.int32)
+        self.wire_stats["exact_bytes"] += st[0].numel() * 4 * self.m
+        return base.numpy(), self._fold_axis(ag).numpy(), cnt.numpy()
+
+    def merge_partials(self, partials: torch.Tensor, counts: torch.Tensor):
+        """Reduces the per-device partials (m, N, K) / counts (m, N) over
+        axis 0 → ``(agg (N, K), cnt (N,) int32)`` on their device: min or
+        max for an idempotent monoid, a sum otherwise."""
+        return self._fold_axis(partials), counts.sum(0, dtype=torch.int32)
+
+
 # --------------------------------------------------------------------------
 # registry
 # --------------------------------------------------------------------------
@@ -93,4 +163,4 @@ def upper_system_names() -> tuple:
 
 
 register_upper_system("host", HostUpperSystem)
-register_upper_system("mesh", not_ported('upper="mesh"', 6))
+register_upper_system("mesh", MeshUpperSystem)

@@ -10,7 +10,9 @@ results to bf16, at most one ulp apart; the bf16 kernel multiplies P·V as
 bf16 hi + lo parts on the tensor cores for that reason).  The SSD chunk step: max |Δ| ≤
 1e-4·max(1, max |want|) on each output (float32 sums and the cumsum in
 another order); with dt in Mamba2's range, where decay and gate do not
-underflow, those two within 1e-4·|want| at every element.  This file imports no JAX, so it runs on a
+underflow, those two within 1e-4·|want| at every element.  The fused loop
+(``daemon="sharded"`` + ``upper="mesh"``) is held against the host loop and
+``run_reference``.  This file imports no JAX, so it runs on a
 machine with PyTorch alone:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -173,6 +175,50 @@ def test_csr_tile_kernel_on_padded_dead_tiles(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("monoid", MONOIDS)
+def test_csr_tile_kernel_on_stacked_shards_with_whole_dead_tiles(cuda,
+                                                                  monoid):
+    """The sharded daemon's launch: two shards' tile sets padded to one
+    (nt, RT, ST) envelope and stacked, so the smaller shard ends in whole
+    dead tiles (seg, rows and svids 0, emask False) and every tile has
+    padded rows and sources."""
+    from repro_torch.graph.compaction import pad_tileset
+
+    prog = _program("add_weight", monoid)
+    rng = np.random.default_rng(37)
+    n = 80
+    sets = []
+    for e in (600, 90):
+        src = rng.integers(0, n, e).astype(np.int32)
+        dst = np.concatenate([np.zeros(e // 6, np.int32),
+                              rng.integers(0, n, e - e // 6).astype(np.int32)])
+        sets.append(build_csr_tiles(src, dst, rng.uniform(1.0, 10.0, e)
+                                    .astype(np.float32), n, edge_tile=32))
+    env = dict(num_tiles=max(t.num_tiles for t in sets),
+               row_tile=max(t.row_tile for t in sets),
+               src_tile=max(t.src_tile for t in sets))
+    assert sets[1].num_tiles < env["num_tiles"]  # whole dead tiles
+    padded = [pad_tileset(t, **env) for t in sets]
+    stack = {f: np.concatenate([getattr(t, f) for t in padded])
+             for f in ("rows", "seg", "lsrc", "svids", "w", "emask")}
+    state = _values(rng, (n, 3), monoid)
+    aux = rng.uniform(0.0, 5.0, (n, 1)).astype(np.float32)
+    emask = stack["emask"] & (rng.random(stack["emask"].shape) < 0.8)
+    arrs = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (
+        state[stack["svids"]], aux[stack["svids"]], state[stack["rows"]],
+        stack["lsrc"], stack["seg"], stack["w"], emask.astype(np.float32))]
+    before = ebk.csr_tile.launches
+    got, got_c = ebk.csr_tile(*arrs, program=prog)
+    want, want_c = ebk.csr_tile_plain(*arrs, program=prog)
+    torch.cuda.synchronize()
+    assert ebk.csr_tile.launches == before + 1
+    _assert_match(monoid, got, want, got_c, want_c)
+    dead = slice(env["num_tiles"] + sets[1].num_tiles, None)
+    assert not bool(got_c[dead].any())
+    assert bool((got[dead] == prog.monoid.identity).all())
+
+
+@pytest.mark.cuda
 def test_kernels_reject_program_without_gen_op(cuda):
     prog = dataclasses.replace(_program("copy_src", "min"), gen_op=None)
     with pytest.raises(ValueError, match="gen_op"):
@@ -202,6 +248,42 @@ def test_middleware_kernels_match_reference(cuda, prog_name):
             np.testing.assert_allclose(res.state, ref, rtol=1e-5, atol=1e-7)
     assert ebk.csr_tile.launches > before[0]
     assert ebk.edge_block.launches > before[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prog_name", ["sssp_bf", "bfs", "wcc", "pagerank",
+                                       "label_prop"])
+def test_fused_loop_matches_host_loop_and_reference(cuda, prog_name):
+    """daemon="sharded" + upper="mesh" drives the fused loop on the card:
+    kernel="cuda" launches csr_tile exactly once an iteration over all
+    shards' tiles, kernel="reference" not at all, and both agree with the
+    host loop and run_reference."""
+    g = _graph()
+    if prog_name == "wcc":
+        g = g.with_reverse_edges()
+    prog = algorithms.ALGORITHMS[prog_name](g)
+    opts = plug.PlugOptions(block_size=128)
+    ref, _ = plug.run_reference(g, prog, max_iterations=12, device=cuda)
+    host = plug.Middleware(g, prog, daemon="cuda", num_shards=4,
+                           options=opts, device=cuda).run(max_iterations=12)
+    for kernel in ("cuda", "reference"):
+        mw = plug.Middleware(g, prog, upper="mesh", num_shards=4,
+                             daemon=plug.get_daemon("sharded", kernel=kernel),
+                             options=opts, device=cuda)
+        assert mw._fused_kind == "bsp"
+        before = ebk.csr_tile.launches
+        res = mw.run(max_iterations=12)
+        launched = ebk.csr_tile.launches - before
+        assert launched == (res.iterations if kernel == "cuda" else 0)
+        assert all(r["fused"] for r in res.per_iteration)
+        assert res.iterations == host.iterations
+        if prog.monoid.idempotent:
+            np.testing.assert_array_equal(res.state, ref)
+            np.testing.assert_array_equal(res.state, host.state)
+        else:
+            np.testing.assert_allclose(res.state, ref, rtol=1e-5, atol=1e-7)
+            np.testing.assert_allclose(res.state, host.state, rtol=1e-5,
+                                       atol=1e-7)
 
 
 @pytest.mark.cuda

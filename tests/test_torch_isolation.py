@@ -213,8 +213,8 @@ def test_csr_config_rejects_unknown_or_kernel_less_choices(kwargs):
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    ({"upper": "mesh"}, 6),
-    ({"daemon": "sharded"}, 6),
+    ({"upper": plug.MeshUpperSystem(mesh=2)}, 13),
+    ({"upper": plug.MeshUpperSystem(wire="compressed")}, 13),
     ({"daemon": "pipelined"}, 7),
     ({"daemon": "naive"}, 7),
     ({"model": "async"}, 8),
