@@ -72,6 +72,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
               shards' tiles stacked, S·nt of them, dead tiles included),
               as in phase 4; this is the CSR tile's main case in the
               ``kernels`` line.
+5c. pipeline — the pipeline shuffle on the same graph, shards and
+              references: sssp_bf (BSP, to its fixed point) and pagerank
+              (BSP, 10 iterations) through ``PipelinedDaemon(kernel=
+              "cuda")``, whose three stages run in three threads and on
+              three CUDA streams (copy in, compute, copy out), held
+              against ``run_reference`` as in phase 5; sssp_bf must also
+              launch ``edge_block`` as often, iteration for iteration, as
+              phase 5's ``BlockedDaemon(kernel="cuda")`` run.  Each prints
+              ``stages``: the executors' summed ``wall_time``, each stage's
+              host ``busy`` seconds and its event-timed device span, beside
+              the blocked run's, and ``pipelined_over_blocked`` (s an
+              iteration).  Then ``calibration``: the stage times per block
+              of the blocked daemon over shard 0's edges at block sizes
+              4,096..262,144, Lemma 1's (k1, k2, k3, a) fitted to the host
+              stage times and to the device spans (``core.pipeline.
+              calibrate``) with the upload's host merge cut in its
+              halves (``scatter_at``, ``np.add.at``) per block, ``b_opt``,
+              its branch and the block size
+              ``block_size="auto"`` gives, beside the defaults'.  Then a
+              pipelined run at the host fit's block size (3 iterations,
+              against ``run_reference`` cut there), and Fig. 8's ratio at
+              R-MAT scale 12 on one shard: ``daemon="naive"`` (a per-edge
+              loop on the host), the blocked, pipelined and ``"cuda"``
+              daemons over 3 iterations against the cut reference (the
+              last three also to the fixed point), ``naive_over`` each.
+              ``reduced`` names both cuts.
 
 6. attention — a qwen2-72b attention layer at ``train_4k`` (B=1, Hq=64,
               Hkv=8, S=4096, D=128, bf16, causal) through
@@ -144,6 +170,13 @@ PR_RTOL, PR_ATOL = 1e-4, 1e-12  # pagerank state after the same iterations
 EDGE_FACTOR = 16    # Graph500's edges per vertex
 SHARDS = 4
 PR_ITERATIONS = 10  # pagerank runs a fixed count (it converges slowly)
+# phase 5c: block sizes at which the stage times are fitted, the blocks
+# timed at each, the iterations of the cut runs, and Fig. 8's graph scale
+CALIBRATION_SIZES = (4096, 8192, 16384, 32768, 65536, 131072, 262144)
+CALIBRATION_BLOCKS = 16
+MERGE_REPS = 5
+CUT_ITERATIONS = 3
+FIG8_SCALE = 12
 # (label, B, Hq, Hkv, S, D, dtype, causal); the first is the main path
 ATTN_CASES = (("qwen2-72b/bf16/causal", 1, 64, 8, 4096, 128, "bfloat16", True),
               ("whisper-base-d64/f32/full", 1, 8, 8, 4096, 64, "float32",
@@ -911,7 +944,7 @@ def fused_parts_ms(mw, state, aux, active) -> dict:
 
 
 def run_e2e(label, graph, program, daemon, model, parts, ref_state, sum_tol,
-            device="cuda", upper="host"):
+            device="cuda", upper="host", options=None, max_iterations=None):
     import numpy as np
     import torch
 
@@ -920,7 +953,8 @@ def run_e2e(label, graph, program, daemon, model, parts, ref_state, sum_tol,
 
     t0 = time.perf_counter()
     mw = plug.Middleware(graph, program, daemon=daemon, upper=upper,
-                         model=model, partitions=parts, device=device)
+                         model=model, partitions=parts, options=options,
+                         device=device)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     # one warm-up iteration: the daemon compacts each shard's CSR tiles on
@@ -934,9 +968,9 @@ def run_e2e(label, graph, program, daemon, model, parts, ref_state, sum_tol,
     ebk.csr_tile.launches = 0
     if mw._fused:
         with counting_fetches(fetches):
-            res = mw.run()
+            res = mw.run(max_iterations)
     else:
-        res = mw.run()
+        res = mw.run(max_iterations)
     torch.cuda.synchronize()
     launches = {"edge_block": ebk.edge_block.launches,
                 "csr_tile": ebk.csr_tile.launches}
@@ -974,6 +1008,217 @@ def run_e2e(label, graph, program, daemon, model, parts, ref_state, sum_tol,
         launches_per_iteration={k: v / max(res.iterations, 1)
                                 for k, v in launches.items()},
         rounds_skipped=res.stats.rounds_skipped)
+
+
+def stage_summary(res, key) -> dict:
+    """Sums over a run's executor records (``"pipeline"`` or
+    ``"sequential"``, one per shard an iteration): wall time, each stage's
+    host busy time and each stage's event-timed device span."""
+    from repro_torch.core.pipeline import STAGES
+
+    recs = [r for it in res.per_iteration for r in it.get(key, ())]
+    if not recs or any("device" not in r for r in recs):
+        raise AssertionError(f"no {key!r} records with device stage times")
+    return {"records": len(recs),
+            "wall_time_s": sum(r["wall_time"] for r in recs),
+            "busy_s": {s: sum(r["busy"][s] for r in recs) for s in STAGES},
+            "device_s": {s: sum(r["device"][s] for r in recs)
+                         for s in STAGES}}
+
+
+def daemon_seconds(res, key, iterations) -> float:
+    """The executors' wall time over a run's first ``iterations``."""
+    return sum(r["wall_time"] for it in res.per_iteration[:iterations]
+               for r in it.get(key, ()))
+
+
+def stage_calibration(part, program, graph) -> list:
+    """Per-block stage times of ``BlockedDaemon(kernel="cuda")`` over shard
+    0's edges, at each of CALIBRATION_SIZES: each stage's host time (the
+    ``busy`` of ``run_sequential``: what each pipeline thread spends on a
+    block, the upload's wait for its copy and its host merge included) and
+    its event-timed device span, averaged over the first
+    CALIBRATION_BLOCKS blocks after one warm-up block (which also makes
+    the pinned buffers for the shape); and the upload's host merge cut in
+    its two halves, each timed alone on one block's (VB, K) partial:
+    ``Monoid.scatter_at`` into the (N, K) aggregate and ``np.add.at``
+    into the counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch import plug
+    from repro_torch.core.blocks import build_blocks
+    from repro_torch.core.pipeline import STAGES
+
+    state, aux = program.init(graph)
+    daemon = plug.BlockedDaemon(kernel="cuda").bind(
+        program, graph.num_vertices, device="cuda")
+    monoid, k = program.monoid, program.state_width
+    agg = torch.full((graph.num_vertices, k), monoid.identity)
+    cnt = np.zeros(graph.num_vertices, np.int64)
+    rows = []
+    for b in CALIBRATION_SIZES:
+        bs = build_blocks(part, b)
+        n = min(CALIBRATION_BLOCKS, bs.num_blocks - 1)
+        daemon.run_blocks(state, aux, bs, np.arange(1), {})
+        rec: dict = {}
+        daemon.run_blocks(state, aux, bs, np.arange(1, n + 1), rec)
+        r = rec["sequential"][0]
+        vids = bs.vids[n]
+        partial = torch.zeros((bs.vblock_size, k))
+        counts = np.ones(bs.vblock_size, np.int32)
+        t0 = time.perf_counter()
+        for _ in range(MERGE_REPS):
+            monoid.scatter_at(agg, torch.from_numpy(vids), partial)
+        t1 = time.perf_counter()
+        for _ in range(MERGE_REPS):
+            np.add.at(cnt, vids, counts)
+        t2 = time.perf_counter()
+        rows.append({"block_size": b, "vblock_size": bs.vblock_size,
+                     "blocks": n,
+                     "host_s": {s: r["busy"][s] / n for s in STAGES},
+                     "device_s": {s: r["device"][s] / n for s in STAGES},
+                     "merge_s": {"scatter_at": (t1 - t0) / MERGE_REPS,
+                                 "add_at": (t2 - t1) / MERGE_REPS}})
+    return rows
+
+
+def lemma1(d: int, coeffs) -> dict:
+    """Lemma 1's optimum for ``d`` edges under (k1, k2, k3, a), and the
+    block size ``block_size="auto"`` resolves it to (the middleware clamps
+    it to 64..65,536 edges)."""
+    from repro_torch.core import pipeline as pl
+
+    res = pl.optimal_block_size(d, *coeffs)
+    best_b, t = pl.optimal_integer_blocks(d, *coeffs)
+    return {**dict(zip(("k1", "k2", "k3", "a"), coeffs)),
+            "b_opt": res.b_opt, "case": res.case, "t_min_s": res.t_min,
+            "integer_block": best_b, "eq2_s": t,
+            "auto_block": int(min(max(best_b, 64), 1 << 16))}
+
+
+def phase_pipeline(g, parts, pr, sp, pr_ref, pr_ref_it, sp_ref, sp_ref_it,
+                   blocked, seed) -> tuple[dict, int]:
+    """Phase 5c: the pipeline shuffle.  ``blocked`` is phase 5's
+    ``(res, launches, rec)`` of ``BlockedDaemon(kernel="cuda")`` on sssp_bf.
+    Returns the phase's line and the edge_block launches of its pipelined
+    runs at scale 20."""
+    from repro_torch import plug
+    from repro_torch.core import pipeline as pl
+    from repro_torch.graph import generate
+    from repro_torch.graph.algorithms import sssp_bf
+
+    out = {"phase": "pipeline", "reduced": {}}
+    launches_pipelined = 0
+    b_res, b_launches, b_rec = blocked
+    # -- sssp_bf to its fixed point, and pagerank, at the defaults
+    runs = (("sssp_bf/pipelined-cuda/bsp", sp, sp_ref, None, sp_ref_it),
+            ("pagerank/pipelined-cuda/bsp", pr, pr_ref, (PR_RTOL, PR_ATOL),
+             pr_ref_it))
+    for label, prog, ref, tol, ref_it in runs:
+        res, launches, _, rec = run_e2e(
+            label, g, prog, plug.PipelinedDaemon(kernel="cuda"), "bsp",
+            parts, ref, tol)
+        if res.iterations != ref_it:
+            raise AssertionError(f"{label}: {res.iterations} iterations, "
+                                 f"reference ran {ref_it}")
+        if launches["edge_block"] == 0 or launches["csr_tile"]:
+            raise AssertionError(f"{label}: launches {launches}")
+        launches_pipelined += launches["edge_block"]
+        rec["stages"] = stage_summary(res, "pipeline")
+        if prog is sp:
+            if (res.iterations != b_res.iterations
+                    or launches["edge_block"] != b_launches["edge_block"]
+                    or [r["blocks_run"] for r in res.per_iteration]
+                    != [r["blocks_run"] for r in b_res.per_iteration]):
+                raise AssertionError(
+                    f"{label}: {launches['edge_block']} edge_block launches "
+                    f"over {res.iterations} iterations, the blocked daemon "
+                    f"{b_launches['edge_block']} over {b_res.iterations}")
+            rec["blocked_run"] = b_rec["run"]
+            rec["blocked_per_iteration_s"] = b_rec["per_iteration_s"]
+            rec["blocked_stages"] = stage_summary(b_res, "sequential")
+            rec["pipelined_over_blocked"] = (rec["per_iteration_s"]
+                                             / b_rec["per_iteration_s"])
+            default_run = res
+        out[label] = rec
+    # -- Lemma 1's coefficients fitted on the card
+    rows = stage_calibration(parts[0], sp, g)
+    d = parts[0].num_edges
+    host_fit = pl.calibrate([(r["block_size"], *r["host_s"].values())
+                             for r in rows])
+    device_fit = pl.calibrate([(r["block_size"], *r["device_s"].values())
+                               for r in rows])
+    o = plug.PlugOptions()
+    out["calibration"] = {
+        "shard0_edges": d, "samples": rows,
+        "host_stage_fit": lemma1(d, host_fit),
+        "device_stage_fit": lemma1(d, device_fit),
+        "defaults": lemma1(d, (o.k1, o.k2, o.k3, o.a))}
+    # -- a pipelined run at the fitted block size
+    fitted = plug.PlugOptions(block_size="auto", **dict(zip(
+        ("k1", "k2", "k3", "a"), host_fit)))
+    sp_cut, _ = plug.run_reference(g, sp, max_iterations=CUT_ITERATIONS,
+                                   device="cuda")
+    label = f"sssp_bf/pipelined-cuda/fitted/{CUT_ITERATIONS}-its"
+    res, launches, mw, rec = run_e2e(
+        label, g, sp, plug.PipelinedDaemon(kernel="cuda"), "bsp", parts,
+        sp_cut, None, options=fitted, max_iterations=CUT_ITERATIONS)
+    if res.iterations != CUT_ITERATIONS or launches["edge_block"] == 0:
+        raise AssertionError(f"{label}: {res.iterations} iterations, "
+                             f"launches {launches}")
+    launches_pipelined += launches["edge_block"]
+    rec.update(block_size=mw.block_size, vblock_size=mw.vblock_size,
+               stages=stage_summary(res, "pipeline"),
+               daemon_s=daemon_seconds(res, "pipeline", CUT_ITERATIONS),
+               default_block_size=out["calibration"]["defaults"]
+               ["auto_block"],
+               default_daemon_s_same_iterations=daemon_seconds(
+                   default_run, "pipeline", CUT_ITERATIONS))
+    out["fitted"] = rec
+    out["reduced"]["fitted"] = (
+        f"the fitted block size runs {CUT_ITERATIONS} iterations against "
+        f"run_reference cut at {CUT_ITERATIONS}: small blocks multiply the "
+        "per-block host work")
+    # -- Fig. 8's ratio at a reduced size
+    n12 = 1 << FIG8_SCALE
+    g12 = generate.rmat_stream(n12, EDGE_FACTOR * n12, seed=seed)
+    sp12 = sssp_bf(g12, sources=[0, 1, 2, 3])
+    parts12 = plug.HostUpperSystem().partition(g12, 1)
+    ref12, ref12_it = plug.run_reference(g12, sp12, device="cuda")
+    ref12_cut, _ = plug.run_reference(g12, sp12,
+                                      max_iterations=CUT_ITERATIONS,
+                                      device="cuda")
+    daemons = {"naive": lambda: "naive",
+               "blocked-cuda": lambda: plug.BlockedDaemon(kernel="cuda"),
+               "pipelined-cuda": lambda: plug.PipelinedDaemon(kernel="cuda"),
+               "cuda": lambda: "cuda"}
+    fig8 = {"vertices": n12, "edges": g12.num_edges, "shards": 1,
+            "reference_iterations": ref12_it}
+    for name, make in daemons.items():
+        res, _, _, rec = run_e2e(f"fig8/{name}/{CUT_ITERATIONS}-its", g12,
+                                 sp12, make(), "bsp", parts12, ref12_cut,
+                                 None, max_iterations=CUT_ITERATIONS)
+        entry = {"per_iteration_s": rec["per_iteration_s"],
+                 "setup_s": rec["setup_s"]}
+        if name != "naive":
+            res, _, _, full = run_e2e(f"fig8/{name}", g12, sp12, make(),
+                                      "bsp", parts12, ref12, None)
+            if res.iterations != ref12_it:
+                raise AssertionError(f"fig8/{name}: {res.iterations} "
+                                     f"iterations, reference {ref12_it}")
+            entry["fixed_point_per_iteration_s"] = full["per_iteration_s"]
+        fig8[name] = entry
+    naive_s = fig8["naive"]["per_iteration_s"]
+    fig8["naive_over"] = {name: naive_s / fig8[name]["per_iteration_s"]
+                          for name in daemons if name != "naive"}
+    out["fig8"] = fig8
+    out["reduced"]["fig8"] = (
+        f"R-MAT scale {FIG8_SCALE}, 1 shard; every daemon's ratio over its "
+        f"first {CUT_ITERATIONS} iterations (against run_reference cut "
+        "there), the accelerated ones also to the fixed point: naive is a "
+        "Python loop per edge, minutes an iteration at scale 20")
+    return out, launches_pipelined
 
 
 def main(argv=None) -> int:
@@ -1091,6 +1336,8 @@ def main(argv=None) -> int:
     for label, prog, daemon, model, ref, tol, kernel in runs:
         res, launches, _, rec = run_e2e(label, g, prog, daemon, model, parts,
                                         ref, tol)
+        if kernel == "edge_block":
+            blocked_run = (res, launches, rec)
         if prog is pr and res.iterations != pr_ref_it:
             raise AssertionError(f"{label}: {res.iterations} iterations, "
                                  f"reference ran {pr_ref_it}")
@@ -1170,6 +1417,13 @@ def main(argv=None) -> int:
     del stacked_tiles
     torch.cuda.empty_cache()
 
+    # -- 5c. the pipeline shuffle ------------------------------------------
+    pipe_rec, pipe_launches = phase_pipeline(
+        g, parts, pr, sp, pr_ref, pr_ref_it, sp_ref, sp_ref_it, blocked_run,
+        args.seed)
+    emit(pipe_rec)
+    torch.cuda.empty_cache()
+
     # -- 6. attention at qwen2-72b width (and whisper-base's head dim) -----
     attn = []
     for case in ATTN_CASES:
@@ -1202,6 +1456,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": e2e_launches[name],
             "launches_fused": fused_launches[name],
+            **({"launches_pipelined": pipe_launches}
+               if name == "edge_block" else {}),
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],

@@ -13,18 +13,28 @@ Three layers are reproduced here:
    ``simulate_async`` (unbounded inter-stage queues; a lower bound used to
    quantify what rotation gives up — nothing, when blocks are equal-sized).
 
-3. **Executor** — ``run_sequential``, the Download → Compute → Upload
-   baseline the blocked daemon runs.  The JAX package's 3-thread
-   ``PipelinedExecutor`` and the stage-time ``calibrate`` fit come with the
-   pipelined daemon (ROADMAP Queue A item 7).
+3. **Executor** — ``PipelinedExecutor``: the 3-thread implementation with
+   rotating buffer *pointers* (no data copies between stages, the paper's
+   "shuffle"), synchronized by a per-cycle barrier — the daemon/agent
+   Rotate() handshake of Algorithms 1-2; and ``run_sequential``, the
+   Download → Compute → Upload baseline the blocked daemon runs.  The
+   executor orders the stages' *host* calls; on the card the streaming
+   daemons (``plug/daemons.py``) give each stage its own CUDA stream and
+   order the device work with events.
+
+4. **Calibration** — ``calibrate`` fits (k1, k2, k3, a) to measured stage
+   times by least squares.
 
 A copy of the JAX package's NumPy module; ``optimal_integer_blocks`` is
-what ``block_size="auto"`` resolves through.
+what ``block_size="auto"`` resolves through.  Unlike the JAX executor,
+every barrier wait and thread join here is bounded by ``timeout``, so a
+stuck stage fails the run instead of hanging it.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 import time
 from typing import Callable, Sequence
 
@@ -136,19 +146,126 @@ def simulate_async(tn: Sequence[float], tc: Sequence[float], tu: Sequence[float]
 
 
 # --------------------------------------------------------------------------
-# Executor
+# Executor: 3 threads + rotating buffer pointers + per-cycle barrier
 # --------------------------------------------------------------------------
+STAGES = ("download", "compute", "upload")
+
+
+class PipelinedExecutor:
+    """Runs download/compute/upload stages over ``num_blocks`` blocks.
+
+    Stage callables receive the block index and a buffer *slot* dict they
+    may mutate in place; slots rotate between stages by pointer (list
+    permutation), never by copying — the paper's shuffle.  Block ``i``
+    lives in slot ``i % 3`` from its download to its upload.
+
+    ``timeout`` (seconds) bounds every barrier wait and every thread join:
+    a stage that outlasts it breaks the barrier, and ``run`` raises.
+    """
+
+    def __init__(
+        self,
+        download: Callable[[int, dict], None],
+        compute: Callable[[int, dict], None],
+        upload: Callable[[int, dict], None],
+        *,
+        timeout: float = 120.0,
+    ):
+        self._stages = (download, compute, upload)
+        self.timeout = timeout
+
+    def run(self, num_blocks: int) -> dict:
+        slots = [dict(), dict(), dict()]  # rotating buffers: n, c, u roles
+        n_cycles = num_blocks + 2
+        barrier = threading.Barrier(3, timeout=self.timeout)
+        stage_busy = [0.0, 0.0, 0.0]
+        errors: list[BaseException] = []
+
+        def worker(stage_idx: int):
+            fn = self._stages[stage_idx]
+            try:
+                for cycle in range(n_cycles):
+                    block = cycle - stage_idx
+                    if 0 <= block < num_blocks:
+                        # Buffer for this (stage, cycle): rotation means the
+                        # slot a block was downloaded into is the slot it is
+                        # computed in next cycle and uploaded from after.
+                        slot = slots[block % 3]
+                        t0 = time.perf_counter()
+                        fn(block, slot)
+                        stage_busy[stage_idx] += time.perf_counter() - t0
+                    barrier.wait()  # Rotate(): all pointers advance together
+            except BaseException as exc:  # surfaced in the caller's thread
+                errors.append(exc)
+                barrier.abort()
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=worker, args=(i,), daemon=True,
+                                    name=f"pipeline-{STAGES[i]}")
+                   for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            while t.is_alive():
+                t.join(self.timeout)
+                # a broken barrier releases every stage that waits on it; a
+                # stage still running one timeout later is stuck in its body
+                if t.is_alive() and errors:
+                    t.join(self.timeout)
+                    if t.is_alive():
+                        raise TimeoutError(
+                            f"{t.name} still running {self.timeout} s after "
+                            "the pipeline broke") from errors[0]
+        if errors:
+            # the first error is the stage's own; the others are the broken
+            # barrier it left behind
+            raise errors[0]
+        return {
+            "wall_time": time.perf_counter() - t0,
+            "busy": dict(zip(STAGES, stage_busy)),
+        }
+
+
 def run_sequential(
     download: Callable[[int, dict], None],
     compute: Callable[[int, dict], None],
     upload: Callable[[int, dict], None],
     num_blocks: int,
 ) -> dict:
-    """The "without pipeline" baseline: tightly coupled 3-step execution."""
+    """The "without pipeline" baseline: tightly coupled 3-step execution.
+    Returns the executor's record: ``wall_time`` and per-stage ``busy``."""
     slot: dict = {}
+    stages = (download, compute, upload)
+    busy = [0.0, 0.0, 0.0]
     t0 = time.perf_counter()
     for i in range(num_blocks):
-        download(i, slot)
-        compute(i, slot)
-        upload(i, slot)
-    return {"wall_time": time.perf_counter() - t0}
+        for j, fn in enumerate(stages):
+            ts = time.perf_counter()
+            fn(i, slot)
+            busy[j] += time.perf_counter() - ts
+    return {"wall_time": time.perf_counter() - t0,
+            "busy": dict(zip(STAGES, busy))}
+
+
+# --------------------------------------------------------------------------
+# Calibration: measure k1,k2,k3,a from stage timings (Sec. V, footnote 6)
+# --------------------------------------------------------------------------
+def calibrate(
+    timings: Sequence[tuple[int, float, float, float]],
+) -> tuple[float, float, float, float]:
+    """Fits (k1,k2,k3,a) from per-block (b, t_n, t_c, t_u) samples.
+
+    t_n ≈ k1*b, t_u ≈ k3*b (through origin); t_c ≈ a + k2*b (affine).
+    """
+    import numpy as np
+
+    bs = np.array([t[0] for t in timings], dtype=np.float64)
+    tns = np.array([t[1] for t in timings], dtype=np.float64)
+    tcs = np.array([t[2] for t in timings], dtype=np.float64)
+    tus = np.array([t[3] for t in timings], dtype=np.float64)
+    k1 = float((bs @ tns) / (bs @ bs))
+    k3 = float((bs @ tus) / (bs @ bs))
+    A = np.stack([np.ones_like(bs), bs], axis=1)
+    coef, *_ = np.linalg.lstsq(A, tcs, rcond=None)
+    a, k2 = float(max(coef[0], 0.0)), float(max(coef[1], 0.0))
+    return k1, k2, k3, a

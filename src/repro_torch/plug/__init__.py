@@ -16,7 +16,11 @@
                    "cuda")`` runs the edge-block CUDA kernel),
                    ``"sharded"`` (all shards stacked on one axis;
                    ``ShardedDaemon(kernel="cuda")`` launches the CSR-tile
-                   kernel once an iteration over every shard's tiles)
+                   kernel once an iteration over every shard's tiles),
+                   ``"pipelined"`` (the blocked stages overlapped by the
+                   pipeline shuffle: a thread and a CUDA stream per
+                   stage), ``"naive"`` (a per-edge loop on the host, the
+                   Fig. 8 baseline)
 ``upper=``         ``"host"``, ``"mesh"`` (merges device partials)
 ``model=``         ``"bsp"``, ``"gas"``
 =================  =====================================================
@@ -29,12 +33,13 @@
                          upper="mesh", num_shards=4)
 
 ``device="cuda"`` is the default; ``device="cpu"`` runs the plain PyTorch
-versions of the kernels.  The async model and the other daemons come with
+versions of the kernels.  The async model and the other options come with
 later slices (ROADMAP Queue A).
 """
 from repro_torch.plug.computation import (BSP, GAS, get_model, model_names,
                                           register_model)
-from repro_torch.plug.daemons import (BlockedDaemon, ShardedDaemon,
+from repro_torch.plug.daemons import (BlockedDaemon, NaiveDaemon,
+                                      PipelinedDaemon, ShardedDaemon,
                                       VectorizedDaemon, daemon_names,
                                       get_daemon, register_daemon)
 from repro_torch.plug.middleware import (DriveLoop, HostDriveLoop,
@@ -51,7 +56,8 @@ from repro_torch.plug.uppers import (HostUpperSystem, MeshUpperSystem,
 __all__ = [
     "BSP", "GAS", "BlockedDaemon", "ComputationModel", "Daemon",
     "DevicePartialUpper", "DriveLoop", "HostDriveLoop", "HostUpperSystem",
-    "MeshUpperSystem", "Middleware", "PlugOptions", "Result",
+    "MeshUpperSystem", "Middleware", "NaiveDaemon", "PipelinedDaemon",
+    "PlugOptions", "Result",
     "ShardCapableDaemon", "ShardedDaemon", "UpperSystem", "VectorizedDaemon",
     "daemon_names", "get_daemon", "get_model", "get_upper_system",
     "make_apply_fn", "model_names", "register_daemon", "register_model",

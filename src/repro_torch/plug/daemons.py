@@ -11,7 +11,14 @@ Every daemon implements ``bind(program, n, device=...)`` then
   (graph/compaction.py) and block-granularity frontier selection becomes a
   per-edge mask over the fixed tile layout (``kernels.ops.csr_aggregate``).
 * ``BlockedDaemon`` — the paper's Download → Compute → Upload per block;
-  ``kernel="cuda"`` runs the edge-block kernel on each block.
+  ``kernel="cuda"`` runs the edge-block kernel on each block.  On the card
+  each stage has its own CUDA stream, ordered by events.
+* ``PipelinedDaemon`` — the same stages overlapped across blocks by the
+  pipeline shuffle (``core.pipeline.PipelinedExecutor``: one thread, and
+  on the card one stream, per stage).
+* ``NaiveDaemon`` — a per-edge Python loop on the host, the baseline of
+  the paper's acceleration ratio (Fig. 8); it computes on the CPU by
+  design.
 * ``ShardedDaemon`` — every shard's block tensors stacked on a leading
   shard axis and placed on the device once; ``run_all_shards`` does
   gather + Gen + segmented Merge + the per-device combine for all shards in
@@ -19,8 +26,8 @@ Every daemon implements ``bind(program, n, device=...)`` then
   capability (``plug.protocols.ShardCapableDaemon``) is what the middleware
   detects to drive the device-resident fused loop.
 
-The pipelined and naive daemons come with a later slice (ROADMAP Queue A
-item 7); their registry names raise ``NotImplementedError``.
+The JAX package's CSR autotuning (``csr_config=None``) comes with ROADMAP
+Queue A item 5; the port takes ``csr_config or CSRConfig()``.
 """
 from __future__ import annotations
 
@@ -36,7 +43,7 @@ from repro_torch.core.template import VertexProgram, segment_sum
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-from repro_torch.plug.protocols import divisor_mesh, not_ported
+from repro_torch.plug.protocols import divisor_mesh
 
 KERNELS = ("reference", "cuda")
 
@@ -94,12 +101,16 @@ def make_combine_fn(program: VertexProgram, n: int):
     return combine
 
 
+# a block's arrays in the order the block programs take them
+_BLOCK_FIELDS = ("vids", "lsrc", "ldst", "weights", "emask")
+
+
 def gather_blocks(bs: BlockSet, sel: np.ndarray, device):
     """Stacks the selected blocks on ``device``.  Unlike the JAX package,
     ``sel`` is not padded to a power of two: PyTorch runs eagerly, so there
     is no compiled shape to bound."""
-    return tuple(torch.from_numpy(a[sel]).to(device)
-                 for a in (bs.vids, bs.lsrc, bs.ldst, bs.weights, bs.emask))
+    return tuple(torch.from_numpy(getattr(bs, f)[sel]).to(device)
+                 for f in _BLOCK_FIELDS)
 
 
 def _to_host(*ts):
@@ -182,19 +193,43 @@ class VectorizedDaemon:
                                           arrs[0].long()))
 
 
-class BlockedDaemon:
-    """The paper's flow collapsed to 3 steps, sequentially per block:
-    Download (the block's arrays to the device) → Compute (the block
-    program) → Upload (the partial back to the host, merged into the host
-    aggregate with the monoid)."""
+class _StreamingDaemon:
+    """Shared Download → Compute → Upload loop of the blocked and pipelined
+    daemons, one edge block at a time.
 
-    name = "blocked"
+    On the CPU each stage is the JAX package's: download takes the block's
+    arrays, compute runs the block program, upload merges the (VB, K)
+    partial into the host aggregate with the monoid.  On the card each
+    stage has its own CUDA stream (``streams``: copy in, compute, copy
+    out) and its own buffers per slot (block ``i`` uses slot ``i % 3``):
+
+    * download writes the block into the slot's pinned host buffers and
+      copies them into the slot's device buffers on the copy-in stream
+      (``non_blocking``), recording the slot's ``h2d`` event;
+    * compute waits for ``h2d`` on the compute stream, runs the block
+      program (``kernel="cuda"``: the edge-block kernel) and records
+      ``done``;
+    * upload waits for ``done`` on the copy-out stream, copies partial and
+      counts into the slot's pinned buffers, waits for that copy alone and
+      merges on the host.
+
+    Events order the device work; the executor's barrier orders only the
+    host's calls, and nothing synchronizes the whole device.  A slot's
+    pinned input buffers are rewritten only after its previous ``h2d``
+    completed, its device buffers only after its previous ``done``.  The
+    first call after ``bind`` runs one block through the three stages in
+    the calling thread first, so the kernels' build and first launch
+    happen outside the executor's threads.
+    """
+
+    pipelined = False
 
     def __init__(self, kernel: str = "reference"):
         _check_kernel(kernel)
         self.kernel = kernel
         self.program = None
         self.block_fn = None
+        self.streams = None
 
     def bind(self, program: VertexProgram, num_vertices: int, *,
              device="cuda"):
@@ -202,38 +237,201 @@ class BlockedDaemon:
         self.n = num_vertices
         self.device = resolve_device(device)
         self.block_fn = make_block_fn(program, kernel=self.kernel)
+        self.streams = (tuple(torch.cuda.Stream(self.device)
+                              for _ in pl.STAGES)
+                        if self.device.type == "cuda" else None)
+        self._slot_buffers = {}  # (B, VB, K) -> three slots' buffers
+        self._warm = False
         return self
 
     def run_blocks(self, state, aux, bs, sel, record):
         monoid = self.program.monoid
-        k = self.program.state_width
-        dev = self.device
-        agg = torch.full((self.n, k), monoid.identity, dtype=torch.float32)
+        agg = torch.full((self.n, self.program.state_width), monoid.identity,
+                         dtype=torch.float32)
         cnt = np.zeros(self.n, np.int64)
-        state_dev = torch.from_numpy(state).to(dev)
-        aux_dev = torch.from_numpy(aux).to(dev)
 
-        def download(i: int, slot: dict):
-            b = int(sel[i])
-            slot["arrs"] = tuple(
-                torch.from_numpy(a[b: b + 1]).to(dev)
-                for a in (bs.vids, bs.lsrc, bs.ldst, bs.weights, bs.emask))
-            slot["vids"] = bs.vids[b]
-
-        def compute(i: int, slot: dict):
-            slot["partial"], slot["counts"] = self.block_fn(
-                state_dev, aux_dev, *slot["arrs"])
-
-        def upload(i: int, slot: dict):
-            partial = slot["partial"][0].cpu()
-            counts = slot["counts"][0].cpu().numpy()
-            vids = slot["vids"]
+        def merge(vids, partial, counts):
             # dispatch through the monoid: an unknown one raises
             monoid.scatter_at(agg, torch.from_numpy(vids), partial)
             np.add.at(cnt, vids, counts)
 
-        res = pl.run_sequential(download, compute, upload, sel.size)
-        record.setdefault("sequential", []).append(res)
+        device_s = None
+        if self.streams is None:
+            stages = self._host_stages(state, aux, bs, sel, merge)
+        else:
+            device_s = dict.fromkeys(pl.STAGES, 0.0)
+            if not self._warm and sel.size:
+                pl.run_sequential(*self._cuda_stages(
+                    state, aux, bs, sel[:1], lambda *a: None, dict(device_s)),
+                    1)
+                self._warm = True
+            stages = self._cuda_stages(state, aux, bs, sel, merge, device_s)
+        if self.pipelined:
+            res = pl.PipelinedExecutor(*stages).run(sel.size)
+            record.setdefault("pipeline", []).append(res)
+        else:
+            res = pl.run_sequential(*stages, sel.size)
+            record.setdefault("sequential", []).append(res)
+        if device_s is not None:
+            res["device"] = device_s  # event-timed span of each stage
+        return agg.numpy(), cnt.astype(np.int32)
+
+    def _host_stages(self, state, aux, bs, sel, merge):
+        state_t, aux_t = torch.from_numpy(state), torch.from_numpy(aux)
+
+        def download(i: int, slot: dict):
+            b = int(sel[i])
+            slot["arrs"] = tuple(torch.from_numpy(getattr(bs, f)[b: b + 1])
+                                 for f in _BLOCK_FIELDS)
+            slot["vids"] = bs.vids[b]
+
+        def compute(i: int, slot: dict):
+            slot["partial"], slot["counts"] = self.block_fn(
+                state_t, aux_t, *slot["arrs"])
+
+        def upload(i: int, slot: dict):
+            merge(slot["vids"], slot["partial"][0],
+                  slot["counts"][0].numpy())
+
+        return download, compute, upload
+
+    def _buffers(self, bs):
+        """Each slot's pinned host and device buffers for one block shape,
+        made once per (B, VB, K)."""
+        key = (bs.block_size, bs.vblock_size, self.program.state_width)
+        bufs = self._slot_buffers.get(key)
+        if bufs is None:
+            bufs = []
+            like = [torch.from_numpy(getattr(bs, f)[:1])
+                    for f in _BLOCK_FIELDS]
+            for _ in range(3):
+                pin_in = [torch.empty_like(a, pin_memory=True) for a in like]
+                bufs.append({
+                    "pin_in": pin_in,
+                    "dev_in": [torch.empty_like(t, device=self.device)
+                               for t in pin_in],
+                    "pin_out": (
+                        torch.empty((1, key[1], key[2]), dtype=torch.float32,
+                                    pin_memory=True),
+                        torch.empty((1, key[1]), dtype=torch.int32,
+                                    pin_memory=True)),
+                })
+            self._slot_buffers[key] = bufs
+        return bufs
+
+    def _cuda_stages(self, state, aux, bs, sel, merge, device_s):
+        copy_in, comp, copy_out = self.streams
+        bufs = self._buffers(bs)
+        state_dev = torch.from_numpy(state).to(self.device)
+        aux_dev = torch.from_numpy(aux).to(self.device)
+        # the block programs read the vertex table on the compute stream
+        comp.wait_stream(torch.cuda.current_stream(self.device))
+        state_dev.record_stream(comp)
+        aux_dev.record_stream(comp)
+
+        def event(stream):
+            return stream.record_event(torch.cuda.Event(enable_timing=True))
+
+        def download(i: int, slot: dict):
+            buf = bufs[i % 3]
+            b = int(sel[i])
+            with torch.cuda.stream(copy_in):
+                if "h2d" in buf:  # the pinned buffers' last copy is done
+                    buf["h2d"].synchronize()
+                if "done" in buf:  # the last block program read them
+                    copy_in.wait_event(buf["done"])
+                slot["n0"] = event(copy_in)
+                for f, pin, dev in zip(_BLOCK_FIELDS, buf["pin_in"],
+                                       buf["dev_in"]):
+                    pin.numpy()[0] = getattr(bs, f)[b]
+                    dev.copy_(pin, non_blocking=True)
+                buf["h2d"] = slot["h2d"] = event(copy_in)
+            slot["vids"] = bs.vids[b]
+
+        def compute(i: int, slot: dict):
+            buf = bufs[i % 3]
+            with torch.cuda.stream(comp):
+                comp.wait_event(slot["h2d"])
+                slot["c0"] = event(comp)
+                partial, counts = self.block_fn(state_dev, aux_dev,
+                                                *buf["dev_in"])
+                buf["done"] = slot["done"] = event(comp)
+            # made on the compute stream, read on the copy-out stream
+            partial.record_stream(copy_out)
+            counts.record_stream(copy_out)
+            slot["partial"], slot["counts"] = partial, counts
+
+        def upload(i: int, slot: dict):
+            pin_p, pin_c = bufs[i % 3]["pin_out"]
+            with torch.cuda.stream(copy_out):
+                copy_out.wait_event(slot["done"])
+                u0 = event(copy_out)
+                pin_p.copy_(slot["partial"], non_blocking=True)
+                pin_c.copy_(slot["counts"], non_blocking=True)
+                u1 = event(copy_out)
+            u1.synchronize()
+            device_s["download"] += slot["n0"].elapsed_time(slot["h2d"]) / 1e3
+            device_s["compute"] += slot["c0"].elapsed_time(slot["done"]) / 1e3
+            device_s["upload"] += u0.elapsed_time(u1) / 1e3
+            merge(slot["vids"], pin_p[0], pin_c[0].numpy())
+
+        return download, compute, upload
+
+
+class BlockedDaemon(_StreamingDaemon):
+    """The paper's flow collapsed to 3 steps, sequentially per block:
+    Download (the block's arrays to the device) → Compute (the block
+    program) → Upload (the partial back to the host, merged into the host
+    aggregate with the monoid)."""
+
+    name = "blocked"
+
+
+class PipelinedDaemon(_StreamingDaemon):
+    """The same three stages overlapped across blocks by the pipeline
+    shuffle (paper Sec. III-A): :class:`~repro_torch.core.pipeline.
+    PipelinedExecutor` runs each stage in its own thread, and on the card
+    on its own CUDA stream."""
+
+    name = "pipelined"
+    pipelined = True
+
+
+class NaiveDaemon:
+    """Per-edge Python loop on the host — deliberately slow; exists so the
+    acceleration ratio of real daemons is measurable (Fig. 8).  It computes
+    on the CPU whatever the device: ``device`` is taken for the protocol
+    (and checked), as the middleware's apply runs there."""
+
+    name = "naive"
+
+    def bind(self, program: VertexProgram, num_vertices: int, *,
+             device="cuda"):
+        self.program = program
+        self.n = num_vertices
+        self.device = resolve_device(device)
+        return self
+
+    def run_blocks(self, state, aux, bs, sel, record):
+        prog = self.program
+        monoid = prog.monoid
+        agg = torch.full((self.n, prog.state_width), monoid.identity,
+                         dtype=torch.float32)
+        cnt = np.zeros(self.n, np.int64)
+        state_t, aux_t = torch.from_numpy(state), torch.from_numpy(aux)
+        weights = torch.from_numpy(bs.weights)
+        for b in sel:
+            b = int(b)
+            for e in range(bs.block_size):
+                if not bs.emask[b, e]:
+                    continue
+                s, d = int(bs.gsrc[b, e]), int(bs.gdst[b, e])
+                msg = prog.msg_gen(state_t[s: s + 1], state_t[d: d + 1],
+                                   weights[b, e: e + 1].reshape(1, 1),
+                                   aux_t[s: s + 1])
+                # dispatch through the monoid (an unknown one raises)
+                monoid.scatter_at(agg, d, msg)
+                cnt[d] += 1
         return agg.numpy(), cnt.astype(np.int32)
 
 
@@ -510,5 +708,5 @@ register_daemon("reference", functools.partial(VectorizedDaemon,
 register_daemon("cuda", functools.partial(VectorizedDaemon, kernel="cuda"))
 register_daemon("blocked", BlockedDaemon)
 register_daemon("sharded", ShardedDaemon)
-register_daemon("pipelined", not_ported('daemon="pipelined"', 7))
-register_daemon("naive", not_ported('daemon="naive"', 7))
+register_daemon("pipelined", PipelinedDaemon)
+register_daemon("naive", NaiveDaemon)

@@ -100,7 +100,8 @@ class Middleware:
     Args:
       graph, program: the workload.
       daemon: accelerator backend — a registry name (``"reference"``,
-        ``"cuda"``, ``"blocked"``, …) or an unbound Daemon instance.
+        ``"cuda"``, ``"sharded"``, ``"blocked"``, ``"pipelined"``,
+        ``"naive"``, …) or an unbound Daemon instance.
       upper: upper system — ``"host"`` or an instance.
       model: computation model — ``"bsp"`` / ``"gas"`` or an instance.
       partitions: explicit edge partitions; defaults to the upper

@@ -12,13 +12,15 @@ bf16 hi + lo parts on the tensor cores for that reason).  The SSD chunk step: ma
 another order); with dt in Mamba2's range, where decay and gate do not
 underflow, those two within 1e-4·|want| at every element.  The fused loop
 (``daemon="sharded"`` + ``upper="mesh"``) is held against the host loop and
-``run_reference``.  This file imports no JAX, so it runs on a
+``run_reference``, and the pipelined daemon (three CUDA streams) against the
+blocked daemon and ``run_reference``.  This file imports no JAX, so it runs on a
 machine with PyTorch alone:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
 import math
+import threading
 
 import numpy as np
 import pytest
@@ -284,6 +286,106 @@ def test_fused_loop_matches_host_loop_and_reference(cuda, prog_name):
             np.testing.assert_allclose(res.state, ref, rtol=1e-5, atol=1e-7)
             np.testing.assert_allclose(res.state, host.state, rtol=1e-5,
                                        atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prog_name", ["sssp_bf", "bfs", "wcc", "pagerank",
+                                       "label_prop"])
+def test_pipelined_daemon_matches_blocked_daemon(cuda, prog_name):
+    """PipelinedDaemon(kernel="cuda") on three streams against
+    BlockedDaemon(kernel="cuda") and run_reference: the same blocks, so the
+    same edge_block launches; min bit-equal, sum within rtol."""
+    g = _graph()
+    if prog_name == "wcc":
+        g = g.with_reverse_edges()
+    prog = algorithms.ALGORITHMS[prog_name](g)
+    ref, _ = plug.run_reference(g, prog, max_iterations=12, device=cuda)
+    runs = {}
+    for cls in (plug.BlockedDaemon, plug.PipelinedDaemon):
+        mw = plug.Middleware(g, prog, daemon=cls(kernel="cuda"),
+                             num_shards=2,
+                             options=plug.PlugOptions(block_size=64),
+                             device=cuda)
+        mw.run(max_iterations=1)  # the warm-up block runs once per bind
+        before = ebk.edge_block.launches
+        res = mw.run(max_iterations=12)
+        runs[cls.name] = (res, ebk.edge_block.launches - before)
+        key = "pipeline" if cls is plug.PipelinedDaemon else "sequential"
+        recs = [r for it in res.per_iteration for r in it.get(key, ())]
+        assert recs and all(set(r["device"]) == set(r["busy"]) for r in recs)
+        if prog.monoid.idempotent:
+            np.testing.assert_array_equal(res.state, ref)
+        else:
+            np.testing.assert_allclose(res.state, ref, rtol=1e-5, atol=1e-7)
+    (blocked, nb), (piped, npiped) = runs["blocked"], runs["pipelined"]
+    assert nb == npiped > 0
+    assert piped.iterations == blocked.iterations
+    assert piped.stats.as_dict() == blocked.stats.as_dict()
+    if prog.monoid.idempotent:
+        np.testing.assert_array_equal(piped.state, blocked.state)
+    else:
+        np.testing.assert_allclose(piped.state, blocked.state, rtol=1e-5,
+                                   atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_streaming_daemon_computes_on_its_own_stream(cuda):
+    """The block program runs on the daemon's compute stream, never the
+    default stream, and in the pipeline's compute thread."""
+    g = _graph()
+    prog = algorithms.sssp_bf(g)
+    daemon = plug.PipelinedDaemon(kernel="cuda")
+    mw = plug.Middleware(g, prog, daemon=daemon,
+                         options=plug.PlugOptions(block_size=64),
+                         device=cuda)
+    mw.run(max_iterations=1)
+    seen = []
+    inner = daemon.block_fn
+
+    def block_fn(*args):
+        seen.append((torch.cuda.current_stream(cuda).stream_id,
+                     threading.get_ident()))
+        return inner(*args)
+
+    daemon.block_fn = block_fn
+    res = mw.run()
+    ref, _ = plug.run_reference(g, prog, device=cuda)
+    np.testing.assert_array_equal(res.state, ref)
+    assert seen
+    default = torch.cuda.default_stream(cuda).stream_id
+    assert {s for s, _ in seen} == {daemon.streams[1].stream_id} != {default}
+    assert threading.get_ident() not in {t for _, t in seen}
+
+
+class _SlowDownload(plug.PipelinedDaemon):
+    """Queues a sleep kernel on the copy-in stream before each block's
+    copies, so each block arrives late: a compute stage that did not wait
+    for its block's event would read the slot's previous block."""
+
+    def _cuda_stages(self, *args):
+        download, compute, upload = super()._cuda_stages(*args)
+
+        def slow_download(i, slot):
+            with torch.cuda.stream(self.streams[0]):
+                torch.cuda._sleep(2_000_000)
+            download(i, slot)
+
+        return slow_download, compute, upload
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prog_name", ["sssp_bf", "pagerank"])
+def test_streaming_stages_wait_for_a_late_download(cuda, prog_name):
+    g = _graph()
+    prog = algorithms.ALGORITHMS[prog_name](g)
+    ref, _ = plug.run_reference(g, prog, max_iterations=6, device=cuda)
+    res = plug.Middleware(g, prog, daemon=_SlowDownload(kernel="cuda"),
+                          options=plug.PlugOptions(block_size=64),
+                          device=cuda).run(max_iterations=6)
+    if prog.monoid.idempotent:
+        np.testing.assert_array_equal(res.state, ref)
+    else:
+        np.testing.assert_allclose(res.state, ref, rtol=1e-5, atol=1e-7)
 
 
 @pytest.mark.cuda

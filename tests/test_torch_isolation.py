@@ -215,8 +215,8 @@ def test_csr_config_rejects_unknown_or_kernel_less_choices(kwargs):
 @pytest.mark.parametrize("kwargs, item", [
     ({"upper": plug.MeshUpperSystem(mesh=2)}, 13),
     ({"upper": plug.MeshUpperSystem(wire="compressed")}, 13),
-    ({"daemon": "pipelined"}, 7),
-    ({"daemon": "naive"}, 7),
+    ({"model": "async", "daemon": "sharded", "upper": "mesh"}, 8),
+    ({"upper": plug.MeshUpperSystem(mesh=4)}, 13),
     ({"model": "async"}, 8),
     ({"monitor": object()}, 9),
     ({"failures": object()}, 9),
