@@ -33,7 +33,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               there ``device_ms`` is the same launches' time queued behind a
               sleep kernel, without the host's gaps between them.
 5. e2e      — the host drive loop end to end on 4 shards: pagerank through
-              ``daemon="cuda"`` (BSP), sssp_bf through ``daemon="cuda"``
+              ``daemon="cuda"`` (BSP; every phase before 5d pins its CSR
+              config to ``CSRConfig()``), sssp_bf through ``daemon="cuda"``
               (GAS) and through ``BlockedDaemon(kernel="cuda")`` (BSP), each
               held against the port's ``run_reference`` on the card.  Each
               composition first runs one warm-up iteration (set-up: the
@@ -98,6 +99,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
               daemons over 3 iterations against the cut reference (the
               last three also to the fixed point), ``naive_over`` each.
               ``reduced`` names both cuts.
+5d. autotune — ``kernels.autotune.autotune_csr`` for pagerank and sssp_bf
+              on the shard with the most live edges, over the card's space
+              (the flat merge at edge tiles 256, 512, 1024; the CSR-tile
+              kernel at 256, 512): each point's ms, the winner and the
+              signature's backend.  The flat merge at edge tile 512 on the
+              same shard, timed as swept (dead and padded slots merge the
+              identity into vertex 0) and over its live slots alone, with
+              the dead-slot count and its row gather alone.  Then the fused
+              loop with ``csr_config=None`` (pagerank 10 iterations, sssp_bf
+              to its fixed point; the daemon tunes on the same shard, so
+              its lookup is answered by the memo), checked as in phase 5b
+              with ``csr_tile`` launched once an iteration if a kernel
+              point won and never if a flat one did, its s an iteration
+              beside phase 5b's pinned run; and the host loop (sssp_bf,
+              ``daemon="cuda"``, GAS) with ``csr_config=None``, checked as
+              in phase 5, beside phase 5's.
+5e. mesh    — the fused loop at ``mesh=4`` (a logical device a shard) with
+              ``CSRConfig()`` pinned, sssp_bf (GAS) and pagerank (BSP),
+              checked as in phase 5b and against phase 5b's ``mesh=1``
+              runs (sssp_bf bit-equal, pagerank within rtol/atol below);
+              ``merge_partials`` must receive (4, N, K) every iteration;
+              s an iteration beside ``mesh=1``.
 
 6. attention — a qwen2-72b attention layer at ``train_4k`` (B=1, Hq=64,
               Hkv=8, S=4096, D=128, bf16, causal) through
@@ -943,6 +966,15 @@ def fused_parts_ms(mw, state, aux, active) -> dict:
     }
 
 
+def pinned_csr_daemon():
+    """``daemon="cuda"`` with its CSR config pinned to ``CSRConfig()`` (the
+    tile kernel at edge tile 512), as every phase before 5d runs it."""
+    from repro_torch import plug
+    from repro_torch.kernels.ops import CSRConfig
+
+    return plug.VectorizedDaemon(kernel="cuda", csr_config=CSRConfig())
+
+
 def run_e2e(label, graph, program, daemon, model, parts, ref_state, sum_tol,
             device="cuda", upper="host", options=None, max_iterations=None):
     import numpy as np
@@ -1192,7 +1224,7 @@ def phase_pipeline(g, parts, pr, sp, pr_ref, pr_ref_it, sp_ref, sp_ref_it,
     daemons = {"naive": lambda: "naive",
                "blocked-cuda": lambda: plug.BlockedDaemon(kernel="cuda"),
                "pipelined-cuda": lambda: plug.PipelinedDaemon(kernel="cuda"),
-               "cuda": lambda: "cuda"}
+               "cuda": pinned_csr_daemon}
     fig8 = {"vertices": n12, "edges": g12.num_edges, "shards": 1,
             "reference_iterations": ref12_it}
     for name, make in daemons.items():
@@ -1219,6 +1251,215 @@ def phase_pipeline(g, parts, pr, sp, pr_ref, pr_ref_it, sp_ref, sp_ref_it,
         "there), the accelerated ones also to the fixed point: naive is a "
         "Python loop per edge, minutes an iteration at scale 20")
     return out, launches_pipelined
+
+
+def check_fused_run(label, res, mw, rec, launches, want_tile) -> None:
+    """Phase 5b's checks of a fused run: the fused loop ran, ``csr_tile``
+    launched ``want_tile`` times and ``edge_block`` never, and one small
+    fetch an iteration plus the final state crossed to the host."""
+    if mw._fused_kind != "bsp" or not all(
+            r.get("fused") for r in res.per_iteration):
+        raise AssertionError(f"{label}: ran the host loop, not the fused "
+                             f"one (_fused_kind={mw._fused_kind!r})")
+    if launches["csr_tile"] != want_tile or launches["edge_block"] != 0:
+        raise AssertionError(f"{label}: launches {launches} over "
+                             f"{res.iterations} iterations, expected "
+                             f"csr_tile {want_tile}")
+    if rec["vertex_sized_fetches"] != 1 or rec["fetches_per_iteration"] != 1:
+        raise AssertionError(f"{label}: device→host fetches "
+                             f"{rec['fetches_per_iteration']} an iteration "
+                             f"and {rec['vertex_sized_fetches']} "
+                             "vertex-sized, expected 1 and 1")
+
+
+def flat_parts_ms(tiles, program, state, aux) -> dict:
+    """The flat merge on one shard's tiles, timed as the sweep runs it
+    (dead and padded slots merge the identity into vertex 0) and over the
+    live slots alone, which give the same aggregate; and its K-wide row
+    gather ``state[gsrc]`` alone."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.autotune import CSRConfig
+
+    dev = state.device
+    cfg = CSRConfig(edge_tile=tiles["emask"].shape[1], lowering="torch",
+                    merge="flat")
+    csr = {k: torch.as_tensor(v, device=dev) for k, v in tiles.items()}
+    live = torch.nonzero(csr["emask"].reshape(-1)).reshape(-1)
+    live_csr = {k: csr[k].reshape(-1)[live][None]
+                for k in ("gsrc", "gdst", "emask")}
+    live_csr["w"] = csr["w"].reshape(-1, 1)[live][None]
+
+    def run(c):
+        return ops.csr_aggregate(state, aux, c, program=program,
+                                 num_vertices=state.shape[0], config=cfg)
+
+    (agg, cnt), (agg_l, cnt_l) = run(csr), run(live_csr)
+    if not (torch.equal(cnt, cnt_l) and (
+            torch.equal(agg, agg_l) if program.monoid.idempotent
+            else torch.allclose(agg, agg_l, rtol=SUM_RTOL, atol=SUM_ATOL))):
+        raise AssertionError("flat merge: the live slots alone give another "
+                             "aggregate")
+    gsrc = csr["gsrc"].long().reshape(-1)
+    return {"slots": csr["emask"].numel(), "live_slots": live.numel(),
+            "dead_slots": csr["emask"].numel() - live.numel(),
+            "flat_ms": cuda_time_ms(lambda: run(csr)),
+            "flat_live_slots_ms": cuda_time_ms(lambda: run(live_csr)),
+            "row_gather_ms": cuda_time_ms(lambda: state[gsrc])}
+
+
+def phase_autotune(g, blocksets, parts, pr, sp, refs, pinned) -> tuple:
+    """Phase 5d: the sweep on the card and the loops that follow it.
+    ``refs`` maps a program's name to (run_reference state, iterations);
+    ``pinned`` maps it to phase 5b's fused run at ``CSRConfig()`` (label,
+    s an iteration) and to phase 5's host loop.  Returns the phase's line
+    and the csr_tile launches of its runs."""
+    import torch
+
+    from repro_torch import plug
+    from repro_torch.graph.compaction import build_csr_tiles
+    from repro_torch.kernels import autotune
+    from repro_torch.plug.daemons import _live_edges
+
+    n = g.num_vertices
+    dev = torch.device("cuda")
+    out = {"phase": "autotune", "signature_backend": autotune.backend(dev),
+           "space": [c.label for c in autotune.default_space(dev)]}
+    big = max(range(len(blocksets)),
+              key=lambda j: int(blocksets[j].emask.sum()))
+    src, dst, w = _live_edges(blocksets[big])
+    out.update(shard=big, shard_edges=int(src.size))
+    sweeps = {}
+    for prog in (pr, sp):
+        t0 = time.perf_counter()
+        chosen = autotune.autotune_csr(src, dst, w, n, prog, device=dev)
+        entry = next(e for e in autotune.CACHE.report()["entries"]
+                     if e["num_edges"] == src.size
+                     and e["monoid"] == prog.monoid.name
+                     and e["state_width"] == prog.state_width)
+        sweeps[prog.name] = {
+            "chosen": chosen.label, "sweep_s": time.perf_counter() - t0,
+            "ms": {label: t * 1e3 for label, t in entry["table"].items()}}
+    out["sweeps"] = sweeps
+    # the flat merge's dead slots on the tuned shard, at edge tile 512
+    tiles = build_csr_tiles(src, dst, w, n, edge_tile=512).arrays()
+    out["flat_et512"] = {}
+    for prog in (pr, sp):
+        state, aux = (torch.as_tensor(a, device=dev) for a in prog.init(g))
+        out["flat_et512"][prog.name] = flat_parts_ms(tiles, prog, state, aux)
+    del tiles
+    launches_tile = 0
+    runs = (("pagerank/sharded-autotuned/mesh/bsp", pr, "bsp",
+             (PR_RTOL, PR_ATOL)),
+            ("sssp_bf/sharded-autotuned/mesh/gas", sp, "gas", None))
+    for label, prog, model, tol in runs:
+        ref, ref_it = refs[prog.name]
+        res, launches, mw, rec = run_e2e(
+            label, g, prog, plug.ShardedDaemon(kernel="cuda"), model, parts,
+            ref, tol, upper="mesh")
+        chosen = mw.daemon._csr_config
+        if chosen.label != sweeps[prog.name]["chosen"]:
+            raise AssertionError(f"{label}: chose {chosen.label}, the sweep "
+                                 f"{sweeps[prog.name]['chosen']}")
+        if prog is pr and res.iterations != ref_it:
+            raise AssertionError(f"{label}: {res.iterations} iterations, "
+                                 f"reference ran {ref_it}")
+        # one csr_tile launch an iteration for a kernel point, none for
+        # the flat merge
+        check_fused_run(label, res, mw, rec, launches,
+                        0 if chosen.merge == "flat" else res.iterations)
+        emask = mw.daemon.stacked["csr"]["emask"]
+        pinned_label, pinned_s = pinned[prog.name]
+        rec.update(phase="autotune", chosen=chosen.label,
+                   csr_tile_per_iteration=launches["csr_tile"]
+                   / res.iterations,
+                   stacked_slots=emask.numel(),
+                   stacked_dead_slots=emask.numel() - int(emask.sum()),
+                   pinned_run=pinned_label,
+                   pinned_per_iteration_s=pinned_s,
+                   autotuned_over_pinned=rec["per_iteration_s"] / pinned_s)
+        out[label] = rec
+        launches_tile += launches["csr_tile"]
+        del mw
+        torch.cuda.empty_cache()
+    # the host loop, tuned on the first shard it runs
+    label = "sssp_bf/cuda-autotuned/gas"
+    res, launches, mw, rec = run_e2e(label, g, sp,
+                                     plug.VectorizedDaemon(kernel="cuda"),
+                                     "gas", parts, refs[sp.name][0], None)
+    chosen = mw.daemon._csr_config
+    if launches["edge_block"] or (
+            (launches["csr_tile"] > 0) != (chosen.merge != "flat")):
+        raise AssertionError(f"{label}: launches {launches} at "
+                             f"{chosen.label}")
+    host_label, host_s = pinned["host/" + sp.name]
+    rec.update(chosen=chosen.label, pinned_run=host_label,
+               pinned_per_iteration_s=host_s,
+               autotuned_over_pinned=rec["per_iteration_s"] / host_s)
+    out[label] = rec
+    launches_tile += launches["csr_tile"]
+    rep = autotune.CACHE.report()
+    out["cache"] = {"sweeps": rep["sweeps"], "hits": rep["hits"]}
+    return out, launches_tile
+
+
+def phase_mesh(g, parts, pr, sp, refs, mesh1) -> tuple:
+    """Phase 5e: the fused loop at ``mesh=SHARDS`` (one logical device a
+    shard) with ``CSRConfig()`` pinned, against phase 5b's ``mesh=1`` runs
+    (``mesh1``: a program's name → (label, state, s an iteration)).
+    Returns the phase's line and its csr_tile launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import plug
+    from repro_torch.kernels.ops import CSRConfig
+
+    out = {"phase": "mesh", "m": SHARDS}
+    launches_tile = 0
+    runs = (("sssp_bf/sharded-cuda/mesh4/gas", sp, "gas", None),
+            ("pagerank/sharded-cuda/mesh4/bsp", pr, "bsp",
+             (PR_RTOL, PR_ATOL)))
+    for label, prog, model, tol in runs:
+        upper = plug.MeshUpperSystem(mesh=SHARDS)
+        shapes = set()
+        merge = upper.merge_partials
+
+        def recorded(partials, counts, merge=merge, shapes=shapes):
+            shapes.add((tuple(partials.shape), tuple(counts.shape)))
+            return merge(partials, counts)
+
+        upper.merge_partials = recorded
+        res, launches, mw, rec = run_e2e(
+            label, g, prog, plug.ShardedDaemon(kernel="cuda",
+                                               csr_config=CSRConfig()),
+            model, parts, refs[prog.name][0], tol, upper=upper)
+        check_fused_run(label, res, mw, rec, launches, res.iterations)
+        k = prog.state_width
+        want = {((SHARDS, g.num_vertices, k), (SHARDS, g.num_vertices))}
+        if mw.daemon.m != SHARDS or shapes != want:
+            raise AssertionError(f"{label}: m={mw.daemon.m}, merge_partials "
+                                 f"received {sorted(shapes)}")
+        m1_label, m1_state, m1_s = mesh1[prog.name]
+        state = np.asarray(res.state)
+        if tol is None:
+            if not np.array_equal(state, m1_state):
+                raise AssertionError(f"{label}: not bit-equal to {m1_label}")
+            max_abs = 0.0
+        else:
+            max_abs = float(np.abs(state - m1_state).max())
+            if not np.allclose(state, m1_state, rtol=tol[0], atol=tol[1]):
+                raise AssertionError(f"{label}: outside rtol={tol[0]} of "
+                                     f"{m1_label} (max abs {max_abs})")
+        rec.update(phase="mesh", merge_partials_shapes=sorted(shapes),
+                   mesh1_run=m1_label, mesh1_per_iteration_s=m1_s,
+                   max_abs_err_vs_mesh1=max_abs,
+                   mesh4_over_mesh1=rec["per_iteration_s"] / m1_s)
+        out[label] = rec
+        launches_tile += launches["csr_tile"]
+        del mw
+        torch.cuda.empty_cache()
+    return out, launches_tile
 
 
 def main(argv=None) -> int:
@@ -1279,9 +1520,10 @@ def main(argv=None) -> int:
     t_gen = time.perf_counter() - t0
     parts = plug.HostUpperSystem().partition(g, SHARDS)
     t_part = time.perf_counter() - t0 - t_gen
-    probe = plug.Middleware(g, pagerank(g), daemon="cuda", partitions=parts,
-                            device="cuda")
-    bs = probe.blocksets[0]
+    probe = plug.Middleware(g, pagerank(g), daemon=pinned_csr_daemon(),
+                            partitions=parts, device="cuda")
+    blocksets = probe.blocksets
+    bs = blocksets[0]
     ts = tiles_from_blockset(bs, n, edge_tile=CSRConfig().edge_tile)
     emit({"phase": "data", "vertices": n, "edges": g.num_edges,
           "shards": SHARDS, "block_size": probe.block_size,
@@ -1326,14 +1568,15 @@ def main(argv=None) -> int:
     emit({"phase": "reference", "pagerank_iterations": pr_ref_it,
           "sssp_iterations": sp_ref_it,
           "seconds": time.perf_counter() - t0})
-    runs = (("pagerank/cuda/bsp", pr, "cuda", "bsp", pr_ref,
-             (PR_RTOL, PR_ATOL), "csr_tile"),
-            ("sssp_bf/cuda/gas", sp, "cuda", "gas", sp_ref, None,
+    runs = (("pagerank/cuda/bsp", pr, "bsp", pr_ref, (PR_RTOL, PR_ATOL),
              "csr_tile"),
-            ("sssp_bf/blocked-cuda/bsp", sp, plug.BlockedDaemon(kernel="cuda"),
-             "bsp", sp_ref, None, "edge_block"))
+            ("sssp_bf/cuda/gas", sp, "gas", sp_ref, None, "csr_tile"),
+            ("sssp_bf/blocked-cuda/bsp", sp, "bsp", sp_ref, None,
+             "edge_block"))
     host_per_it = {}
-    for label, prog, daemon, model, ref, tol, kernel in runs:
+    for label, prog, model, ref, tol, kernel in runs:
+        daemon = (pinned_csr_daemon() if kernel == "csr_tile"
+                  else plug.BlockedDaemon(kernel="cuda"))
         res, launches, _, rec = run_e2e(label, g, prog, daemon, model, parts,
                                         ref, tol)
         if kernel == "edge_block":
@@ -1346,11 +1589,12 @@ def main(argv=None) -> int:
         emit(rec)
         for k, v in launches.items():
             e2e_launches[k] += v
-        if daemon == "cuda":
+        if kernel == "csr_tile":
             host_per_it[prog.name] = (label, rec["per_iteration_s"])
 
     # -- 5b. the device-resident fused loop --------------------------------
     fused_launches = {"edge_block": 0, "csr_tile": 0}
+    mesh1 = {}  # a program's cuda run at mesh=1: label, state, s / it
     stacked_tiles = None
     fused_runs = (
         ("pagerank/sharded-cuda/mesh/bsp", pr, "cuda", "bsp", pr_ref,
@@ -1360,26 +1604,17 @@ def main(argv=None) -> int:
          sp_ref, None))
     for label, prog, kernel, model, ref, tol in fused_runs:
         res, launches, mw, rec = run_e2e(
-            label, g, prog, plug.get_daemon("sharded", kernel=kernel), model,
-            parts, ref, tol, upper="mesh")
-        if mw._fused_kind != "bsp" or not all(
-                r.get("fused") for r in res.per_iteration):
-            raise AssertionError(f"{label}: ran the host loop, not the fused "
-                                 f"one (_fused_kind={mw._fused_kind!r})")
+            label, g, prog, plug.get_daemon("sharded", kernel=kernel,
+                                            csr_config=CSRConfig()),
+            model, parts, ref, tol, upper="mesh")
         if prog is pr and res.iterations != pr_ref_it:
             raise AssertionError(f"{label}: {res.iterations} iterations, "
                                  f"reference ran {pr_ref_it}")
-        want = res.iterations if kernel == "cuda" else 0
-        if launches["csr_tile"] != want or launches["edge_block"] != 0:
-            raise AssertionError(f"{label}: launches {launches} over "
-                                 f"{res.iterations} iterations, expected "
-                                 f"csr_tile {want}")
-        if rec["vertex_sized_fetches"] != 1 or \
-                rec["fetches_per_iteration"] != 1:
-            raise AssertionError(f"{label}: device→host fetches "
-                                 f"{rec['fetches_per_iteration']} an "
-                                 f"iteration and {rec['vertex_sized_fetches']}"
-                                 " vertex-sized, expected 1 and 1")
+        check_fused_run(label, res, mw, rec, launches,
+                        res.iterations if kernel == "cuda" else 0)
+        if kernel == "cuda":
+            mesh1[prog.name] = (label, np.asarray(res.state),
+                                rec["per_iteration_s"])
         host_label, host_s = host_per_it[prog.name]
         per_it = rec["per_iteration_s"]
         prof = fused_profile(mw)
@@ -1424,6 +1659,22 @@ def main(argv=None) -> int:
     emit(pipe_rec)
     torch.cuda.empty_cache()
 
+    # -- 5d. autotune: the sweep on the card and the loops after it --------
+    refs = {pr.name: (pr_ref, pr_ref_it), sp.name: (sp_ref, sp_ref_it)}
+    pinned = {name: (label, s) for name, (label, _, s) in mesh1.items()}
+    pinned["host/" + sp.name] = host_per_it[sp.name]
+    tune_rec, tune_launches = phase_autotune(g, blocksets, parts, pr, sp,
+                                             refs, pinned)
+    emit(tune_rec)
+    del blocksets
+    torch.cuda.empty_cache()
+
+    # -- 5e. the shard axis at four logical devices -------------------------
+    mesh_rec, mesh_launches = phase_mesh(g, parts, pr, sp, refs, mesh1)
+    emit(mesh_rec)
+    e2e_launches["csr_tile"] += tune_launches + mesh_launches
+    torch.cuda.empty_cache()
+
     # -- 6. attention at qwen2-72b width (and whisper-base's head dim) -----
     attn = []
     for case in ATTN_CASES:
@@ -1457,7 +1708,9 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": e2e_launches[name],
             "launches_fused": fused_launches[name],
             **({"launches_pipelined": pipe_launches}
-               if name == "edge_block" else {}),
+               if name == "edge_block" else
+               {"launches_autotuned": tune_launches,
+                "launches_mesh4": mesh_launches}),
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],

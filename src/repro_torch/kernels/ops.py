@@ -1,39 +1,23 @@
 """Public wrappers around the port's kernels (the JAX package's
 ``kernels/ops.py``).  What the JAX package keeps outside Pallas is plain
 PyTorch here too: the vertex-table gathers before a graph kernel and the
-cross-tile combine after it, and the SSD's cross-chunk recurrence.  The
-kernel bodies are the CUDA kernels of ``kernels/edge_block.py``,
-``kernels/flash_attention.py`` and ``kernels/ssd_scan.py`` (their plain
-versions on CPU tensors).  ``impl="cuda"`` takes the place of the JAX
-package's ``impl="pallas"``; ``impl="reference"`` runs the oracles of
-``kernels/ref.py``."""
+cross-tile combine after it, the CSR aggregation's flat merge, and the
+SSD's cross-chunk recurrence.  The kernel bodies are the CUDA kernels of
+``kernels/edge_block.py``, ``kernels/flash_attention.py`` and
+``kernels/ssd_scan.py`` (their plain versions on CPU tensors).
+``impl="cuda"`` takes the place of the JAX package's ``impl="pallas"``;
+``impl="reference"`` runs the oracles of ``kernels/ref.py``."""
 from __future__ import annotations
-
-import dataclasses
 
 import torch
 
 from repro_torch.core.template import VertexProgram, segment_sum
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
-from repro_torch.kernels.edge_block import csr_tile, csr_tile_plain, edge_block
+from repro_torch.kernels.autotune import CSRConfig
+from repro_torch.kernels.edge_block import (_gather_rows, _merge, csr_tile,
+                                            edge_block)
 from repro_torch.kernels.ssd_scan import ssd_chunk
-
-
-@dataclasses.dataclass(frozen=True)
-class CSRConfig:
-    """How the CSR aggregation cuts a shard into tiles (the tile fields of
-    the JAX package's ``kernels/autotune.CSRConfig``; its lowering, merge
-    and gather choices and the sweep that picks among them,
-    ``autotune_csr``, are ROADMAP Queue A item 5).
-
-    Attributes:
-      edge_tile: edges per tile (ET); also the hub threshold unless
-        ``hub_threshold`` overrides it.
-    """
-
-    edge_tile: int = 512
-    hub_threshold: int | None = None
 
 
 def _check_impl(impl: str) -> None:
@@ -70,9 +54,137 @@ def edge_block_aggregate(state, aux, vids, lsrc, ldst, w, emask, *,
 # --------------------------------------------------------------------------
 # CSR tile aggregation
 # --------------------------------------------------------------------------
-#: The plain per-tile twin of the CSR-tile kernel (``_csr_tiles_xla`` in the
-#: JAX package); ``csr_tile`` runs it on CPU tensors.
-_csr_tiles_plain = csr_tile_plain
+def _csr_tiles_torch(vsrc, vaux, rowst, lsrc, seg, w, emask, *,
+                     program: VertexProgram, merge: str, gather: str):
+    """The CSR-tile kernel's plain twin batched over tiles (the JAX
+    package's ``_csr_tiles_xla``), with its sorted and one-hot merges and
+    its take and one-hot gathers.  It serves the CPU and the tests: on a
+    tensor that is not on the CPU it raises, so it never stands in for the
+    kernel on the card."""
+    if vsrc.device.type != "cpu":
+        raise ValueError("the tiled plain twin (lowering='torch') runs on "
+                         f"CPU tensors only, got {vsrc.device}; the card "
+                         "runs lowering='cuda' or merge='flat'")
+    monoid = program.monoid
+    k = program.state_width
+    t, st, _ = vsrc.shape
+    rt = rowst.shape[1]
+    et = lsrc.shape[1]
+    lsrc, seg = lsrc.long(), seg.long()
+    if gather == "onehot":
+        soh = (lsrc[..., None] == torch.arange(st)).to(torch.float32)
+        roh = (seg[..., None] == torch.arange(rt)).to(torch.float32)
+        s = torch.einsum("tes,tsk->tek", soh, vsrc)
+        sa = torch.einsum("tes,tsa->tea", soh, vaux)
+        d = torch.einsum("ter,trk->tek", roh, rowst)
+    else:
+        s, sa = _gather_rows(vsrc, lsrc), _gather_rows(vaux, lsrc)
+        d = _gather_rows(rowst, seg)
+    msgs = program.msg_gen(
+        s.reshape(t * et, k), d.reshape(t * et, k), w.reshape(t * et, 1),
+        sa.reshape(t * et, -1))
+    if merge == "sorted":
+        # seg is sorted tile-local: one flat sorted-segment reduce
+        segg = seg + torch.arange(t)[:, None] * rt
+        partial, counts = _merge(program, msgs, emask.reshape(-1),
+                                 segg.reshape(-1), t * rt)
+        return partial.reshape(t, rt, k), counts.reshape(t, rt)
+    # merge == "onehot": the matrix-unit form of the JAX package
+    msgs = msgs.reshape(t, et, k)
+    msgs = torch.where(emask[..., None], msgs,
+                       torch.full_like(msgs, monoid.identity))
+    live = (seg[..., None] == torch.arange(rt)) & emask[..., None]
+    if monoid.name == "sum":
+        partial = torch.einsum("ter,tek->trk", live.to(torch.float32), msgs)
+    elif monoid.name in ("min", "max", "or"):
+        sel = live.transpose(1, 2)  # (T, RT, ET)
+        red = torch.amin if monoid.name == "min" else torch.amax
+        partial = torch.stack(
+            [red(torch.where(sel, msgs[..., i][:, None, :],
+                             torch.full_like(msgs[..., i][:, None, :],
+                                             monoid.identity)), dim=2)
+             for i in range(k)], dim=2)
+    else:
+        raise ValueError(
+            f"monoid {monoid.name!r} has no CSR merge rule; known: "
+            "['max', 'min', 'or', 'sum']")
+    return partial, live.sum(dim=1, dtype=torch.int32)
+
+
+def _dst_rows(state, idx):
+    """``state[idx]`` on the CPU.  Only the plain versions' ``msg_gen``
+    reads dst rows; no kernel message function does, so on the card a
+    broadcast view of the same shape stands in for the gather."""
+    if state.device.type == "cpu":
+        return state[idx]
+    return state.new_zeros(()).expand(*idx.shape, state.shape[1])
+
+
+def csr_aggregate_groups(state, aux, csr: dict, *, program: VertexProgram,
+                         num_vertices: int, config: CSRConfig,
+                         groups: int = 1):
+    """:func:`csr_aggregate` with the T tiles split into ``groups``
+    contiguous runs of T/groups tiles, each folded into its own aggregate
+    (the sharded daemon's m logical devices).  One kernel launch covers
+    all T tiles; the combine (or the flat reduce) folds group g's rows
+    into rows g·N … g·N + N − 1.
+
+    Returns:
+      agg (groups, N, K) f32, cnt (groups, N) i32.
+    """
+    monoid = program.monoid
+    k = program.state_width
+    n = num_vertices
+    t = csr["emask"].shape[0]
+    if groups < 1 or t % groups:
+        raise ValueError(f"{t} tiles do not split into {groups} groups")
+    aux = _pad_aux(state, aux)
+    emask = csr["emask"]
+    w = csr["w"].to(torch.float32)
+
+    def grouped(idx):
+        """(T, X) vertex ids → flat ids of their group's rows, g·N + id."""
+        if groups > 1:
+            idx = idx + (torch.arange(t, device=idx.device) // (t // groups)
+                         * n)[:, None]
+        return idx.reshape(-1)
+
+    if config.merge == "flat":
+        gsrc = csr["gsrc"].long().reshape(-1)
+        gdst = csr["gdst"].long()
+        emf = emask.reshape(-1)
+        msgs = program.msg_gen(state[gsrc], _dst_rows(state, gdst.reshape(-1)),
+                               w.reshape(-1, 1), aux[gsrc])
+        msgs = torch.where(emf[:, None], msgs,
+                           torch.full_like(msgs, monoid.identity))
+        # dead and padded slots carry dst 0: they merge the identity into
+        # vertex 0, a no-op (the JAX package's convention)
+        dst = grouped(gdst)
+        agg = monoid.segment_reduce(msgs, dst, groups * n)
+        cnt = segment_sum(emf.to(torch.int32), dst, groups * n)
+    else:
+        svids = csr["svids"].long()
+        rows = csr["rows"].long()
+        vsrc = state[svids]            # (T, ST, K) compact src blocks
+        vaux = aux[svids]
+        rowst = _dst_rows(state, rows)  # (T, RT, K) compact row blocks
+        if config.lowering == "cuda":
+            partial, counts = csr_tile(vsrc, vaux, rowst, csr["lsrc"],
+                                       csr["seg"], w,
+                                       emask.to(torch.float32),
+                                       program=program)
+        else:
+            partial, counts = _csr_tiles_torch(
+                vsrc, vaux, rowst, csr["lsrc"], csr["seg"], w, emask,
+                program=program, merge=config.merge, gather=config.gather)
+        # cross-tile combine: finishes split hub rows and folds every
+        # tile's row partials into its group's aggregate
+        rows = grouped(rows)
+        agg = monoid.segment_reduce(partial.reshape(-1, k), rows, groups * n)
+        cnt = segment_sum(counts.reshape(-1), rows, groups * n)
+    agg = torch.where((cnt > 0)[:, None], agg,
+                      torch.full_like(agg, monoid.identity))
+    return agg.reshape(groups, n, k), cnt.reshape(groups, n)
 
 
 def csr_aggregate(state, aux, csr: dict, *, program: VertexProgram,
@@ -85,36 +197,19 @@ def csr_aggregate(state, aux, csr: dict, *, program: VertexProgram,
         ``CSRTileSet.arrays()`` layout): rows (T, RT), seg/lsrc/gsrc/gdst
         (T, ET), svids (T, ST), w (T, ET, 1), emask (T, ET) bool.
         ``emask`` may already carry per-edge frontier filtering.
-      config: a :class:`CSRConfig` (the tiles were cut with it).
+      config: a :class:`~repro_torch.kernels.autotune.CSRConfig` (the
+        tiles were cut with its edge tile).  ``merge="flat"`` forms no
+        tile partials: one segment reduce by global dst (``gdst``) straight
+        to (N, K).  The tiled merges run the CSR-tile kernel
+        (``lowering="cuda"``) or its plain twin (``"torch"``, CPU tensors
+        only), then the cross-tile combine.
     Returns:
       agg (N, K) f32 — merged messages; vertices with no message read the
       monoid identity.  cnt (N,) i32 — messages per vertex.
     """
-    monoid = program.monoid
-    k = program.state_width
-    n = num_vertices
-    aux = _pad_aux(state, aux)
-    svids = csr["svids"].long()
-    rows = csr["rows"].long()
-    vsrc = state[svids]            # (T, ST, K) compact src blocks
-    vaux = aux[svids]
-    # (T, RT, K) compact row blocks: only the plain version's msg_gen is
-    # handed them; the kernel's message functions never read dst state,
-    # so on the card a broadcast view gives csr_tile their shape alone
-    rowst = (state[rows] if state.device.type == "cpu"
-             else state.new_zeros(()).expand(*rows.shape, k))
-    partial, counts = csr_tile(vsrc, vaux, rowst, csr["lsrc"], csr["seg"],
-                               csr["w"].to(torch.float32),
-                               csr["emask"].to(torch.float32),
-                               program=program)
-    # cross-tile combine: finishes split hub rows and folds every tile's
-    # row partials into the shard aggregate
-    rows = rows.reshape(-1)
-    agg = monoid.segment_reduce(partial.reshape(-1, k), rows, n)
-    cnt = segment_sum(counts.reshape(-1), rows, n)
-    agg = torch.where((cnt > 0)[:, None], agg,
-                      torch.full_like(agg, monoid.identity))
-    return agg, cnt
+    agg, cnt = csr_aggregate_groups(state, aux, csr, program=program,
+                                    num_vertices=num_vertices, config=config)
+    return agg[0], cnt[0]
 
 
 # --------------------------------------------------------------------------

@@ -22,12 +22,14 @@ Every daemon implements ``bind(program, n, device=...)`` then
 * ``ShardedDaemon`` — every shard's block tensors stacked on a leading
   shard axis and placed on the device once; ``run_all_shards`` does
   gather + Gen + segmented Merge + the per-device combine for all shards in
-  one pass and hands (m, N, K) partials to the upper system.  Its extra
-  capability (``plug.protocols.ShardCapableDaemon``) is what the middleware
-  detects to drive the device-resident fused loop.
+  one pass and hands (m, N, K) partials, one per logical device of the
+  shard axis, to the upper system.  Its extra capability
+  (``plug.protocols.ShardCapableDaemon``) is what the middleware detects
+  to drive the device-resident fused loop.
 
-The JAX package's CSR autotuning (``csr_config=None``) comes with ROADMAP
-Queue A item 5; the port takes ``csr_config or CSRConfig()``.
+With ``kernel="cuda"`` the CSR aggregation's config is autotuned once per
+binding (``kernels.autotune.autotune_csr``) unless ``csr_config`` pins it,
+as in the JAX package.
 """
 from __future__ import annotations
 
@@ -117,6 +119,13 @@ def _to_host(*ts):
     return tuple(t.cpu().numpy() for t in ts)
 
 
+def _live_edges(bs: BlockSet):
+    """The real (unpadded) edges of a BlockSet as flat arrays."""
+    live = bs.emask.reshape(-1)
+    return (bs.gsrc.reshape(-1)[live], bs.gdst.reshape(-1)[live],
+            bs.weights.reshape(-1)[live])
+
+
 # --------------------------------------------------------------------------
 # daemons
 # --------------------------------------------------------------------------
@@ -128,10 +137,11 @@ class VectorizedDaemon:
     def __init__(self, kernel: str = "reference", csr_config=None):
         _check_kernel(kernel)
         self.kernel = kernel
-        self.csr_config = csr_config  # None → kops.CSRConfig() defaults
+        self.csr_config = csr_config  # the caller's pin; None → autotune
         self.program = None
         self.block_fn = None
         self._combine_fn = None
+        self._csr_config = None  # resolved per binding
         self._csr_cache: dict = {}  # id(blockset) -> compacted CSR entry
 
     def bind(self, program: VertexProgram, num_vertices: int, *,
@@ -141,8 +151,26 @@ class VectorizedDaemon:
         self.device = resolve_device(device)
         self.block_fn = make_block_fn(program, kernel=self.kernel)
         self._combine_fn = make_combine_fn(program, num_vertices)
+        # a rebind drops the compacted tiles and the tuned config (the
+        # monoid may have changed); an explicit csr_config survives
+        self._csr_config = None
         self._csr_cache = {}
         return self
+
+    def _resolve_csr_config(self, src, dst, w):
+        """The binding's CSR config: ``csr_config`` if the caller pinned
+        one, else the winner of one sweep on these edges
+        (``autotune_csr``, memoized per signature).  Resolved at the first
+        run, so an unknown monoid raises at run time as on the block path;
+        shards run after the first reuse the choice."""
+        if self._csr_config is None:
+            from repro_torch.kernels import autotune
+
+            self._csr_config = (
+                self.csr_config if self.csr_config is not None
+                else autotune.autotune_csr(src, dst, w, self.n, self.program,
+                                           device=self.device))
+        return self._csr_config
 
     def _csr_entry(self, blockset: BlockSet):
         entry = self._csr_cache.get(id(blockset))
@@ -150,7 +178,7 @@ class VectorizedDaemon:
             return entry
         from repro_torch.graph.compaction import tiles_from_blockset
 
-        cfg = self.csr_config or kops.CSRConfig()
+        cfg = self._resolve_csr_config(*_live_edges(blockset))
         ts = tiles_from_blockset(blockset, self.n, edge_tile=cfg.edge_tile,
                                  hub_threshold=cfg.hub_threshold)
         dev = self.device
@@ -444,14 +472,20 @@ class ShardedDaemon(VectorizedDaemon):
     segmented Merge *plus the per-device combine* for all shards: the
     shards' partials fold into one (N, K) aggregate per device of the
     shard axis, and the (m, N, K) partials go to the upper system's
-    ``merge_partials``.  The axis spans ``m`` devices
-    (:func:`~repro_torch.plug.protocols.divisor_mesh`: 1 in the port).
+    ``merge_partials``.
 
-    ``kernel="cuda"`` runs the CSR-tile kernel instead of the block
-    program: ``bind_shards`` also compacts every shard's blockset into
-    dst-grouped tiles, pads the tile sets to a common (nt, RT, ST)
-    envelope and stacks them, so an iteration is ONE ``csr_tile`` launch
-    over all S·nt tiles.  Frontier skipping becomes a per-edge mask
+    The shard axis spans ``m`` logical devices on the one card
+    (:func:`~repro_torch.plug.protocols.divisor_mesh`): device g owns the
+    contiguous shards g·S/m … (g+1)·S/m − 1, as ``shard_map`` splits the
+    JAX package's stacked axis, and its partial folds only those.
+
+    ``kernel="cuda"`` runs the CSR aggregation instead of the block
+    program: ``bind_shards`` autotunes its config once, on the shard with
+    the most live edges, and pins it on the daemon (unless ``csr_config``
+    pinned it), compacts every shard's blockset into dst-grouped tiles,
+    pads the tile sets to a common (nt, RT, ST) envelope and stacks them,
+    so an iteration is ONE ``csr_tile`` launch over all S·nt tiles (none
+    when the flat merge was chosen).  Frontier skipping becomes a per-edge mask
     (``emask & active[gsrc]``), trajectory-identical to the block path's
     block-granularity skipping for the idempotent monoids that drive
     frontiers, and ``blocks_run`` counts active *tiles*.
@@ -560,7 +594,8 @@ class ShardedDaemon(VectorizedDaemon):
         from repro_torch.graph.compaction import (pad_tileset,
                                                   tiles_from_blockset)
 
-        cfg = self.csr_config or kops.CSRConfig()
+        big = max(blocksets, key=lambda bs: int(bs.emask.sum()))
+        cfg = self._resolve_csr_config(*_live_edges(big))
         tiles = []
         for bs in blocksets:
             hit = self._tile_cache.get(id(bs))
@@ -582,8 +617,9 @@ class ShardedDaemon(VectorizedDaemon):
         st = max(t.src_tile for t in tiles)
         arrays = [pad_tileset(t, num_tiles=nt, row_tile=rt,
                               src_tile=st).arrays() for t in tiles]
+        fields = _CSR_FIELDS + (("gdst",) if cfg.merge == "flat" else ())
         return {k: place("csr/" + k, np.stack([a[k] for a in arrays]))
-                for k in _CSR_FIELDS}
+                for k in fields}
 
     def run_all_shards(self, state, aux, active=None, *, stacked=None):
         """Gen + Merge for ALL shards in one pass on the device.
@@ -595,8 +631,8 @@ class ShardedDaemon(VectorizedDaemon):
           stacked: ``self.stacked`` as the fused loop threads it through.
         Returns:
           ``(partials (m, N, K), counts (m, N) int32, blocks_run (S,)
-          int32)`` on the device; blocks_run counts tiles for
-          ``kernel="cuda"``.
+          int32)`` on the device: partial g folds the shards of logical
+          device g; blocks_run counts tiles for ``kernel="cuda"``.
         """
         st = self._stacked if stacked is None else stacked
         if st is None:
@@ -623,26 +659,32 @@ class ShardedDaemon(VectorizedDaemon):
             state, aux, vids, st["lsrc"].reshape(s * nb, b),
             st["ldst"].reshape(s * nb, b),
             st["weights"].reshape(s * nb, b, 1), emask.reshape(s * nb, b))
-        agg, cnt = self._combine_fn(partial, counts, vids)
-        return (agg[None], cnt[None],
+        m, n = self.m, self.n
+        ids = vids.long()
+        if m > 1:  # device g's blocks fold into rows g·N + vertex id
+            ids = ids + (torch.arange(s * nb, device=ids.device)
+                         // (s // m * nb) * n)[:, None]
+        agg, cnt = make_combine_fn(self.program, m * n)(partial, counts, ids)
+        return (agg.reshape(m, n, -1), cnt.reshape(m, n),
                 blk_active.sum(dim=1, dtype=torch.int32))
 
     def _csr_body(self, state, aux, act, c):
-        """The CSR-tile kernel over all S·nt stacked tiles in ONE launch,
-        + per-device combine (inside ``csr_aggregate``)."""
+        """The CSR aggregation over all S·nt stacked tiles (ONE
+        ``csr_tile`` launch for a tiled config) + the per-device combine
+        into m groups (inside ``csr_aggregate_groups``)."""
         em = c["emask"] & act[c["gsrc"]] if act is not None else c["emask"]
         tiles_run = em.any(dim=2).sum(dim=1, dtype=torch.int32)
-        csr = {k: c[k].flatten(0, 1) for k in _CSR_FIELDS}
+        csr = {k: v.flatten(0, 1) for k, v in c.items()}
         csr["emask"] = em.flatten(0, 1)
-        agg, cnt = kops.csr_aggregate(state, aux, csr, program=self.program,
-                                      num_vertices=self.n,
-                                      config=self.csr_config
-                                      or kops.CSRConfig())
-        return agg[None], cnt[None], tiles_run
+        agg, cnt = kops.csr_aggregate_groups(
+            state, aux, csr, program=self.program, num_vertices=self.n,
+            config=self._csr_config, groups=self.m)
+        return agg, cnt, tiles_run
 
 
-# the tile fields the sharded CSR body reads (``gdst`` serves the JAX
-# package's flat merge only, which the port does not have)
+# the tile fields the sharded CSR body reads; ``gdst`` (S·nt·ET int32: 72
+# MB at scale 20) is stacked beside them only when the chosen merge is
+# flat, the one merge that reads it
 _CSR_FIELDS = ("rows", "seg", "lsrc", "svids", "w", "emask", "gsrc")
 
 

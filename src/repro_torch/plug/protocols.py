@@ -166,19 +166,30 @@ class DevicePartialUpper(Protocol):
 
 
 def divisor_mesh(num_items: int, mesh=None) -> int:
-    """The shard axis' device count: the largest divisor of ``num_items``
-    that fits the devices the port drives.  The port runs in one process on
-    one device, so this is 1, and every stacked shard folds on that
-    device.  The sharded daemon and the mesh upper system both take their
-    axis from here.  ``mesh`` other than None or 1 asks for a reduction
-    across devices or ranks (``torch.distributed``), which is ROADMAP
-    Queue A item 13's and raises :func:`not_ported_error`."""
-    if mesh not in (None, 1):
-        raise not_ported_error(f"mesh={mesh!r} (a shard axis over more "
-                               "than one device)", 13)
+    """The shard axis' device count m: the number of logical devices the
+    ``num_items`` stacked shards split into, each owning num_items/m
+    contiguous shards.  The sharded daemon and the mesh upper system both
+    take their axis from here.
+
+    ``mesh=None`` is 1: the port runs in one process on one device, where
+    the JAX package sizes m to its devices.  An int m ≥ 1 that divides
+    ``num_items`` gives m logical devices on the one card; an int that
+    does not divide it, or is under 1, raises ``ValueError``.  Any other
+    mesh (a device mesh across cards or ranks, ``torch.distributed``) is
+    ROADMAP Queue A item 13b's and raises :func:`not_ported_error`."""
     if num_items < 1:
         raise ValueError(f"need at least one shard, got {num_items}")
-    return 1
+    if mesh is None:
+        return 1
+    if isinstance(mesh, bool) or not isinstance(mesh, (int, np.integer)):
+        raise not_ported_error(f"mesh={mesh!r} (a shard axis across cards "
+                               "or ranks; an int m gives m logical devices "
+                               "on one card)", 13)
+    m = int(mesh)
+    if m < 1 or num_items % m:
+        raise ValueError(f"mesh={m} logical devices must be >= 1 and divide "
+                         f"the {num_items} shards")
+    return m
 
 
 # ``gather`` passed to a ComputationModel: calls every shard's daemon and

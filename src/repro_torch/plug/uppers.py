@@ -9,9 +9,10 @@ in the JAX package's ``plug/uppers.py``.
 * ``MeshUpperSystem`` — the merge as a reduction over a leading shard
   axis: ``merge`` for the host loop's per-shard arrays, and
   ``merge_partials`` for the fused loop's device-resident (m, N, K)
-  partials, which stay where the daemon left them.  The axis spans the one
-  device the port drives (``protocols.divisor_mesh``); the reduction across
-  devices or ranks and the compressed wire are ROADMAP Queue A item 13's.
+  partials, which stay where the daemon left them.  The axis spans m
+  logical devices on the one card (``protocols.divisor_mesh``); the
+  reduction across cards or ranks and the compressed wire are ROADMAP
+  Queue A item 13b's.
 """
 from __future__ import annotations
 
@@ -78,9 +79,10 @@ class MeshUpperSystem(HostUpperSystem):
 
     Shard arrays are stacked on axis 0 and folded with the monoid, as the
     JAX package's ``shard_map`` merge folds each device's shards before its
-    ``pmin``/``pmax``/``psum``.  The axis spans ``m`` devices
-    (:func:`~repro_torch.plug.protocols.divisor_mesh`: 1 in the port), so
-    every fold happens on the device the partials lie on.
+    ``pmin``/``pmax``/``psum``: each of the ``m`` logical devices
+    (:func:`~repro_torch.plug.protocols.divisor_mesh`) folds its S/m
+    contiguous shards, then the m results fold in group order.  Every fold
+    happens on the device the partials lie on.
 
     ``wire="exact"`` (the default) keeps the merge lossless;
     ``wire="compressed"`` (the int8 error-feedback all-reduce) raises
@@ -119,6 +121,13 @@ class MeshUpperSystem(HostUpperSystem):
         op = self.monoid.combine if self.monoid.idempotent else torch.add
         return functools.reduce(op, stack.unbind(0))
 
+    def _fold_groups(self, stack: torch.Tensor) -> torch.Tensor:
+        """Folds a stacked (S, ...) tensor as the m devices do: each
+        device's S/m contiguous shards, then the m results in order."""
+        groups = stack.reshape(self.m, -1, *stack.shape[1:])
+        return self._fold_axis(torch.stack([self._fold_axis(g)
+                                            for g in groups.unbind(0)]))
+
     def merge(self, states, aggs, cnts):
         """The classic path's merge of per-shard host arrays →
         ``(base, agg, cnt)`` host arrays.  Idempotent monoids fold the
@@ -127,15 +136,15 @@ class MeshUpperSystem(HostUpperSystem):
         aggregates; counts add."""
         st, ag, cn = (torch.from_numpy(np.stack([np.asarray(a) for a in x]))
                       for x in (states, aggs, cnts))
-        base = self._fold_axis(st) if self.monoid.idempotent else st[0]
+        base = self._fold_groups(st) if self.monoid.idempotent else st[0]
         cnt = cn.sum(0, dtype=torch.int32)
         self.wire_stats["exact_bytes"] += st[0].numel() * 4 * self.m
-        return base.numpy(), self._fold_axis(ag).numpy(), cnt.numpy()
+        return base.numpy(), self._fold_groups(ag).numpy(), cnt.numpy()
 
     def merge_partials(self, partials: torch.Tensor, counts: torch.Tensor):
         """Reduces the per-device partials (m, N, K) / counts (m, N) over
-        axis 0 → ``(agg (N, K), cnt (N,) int32)`` on their device: min or
-        max for an idempotent monoid, a sum otherwise."""
+        axis 0 in group order → ``(agg (N, K), cnt (N,) int32)`` on their
+        device: min or max for an idempotent monoid, a sum otherwise."""
         return self._fold_axis(partials), counts.sum(0, dtype=torch.int32)
 
 

@@ -12,8 +12,10 @@ bf16 hi + lo parts on the tensor cores for that reason).  The SSD chunk step: ma
 another order); with dt in Mamba2's range, where decay and gate do not
 underflow, those two within 1e-4·|want| at every element.  The fused loop
 (``daemon="sharded"`` + ``upper="mesh"``) is held against the host loop and
-``run_reference``, and the pipelined daemon (three CUDA streams) against the
-blocked daemon and ``run_reference``.  This file imports no JAX, so it runs on a
+``run_reference``, autotuned and at four logical devices too; every point
+of the card's autotune space gives the same aggregate; and the pipelined
+daemon (three CUDA streams) is held against the blocked daemon and
+``run_reference``.  This file imports no JAX, so it runs on a
 machine with PyTorch alone:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -30,6 +32,7 @@ from repro_torch import plug
 from repro_torch.core import template
 from repro_torch.graph import algorithms, generate
 from repro_torch.graph.compaction import build_csr_tiles
+from repro_torch.kernels import autotune
 from repro_torch.kernels import edge_block as ebk
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
@@ -239,7 +242,9 @@ def test_middleware_kernels_match_reference(cuda, prog_name):
     prog = algorithms.ALGORITHMS[prog_name](g)
     ref, _ = plug.run_reference(g, prog, max_iterations=12, device=cuda)
     before = (ebk.csr_tile.launches, ebk.edge_block.launches)
-    for daemon in ("cuda", plug.BlockedDaemon(kernel="cuda")):
+    for daemon in (plug.VectorizedDaemon(kernel="cuda",
+                                         csr_config=ops.CSRConfig()),
+                   plug.BlockedDaemon(kernel="cuda")):
         mw = plug.Middleware(g, prog, daemon=daemon, num_shards=2,
                              options=plug.PlugOptions(block_size=128),
                              device=cuda)
@@ -266,11 +271,15 @@ def test_fused_loop_matches_host_loop_and_reference(cuda, prog_name):
     prog = algorithms.ALGORITHMS[prog_name](g)
     opts = plug.PlugOptions(block_size=128)
     ref, _ = plug.run_reference(g, prog, max_iterations=12, device=cuda)
-    host = plug.Middleware(g, prog, daemon="cuda", num_shards=4,
-                           options=opts, device=cuda).run(max_iterations=12)
+    host = plug.Middleware(
+        g, prog, daemon=plug.VectorizedDaemon(kernel="cuda",
+                                              csr_config=ops.CSRConfig()),
+        num_shards=4, options=opts, device=cuda).run(max_iterations=12)
     for kernel in ("cuda", "reference"):
         mw = plug.Middleware(g, prog, upper="mesh", num_shards=4,
-                             daemon=plug.get_daemon("sharded", kernel=kernel),
+                             daemon=plug.get_daemon(
+                                 "sharded", kernel=kernel,
+                                 csr_config=ops.CSRConfig()),
                              options=opts, device=cuda)
         assert mw._fused_kind == "bsp"
         before = ebk.csr_tile.launches
@@ -286,6 +295,133 @@ def test_fused_loop_matches_host_loop_and_reference(cuda, prog_name):
             np.testing.assert_allclose(res.state, ref, rtol=1e-5, atol=1e-7)
             np.testing.assert_allclose(res.state, host.state, rtol=1e-5,
                                        atol=1e-7)
+
+
+@pytest.fixture
+def autotune_cache():
+    """The process-wide autotune memo, cleared before and after."""
+    autotune.CACHE.clear()
+    yield autotune.CACHE
+    autotune.CACHE.clear()
+
+
+def _assert_same_state(prog, got, want, rtol=1e-5, atol=1e-7):
+    if prog.monoid.idempotent:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_tiled_plain_twin_raises_on_cuda_tensors(cuda):
+    """lowering="torch" tiled is the kernel's plain twin: it never runs on
+    the card; the flat merge (plain PyTorch outside the kernel) does."""
+    g = _graph()
+    prog = algorithms.sssp_bf(g, sources=[0, 1])
+    ts = build_csr_tiles(g.src, g.dst, g.weights, g.num_vertices,
+                         edge_tile=64)
+    csr = {k: torch.from_numpy(v).to(cuda) for k, v in ts.arrays().items()}
+    state, aux = (torch.from_numpy(a).to(cuda) for a in prog.init(g))
+    launches = ebk.csr_tile.launches
+    for merge in ("sorted", "onehot"):
+        with pytest.raises(ValueError, match="CPU tensors only"):
+            ops.csr_aggregate(state, aux, csr, program=prog,
+                              num_vertices=g.num_vertices,
+                              config=ops.CSRConfig(edge_tile=64,
+                                                   lowering="torch",
+                                                   merge=merge))
+    flat = ops.csr_aggregate(state, aux, csr, program=prog,
+                             num_vertices=g.num_vertices,
+                             config=ops.CSRConfig(edge_tile=64,
+                                                  lowering="torch",
+                                                  merge="flat"))
+    tiled = ops.csr_aggregate(state, aux, csr, program=prog,
+                              num_vertices=g.num_vertices,
+                              config=ops.CSRConfig(edge_tile=64))
+    assert ebk.csr_tile.launches == launches + 1
+    for a, b in zip(flat, tiled):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prog_name", ["sssp_bf", "pagerank", "label_prop",
+                                       "bfs"])
+def test_every_card_space_point_gives_the_same_aggregate(cuda, prog_name):
+    """Each point of the card's space, at its own tile cut, gives the
+    aggregate of the plain version at CSRConfig() on the CPU."""
+    g = _graph()
+    prog = algorithms.ALGORITHMS[prog_name](g)
+    state, aux = prog.init(g)
+    state = np.random.default_rng(2).uniform(
+        0.0, 10.0, state.shape).astype(np.float32)
+
+    def run(config, dev):
+        ts = build_csr_tiles(g.src, g.dst, g.weights, g.num_vertices,
+                             edge_tile=config.edge_tile)
+        csr = {k: torch.from_numpy(v).to(dev)
+               for k, v in ts.arrays().items()}
+        agg, cnt = ops.csr_aggregate(
+            torch.from_numpy(state).to(dev), torch.from_numpy(aux).to(dev),
+            csr, program=prog, num_vertices=g.num_vertices, config=config)
+        return agg.cpu().numpy(), cnt.cpu().numpy()
+
+    want, want_c = run(ops.CSRConfig(), "cpu")
+    for config in autotune.default_space(cuda):
+        got, got_c = run(config, cuda)
+        np.testing.assert_array_equal(got_c, want_c, err_msg=config.label)
+        _assert_same_state(prog, got, want, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prog_name", ["sssp_bf", "pagerank"])
+def test_autotuned_loops_match_reference(cuda, prog_name, autotune_cache):
+    """With csr_config=None the daemons sweep the card's space: the fused
+    loop (tuned on the largest shard) and the host loop match
+    run_reference, and the fused loop launches csr_tile once an iteration
+    if a kernel point won, never if the flat merge won."""
+    g = _graph()
+    prog = algorithms.ALGORITHMS[prog_name](g)
+    opts = plug.PlugOptions(block_size=128)
+    ref, _ = plug.run_reference(g, prog, max_iterations=12, device=cuda)
+    mw = plug.Middleware(g, prog, upper="mesh", num_shards=4,
+                         daemon=plug.ShardedDaemon(kernel="cuda"),
+                         options=opts, device=cuda)
+    chosen = mw.daemon._csr_config
+    assert chosen in autotune.CUDA_SPACE and autotune_cache.sweeps == 1
+    before = ebk.csr_tile.launches
+    res = mw.run(max_iterations=12)
+    launched = ebk.csr_tile.launches - before
+    assert launched == (0 if chosen.merge == "flat" else res.iterations)
+    _assert_same_state(prog, res.state, ref)
+    host = plug.Middleware(g, prog, daemon=plug.VectorizedDaemon(
+        kernel="cuda"), num_shards=4, options=opts, device=cuda)
+    _assert_same_state(prog, host.run(max_iterations=12).state, ref)
+    assert host.daemon._csr_config in autotune.CUDA_SPACE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prog_name", ["sssp_bf", "pagerank", "wcc"])
+def test_mesh4_matches_mesh1_on_the_card(cuda, prog_name):
+    """Four logical devices on the card: the same state as one (sums
+    within rtol 1e-4), the same records, one csr_tile launch an
+    iteration."""
+    g = _graph()
+    if prog_name == "wcc":
+        g = g.with_reverse_edges()
+    prog = algorithms.ALGORITHMS[prog_name](g)
+    runs = {}
+    for m in (1, 4):
+        mw = plug.Middleware(
+            g, prog, upper=plug.MeshUpperSystem(mesh=m), num_shards=4,
+            daemon=plug.ShardedDaemon(kernel="cuda",
+                                      csr_config=ops.CSRConfig()),
+            options=plug.PlugOptions(block_size=128), device=cuda)
+        assert mw.daemon.m == m
+        before = ebk.csr_tile.launches
+        runs[m] = mw.run(max_iterations=12)
+        assert ebk.csr_tile.launches - before == runs[m].iterations
+    _assert_same_state(prog, runs[4].state, runs[1].state, rtol=1e-4)
+    assert runs[4].per_iteration == runs[1].per_iteration
 
 
 @pytest.mark.cuda

@@ -3,11 +3,12 @@
 of the same composition, on the CPU.
 
 Matrix: programs × models {bsp, gas} × kernels × num_shards {1, 4}.  The
-port's ``kernel="cuda"`` runs the CSR-tile kernel's plain version here; its
-JAX counterpart is ``kernel="pallas"`` with the Pallas CSR tile in
-interpret mode, its config pinned to the port's tile cut (edge tile and
-hub threshold) so that both cut the same tiles and count the same
-``blocks_run``.  ``kernel="reference"`` is the block program on both sides.
+port's ``kernel="cuda"`` runs the CSR-tile kernel's plain version here, its
+config pinned to ``CSRConfig()``; its JAX counterpart is
+``kernel="pallas"`` at the counterpart config (:func:`jax_config`), with
+the Pallas CSR tile in interpret mode, so that both cut the same tiles and
+count the same ``blocks_run``.  ``kernel="reference"`` is the block program
+on both sides.
 
 * min programs (sssp_bf, wcc, bfs) run to convergence and must match bit
   for bit; sum programs (pagerank, label_prop) run ``MAX_IT`` iterations
@@ -17,8 +18,9 @@ hub threshold) so that both cut the same tiles and count the same
   ``active`` must be equal.
 
 The JAX mesh axis spans as many CPU devices as the process has (the JAX
-package's ``divisor_mesh``); the port's spans one.  No assertion depends on
-the JAX side's count.
+package's ``divisor_mesh``); the port's spans one logical device here
+(``mesh=None``; tests/test_torch_mesh.py takes m > 1).  No assertion
+depends on the JAX side's count.
 """
 import dataclasses
 
@@ -43,6 +45,7 @@ BLOCK = 64  # several blocks a shard, so frontier skipping has work to skip
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-6
 PROGRAMS = ["pagerank", "sssp_bf", "wcc", "bfs", "label_prop"]
 KERNELS = {"reference": "reference", "cuda": "pallas"}  # port → JAX
+LOWERINGS = {"cuda": "pallas", "torch": "xla"}  # port → JAX
 RECORD_KEYS = ("blocks_total", "blocks_run", "shard_blocks_run", "active")
 
 _graphs: dict = {}
@@ -65,13 +68,20 @@ def _max_it(prog_name):
     return MAX_IT if prog_name in ("pagerank", "label_prop") else None
 
 
+def jax_config(cfg: CSRConfig) -> JCSRConfig:
+    """The JAX package's counterpart of a port config, field for field:
+    lowering ``cuda`` ↔ ``pallas`` and ``torch`` ↔ ``xla``; merge, gather,
+    edge tile and hub threshold by the same names."""
+    return JCSRConfig(edge_tile=cfg.edge_tile,
+                      lowering=LOWERINGS[cfg.lowering], merge=cfg.merge,
+                      gather=cfg.gather, hub_threshold=cfg.hub_threshold)
+
+
 def _jax_daemon(kernel):
     if kernel == "reference":
         return jplug.get_daemon("sharded", kernel="reference")
-    cfg = CSRConfig()
-    return jplug.get_daemon("sharded", kernel="pallas", csr_config=JCSRConfig(
-        edge_tile=cfg.edge_tile, hub_threshold=cfg.hub_threshold,
-        lowering="pallas", merge="sorted", gather="take"))
+    return jplug.get_daemon("sharded", kernel="pallas",
+                            csr_config=jax_config(CSRConfig()))
 
 
 def _jax_run(prog_name, model, kernel, shards, upper="mesh"):
@@ -91,7 +101,8 @@ def _port(prog_name, kernel="reference", shards=4, upper="mesh", **kw):
     _, gt = _graph(prog_name)
     return tplug.Middleware(
         gt, talg.ALGORITHMS[prog_name](gt),
-        daemon=tplug.get_daemon("sharded", kernel=kernel), upper=upper,
+        daemon=tplug.get_daemon("sharded", kernel=kernel,
+                                csr_config=CSRConfig()), upper=upper,
         num_shards=shards, options=tplug.PlugOptions(block_size=BLOCK),
         device="cpu", **kw)
 
@@ -231,7 +242,9 @@ def test_mesh_upper_runs_the_host_loop_with_a_per_shard_daemon(prog_name):
     loop and merges through MeshUpperSystem.merge, as the JAX package's
     per-shard daemon with its mesh upper does."""
     gj, gt = _graph(prog_name)
-    mt = tplug.Middleware(gt, talg.ALGORITHMS[prog_name](gt), daemon="cuda",
+    mt = tplug.Middleware(gt, talg.ALGORITHMS[prog_name](gt),
+                          daemon=tplug.VectorizedDaemon(
+                              kernel="cuda", csr_config=CSRConfig()),
                           upper="mesh", num_shards=4,
                           options=tplug.PlugOptions(block_size=BLOCK),
                           device="cpu")
@@ -412,7 +425,8 @@ def test_share_from_adopts_the_donors_stacked_tensors():
     _, gt = _graph("bfs")
     twin = tplug.Middleware(
         gt, talg.bfs(gt), upper="mesh", num_shards=4,
-        daemon=tplug.ShardedDaemon(kernel="cuda").share_from(donor.daemon),
+        daemon=tplug.ShardedDaemon(kernel="cuda", csr_config=CSRConfig()
+                                   ).share_from(donor.daemon),
         options=tplug.PlugOptions(block_size=BLOCK), device="cpu")
     assert twin.daemon.adopted_fields == len(fields) == 13
     assert twin.daemon.stacked["csr"]["svids"] is \
@@ -422,7 +436,8 @@ def test_share_from_adopts_the_donors_stacked_tensors():
     other = tgenerate.rmat(256, 2048, seed=10)
     stranger = tplug.Middleware(
         other, talg.sssp_bf(other), upper="mesh", num_shards=4,
-        daemon=tplug.ShardedDaemon(kernel="cuda").share_from(donor.daemon),
+        daemon=tplug.ShardedDaemon(kernel="cuda", csr_config=CSRConfig()
+                                   ).share_from(donor.daemon),
         options=tplug.PlugOptions(block_size=BLOCK), device="cpu")
     assert stranger.daemon.adopted_fields == 0
     # a re-bind of the same blocksets reuses their compacted tiles
@@ -434,10 +449,12 @@ def test_share_from_adopts_the_donors_stacked_tensors():
 
 def test_not_ported_parts_raise_naming_their_item():
     _, gt = _graph("sssp_bf")
+    # an int m is m logical devices on one card; a device mesh across
+    # cards or ranks is item 13b's
     with pytest.raises(NotImplementedError, match="item 13"):
-        _port("sssp_bf", upper=tplug.MeshUpperSystem(mesh=2))
-    daemon = tplug.ShardedDaemon(mesh=4).bind(talg.sssp_bf(gt),
-                                               gt.num_vertices, device="cpu")
+        _port("sssp_bf", upper=tplug.MeshUpperSystem(mesh=("shard", 2)))
+    daemon = tplug.ShardedDaemon(mesh=("shard", 4)).bind(
+        talg.sssp_bf(gt), gt.num_vertices, device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         daemon.bind_shards(_port("sssp_bf").blocksets)
     with pytest.raises(NotImplementedError, match="item 13"):

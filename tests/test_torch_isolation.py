@@ -71,7 +71,8 @@ def test_cuda_device_raises_without_a_gpu():
     with pytest.raises(RuntimeError, match="cuda"):
         plug.Middleware(g, prog)               # the default device
     with pytest.raises(RuntimeError, match="cuda"):
-        plug.Middleware(g, prog, daemon="cuda", device="cuda")
+        plug.Middleware(g, prog, daemon=plug.VectorizedDaemon(
+            kernel="cuda", csr_config=ops.CSRConfig()), device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         plug.run_reference(g, prog)
 
@@ -204,19 +205,20 @@ def test_model_kernel_wrappers_check_dtype_device_and_contiguity():
 
 @pytest.mark.parametrize("kwargs", [
     {"lowering": "xla"}, {"merge": "segment"}, {"gather": "dense"},
-    {"merge": "onehot"}])
+    {"lowering": "pallas"}])
 def test_csr_config_rejects_unknown_or_kernel_less_choices(kwargs):
-    """The port's CSR aggregation has one lowering (the kernel, its plain
-    version on CPU tensors): a lowering, merge or gather choice is refused."""
-    with pytest.raises(TypeError):
+    """The port's lowerings are ``cuda`` (the kernel) and ``torch`` (its
+    plain twin): the JAX package's names and unknown merges or gathers are
+    refused."""
+    with pytest.raises(ValueError):
         ops.CSRConfig(**kwargs)
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    ({"upper": plug.MeshUpperSystem(mesh=2)}, 13),
+    ({"upper": plug.MeshUpperSystem(mesh=("shard", 2))}, 13),
     ({"upper": plug.MeshUpperSystem(wire="compressed")}, 13),
     ({"model": "async", "daemon": "sharded", "upper": "mesh"}, 8),
-    ({"upper": plug.MeshUpperSystem(mesh=4)}, 13),
+    ({"upper": plug.MeshUpperSystem(mesh=object())}, 13),
     ({"model": "async"}, 8),
     ({"monitor": object()}, 9),
     ({"failures": object()}, 9),

@@ -27,6 +27,7 @@ from repro.graph import generate as jgenerate
 from repro_torch import convert
 from repro_torch import plug as tplug
 from repro_torch.graph import algorithms as talg
+from repro_torch.kernels.ops import CSRConfig
 
 MAX_IT = 12
 BLOCK = 256
@@ -83,7 +84,10 @@ def _jax_reference(prog_name):
 def test_middleware_matches_jax(prog_name, model, daemon, shards):
     _, gt = _graph(prog_name)
     prog = talg.ALGORITHMS[prog_name](gt)
-    mw = tplug.Middleware(gt, prog, daemon=daemon, model=model,
+    # "cuda": the CSR-tile kernel at its pinned config
+    backend = (tplug.VectorizedDaemon(kernel="cuda", csr_config=CSRConfig())
+               if daemon == "cuda" else daemon)
+    mw = tplug.Middleware(gt, prog, daemon=backend, model=model,
                           num_shards=shards,
                           options=tplug.PlugOptions(block_size=BLOCK),
                           device="cpu")
@@ -208,7 +212,7 @@ def test_auto_block_size_matches_jax():
 def test_repeated_runs_reset_stats_and_daemon_instances_work():
     _, gt = _graph("sssp_bf")
     prog = talg.sssp_bf(gt)
-    daemon = tplug.VectorizedDaemon(kernel="cuda")
+    daemon = tplug.VectorizedDaemon(kernel="cuda", csr_config=CSRConfig())
     mw = tplug.Middleware(gt, prog, daemon=daemon, num_shards=4,
                           options=tplug.PlugOptions(block_size=BLOCK),
                           device="cpu")
