@@ -121,6 +121,33 @@ Phases, each printing one JSON line; any failure exits non-zero:
               runs (sssp_bf bit-equal, pagerank within rtol/atol below);
               ``merge_partials`` must receive (4, N, K) every iteration;
               s an iteration beside ``mesh=1``.
+5f. async   — the fused async loop (``model=AsyncModel(...)``, so
+              ``AsyncDriveLoop``) at ``mesh=4`` with ``CSRConfig()`` pinned:
+              sssp_bf to its fixed point under README's three arms
+              (``eager`` θ0=0, decay 0.5; ``holding`` θ0=10, decay 0.9;
+              ``buckets`` as ``holding`` with ``bucket_k=8``) and pagerank
+              ``eager`` for 10 iterations, against ``run_reference`` as in
+              phase 5 (sssp bit-equal, pagerank within rtol/atol below),
+              one fetch an iteration.  Every record must show a held
+              device running no tile, ``gen_run + gen_skipped == 4`` and
+              ``gen_run`` devices running tiles; ``csr_tile`` must launch
+              once per run of consecutive executing devices in every
+              iteration; the instrumented daemon's ``gen_invocations``
+              must equal Σ ``gen_run`` (and ``bucket_invocations`` Σ
+              ``gen_skipped`` under ``buckets``).  Each prints s an
+              iteration beside phase 5e's run of the same program
+              (``async_over_bsp``, for information), the skipped device
+              bodies (``gen_skipped``) and held device-iterations
+              (``run_mask`` False), launches per iteration, and for
+              ``holding`` the ``profile`` of phase 5b.  With every vertex
+              active Graph500's R-MAT skips few or no bodies, so
+              ``holding`` and ``buckets`` also run as
+              ``benchmarks/bench_accel.py``'s async table runs them: its
+              skewed R-MAT (a=0.7, b=0.15, c=0.1, no dedup) at the same
+              scale and edge factor, sources 0-3 the only active
+              vertices, beside the barriered ``mesh=4`` run (GAS) of the
+              same, checked the same way; there ``holding`` must skip a
+              device body at least once.
 
 6. attention — a qwen2-72b attention layer at ``train_4k`` (B=1, Hq=64,
               Hkv=8, S=4096, D=128, bf16, causal) through
@@ -815,7 +842,7 @@ def counting_fetches(calls: list):
             setattr(torch.Tensor, name, orig)
 
 
-def fused_profile(mw) -> dict:
+def fused_profile(mw, frontier=None) -> dict:
     """Device time per CUDA kernel (and memset/memcpy) per iteration over
     one run, and the device's busy and idle share of its wall time."""
     import torch
@@ -824,7 +851,7 @@ def fused_profile(mw) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = mw.run()
+        res = mw.run(frontier=frontier)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     its = res.iterations
@@ -959,7 +986,7 @@ def fused_parts_ms(mw, state, aux, active) -> dict:
         "apply_and_flags": cuda_time_ms(apply),
         "fetch": cuda_time_ms(flags.tolist),
         "whole_step": cuda_time_ms(lambda: loop._advance(
-            state, active, aux, 1, stacked)[2].tolist()),
+            (state, active), aux, 1, stacked)[1].tolist()),
         "tiles": int(c["lsrc"].shape[0] * c["lsrc"].shape[1]),
         "ET": int(c["lsrc"].shape[2]), "RT": int(c["rows"].shape[2]),
         "ST": int(c["svids"].shape[2]),
@@ -976,7 +1003,8 @@ def pinned_csr_daemon():
 
 
 def run_e2e(label, graph, program, daemon, model, parts, ref_state, sum_tol,
-            device="cuda", upper="host", options=None, max_iterations=None):
+            device="cuda", upper="host", options=None, max_iterations=None,
+            on_timed=None, frontier=None):
     import numpy as np
     import torch
 
@@ -992,17 +1020,19 @@ def run_e2e(label, graph, program, daemon, model, parts, ref_state, sum_tol,
     # one warm-up iteration: the daemon compacts each shard's CSR tiles on
     # its first call (the fused daemon in the constructor), which is set-up
     # and stays out of the timed run
-    mw.run(max_iterations=1)
+    mw.run(max_iterations=1, frontier=frontier)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     fetches: list = []
     ebk.edge_block.launches = 0
     ebk.csr_tile.launches = 0
+    if on_timed is not None:
+        on_timed()
     if mw._fused:
         with counting_fetches(fetches):
-            res = mw.run(max_iterations)
+            res = mw.run(max_iterations, frontier=frontier)
     else:
-        res = mw.run(max_iterations)
+        res = mw.run(max_iterations, frontier=frontier)
     torch.cuda.synchronize()
     launches = {"edge_block": ebk.edge_block.launches,
                 "csr_tile": ebk.csr_tile.launches}
@@ -1253,11 +1283,13 @@ def phase_pipeline(g, parts, pr, sp, pr_ref, pr_ref_it, sp_ref, sp_ref_it,
     return out, launches_pipelined
 
 
-def check_fused_run(label, res, mw, rec, launches, want_tile) -> None:
-    """Phase 5b's checks of a fused run: the fused loop ran, ``csr_tile``
-    launched ``want_tile`` times and ``edge_block`` never, and one small
-    fetch an iteration plus the final state crossed to the host."""
-    if mw._fused_kind != "bsp" or not all(
+def check_fused_run(label, res, mw, rec, launches, want_tile,
+                    kind="bsp") -> None:
+    """Phase 5b's checks of a fused run: the fused loop ran (``kind``),
+    ``csr_tile`` launched ``want_tile`` times and ``edge_block`` never, and
+    one small fetch an iteration plus the final state crossed to the
+    host."""
+    if mw._fused_kind != kind or not all(
             r.get("fused") for r in res.per_iteration):
         raise AssertionError(f"{label}: ran the host loop, not the fused "
                              f"one (_fused_kind={mw._fused_kind!r})")
@@ -1459,6 +1491,195 @@ def phase_mesh(g, parts, pr, sp, refs, mesh1) -> tuple:
         launches_tile += launches["csr_tile"]
         del mw
         torch.cuda.empty_cache()
+    return out, launches_tile
+
+
+# benchmarks/bench_accel.py's skewed R-MAT (_async_skew_table; no dedup)
+SKEWED_RMAT = {"a": 0.7, "b": 0.15, "c": 0.1}
+ASYNC_ARMS = (  # README's arms (benchmarks/bench_accel.py ASYNC_SKEW_ARMS)
+    ("eager", dict(theta0=0.0, decay=0.5)),
+    ("holding", dict(theta0=10.0, decay=0.9)),
+    ("buckets", dict(theta0=10.0, decay=0.9, bucket_k=8)))
+
+
+def executed_runs(rec) -> tuple:
+    """The logical devices that ran their body in one async record — those
+    that ran a tile: an executing device's backlog holds a source whose
+    edges it owns — and the number of maximal runs of consecutive ones."""
+    m = rec["devices"]
+    per = len(rec["shard_blocks_run"]) // m
+    ran = [sum(rec["shard_blocks_run"][g * per:(g + 1) * per]) > 0
+           for g in range(m)]
+    runs = sum(1 for g in range(m) if ran[g] and (g == 0 or not ran[g - 1]))
+    return ran, runs
+
+
+def async_run(label, g, parts, prog, kw, ref, tol, max_it, bsp,
+              frontier=None) -> tuple:
+    """One fused async run of phase 5f (``AsyncModel(**kw)`` at
+    ``mesh=SHARDS``, ``CSRConfig()`` pinned) with its checks; ``bsp`` is
+    the (label, s an iteration) of the same program's barriered run at
+    ``mesh=SHARDS`` on the same graph and frontier.  Returns its line, its
+    csr_tile launches and its middleware."""
+    from repro_torch import plug
+    from repro_torch.kernels import edge_block as ebk
+    from repro_torch.kernels.ops import CSRConfig
+
+    daemon = plug.ShardedDaemon(kernel="cuda", csr_config=CSRConfig())
+    per_call = []  # csr_tile launches of each run_all_shards call
+    run_all = daemon.run_all_shards
+
+    def counted(*args, **kwargs):
+        before = ebk.csr_tile.launches
+        result = run_all(*args, **kwargs)
+        per_call.append(ebk.csr_tile.launches - before)
+        return result
+
+    def timed():
+        per_call.clear()
+        daemon.instrument = True
+        daemon.reset_counters()
+
+    daemon.run_all_shards = counted
+    res, launches, mw, rec = run_e2e(
+        label, g, prog, daemon, plug.AsyncModel(**kw), parts, ref, tol,
+        upper=plug.MeshUpperSystem(mesh=SHARDS), max_iterations=max_it,
+        on_timed=timed, frontier=frontier)
+    recs = res.per_iteration
+    if len(per_call) != res.iterations or not all(
+            r.get("async") for r in recs):
+        raise AssertionError(f"{label}: {len(per_call)} daemon calls over "
+                             f"{res.iterations} async iterations")
+    want_tile, held = 0, 0
+    for r, launched in zip(recs, per_call):
+        ran, n_runs = executed_runs(r)
+        if (sum(ran) != r["gen_run"]
+                or r["gen_run"] + r["gen_skipped"] != SHARDS):
+            raise AssertionError(
+                f"{label}: iteration {r['iteration']}: devices that ran a "
+                f"tile {ran}, gen_run {r['gen_run']}, gen_skipped "
+                f"{r['gen_skipped']}")
+        for dev, may_run in enumerate(r["run_mask"]):
+            if not may_run:
+                held += 1
+                if ran[dev]:
+                    raise AssertionError(
+                        f"{label}: held device {dev} ran tiles at "
+                        f"iteration {r['iteration']}")
+        if launched != n_runs:
+            raise AssertionError(
+                f"{label}: iteration {r['iteration']}: csr_tile launched "
+                f"{launched} times for {n_runs} runs of executing devices")
+        want_tile += n_runs
+    check_fused_run(label, res, mw, rec, launches, want_tile, kind="async")
+    gen_run = sum(r["gen_run"] for r in recs)
+    gen_skipped = sum(r["gen_skipped"] for r in recs)
+    if daemon.gen_invocations != gen_run:
+        raise AssertionError(f"{label}: {daemon.gen_invocations} device "
+                             f"bodies ran, records say {gen_run}")
+    if kw.get("bucket_k") and daemon.bucket_invocations != gen_skipped:
+        raise AssertionError(f"{label}: {daemon.bucket_invocations} bucket "
+                             f"runs for {gen_skipped} skipped device bodies")
+    bsp_label, bsp_s = bsp
+    rec.update(phase="async", bsp_run=bsp_label, bsp_per_iteration_s=bsp_s,
+               async_over_bsp=rec["per_iteration_s"] / bsp_s,
+               gen_run=gen_run, gen_skipped=gen_skipped,
+               held_device_iterations=held,
+               bucket_invocations=daemon.bucket_invocations,
+               csr_tile_launches_per_iteration=list(per_call),
+               refreshed=[r["refreshed"] for r in recs],
+               theta_last=recs[-1]["theta"])
+    return rec, launches["csr_tile"], mw
+
+
+def phase_async(g, parts, pr, sp, refs, mesh4, seed) -> tuple:
+    """Phase 5f: the fused async loop (``AsyncModel``, ``AsyncDriveLoop``)
+    at ``mesh=SHARDS`` with ``CSRConfig()`` pinned: sssp_bf to its fixed
+    point under the three arms and pagerank ``eager`` for PR_ITERATIONS,
+    each against ``run_reference``, beside phase 5e's run of the same
+    program (``mesh4``: a program's name → (label, s an iteration)); then
+    sssp_bf ``holding`` and ``buckets`` as the JAX package's async
+    benchmark runs them — its skewed R-MAT (here at the same scale and
+    edge factor), the four sources the only active vertices — beside the
+    barriered run of the same.  Returns the phase's line and its csr_tile
+    launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import plug
+    from repro_torch.graph import generate
+    from repro_torch.graph.algorithms import sssp_bf
+    from repro_torch.kernels.ops import CSRConfig
+
+    n = g.num_vertices
+    out = {"phase": "async", "m": SHARDS, "reduced": {
+        "pagerank": f"the eager arm only, {PR_ITERATIONS} iterations "
+                    "(theta at the floor: BSP's trajectory); a holding "
+                    "pagerank to its fixed point is too slow at scale 20",
+        "skewed": "Graph500's R-MAT with every vertex active skips few or "
+                  "no device bodies in the holding arm (gen_skipped), so "
+                  "holding and buckets also run as "
+                  "benchmarks/bench_accel.py's async table does: its "
+                  "skewed R-MAT (a=0.7, b=0.15, c=0.1, no dedup) at the "
+                  "same scale and edge factor, sources 0-3 the only active "
+                  "vertices; there holding must skip a body"}}
+    launches_tile = 0
+
+    def keep(label, rec, launches, mw, profile=False, frontier=None):
+        nonlocal launches_tile
+        if profile:
+            prof = fused_profile(mw, frontier)
+            rec.update(profile=prof, device_idle_share_unprofiled=(
+                1.0 - prof["device_busy_s_per_iteration"]
+                / rec["per_iteration_s"]))
+        out[label] = rec
+        launches_tile += launches
+        del mw
+        torch.cuda.empty_cache()
+
+    runs = [(f"sssp_bf/async-{arm}/mesh4", sp, kw, None, None)
+            for arm, kw in ASYNC_ARMS]
+    runs.append(("pagerank/async-eager/mesh4", pr, ASYNC_ARMS[0][1],
+                 (PR_RTOL, PR_ATOL), PR_ITERATIONS))
+    for label, prog, kw, tol, max_it in runs:
+        ref, ref_it = refs[prog.name]
+        rec, launches, mw = async_run(label, g, parts, prog, kw, ref, tol,
+                                      max_it, mesh4[prog.name])
+        if prog is pr and rec["iterations"] != ref_it:
+            raise AssertionError(f"{label}: {rec['iterations']} iterations, "
+                                 f"reference ran {ref_it}")
+        keep(label, rec, launches, mw, profile="holding" in label)
+
+    # -- the skewed R-MAT: where devices hold
+    t0 = time.perf_counter()
+    gs = generate.rmat_stream(n, EDGE_FACTOR * n, seed=seed, **SKEWED_RMAT)
+    parts_s = plug.HostUpperSystem().partition(gs, SHARDS)
+    sps = sssp_bf(gs, sources=[0, 1, 2, 3])
+    # from the sources alone: the fixed point is run_reference's, since
+    # every other vertex starts unreached and sends nothing
+    frontier = np.zeros(n, dtype=bool)
+    frontier[:4] = True
+    ref_s, ref_s_it = plug.run_reference(gs, sps, device="cuda")
+    out["skewed_graph"] = {"rmat": SKEWED_RMAT, "edges": gs.num_edges,
+                           "reference_iterations": ref_s_it,
+                           "data_s": time.perf_counter() - t0}
+    bsp_label = "sssp_bf/skewed/sharded-cuda/mesh4/gas"
+    res, launches, mw, rec = run_e2e(
+        bsp_label, gs, sps, plug.ShardedDaemon(kernel="cuda",
+                                               csr_config=CSRConfig()),
+        "gas", parts_s, ref_s, None, upper=plug.MeshUpperSystem(mesh=SHARDS),
+        frontier=frontier)
+    check_fused_run(bsp_label, res, mw, rec, launches, res.iterations)
+    keep(bsp_label, rec, launches["csr_tile"], mw)
+    bsp = (bsp_label, rec["per_iteration_s"])
+    for arm, kw in ASYNC_ARMS[1:]:
+        label = f"sssp_bf/skewed/async-{arm}/mesh4"
+        rec, launches, mw = async_run(label, gs, parts_s, sps, kw, ref_s,
+                                      None, None, bsp, frontier)
+        if "holding" in label and rec["gen_skipped"] == 0:
+            raise AssertionError(f"{label}: no device body was skipped")
+        keep(label, rec, launches, mw, profile="holding" in label,
+             frontier=frontier)
     return out, launches_tile
 
 
@@ -1675,6 +1896,15 @@ def main(argv=None) -> int:
     e2e_launches["csr_tile"] += tune_launches + mesh_launches
     torch.cuda.empty_cache()
 
+    # -- 5f. the async priority model at four logical devices --------------
+    mesh4 = {r["run"].split("/")[0]: (r["run"], r["per_iteration_s"])
+             for r in mesh_rec.values() if isinstance(r, dict)}
+    async_rec, async_launches = phase_async(g, parts, pr, sp, refs, mesh4,
+                                            args.seed)
+    emit(async_rec)
+    e2e_launches["csr_tile"] += async_launches
+    torch.cuda.empty_cache()
+
     # -- 6. attention at qwen2-72b width (and whisper-base's head dim) -----
     attn = []
     for case in ATTN_CASES:
@@ -1710,7 +1940,8 @@ def main(argv=None) -> int:
             **({"launches_pipelined": pipe_launches}
                if name == "edge_block" else
                {"launches_autotuned": tune_launches,
-                "launches_mesh4": mesh_launches}),
+                "launches_mesh4": mesh_launches,
+                "launches_async": async_launches}),
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],

@@ -288,3 +288,26 @@ def pad_tileset(ts: CSRTileSet, *, num_tiles: int, row_tile: int,
         w=pad(ts.w, ts.edge_tile), emask=pad(ts.emask, ts.edge_tile),
         gsrc=pad(ts.gsrc, ts.edge_tile), gdst=pad(ts.gdst, ts.edge_tile),
         eblock=pad(ts.eblock, ts.edge_tile, fill=-1))
+
+
+def src_adjacency(src, dst, weights, num_vertices: int
+                  ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Src-sorted CSR adjacency of one shard's edge list: the layout of the
+    async loop's priority buckets, where a held device runs the out-edges
+    ``dst[ptr[v]:ptr[v+1]]`` / ``w[ptr[v]:ptr[v+1]]`` of its top residual
+    vertices v.
+
+    Returns ``(ptr (N+1,) i32, dst (E,) i32, w (E,) f32)`` with the edges
+    in a stable order by source.  Host numpy, built once per binding.
+    """
+    src = np.asarray(src, dtype=np.int32)
+    dst = np.asarray(dst, dtype=np.int32)
+    if weights is None:
+        weights = np.ones(src.size, dtype=np.float32)
+    weights = np.asarray(weights, dtype=np.float32).reshape(-1)
+    order = np.argsort(src, kind="stable")
+    counts = np.bincount(src, minlength=num_vertices)
+    ptr = np.zeros(num_vertices + 1, np.int64)
+    np.cumsum(counts, out=ptr[1:])
+    return (ptr.astype(np.int32), dst[order].astype(np.int32),
+            weights[order].astype(np.float32))

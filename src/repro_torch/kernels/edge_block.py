@@ -6,6 +6,9 @@
 * :func:`csr_tile` — the fused CSR-tile daemon program (``csrc/csr_tile.cu``),
   replacing ``src/repro/kernels/edge_block.py::csr_tile_pallas``.
 
+:func:`bucket_partials`, the async loop's priority buckets, is plain
+PyTorch here as it is ``jnp`` in the JAX package: it is not a kernel.
+
 Each wrapper checks device, dtype, shape and contiguity.  On CPU tensors it
 runs the plain version (:func:`edge_block_plain`, :func:`csr_tile_plain`);
 on CUDA tensors it launches the kernel or raises — there is no fallback.
@@ -231,3 +234,63 @@ def csr_tile(vsrc, vaux, rowst, lsrc, seg, w, emask_f32, *,
 
 
 csr_tile.launches = 0
+
+
+# --------------------------------------------------------------------------
+# priority buckets: Gen + Merge over the top-k residual vertices' out-edges,
+# what a held device of the async loop still runs (JAX ``bucket_partials``)
+# --------------------------------------------------------------------------
+def bucket_partials(state, aux, scores, ptr, adst, aw, *,
+                    program: VertexProgram, k: int, cap: int,
+                    num_vertices: int):
+    """Gen + Merge over the out-edges of the ``k`` highest-score vertices.
+
+    Args:
+      state (N, K), aux (N, A): the vertex table.
+      scores (N,) f32: per-vertex priority (the last residual, with
+        vertices outside the device's frontier set to -1); only strictly
+        positive scores run.
+      ptr (s_l, N+1) i32, adst (s_l, Ep) i32, aw (s_l, Ep) f32: the
+        device's local shards' src-sorted adjacency
+        (:func:`repro_torch.graph.compaction.src_adjacency`, stacked).
+      cap: at most this many edges of each selected vertex (a hub's tail
+        waits for the device's next full refresh; the backlog is never
+        cleared by a bucket run, so capping loses nothing).
+    Returns ``(agg (N, K) f32, cnt (N,) i32)``: the identity and 0 where no
+    message landed, the partials contract of the shard bodies.  Only
+    idempotent monoids may consume it (the messages are folded into a held
+    copy that may already hold them).
+    """
+    monoid = program.monoid
+    s_l, ep = adst.shape
+    kk = program.state_width
+    dev = state.device
+    if ep == 0 or k <= 0:
+        return (torch.full((num_vertices, kk), monoid.identity,
+                           dtype=torch.float32, device=dev),
+                torch.zeros(num_vertices, dtype=torch.int32, device=dev))
+    # jax.lax.top_k's order: by score, the lower index first among equal
+    # scores — a stable descending sort keeps exactly that order
+    top_vals, top = torch.sort(scores, descending=True, stable=True)
+    top_vals, top = top_vals[:k], top[:k]
+    vmask = top_vals > 0.0
+    ptr = ptr.long()
+    start = ptr[:, top]                                  # (s_l, k)
+    end = ptr[:, top + 1]
+    idx = start[..., None] + torch.arange(cap, device=dev)
+    valid = (idx < end[..., None]) & vmask[None, :, None]  # (s_l, k, cap)
+    flat = idx.clamp(0, ep - 1).reshape(s_l, k * cap)
+    d_flat = torch.take_along_dim(adst, flat, dim=1).reshape(-1).long()
+    wts = torch.take_along_dim(aw, flat, dim=1).reshape(-1, 1)
+    src_ids = top[None, :, None].expand(s_l, k, cap).reshape(-1)
+    msgs = program.msg_gen(state[src_ids], state[d_flat], wts,
+                           aux[src_ids])
+    # dead slots merge into an extra segment that is sliced away
+    vflat = valid.reshape(-1)
+    seg = torch.where(vflat, d_flat, torch.full_like(d_flat, num_vertices))
+    agg = monoid.segment_reduce(msgs, seg, num_vertices + 1)[:num_vertices]
+    cnt = segment_sum(vflat.to(torch.int32), seg,
+                      num_vertices + 1)[:num_vertices]
+    agg = torch.where((cnt > 0)[:, None], agg,
+                      torch.full_like(agg, monoid.identity))
+    return agg.to(torch.float32), cnt

@@ -22,7 +22,7 @@
                    stage), ``"naive"`` (a per-edge loop on the host, the
                    Fig. 8 baseline)
 ``upper=``         ``"host"``, ``"mesh"`` (merges device partials)
-``model=``         ``"bsp"``, ``"gas"``
+``model=``         ``"bsp"``, ``"gas"``, ``"async"`` (``AsyncModel``)
 =================  =====================================================
 
 ``daemon="sharded"`` with ``upper="mesh"`` runs the device-resident fused
@@ -32,20 +32,30 @@
                          daemon=plug.get_daemon("sharded", kernel="cuda"),
                          upper="mesh", num_shards=4)
 
+and with ``model=AsyncModel(...)`` the fused :class:`AsyncDriveLoop`, on
+m logical devices of the card with ``upper=MeshUpperSystem(mesh=m)``:
+
+    mw = plug.Middleware(g, sssp_bf(g),
+                         daemon=plug.get_daemon("sharded", kernel="cuda"),
+                         upper=plug.MeshUpperSystem(mesh=4), num_shards=4,
+                         model=plug.AsyncModel(theta0=10.0, decay=0.9))
+
 ``device="cuda"`` is the default; ``device="cpu"`` runs the plain PyTorch
-versions of the kernels.  The async model and the other options come with
-later slices (ROADMAP Queue A).
+versions of the kernels.  The other options come with later slices
+(ROADMAP Queue A).
 """
-from repro_torch.plug.computation import (BSP, GAS, get_model, model_names,
-                                          register_model)
+from repro_torch.plug.computation import (BSP, GAS, AsyncModel, get_model,
+                                          model_names, register_model)
 from repro_torch.plug.daemons import (BlockedDaemon, NaiveDaemon,
                                       PipelinedDaemon, ShardedDaemon,
                                       VectorizedDaemon, daemon_names,
                                       get_daemon, register_daemon)
-from repro_torch.plug.middleware import (DriveLoop, HostDriveLoop,
-                                         Middleware, make_apply_fn)
+from repro_torch.plug.middleware import (AsyncDriveLoop, DriveLoop,
+                                         HostDriveLoop, Middleware,
+                                         make_apply_fn)
 from repro_torch.plug.protocols import (ComputationModel, Daemon,
-                                        DevicePartialUpper, PlugOptions,
+                                        DevicePartialUpper, MaskCapableDaemon,
+                                        PlugOptions, PriorityAsyncModel,
                                         Result, ShardCapableDaemon,
                                         UpperSystem)
 from repro_torch.plug.reference import run_reference
@@ -54,10 +64,11 @@ from repro_torch.plug.uppers import (HostUpperSystem, MeshUpperSystem,
                                      upper_system_names)
 
 __all__ = [
-    "BSP", "GAS", "BlockedDaemon", "ComputationModel", "Daemon",
-    "DevicePartialUpper", "DriveLoop", "HostDriveLoop", "HostUpperSystem",
+    "AsyncDriveLoop", "AsyncModel", "BSP", "GAS", "BlockedDaemon",
+    "ComputationModel", "Daemon", "DevicePartialUpper", "DriveLoop",
+    "HostDriveLoop", "HostUpperSystem", "MaskCapableDaemon",
     "MeshUpperSystem", "Middleware", "NaiveDaemon", "PipelinedDaemon",
-    "PlugOptions", "Result",
+    "PlugOptions", "PriorityAsyncModel", "Result",
     "ShardCapableDaemon", "ShardedDaemon", "UpperSystem", "VectorizedDaemon",
     "daemon_names", "get_daemon", "get_model", "get_upper_system",
     "make_apply_fn", "model_names", "register_daemon", "register_model",

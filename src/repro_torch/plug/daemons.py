@@ -25,7 +25,9 @@ Every daemon implements ``bind(program, n, device=...)`` then
   one pass and hands (m, N, K) partials, one per logical device of the
   shard axis, to the upper system.  Its extra capability
   (``plug.protocols.ShardCapableDaemon``) is what the middleware detects
-  to drive the device-resident fused loop.
+  to drive the device-resident fused loop; its masked ``run_all_shards``
+  (``plug.protocols.MaskCapableDaemon``) makes the async loop's holds
+  free.
 
 With ``kernel="cuda"`` the CSR aggregation's config is autotuned once per
 binding (``kernels.autotune.autotune_csr``) unless ``csr_config`` pins it,
@@ -45,6 +47,7 @@ from repro_torch.core.template import VertexProgram, segment_sum
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels.edge_block import bucket_partials
 from repro_torch.plug.protocols import divisor_mesh
 
 KERNELS = ("reference", "cuda")
@@ -493,6 +496,16 @@ class ShardedDaemon(VectorizedDaemon):
     ``run_blocks`` is inherited from :class:`VectorizedDaemon`, so with an
     upper system that cannot merge device partials (``upper="host"``) the
     same instance runs the classic per-shard path.
+
+    Masked execution (:class:`~repro_torch.plug.protocols.MaskCapableDaemon`,
+    the async loop's free hold): ``run_all_shards(..., run_mask=)`` takes
+    the verdict as host values and runs gather + Gen + Merge only for the
+    devices that execute, one pass (one ``csr_tile`` launch) per maximal
+    run of consecutive executing devices over a view of their contiguous
+    shards.  A held device contributes the identity (or its priority
+    bucket's partial, :meth:`configure_buckets`) and runs no tile.
+    ``instrument=True`` counts the device bodies run (``gen_invocations``)
+    and the bucket runs (``bucket_invocations``) on that path.
     """
 
     name = "sharded"
@@ -513,6 +526,14 @@ class ShardedDaemon(VectorizedDaemon):
         self._tile_cache: dict = {}
         self.tiles_recut = 0
         self.tilesets_reused = 0
+        self._blocksets = None
+        # masked execution: priority buckets and the instrumentation that
+        # shows a held device never ran its body
+        self._bucket_k = 0
+        self._bucket_cap = 32
+        self.instrument = False
+        self.gen_invocations = 0
+        self.bucket_invocations = 0
 
     def share_from(self, donor: "ShardedDaemon | None"):
         """Declares a donor whose stacked device tensors this daemon may
@@ -558,6 +579,7 @@ class ShardedDaemon(VectorizedDaemon):
         self.m = divisor_mesh(s, self.mesh)
         self.mesh = self.m
         self.num_shards = s
+        self._blocksets = list(blocksets)
 
         # Digest-verified adoption (see share_from).  Digests are recorded
         # whether or not there is a donor, so this daemon can be one.
@@ -621,14 +643,30 @@ class ShardedDaemon(VectorizedDaemon):
         return {k: place("csr/" + k, np.stack([a[k] for a in arrays]))
                 for k in fields}
 
-    def run_all_shards(self, state, aux, active=None, *, stacked=None):
+    def run_all_shards(self, state, aux, active=None, *, run_mask=None,
+                       residual=None, stacked=None, live_rows=None):
         """Gen + Merge for ALL shards in one pass on the device.
 
         Args:
           state, aux: the (N, K) / (N, A) vertex table, device tensors.
-          active: (N,) bool frontier for skipping, or None to run every
+          active: the frontier for skipping — an (N,) bool shared by every
+            device, an (m, N) bool whose row g is device g's private
+            frontier (the async loop's backlog), or None to run every
             block (programs that are not frontier-driven).
+          run_mask: (m,) bool, host values (a tensor is brought to the
+            host): the async predict half's verdict.  A False device — or,
+            with a per-device ``active``, one whose row is empty — runs no
+            gather, Gen or Merge: it contributes the monoid identity with
+            zero counts and zero blocks run, or its priority bucket's
+            partial when :meth:`configure_buckets` armed them.  The other
+            devices run in one pass per maximal run of consecutive ones.
+          residual: (N,) f32 per-vertex last state change, the buckets'
+            score (needed when they are armed and ``run_mask`` is given).
           stacked: ``self.stacked`` as the fused loop threads it through.
+          live_rows: (m,) host bools, which rows of a per-device
+            ``active`` hold a source, as the caller already fetched them;
+            without it they are read from ``active`` (one device→host
+            read).
         Returns:
           ``(partials (m, N, K), counts (m, N) int32, blocks_run (S,)
           int32)`` on the device: partial g folds the shards of logical
@@ -638,19 +676,91 @@ class ShardedDaemon(VectorizedDaemon):
         if st is None:
             raise RuntimeError(
                 "ShardedDaemon.run_all_shards called before bind_shards")
-        if self.kernel == "cuda":
-            return self._csr_body(state, aux, active, st["csr"])
-        return self._block_body(state, aux, active, st)
+        m = self.m
+        if run_mask is None:
+            return self._body(state, aux, active, st, 0, m)
+        run = _host_bools(run_mask, m, "run_mask")
+        per_device = active is not None and active.dim() == 2
+        if per_device:
+            rows = _host_bools(active.any(dim=1) if live_rows is None
+                               else live_rows, m, "live_rows")
+            run = [r and a for r, a in zip(run, rows)]
+        bucket = st.get("bucket")
+        has_bucket = (bucket is not None and self._bucket_k > 0
+                      and self.program.monoid.idempotent)
+        if has_bucket and residual is None:
+            raise ValueError("run_all_shards with armed buckets needs the "
+                             "per-vertex residual for the bucket scores")
+        if self.instrument:
+            self.gen_invocations += sum(run)
+            if has_bucket:
+                self.bucket_invocations += m - sum(run)
+        if all(run):
+            return self._body(state, aux, active, st, 0, m)
+        per = self.num_shards // m
+        parts, g = [], 0
+        while g < m:
+            h = g + 1
+            if run[g]:
+                while h < m and run[h]:
+                    h += 1
+                parts.append(self._body(state, aux, active, st, g, h))
+            else:
+                parts.append(self._held(state, aux, active, residual,
+                                        bucket if has_bucket else None, g,
+                                        per))
+            g = h
+        return tuple(torch.cat(x) for x in zip(*parts))
 
-    def _block_body(self, state, aux, act, st):
-        """Block program over all stacked blocks + per-device combine.  A
-        block with no active source contributes nothing this iteration,
-        the host path's block granularity."""
+    def _held(self, state, aux, active, residual, bucket, g, per):
+        """A held device g's output: its bucket's partial, or the identity,
+        with zero blocks run."""
+        prog, n = self.program, self.n
+        dev = state.device
+        blocks = torch.zeros(per, dtype=torch.int32, device=dev)
+        if bucket is None:
+            return (torch.full((1, n, prog.state_width),
+                               prog.monoid.identity, dtype=torch.float32,
+                               device=dev),
+                    torch.zeros((1, n), dtype=torch.int32, device=dev),
+                    blocks)
+        scores = residual
+        if active is not None:
+            act = active[g] if active.dim() == 2 else active
+            scores = torch.where(act, residual, torch.full_like(residual,
+                                                                -1.0))
+        sl = slice(g * per, (g + 1) * per)
+        agg, cnt = bucket_partials(
+            state, aux, scores, bucket["ptr"][sl], bucket["dst"][sl],
+            bucket["w"][sl], program=prog, k=self._bucket_k,
+            cap=self._bucket_cap, num_vertices=n)
+        return agg[None], cnt[None], blocks
+
+    def _body(self, state, aux, active, st, g0, g1):
+        """The shard body of devices g0 … g1 − 1: one pass over views of
+        their contiguous shards' stacked tensors."""
+        per = self.num_shards // self.m
+        sl = slice(g0 * per, g1 * per)
+        act = active
+        if active is not None and active.dim() == 2:
+            act = active[g0:g1]
+        if self.kernel == "cuda":
+            c = {k: v[sl] for k, v in st["csr"].items()}
+            return self._csr_body(state, aux, act, c, g1 - g0)
+        return self._block_body(state, aux, act,
+                                {k: st[k][sl]
+                                 for k in _BLOCK_FIELDS + ("gsrc",)},
+                                g1 - g0)
+
+    def _block_body(self, state, aux, act, st, groups):
+        """Block program over the given stacked blocks + the combine into
+        ``groups`` devices.  A block with no active source contributes
+        nothing this iteration, the host path's block granularity."""
         vids, emask = st["vids"], st["emask"]
         s, nb, vb = vids.shape
         b = emask.shape[2]
         if act is not None:
-            blk_active = (act[st["gsrc"]] & emask).any(dim=2)
+            blk_active = (_frontier_at(act, st["gsrc"]) & emask).any(dim=2)
             emask = emask & blk_active[..., None]
         else:
             blk_active = emask.any(dim=2)
@@ -659,27 +769,96 @@ class ShardedDaemon(VectorizedDaemon):
             state, aux, vids, st["lsrc"].reshape(s * nb, b),
             st["ldst"].reshape(s * nb, b),
             st["weights"].reshape(s * nb, b, 1), emask.reshape(s * nb, b))
-        m, n = self.m, self.n
+        n = self.n
         ids = vids.long()
-        if m > 1:  # device g's blocks fold into rows g·N + vertex id
+        if groups > 1:  # device g's blocks fold into rows g·N + vertex id
             ids = ids + (torch.arange(s * nb, device=ids.device)
-                         // (s // m * nb) * n)[:, None]
-        agg, cnt = make_combine_fn(self.program, m * n)(partial, counts, ids)
-        return (agg.reshape(m, n, -1), cnt.reshape(m, n),
+                         // (s // groups * nb) * n)[:, None]
+        agg, cnt = make_combine_fn(self.program, groups * n)(partial, counts,
+                                                             ids)
+        return (agg.reshape(groups, n, -1), cnt.reshape(groups, n),
                 blk_active.sum(dim=1, dtype=torch.int32))
 
-    def _csr_body(self, state, aux, act, c):
-        """The CSR aggregation over all S·nt stacked tiles (ONE
-        ``csr_tile`` launch for a tiled config) + the per-device combine
-        into m groups (inside ``csr_aggregate_groups``)."""
-        em = c["emask"] & act[c["gsrc"]] if act is not None else c["emask"]
+    def _csr_body(self, state, aux, act, c, groups):
+        """The CSR aggregation over the given stacked tiles (ONE
+        ``csr_tile`` launch for a tiled config) + the combine into
+        ``groups`` devices (inside ``csr_aggregate_groups``)."""
+        em = (c["emask"] & _frontier_at(act, c["gsrc"]) if act is not None
+              else c["emask"])
         tiles_run = em.any(dim=2).sum(dim=1, dtype=torch.int32)
         csr = {k: v.flatten(0, 1) for k, v in c.items()}
         csr["emask"] = em.flatten(0, 1)
         agg, cnt = kops.csr_aggregate_groups(
             state, aux, csr, program=self.program, num_vertices=self.n,
-            config=self._csr_config, groups=self.m)
+            config=self._csr_config, groups=groups)
         return agg, cnt, tiles_run
+
+    # -- masked execution (MaskCapableDaemon) -----------------------------
+    def configure_buckets(self, k: int, cap: int = 32):
+        """Arms the vertex-level priority buckets of the masked path.
+
+        With ``k > 0`` a held device still runs the out-edges of its
+        top-``k`` residual vertices, at most ``cap`` each
+        (:func:`~repro_torch.kernels.edge_block.bucket_partials`).  Each
+        shard's src-sorted adjacency is built on the host once per binding
+        and stacked beside the block tensors, in the same ``stacked`` dict.
+        Only idempotent monoids qualify — the bucket messages are folded
+        into the held copy, which must tolerate duplicates — so ``k`` is
+        forced to 0 otherwise.  Returns self.
+        """
+        k, cap = int(k), int(cap)
+        if cap <= 0:
+            raise ValueError(f"bucket cap must be positive, got {cap}")
+        if self.program is not None:  # bound
+            k = min(k, self.n) if self.program.monoid.idempotent else 0
+        self._bucket_k, self._bucket_cap = k, cap
+        st = self._stacked
+        if st is not None:
+            if k > 0 and self._blocksets and "bucket" not in st:
+                from repro_torch.graph.compaction import src_adjacency
+
+                adjs = [src_adjacency(*_live_edges(bs), self.n)
+                        for bs in self._blocksets]
+                ep = max(1, max(a[1].shape[0] for a in adjs))
+
+                def place(arrs):
+                    return torch.from_numpy(np.stack(arrs)).to(self.device)
+
+                def padded(i):
+                    return [np.pad(a[i], (0, ep - a[i].shape[0]))
+                            for a in adjs]
+
+                # in place: a loop holding this dict sees the new field
+                st["bucket"] = {"ptr": place([a[0] for a in adjs]),
+                                "dst": place(padded(1)),
+                                "w": place(padded(2))}
+            elif k == 0:
+                st.pop("bucket", None)
+        return self
+
+    def reset_counters(self):
+        """Zeroes the instrumentation counters (``instrument=True``)."""
+        self.gen_invocations = 0
+        self.bucket_invocations = 0
+
+
+def _host_bools(x, m: int, name: str) -> list:
+    """(m,) bools as a host list (a tensor is brought to the host)."""
+    vals = x.tolist() if hasattr(x, "tolist") else list(x)
+    if len(vals) != m:
+        raise ValueError(f"{name} has {len(vals)} entries, expected {m}")
+    return [bool(v) for v in vals]
+
+
+def _frontier_at(act, gsrc):
+    """``act[gsrc]`` for a shared (N,) frontier; for an (m, N) per-device
+    one each of the S stacked shards reads its device's row (device g owns
+    shards g·S/m … (g+1)·S/m − 1)."""
+    if act.dim() == 1:
+        return act[gsrc]
+    s = gsrc.shape[0]
+    dev = torch.arange(s, device=gsrc.device) // (s // act.shape[0])
+    return act[dev.view(-1, *([1] * (gsrc.dim() - 1))), gsrc]
 
 
 # the tile fields the sharded CSR body reads; ``gdst`` (S·nt·ET int32: 72

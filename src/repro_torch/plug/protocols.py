@@ -12,9 +12,11 @@ package's ``plug/protocols.py``:
 Two optional capabilities switch the middleware to the device-resident
 fused loop: :class:`ShardCapableDaemon` (``run_all_shards`` over every
 shard stacked on one leading axis) and :class:`DevicePartialUpper`
-(``merge_partials`` of the per-device partials).  The mask-, out-of-core-
-and elastic capabilities of the JAX package come with ROADMAP Queue A items
-8, 11 and 9.
+(``merge_partials`` of the per-device partials).  Two more select and
+speed up the fused async loop: :class:`PriorityAsyncModel` (the model's
+priority threshold) and :class:`MaskCapableDaemon` (a hold that skips the
+held devices' work).  The out-of-core and elastic capabilities of the JAX
+package come with ROADMAP Queue A items 11 and 9.
 """
 from __future__ import annotations
 
@@ -143,7 +145,54 @@ class ShardCapableDaemon(Protocol):
     def run_all_shards(self, state, aux, active=None, *, stacked=None):
         """All shards' Gen + Merge + per-device combine on device tensors
         → ``(partials (m, N, K), counts (m, N), blocks_run (S,))``;
-        ``active`` is the (N,) frontier, or None to run every block."""
+        ``active`` is the (N,) frontier shared by every device, an (m, N)
+        bool whose row g is device g's private frontier (the fused async
+        loop's backlog), or None to run every block."""
+        ...
+
+
+@runtime_checkable
+class MaskCapableDaemon(Protocol):
+    """Optional daemon capability: per-device conditional Gen execution.
+
+    The fused async loop's *predict* half decides, before Gen, which
+    devices hold this iteration.  A daemon with this capability
+    (``ShardedDaemon`` has it) takes that verdict as ``run_mask`` in
+    ``run_all_shards`` and makes the hold **free**: a held device runs no
+    gather, Gen or Merge and contributes the monoid identity (zero counts,
+    zero blocks run).  For frontier-driven programs a device whose private
+    frontier row is empty is skipped the same way; its identity output
+    *is* its exact fresh partial.
+
+    ``configure_buckets`` arms the vertex-level priority buckets: with
+    ``k > 0`` (idempotent monoids only) a held device still runs the
+    out-edges of its top-``k`` residual vertices, capped at ``cap`` edges
+    each, so skew inside a shard is exploited while the shard holds.  The
+    commit half folds those bucket partials into the held copy with the
+    monoid's combine.
+
+    The middleware detects this protocol on top of
+    :class:`ShardCapableDaemon`; a daemon without it runs the async loop
+    in its run-everything form.
+    """
+
+    mesh: object
+    stacked: object
+
+    def configure_buckets(self, k: int, cap: int = 32):
+        """Enables or disables the priority buckets; returns self."""
+        ...
+
+    def run_all_shards(self, state, aux, active=None, *, run_mask=None,
+                       residual=None, stacked=None, live_rows=None):
+        """As :meth:`ShardCapableDaemon.run_all_shards`, plus ``run_mask``
+        — (m,) bool host values, the devices that may run; a False device,
+        or one whose row of a per-device ``active`` is empty, skips its
+        shard body (identity partials, zero counts and blocks) —
+        ``residual`` — the (N,) f32 per-vertex last state change, the
+        buckets' score (unused when they are off) — and ``live_rows`` —
+        (m,) host bools, which rows of ``active`` hold a source, when the
+        caller already has them."""
         ...
 
 
@@ -195,6 +244,39 @@ def divisor_mesh(num_items: int, mesh=None) -> int:
 # ``gather`` passed to a ComputationModel: calls every shard's daemon and
 # returns the per-shard (agg, cnt, read_ids) results for this iteration.
 GatherFn = Callable[[dict], Sequence[tuple]]
+
+
+@runtime_checkable
+class PriorityAsyncModel(Protocol):
+    """Optional computation-model capability: asynchronous priority
+    scheduling (``plug.computation.AsyncModel`` implements it).
+
+    A model with this state — the initial priority threshold, its
+    per-iteration decay, and the floor at or below which every producer is
+    forced fresh — is detected by the middleware, which (with a
+    shard-capable daemon and an exact-wire device-partial upper system
+    that also has the ``merge_partials_async`` cadence, as
+    ``MeshUpperSystem`` does) runs the fused *async* loop: per-device held
+    partials, the frontier backlog and the decaying threshold all live on
+    the device (``plug.middleware.AsyncDriveLoop``).  The fused step never
+    calls the three hooks, so, as for BSP/GAS fusion, a subclass
+    overriding a hook keeps the host loop that drives them.  On any other
+    composition the hooks drive the host loop, whose global barrier makes
+    every aggregate the freshest available.
+    """
+
+    theta0: float
+    decay: float
+    floor: float
+
+    def prologue(self, gather):
+        ...
+
+    def aggregates(self, gather, pending, record):
+        ...
+
+    def epilogue(self, gather, record):
+        ...
 
 
 @runtime_checkable

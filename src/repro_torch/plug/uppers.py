@@ -9,9 +9,10 @@ in the JAX package's ``plug/uppers.py``.
 * ``MeshUpperSystem`` — the merge as a reduction over a leading shard
   axis: ``merge`` for the host loop's per-shard arrays, and
   ``merge_partials`` for the fused loop's device-resident (m, N, K)
-  partials, which stay where the daemon left them.  The axis spans m
-  logical devices on the one card (``protocols.divisor_mesh``); the
-  reduction across cards or ranks and the compressed wire are ROADMAP
+  partials, which stay where the daemon left them, and
+  ``merge_partials_async``, the fused async loop's commit half.  The axis
+  spans m logical devices on the one card (``protocols.divisor_mesh``);
+  the reduction across cards or ranks and the compressed wire are ROADMAP
   Queue A item 13b's.
 """
 from __future__ import annotations
@@ -146,6 +147,67 @@ class MeshUpperSystem(HostUpperSystem):
         axis 0 in group order → ``(agg (N, K), cnt (N,) int32)`` on their
         device: min or max for an idempotent monoid, a sum otherwise."""
         return self._fold_axis(partials), counts.sum(0, dtype=torch.int32)
+
+    def merge_partials_async(self, fresh_p, fresh_c, held_p, held_c,
+                             theta, floor, run_mask=None):
+        """The async merge cadence, the fused async loop's commit half.
+
+        Decides per device whether this round's merge consumes its fresh
+        partial or the held one it last shipped:
+
+        1. fresh partials are set to the monoid identity wherever the
+           device delivered no message;
+        2. a device's priority is how far its fresh contribution moved
+           from its held copy (L∞ over values and counts); NaN distances
+           (a non-finite identity minus itself) count 0, and ±inf clamps
+           to float32 max, so the priority stays finite;
+        3. devices at or above ``theta`` refresh — all of them once
+           ``theta`` is at or below ``floor`` — and the rest hold;
+        4. the chosen partials reduce through :meth:`merge_partials`.
+
+        ``run_mask`` (m,) bool on the partials' device is the predict
+        half's verdict: a held device ran no Gen, so its fresh row is not
+        a real aggregate and it cannot refresh this round.  For
+        idempotent monoids that row may carry a priority bucket's
+        partial, folded into the held copy with ``monoid.combine`` (a
+        no-op where it is the identity); a sum carries the held copy
+        verbatim.
+
+        ``theta`` is a float32 scalar tensor.  Returns ``(agg, cnt,
+        held_p, held_c, refreshed, pri)``: the merged aggregate and
+        counts, the next held copies, the (m,) bool refresh mask and the
+        (m,) f32 priorities.
+        """
+        if self.wire != "exact":
+            raise ValueError("merge_partials_async supports wire='exact' "
+                             "only; compressed merges take the classic path")
+        monoid = self.monoid
+        ident = torch.full_like(fresh_p, monoid.identity)
+        fresh_p = torch.where((fresh_c > 0)[..., None], fresh_p, ident)
+        diff = torch.nan_to_num((fresh_p - held_p).abs(), nan=0.0)
+        pri = torch.maximum(
+            diff.amax(dim=(1, 2)),
+            (fresh_c - held_c).abs().to(torch.float32).amax(dim=1))
+        if run_mask is None:
+            run_mask = torch.ones_like(pri, dtype=torch.bool)
+        theta = torch.as_tensor(theta, dtype=torch.float32, device=pri.device)
+        # floor as its float32 value, the threshold's own type
+        refreshed = (((pri >= theta) | (theta <= float(np.float32(floor))))
+                     & run_mask)
+        if monoid.idempotent:
+            # fold held devices' bucket partials into the held copy
+            bucket_p = torch.where(run_mask[:, None, None], ident, fresh_p)
+            bucket_c = torch.where(run_mask[:, None],
+                                   torch.zeros_like(fresh_c), fresh_c)
+            hold_p = monoid.combine(held_p, bucket_p)
+            hold_c = torch.maximum(held_c, bucket_c)
+        else:
+            # a sum tolerates no duplicate: the held copy stays as it was
+            hold_p, hold_c = held_p, held_c
+        held_p = torch.where(refreshed[:, None, None], fresh_p, hold_p)
+        held_c = torch.where(refreshed[:, None], fresh_c, hold_c)
+        agg, cnt = self.merge_partials(held_p, held_c)
+        return agg, cnt, held_p, held_c, refreshed, pri
 
 
 # --------------------------------------------------------------------------

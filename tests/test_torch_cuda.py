@@ -12,7 +12,8 @@ bf16 hi + lo parts on the tensor cores for that reason).  The SSD chunk step: ma
 another order); with dt in Mamba2's range, where decay and gate do not
 underflow, those two within 1e-4·|want| at every element.  The fused loop
 (``daemon="sharded"`` + ``upper="mesh"``) is held against the host loop and
-``run_reference``, autotuned and at four logical devices too; every point
+``run_reference``, autotuned and at four logical devices too, and the async
+loop at eight against ``run_reference`` with its launches; every point
 of the card's autotune space gives the same aggregate; and the pipelined
 daemon (three CUDA streams) is held against the blocked daemon and
 ``run_reference``.  This file imports no JAX, so it runs on a
@@ -422,6 +423,75 @@ def test_mesh4_matches_mesh1_on_the_card(cuda, prog_name):
         assert ebk.csr_tile.launches - before == runs[m].iterations
     _assert_same_state(prog, runs[4].state, runs[1].state, rtol=1e-4)
     assert runs[4].per_iteration == runs[1].per_iteration
+
+
+ASYNC_ARMS = {"eager": dict(theta0=0.0, decay=0.5),
+              "holding": dict(theta0=10.0, decay=0.9),
+              "buckets": dict(theta0=10.0, decay=0.9, bucket_k=8)}
+
+
+def executed_runs(rec, shards):
+    """The devices that ran their body in one async record — those that
+    ran a tile: an executing device's backlog holds a source whose edges
+    it owns — and the number of maximal runs of consecutive ones."""
+    m = rec["devices"]
+    per = shards // m
+    ran = [sum(rec["shard_blocks_run"][g * per:(g + 1) * per]) > 0
+           for g in range(m)]
+    runs = sum(1 for g in range(m) if ran[g] and (g == 0 or not ran[g - 1]))
+    return ran, runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prog_name, arm", [
+    ("sssp_bf", "eager"), ("sssp_bf", "holding"), ("sssp_bf", "buckets"),
+    ("pagerank", "eager")])
+def test_async_loop_on_the_card(cuda, prog_name, arm):
+    """The fused async loop at mesh=8 on the card (the CPU tests' graph):
+    run_reference's fixed point (sssp bit for bit, pagerank's 12
+    iterations within rtol 1e-4), held devices ran no tile, the device
+    bodies run equal gen_run, and csr_tile launched once per run of
+    consecutive executing devices in every iteration."""
+    g = generate.rmat(256, 2048, seed=9)
+    prog = algorithms.ALGORITHMS[prog_name](g)
+    max_it = 12 if prog_name == "pagerank" else 300
+    daemon = plug.ShardedDaemon(kernel="cuda", csr_config=ops.CSRConfig())
+    mw = plug.Middleware(g, prog, daemon=daemon, upper=plug.MeshUpperSystem(
+        mesh=8), num_shards=8, model=plug.AsyncModel(**ASYNC_ARMS[arm]),
+        options=plug.PlugOptions(block_size=64), device=cuda)
+    assert mw._fused_kind == "async"
+    per_call = []
+    run_all = daemon.run_all_shards
+
+    def counted(*args, **kwargs):
+        before = ebk.csr_tile.launches
+        out = run_all(*args, **kwargs)
+        per_call.append(ebk.csr_tile.launches - before)
+        return out
+
+    daemon.run_all_shards = counted
+    daemon.instrument = True
+    daemon.reset_counters()
+    res = mw.run(max_iterations=max_it)
+    ref, _ = plug.run_reference(g, prog, max_iterations=max_it, device=cuda)
+    _assert_same_state(prog, res.state, ref, rtol=1e-4)
+    assert res.converged == (prog_name != "pagerank")
+    holds = 0
+    for rec, launched in zip(res.per_iteration, per_call, strict=True):
+        ran, runs = executed_runs(rec, 8)
+        assert sum(ran) == rec["gen_run"] == 8 - rec["gen_skipped"]
+        assert launched == runs, (rec["iteration"], launched, runs)
+        for dev, may_run in enumerate(rec["run_mask"]):
+            holds += not may_run
+            assert may_run or not ran[dev]
+    assert daemon.gen_invocations == sum(r["gen_run"]
+                                         for r in res.per_iteration)
+    if arm == "eager":
+        assert holds == 0
+    else:
+        assert holds > 0
+    if arm == "buckets":
+        assert daemon.bucket_invocations > 0
 
 
 @pytest.mark.cuda

@@ -459,8 +459,9 @@ def test_not_ported_parts_raise_naming_their_item():
         daemon.bind_shards(_port("sssp_bf").blocksets)
     with pytest.raises(NotImplementedError, match="item 13"):
         _port("sssp_bf", upper=tplug.MeshUpperSystem(wire="compressed"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _port("sssp_bf", model="async")
+    # item 8 is ported: the async model on sharded + mesh is the fused
+    # async loop
+    assert _port("sssp_bf", model="async")._fused_kind == "async"
     with pytest.raises(ValueError, match="wire"):
         tplug.MeshUpperSystem(wire="int3")
     with pytest.raises(RuntimeError, match="bind_shards"):

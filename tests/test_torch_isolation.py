@@ -226,9 +226,25 @@ def test_csr_config_rejects_unknown_or_kernel_less_choices(kwargs):
     ({"oocore": object()}, 11),
 ])
 def test_later_slices_raise_not_implemented(kwargs, item):
+    """A composition of a later slice raises naming its ROADMAP item; one
+    whose item is ported (item 8, the async model) now runs: the fused
+    async loop with the sharded daemon and the mesh upper, the host loop
+    otherwise, to run_reference's fixed point."""
     g = _graph()
+    prog = algorithms.bfs(g)
+    if item == 8:
+        mw = plug.Middleware(g, prog, device="cpu", **kwargs)
+        fused = kwargs.get("daemon") == "sharded"
+        assert mw._fused_kind == ("async" if fused else None)
+        assert isinstance(mw._loop, plug.AsyncDriveLoop if fused
+                          else plug.HostDriveLoop)
+        res = mw.run()
+        assert res.converged
+        ref, _ = plug.run_reference(g, prog, device="cpu")
+        np.testing.assert_array_equal(res.state, ref)
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        plug.Middleware(g, algorithms.bfs(g), device="cpu", **kwargs)
+        plug.Middleware(g, prog, device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("method, item", [
