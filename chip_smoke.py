@@ -148,6 +148,37 @@ Phases, each printing one JSON line; any failure exits non-zero:
               vertices, beside the barriered ``mesh=4`` run (GAS) of the
               same, checked the same way; there ``holding`` must skip a
               device body at least once.
+5g. elastic — the structure-epoch layer at ``mesh=4`` with ``CSRConfig()``
+              pinned, on the same graph: (a) sssp_bf GAS with
+              ``FailureSchedule(kills=[(3, 2)])`` (4 → 2 logical devices),
+              (b) the same kill under ``AsyncModel`` ``holding``, (c)
+              pagerank BSP (10 its) with the kill, (d) sssp_bf with
+              ``kills=[(2, 1)], recoveries=[(5, 1)]`` (4 → 2 → 4), (e)
+              sssp_bf with step-time reports putting device 1 at 3× the
+              others (a Lemma-2 re-partition that recompacts every tile);
+              (f) ``rebalance(capacities=linspace(1, 2, 4))`` between two
+              sssp_bf runs, fused and on the host loop with
+              ``daemon="cuda"``; (g) a ``MutationSchedule`` batch at
+              iteration 3 adding 65,536 edges whose sources own edges in
+              shard 0 (destinations uniform, weights in the generator's
+              range, from ``--seed``); (h) ``run_dynamic`` of the same
+              batch after a converged run (incremental, mode ``dirty``),
+              beside a cold run of a fresh middleware on the mutated
+              graph; (i) ``run_dynamic`` of a batch removing 65,536 of
+              shard 0's edge pairs (mode ``cold_fallback``).  Each is held
+              against ``run_reference`` on the post-trigger graph (sssp
+              bit-equal, pagerank within rtol/atol below); the migration
+              records must name the killed / joined devices and the axis
+              length after; in every iteration the step makes exactly one
+              small fetch, a BSP rebuild none (an async one at most one
+              (m,)-sized), nothing vertex-sized but the final state;
+              ``csr_tile`` launches once an iteration (async: once per run
+              of executing devices); tilesets recut / reused are (0, 4) per
+              kill or join, (4, 0) for the straggler, (1, 3) per batch; no
+              autotune sweep.  Prints each rebuild's ``seconds``, the
+              iterations, s an iteration in each segment between rebinds
+              beside phase 5e's ``mesh=4`` runs, and the incremental
+              iterations against the cold ones.
 
 6. attention — a qwen2-72b attention layer at ``train_4k`` (B=1, Hq=64,
               Hkv=8, S=4096, D=128, bf16, causal) through
@@ -260,7 +291,14 @@ RED_KERNEL = r"edge_block_kernelILi\d+ELi0ELi1E"
 RED_VECTOR = "F32x2"
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Prints one JSON line; a phase's line gets ``t_s``, the seconds since
+    the script started, so each phase's share of the run shows."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1002,6 +1040,29 @@ def pinned_csr_daemon():
     return plug.VectorizedDaemon(kernel="cuda", csr_config=CSRConfig())
 
 
+def check_state(label, state, ref, tol) -> float:
+    """A run's state against ``run_reference``'s: the same shape, finite,
+    and bit-equal (``tol`` None) or within ``tol`` = (rtol, atol).
+    Returns max |Δ|."""
+    import numpy as np
+
+    state, ref = np.asarray(state), np.asarray(ref)
+    if state.shape != ref.shape:
+        raise AssertionError(f"{label}: state shape {state.shape}")
+    if not np.isfinite(state).all():
+        raise AssertionError(f"{label}: non-finite state")
+    if tol is None:
+        if not np.array_equal(state, ref):
+            raise AssertionError(f"{label}: not bit-equal to run_reference")
+        return 0.0
+    rtol, atol = tol
+    max_abs = float(np.abs(state - ref).max())
+    if not np.allclose(state, ref, rtol=rtol, atol=atol):
+        raise AssertionError(f"{label}: outside rtol={rtol} atol={atol} "
+                             f"of run_reference (max abs {max_abs})")
+    return max_abs
+
+
 def run_e2e(label, graph, program, daemon, model, parts, ref_state, sum_tol,
             device="cuda", upper="host", options=None, max_iterations=None,
             on_timed=None, frontier=None):
@@ -1036,21 +1097,7 @@ def run_e2e(label, graph, program, daemon, model, parts, ref_state, sum_tol,
     torch.cuda.synchronize()
     launches = {"edge_block": ebk.edge_block.launches,
                 "csr_tile": ebk.csr_tile.launches}
-    state = np.asarray(res.state)
-    if state.shape != (graph.num_vertices, program.state_width):
-        raise AssertionError(f"{label}: state shape {state.shape}")
-    if not np.isfinite(state).all():
-        raise AssertionError(f"{label}: non-finite state")
-    if sum_tol is None:
-        if not np.array_equal(state, ref_state):
-            raise AssertionError(f"{label}: not bit-equal to run_reference")
-        max_abs = 0.0
-    else:
-        rtol, atol = sum_tol
-        max_abs = float(np.abs(state - ref_state).max())
-        if not np.allclose(state, ref_state, rtol=rtol, atol=atol):
-            raise AssertionError(f"{label}: outside rtol={rtol} atol={atol} "
-                                 f"of run_reference (max abs {max_abs})")
+    max_abs = check_state(label, res.state, ref_state, sum_tol)
     its = max(res.iterations, 1)
     fused = {}
     if mw._fused:
@@ -1683,6 +1730,430 @@ def phase_async(g, parts, pr, sp, refs, mesh4, seed) -> tuple:
     return out, launches_tile
 
 
+# phase 5g: the structure-epoch layer.  Events fire before their iteration
+# runs; every one is due at iteration 2 or later, so the warm-up iteration
+# consumes none.
+ELASTIC_KILL = [(3, 2)]                       # device 2 dies: 4 → 2
+ELASTIC_JOIN = {"kills": [(2, 1)], "recoveries": [(5, 1)]}  # 4 → 2 → 4
+STRAGGLER_IT, STRAGGLER, STRAGGLER_X = 2, 1, 3.0  # 3× the others' step
+MUTATION_EDGES = 65536                        # each batch, all in shard 0
+MUTATION_IT = 3
+WEIGHT_RANGE = (1.0, 10.0)                    # generate.rmat_stream's
+
+
+def probe_loop(mw, calls: list, its: list) -> None:
+    """Wraps one fused middleware's structure poll, epoch adoption, step
+    and record read: for each iteration, ``its`` gets the seconds and the
+    device→host fetches of its rebuild (poll + adoption) apart from those
+    of its step (the step and its one fetch), and its csr_tile launches."""
+    from repro_torch.kernels import edge_block as ebk
+
+    loop = mw._loop
+    poll, adopt = mw._poll_structure, loop._adopt_epoch
+    advance, read = loop._advance, loop._read_extra
+
+    def polled(it):
+        t0, f0 = time.perf_counter(), len(calls)
+        out = poll(it)
+        its.append({"iteration": it, "rebound": False,
+                    "rebuild_s": time.perf_counter() - t0,
+                    "rebuild_fetches": calls[f0:]})
+        return out
+
+    def adopted(*args):
+        cur = its[-1]
+        t0, f0 = time.perf_counter(), len(calls)
+        out = adopt(*args)
+        cur["rebuild_s"] += time.perf_counter() - t0
+        cur["rebuild_fetches"] = cur["rebuild_fetches"] + calls[f0:]
+        cur["rebound"] = True
+        return out
+
+    def advanced(*args):
+        its[-1].update(t=time.perf_counter(), f=len(calls),
+                       l=ebk.csr_tile.launches)
+        return advance(*args)
+
+    def read_extra(carry, extra):
+        cur = its[-1]
+        cur["step_s"] = time.perf_counter() - cur.pop("t")
+        cur["step_fetches"] = calls[cur.pop("f"):]
+        cur["csr_tile"] = ebk.csr_tile.launches - cur.pop("l")
+        return read(carry, extra)
+
+    mw._poll_structure = polled
+    loop._adopt_epoch = adopted
+    loop._advance = advanced
+    loop._read_extra = read_extra
+
+
+def check_probed(label, res, mw, its, calls, n) -> dict:
+    """Phase 5g's per-iteration checks of a probed fused run: exactly one
+    small fetch in each step; none in a BSP rebuild, and nothing
+    vertex-sized in any rebuild; csr_tile once per iteration under BSP and
+    once per run of executing devices under the async model; one
+    vertex-sized fetch in the run (the final state).  Returns the step
+    times, rebuild fetches and launches."""
+    if len(its) != res.iterations:
+        raise AssertionError(f"{label}: {len(its)} probed iterations of "
+                             f"{res.iterations}")
+    for i, r in zip(its, res.per_iteration):
+        if len(i["step_fetches"]) != 1 or i["step_fetches"][0][1] >= n:
+            raise AssertionError(f"{label}: iteration {i['iteration']}: "
+                                 f"step fetches {i['step_fetches']}")
+        small = [c for c in i["rebuild_fetches"] if c[1] < n]
+        if len(small) != len(i["rebuild_fetches"]) or (
+                small and (mw._fused_kind == "bsp" or not i["rebound"])):
+            raise AssertionError(f"{label}: iteration {i['iteration']}: "
+                                 f"rebuild fetches {i['rebuild_fetches']}")
+        want = (executed_runs(r)[1] if mw._fused_kind == "async" else 1)
+        if i["csr_tile"] != want:
+            raise AssertionError(f"{label}: iteration {i['iteration']}: "
+                                 f"csr_tile launched {i['csr_tile']} times, "
+                                 f"expected {want}")
+    big = [c for c in calls if c[1] >= n]
+    if big != [("cpu", n * mw.k)]:
+        raise AssertionError(f"{label}: vertex-sized fetches {big}")
+    steps = [i["step_s"] for i in its]
+    return {"step_s": steps, "s_per_iteration": sum(steps) / len(steps),
+            "rebuild_fetches": sum(len(i["rebuild_fetches"]) for i in its),
+            "csr_tile_per_iteration": [i["csr_tile"] for i in its]}
+
+
+def elastic_run(label, g, prog, model, ref, tol, *, failures=None,
+                mutations=None, expect=(), tiles=None) -> tuple:
+    """One fused run of phase 5g at ``mesh=SHARDS`` with ``CSRConfig()``
+    pinned, its structure triggers given: a warm-up iteration, then the
+    probed run (:func:`probe_loop`) checked against ``ref`` and
+    :func:`check_probed`.  ``expect`` lists, per rebind in order, the
+    record entries the rebind must carry; ``tiles`` the (recut, reused)
+    tilesets the run's rebinds must add.  Returns its line, its csr_tile
+    launches and its middleware."""
+    import torch
+
+    from repro_torch import plug
+    from repro_torch.kernels import edge_block as ebk
+    from repro_torch.kernels.ops import CSRConfig
+
+    n = g.num_vertices
+    daemon = plug.ShardedDaemon(kernel="cuda", mesh=SHARDS,
+                                csr_config=CSRConfig())
+    t0 = time.perf_counter()
+    mw = plug.Middleware(g, prog, daemon=daemon,
+                         upper=plug.MeshUpperSystem(mesh=SHARDS),
+                         model=model, num_shards=SHARDS, failures=failures,
+                         mutations=mutations, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    mw.run(max_iterations=1)
+    torch.cuda.synchronize()
+    base = (daemon.tiles_recut, daemon.tilesets_reused)
+    calls, its, causes = [], [], []
+    probe_loop(mw, calls, its)
+    mw.epochs.subscribe("probe", lambda new, old: causes.append(new.cause))
+    before = ebk.csr_tile.launches
+    with counting_fetches(calls):
+        res = mw.run()
+    torch.cuda.synchronize()
+    launches = ebk.csr_tile.launches - before
+    max_abs = check_state(label, res.state, ref, tol)
+    probed = check_probed(label, res, mw, its, calls, n)
+    rebinds = []
+    for i, r in zip(its, res.per_iteration):
+        if not i["rebound"]:
+            continue
+        ev = r.get("migration") or r.get("mutation")
+        rec = {"iteration": r["iteration"],
+               "cause": causes[len(rebinds)] if len(causes) > len(rebinds)
+               else None,
+               "seconds": ev["seconds"], "rebuild_s_probed": i["rebuild_s"],
+               "rebuild_fetches": len(i["rebuild_fetches"])}
+        rec.update({k: v for k, v in ev.items()
+                    if k not in ("seconds", "dirty_vertices", "assignment")})
+        if "migration" in r:
+            dv = ev["dirty_vertices"]
+            rec["dirty_vertices"] = "all" if dv is None else len(dv)
+            rec["assignment"] = ev["assignment"]
+        rebinds.append(rec)
+    if not (len(rebinds) == len(causes) == len(expect)):
+        raise AssertionError(f"{label}: {len(rebinds)} rebinds of "
+                             f"{len(causes)} epochs, expected {len(expect)}")
+    for got, want in zip(rebinds, expect):
+        for k, v in want.items():
+            if got.get(k) != v:
+                raise AssertionError(f"{label}: rebind at iteration "
+                                     f"{got['iteration']}: {k}={got.get(k)}"
+                                     f", expected {v}")
+    added = (daemon.tiles_recut - base[0], daemon.tilesets_reused - base[1])
+    if tiles is not None and added != tiles:
+        raise AssertionError(f"{label}: tilesets recut/reused {added}, "
+                             f"expected {tiles}")
+    if not res.converged and prog.name != "pagerank":
+        raise AssertionError(f"{label}: did not converge")
+    # the step times cut at each rebind, with the axis length they ran at
+    segments, devices, start = [], SHARDS, 0
+    for k in [j for j, i in enumerate(its) if i["rebound"]] + [len(its)]:
+        if k > start:
+            steps = probed["step_s"][start:k]
+            segments.append({"from_iteration": start + 1, "devices": devices,
+                             "iterations": k - start,
+                             "s_per_iteration": sum(steps) / len(steps),
+                             "median_s": sorted(steps)[len(steps) // 2]})
+        if k < len(its):
+            devices = next(r for r in rebinds if r["iteration"] == k + 1
+                           ).get("devices_after", devices)
+        start = k
+    return {"run": label, "model": getattr(model, "name", model),
+            "init_s": init_s, "iterations": res.iterations,
+            "converged": res.converged, "wall_s": res.wall_time,
+            "max_abs_err_vs_reference": max_abs, "rebinds": rebinds,
+            "epoch": mw.epochs.version, "devices_end": mw.daemon.m,
+            "tilesets_recut_reused": list(added), "segments": segments,
+            **probed}, launches, mw
+
+
+def shard0_batches(parts, n, seed) -> tuple:
+    """The phase's add batch: MUTATION_EDGES edges whose sources own
+    out-edges in shard 0 (so only shard 0 is dirty), destinations uniform,
+    weights in the generator's range; drawn from ``seed``."""
+    import numpy as np
+
+    from repro_torch import plug
+
+    rng = np.random.default_rng(seed)
+    src = rng.choice(np.unique(parts[0].src), MUTATION_EDGES)
+    dst = rng.integers(0, n, MUTATION_EDGES)
+    w = rng.uniform(*WEIGHT_RANGE, MUTATION_EDGES)
+    log = plug.MutationLog()
+    for s, d, x in zip(src.tolist(), dst.tolist(), w.tolist()):
+        log.add_edge(s, d, x)
+    return log.freeze()
+
+
+def shard0_removals(part, seed):
+    """MUTATION_EDGES distinct (src, dst) pairs of ``part``'s edges, drawn
+    from ``seed``, as a removal batch."""
+    import numpy as np
+
+    from repro_torch import plug
+
+    rng = np.random.default_rng(seed + 1)
+    key = part.src.astype(np.int64) * part.num_vertices + part.dst
+    pairs = rng.choice(np.unique(key), MUTATION_EDGES, replace=False)
+    log = plug.MutationLog()
+    for k in pairs.tolist():
+        log.remove_edge(k // part.num_vertices, k % part.num_vertices)
+    return log.freeze()
+
+
+def phase_elastic(g, parts, pr, sp, refs, mesh4, seed) -> tuple:
+    """Phase 5g: the structure-epoch layer at ``mesh=SHARDS`` with
+    ``CSRConfig()`` pinned — kills, a join, a straggler, rebalances and
+    mutation batches, each against ``run_reference`` on the post-trigger
+    graph.  ``mesh4`` maps a program's name to phase 5e's (label, s an
+    iteration).  Returns the phase's line and its csr_tile launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import plug
+    from repro_torch.graph import mutation
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import edge_block as ebk
+    from repro_torch.kernels.ops import CSRConfig
+
+    n = g.num_vertices
+    sweeps = autotune.CACHE.sweeps
+    out = {"phase": "elastic", "m": SHARDS, "runs": [], "mesh4_runs": {
+        k: {"run": v[0], "s_per_iteration": v[1]} for k, v in mesh4.items()}}
+    launches_tile = 0
+    sp_ref = refs[sp.name][0]
+    pr_ref = refs[pr.name][0]
+    gone = {"killed": [2], "devices_before": SHARDS, "devices_after": 2}
+
+    def keep(rec, launches, mw):
+        """Prints the run's own line at once, so a later failure keeps
+        it."""
+        nonlocal launches_tile
+        emit({**rec, "phase": "elastic"})
+        out["runs"].append(rec["run"])
+        launches_tile += launches
+        del mw
+        torch.cuda.empty_cache()
+
+    # (a)–(e): kills, a join, a straggler
+    holding = plug.AsyncModel(theta0=10.0, decay=0.9)
+    slow = [(STRAGGLER_IT, d, STRAGGLER_X if d == STRAGGLER else 1.0)
+            for d in range(SHARDS)]
+    runs = (
+        ("sssp_bf/kill/gas", sp, "gas", sp_ref, None,
+         dict(kills=ELASTIC_KILL), [gone], (0, SHARDS)),
+        ("sssp_bf/kill/async-holding", sp, holding, sp_ref, None,
+         dict(kills=ELASTIC_KILL), [gone], (0, SHARDS)),
+        ("pagerank/kill/bsp", pr, "bsp", pr_ref, (PR_RTOL, PR_ATOL),
+         dict(kills=ELASTIC_KILL), [gone], (0, SHARDS)),
+        ("sssp_bf/kill-join/gas", sp, "gas", sp_ref, None, ELASTIC_JOIN,
+         [{"killed": [1], "devices_after": 2},
+          {"joined": [1], "devices_after": SHARDS}], (0, 2 * SHARDS)),
+        ("sssp_bf/straggler/gas", sp, "gas", sp_ref, None, dict(slow=slow),
+         [{"stragglers": [STRAGGLER], "repartitioned": True,
+           "devices_after": SHARDS}], (SHARDS, 0)))
+    for label, prog, model, ref, tol, sched, expect, tiles in runs:
+        rec, launches, mw = elastic_run(
+            label, g, prog, model, ref, tol,
+            failures=plug.FailureSchedule(**sched), expect=expect,
+            tiles=tiles)
+        if prog is pr and rec["iterations"] != refs[pr.name][1]:
+            raise AssertionError(f"{label}: {rec['iterations']} iterations")
+        keep(rec, launches, mw)
+
+    # (f): rebalance between runs, fused and on the host loop
+    caps = np.linspace(1.0, 2.0, SHARDS)
+    for label, fused in (("sssp_bf/rebalance/sharded-cuda/gas", True),
+                         ("sssp_bf/rebalance/cuda/gas", False)):
+        kw = (dict(daemon=plug.ShardedDaemon(kernel="cuda", mesh=SHARDS,
+                                             csr_config=CSRConfig()),
+                   upper=plug.MeshUpperSystem(mesh=SHARDS))
+              if fused else dict(daemon=pinned_csr_daemon()))
+        mw = plug.Middleware(g, sp, model="gas", num_shards=SHARDS,
+                             device="cuda", **kw)
+        mw.run(max_iterations=1)
+        rec = {"run": label, "fused": fused}
+        for when in ("before", "after"):
+            if when == "after":
+                t0 = time.perf_counter()
+                fr = mw.rebalance(capacities=caps)
+                torch.cuda.synchronize()
+                rec["rebalance_s"] = time.perf_counter() - t0
+                rec["fractions"] = [float(f) for f in fr]
+                t0 = time.perf_counter()
+                mw.run(max_iterations=1)  # the host daemon compacts here
+                torch.cuda.synchronize()
+                rec["first_iteration_after_s"] = time.perf_counter() - t0
+            l0 = ebk.csr_tile.launches
+            res = mw.run()
+            torch.cuda.synchronize()
+            launched = ebk.csr_tile.launches - l0
+            rec[when] = {
+                "iterations": res.iterations,
+                "s_per_iteration": res.wall_time / res.iterations,
+                "csr_tile_per_iteration": launched / res.iterations,
+                "max_abs_err_vs_reference": check_state(
+                    f"{label}/{when}", res.state, sp_ref, None)}
+            if fused and launched != res.iterations:
+                raise AssertionError(f"{label}: csr_tile {launched} over "
+                                     f"{res.iterations} iterations")
+            if launched == 0:
+                raise AssertionError(f"{label}: csr_tile never launched")
+            launches_tile += launched
+        if mw.epochs.epoch.cause != "rebalance":
+            raise AssertionError(f"{label}: epoch {mw.epochs.epoch.cause}")
+        keep(rec, 0, mw)
+
+    # (g)–(i): mutation batches in shard 0
+    t0 = time.perf_counter()
+    add = shard0_batches(parts, n, seed)
+    out["batches"] = {"edges": MUTATION_EDGES, "build_s":
+                      time.perf_counter() - t0}
+    g2, _ = mutation.apply_to_graph(g, add)  # the post-batch graph
+    t0 = time.perf_counter()
+    ref2, ref2_it = plug.run_reference(g2, sp, device="cuda")
+    out["batches"]["reference_s"] = time.perf_counter() - t0
+    out["batches"]["reference_iterations"] = ref2_it
+    rec, launches, mw = elastic_run(
+        "sssp_bf/add-mid-run/gas", g, sp, "gas", ref2, None,
+        mutations=plug.MutationSchedule(events=[(MUTATION_IT, add)]),
+        expect=[{"iteration": MUTATION_IT, "incremental": True,
+                 "edges_added": MUTATION_EDGES}], tiles=(1, SHARDS - 1))
+    if mw.epochs.epoch.meta["shards_recut"] != 1:
+        raise AssertionError("add-mid-run: shards_recut "
+                             f"{mw.epochs.epoch.meta['shards_recut']}")
+    rec["shards_recut"] = mw.epochs.epoch.meta["shards_recut"]
+    keep(rec, launches, mw)
+
+    # the cold run of the add batch's graph, beside the incremental one
+    label = "sssp_bf/cold-after-add/gas"
+    res, launches, mw, crec = run_e2e(
+        label, g2, sp, plug.ShardedDaemon(kernel="cuda", mesh=SHARDS,
+                                          csr_config=CSRConfig()),
+        "gas", plug.HostUpperSystem().partition(g2, SHARDS), ref2, None,
+        upper=plug.MeshUpperSystem(mesh=SHARDS))
+    check_fused_run(label, res, mw, crec, launches, res.iterations)
+    cold_it = res.iterations
+    keep(crec, launches["csr_tile"], mw)
+
+    rec = {"run": "sssp_bf/run_dynamic/gas", "cold_run": label,
+           "cold_iterations": cold_it}
+    daemon = plug.ShardedDaemon(kernel="cuda", mesh=SHARDS,
+                                csr_config=CSRConfig())
+    mw = plug.Middleware(g, sp, daemon=daemon, model="gas",
+                         upper=plug.MeshUpperSystem(mesh=SHARDS),
+                         num_shards=SHARDS, device="cuda")
+    mw.run(max_iterations=1)
+    res = mw.run()
+    check_state("run_dynamic/converged", res.state, sp_ref, None)
+    rec["converged_run"] = {"iterations": res.iterations,
+                            "s_per_iteration": res.wall_time
+                            / res.iterations}
+    for key, batch, ref_state, mode, label in (
+            ("add", add, ref2, "dirty", "h"),
+            ("remove", None, None, "cold_fallback", "i")):
+        if batch is None:
+            t0 = time.perf_counter()
+            batch = shard0_removals(mw.partitions[0], seed)
+            rec["removal_build_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ref_state, _ = plug.run_reference(
+                mutation.apply_to_graph(mw.graph, batch)[0], sp,
+                device="cuda")
+            rec["removal_reference_s"] = time.perf_counter() - t0
+        base = (daemon.tiles_recut, daemon.tilesets_reused)
+        calls, its = [], []
+        probe_loop(mw, calls, its)
+        l0 = ebk.csr_tile.launches
+        t0 = time.perf_counter()
+        with counting_fetches(calls):
+            res = mw.run_dynamic(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = ebk.csr_tile.launches - l0
+        ep = mw.epochs.epoch
+        lr = mw.last_restart
+        if lr["mode"] != mode or ep.meta["shards_recut"] != 1:
+            raise AssertionError(f"run_dynamic {key}: mode {lr['mode']}, "
+                                 f"shards_recut {ep.meta['shards_recut']}")
+        added = (daemon.tiles_recut - base[0],
+                 daemon.tilesets_reused - base[1])
+        if added != (1, SHARDS - 1):
+            raise AssertionError(f"run_dynamic {key}: tilesets recut/reused "
+                                 f"{added}")
+        if key == "add" and not np.array_equal(mw.graph.src, g2.src):
+            raise AssertionError("run_dynamic add: another mutated graph")
+        probed = check_probed(f"run_dynamic/{key}", res, mw, its, calls, n)
+        rec[key] = {
+            "case": label, "mode": lr["mode"], "reason": lr["reason"],
+            "iterations": res.iterations, "dirty_count": lr["dirty_count"],
+            "apply_s": ep.meta["seconds"], "wall_s": wall,
+            "run_s_per_iteration": res.wall_time / res.iterations,
+            "edges_added": ep.meta["edges_added"],
+            "edges_removed": ep.meta["edges_removed"],
+            "shards_recut": ep.meta["shards_recut"],
+            "tilesets_recut_reused": list(added),
+            "max_abs_err_vs_reference": check_state(
+                f"run_dynamic/{key}", res.state, ref_state, None),
+            **probed}
+        launches_tile += launched
+    rec["incremental_over_cold_iterations"] = (rec["add"]["iterations"]
+                                               / cold_it)
+    out["incremental_iterations"] = rec["add"]["iterations"]
+    out["cold_iterations"] = cold_it
+    keep(rec, 0, mw)
+    if autotune.CACHE.sweeps != sweeps:
+        raise AssertionError(f"phase 5g swept {autotune.CACHE.sweeps - sweeps}"
+                             " times")
+    out["sweeps"] = autotune.CACHE.sweeps - sweeps
+    return out, launches_tile
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20,
@@ -1905,6 +2376,13 @@ def main(argv=None) -> int:
     e2e_launches["csr_tile"] += async_launches
     torch.cuda.empty_cache()
 
+    # -- 5g. the structure-epoch layer: kills, joins, mutations ------------
+    elastic_rec, elastic_launches = phase_elastic(g, parts, pr, sp, refs,
+                                                  mesh4, args.seed)
+    emit(elastic_rec)
+    e2e_launches["csr_tile"] += elastic_launches
+    torch.cuda.empty_cache()
+
     # -- 6. attention at qwen2-72b width (and whisper-base's head dim) -----
     attn = []
     for case in ATTN_CASES:
@@ -1941,7 +2419,8 @@ def main(argv=None) -> int:
                if name == "edge_block" else
                {"launches_autotuned": tune_launches,
                 "launches_mesh4": mesh_launches,
-                "launches_async": async_launches}),
+                "launches_async": async_launches,
+                "launches_elastic": elastic_launches}),
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],

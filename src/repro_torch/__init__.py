@@ -1,8 +1,8 @@
 """``repro_torch`` — the GX-Plug middleware on PyTorch and CUDA.
 
 A second package beside the JAX package ``repro``, mirroring its layout
-(``core``, ``graph``, ``kernels``, ``plug``) so each module's counterpart
-sits at the same path.  It imports ``torch`` and ``numpy`` only; the JAX
+(``core``, ``dist``, ``graph``, ``kernels``, ``plug``) so each module's
+counterpart sits at the same path.  It imports ``torch`` and ``numpy`` only; the JAX
 package is the reference it is tested against (``tests/test_torch_*.py``).
 
 The entry points run on the GPU (``device="cuda"``) unless the caller asks

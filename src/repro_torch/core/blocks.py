@@ -125,3 +125,20 @@ def build_blocks(
         gsrc=src,
         gdst=dst,
     )
+
+
+def widen_vblocks(bs: BlockSet, vblock_size: int) -> BlockSet:
+    """``bs`` with its vertex blocks padded to ``vblock_size`` slots — the
+    arrays :func:`build_blocks` gives at that width, since the width only
+    pads ``vids`` / ``vmask``.  The edge arrays are shared with ``bs``, and
+    ``bs`` itself is returned when it already has the width."""
+    pad = int(vblock_size) - bs.vblock_size
+    if pad < 0:
+        raise ValueError(f"cannot narrow vertex blocks of {bs.vblock_size} "
+                         f"to {vblock_size}")
+    if pad == 0:
+        return bs
+    return dataclasses.replace(
+        bs, vblock_size=int(vblock_size),
+        vids=np.pad(bs.vids, ((0, 0), (0, pad))),
+        vmask=np.pad(bs.vmask, ((0, 0), (0, pad))))

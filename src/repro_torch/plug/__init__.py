@@ -40,21 +40,37 @@ m logical devices of the card with ``upper=MeshUpperSystem(mesh=m)``:
                          upper=plug.MeshUpperSystem(mesh=4), num_shards=4,
                          model=plug.AsyncModel(theta0=10.0, decay=0.9))
 
+A fused composition survives a change of its shard axis mid-run:
+``failures=FailureSchedule(kills=[(k, d)])`` (or a ``FleetMonitor``) kills
+logical device d before iteration k, and the run migrates onto the
+survivors without a checkpoint; ``recoveries=`` grows the axis back and
+``slow=`` step-time reports re-partition a straggler's shards (Lemma 2).
+Graphs mutate between runs (``mw.apply_mutations(log)``,
+``mw.run_dynamic(log)`` — incremental from the previous fixed point when
+the monoid is idempotent and the batch only adds) or mid-run
+(``mutations=MutationSchedule(events=[(k, log)])``).  Every rebuild is one
+versioned event on ``mw.epochs`` (:class:`StructureEpochBus`).
+
 ``device="cuda"`` is the default; ``device="cpu"`` runs the plain PyTorch
-versions of the kernels.  The other options come with later slices
-(ROADMAP Queue A).
+versions of the kernels.  Out-of-core execution comes with a later slice
+(ROADMAP Queue A item 11).
 """
+from repro_torch.dist.fault import FailureSchedule, FleetMonitor
+from repro_torch.graph.mutation import (MutationBatch, MutationLog,
+                                        MutationSchedule)
 from repro_torch.plug.computation import (BSP, GAS, AsyncModel, get_model,
                                           model_names, register_model)
 from repro_torch.plug.daemons import (BlockedDaemon, NaiveDaemon,
                                       PipelinedDaemon, ShardedDaemon,
                                       VectorizedDaemon, daemon_names,
                                       get_daemon, register_daemon)
+from repro_torch.plug.epoch import StructureEpoch, StructureEpochBus
 from repro_torch.plug.middleware import (AsyncDriveLoop, DriveLoop,
                                          HostDriveLoop, Middleware,
                                          make_apply_fn)
 from repro_torch.plug.protocols import (ComputationModel, Daemon,
-                                        DevicePartialUpper, MaskCapableDaemon,
+                                        DevicePartialUpper, ElasticUpper,
+                                        MaskCapableDaemon,
                                         PlugOptions, PriorityAsyncModel,
                                         Result, ShardCapableDaemon,
                                         UpperSystem)
@@ -66,10 +82,12 @@ from repro_torch.plug.uppers import (HostUpperSystem, MeshUpperSystem,
 __all__ = [
     "AsyncDriveLoop", "AsyncModel", "BSP", "GAS", "BlockedDaemon",
     "ComputationModel", "Daemon", "DevicePartialUpper", "DriveLoop",
-    "HostDriveLoop", "HostUpperSystem", "MaskCapableDaemon",
-    "MeshUpperSystem", "Middleware", "NaiveDaemon", "PipelinedDaemon",
-    "PlugOptions", "PriorityAsyncModel", "Result",
-    "ShardCapableDaemon", "ShardedDaemon", "UpperSystem", "VectorizedDaemon",
+    "ElasticUpper", "FailureSchedule", "FleetMonitor", "HostDriveLoop",
+    "HostUpperSystem", "MaskCapableDaemon", "MeshUpperSystem", "Middleware",
+    "MutationBatch", "MutationLog", "MutationSchedule", "NaiveDaemon",
+    "PipelinedDaemon", "PlugOptions", "PriorityAsyncModel", "Result",
+    "ShardCapableDaemon", "ShardedDaemon", "StructureEpoch",
+    "StructureEpochBus", "UpperSystem", "VectorizedDaemon",
     "daemon_names", "get_daemon", "get_model", "get_upper_system",
     "make_apply_fn", "model_names", "register_daemon", "register_model",
     "register_upper_system", "run_reference", "upper_system_names",

@@ -145,7 +145,7 @@ class VectorizedDaemon:
         self.block_fn = None
         self._combine_fn = None
         self._csr_config = None  # resolved per binding
-        self._csr_cache: dict = {}  # id(blockset) -> compacted CSR entry
+        self._csr_cache: dict = {}  # _edges_key(blockset) -> CSR entry
 
     def bind(self, program: VertexProgram, num_vertices: int, *,
              device="cuda"):
@@ -176,8 +176,8 @@ class VectorizedDaemon:
         return self._csr_config
 
     def _csr_entry(self, blockset: BlockSet):
-        entry = self._csr_cache.get(id(blockset))
-        if entry is not None:
+        entry = self._csr_cache.get(_edges_key(blockset))
+        if entry is not None and _same_edges(entry["blockset"], blockset):
             return entry
         from repro_torch.graph.compaction import tiles_from_blockset
 
@@ -193,8 +193,18 @@ class VectorizedDaemon:
             "blockset": blockset,  # strong ref: id() keys must not alias
             "config": cfg,
         }
-        self._csr_cache[id(blockset)] = entry
+        self._csr_cache[_edges_key(blockset)] = entry
         return entry
+
+    def prune_block_caches(self, blocksets) -> None:
+        """Drops the compacted-tile entries of blocksets that are no longer
+        bound — the middleware's structure-epoch daemon hook calls it on
+        the host path after a rebuild replaced some (usually not all)
+        blocksets.  Surviving blocksets keep their entries: a mutation
+        recuts only its dirty shards."""
+        live = {_edges_key(bs) for bs in blocksets}
+        self._csr_cache = {k: v for k, v in self._csr_cache.items()
+                           if k in live}
 
     def _run_blocks_csr(self, state, aux, blockset, sel):
         entry = self._csr_entry(blockset)
@@ -610,8 +620,8 @@ class ShardedDaemon(VectorizedDaemon):
 
     def _stack_csr_tiles(self, blocksets, place):
         """Compacts every shard's blockset into CSR tiles (cached per
-        BlockSet object: ``tiles_recut`` / ``tilesets_reused`` count the
-        split), pads them to a common (nt, RT, ST) envelope and places the
+        BlockSet edge arrays, :func:`_edges_key`: ``tiles_recut`` /
+        ``tilesets_reused`` count the split), pads them to a common (nt, RT, ST) envelope and places the
         stacked fields the tile body reads."""
         from repro_torch.graph.compaction import (pad_tileset,
                                                   tiles_from_blockset)
@@ -620,8 +630,8 @@ class ShardedDaemon(VectorizedDaemon):
         cfg = self._resolve_csr_config(*_live_edges(big))
         tiles = []
         for bs in blocksets:
-            hit = self._tile_cache.get(id(bs))
-            if hit is not None and hit[0] is bs:
+            hit = self._tile_cache.get(_edges_key(bs))
+            if hit is not None and _same_edges(hit[0], bs):
                 self.tilesets_reused += 1
                 tiles.append(hit[1])
                 continue
@@ -629,9 +639,9 @@ class ShardedDaemon(VectorizedDaemon):
                                     hub_threshold=cfg.hub_threshold)
             self.tiles_recut += 1
             # the blockset is held strongly so an id() key cannot alias
-            self._tile_cache[id(bs)] = (bs, t)
+            self._tile_cache[_edges_key(bs)] = (bs, t)
             tiles.append(t)
-        live = {id(bs) for bs in blocksets}
+        live = {_edges_key(bs) for bs in blocksets}
         self._tile_cache = {k: v for k, v in self._tile_cache.items()
                             if k in live}
         nt = max(t.num_tiles for t in tiles)
@@ -642,6 +652,24 @@ class ShardedDaemon(VectorizedDaemon):
         fields = _CSR_FIELDS + (("gdst",) if cfg.merge == "flat" else ())
         return {k: place("csr/" + k, np.stack([a[k] for a in arrays]))
                 for k in fields}
+
+    def remesh(self, mesh, *, blocksets=None):
+        """Re-stacks the bound block tensors over a survivor shard axis of
+        ``mesh`` logical devices — the daemon half of checkpoint-free
+        migration.  Each logical device's slice of the stacked axis grows
+        from S/m to S/m′ shards.  ``blocksets`` replaces the bound layout
+        when the migration also re-partitioned or re-ordered the shards;
+        omitted, the layout of the last ``bind_shards`` is re-placed.  A
+        re-ordered BlockSet keeps its identity, so its compacted tiles are
+        reused (``tilesets_reused``), and the binding's CSR config stays:
+        a migration never sweeps again.  The priority buckets are not
+        re-stacked: the async loop re-arms them."""
+        if blocksets is None:
+            blocksets = self._blocksets
+            if blocksets is None:
+                raise RuntimeError(
+                    "ShardedDaemon.remesh called before bind_shards")
+        return self.bind_shards(blocksets, mesh=mesh, axis=self.axis)
 
     def run_all_shards(self, state, aux, active=None, *, run_mask=None,
                        residual=None, stacked=None, live_rows=None):
@@ -840,6 +868,22 @@ class ShardedDaemon(VectorizedDaemon):
         """Zeroes the instrumentation counters (``instrument=True``)."""
         self.gen_invocations = 0
         self.bucket_invocations = 0
+
+
+# the BlockSet fields CSR tiles are compacted from (with the block size)
+_EDGE_FIELDS = ("gsrc", "gdst", "weights", "emask")
+
+
+def _edges_key(bs: BlockSet):
+    """The tile caches' key: a BlockSet's edge arrays.  A BlockSet whose
+    vertex blocks were only widened (``core.blocks.widen_vblocks``) shares
+    them, and so its compacted tiles."""
+    return id(bs.gsrc)
+
+
+def _same_edges(a: BlockSet, b: BlockSet) -> bool:
+    return a is b or (a.block_size == b.block_size and all(
+        getattr(a, f) is getattr(b, f) for f in _EDGE_FIELDS))
 
 
 def _host_bools(x, m: int, name: str) -> list:

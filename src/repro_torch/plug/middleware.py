@@ -33,8 +33,16 @@ Three drive loops implement the iteration:
   iteration t + 1 is decided at the end of step t and rides its one fetch,
   so the hold is decided on the host at no extra sync.
 
-Out-of-core, elasticity and dynamic graphs raise ``NotImplementedError``
-naming their ROADMAP item.
+Between fused iterations the middleware polls its structure triggers — a
+:class:`~repro_torch.dist.fault.FailureSchedule` or
+:class:`~repro_torch.dist.fault.FleetMonitor` (kills, joins, stragglers
+on the shard axis' logical devices) and a
+:class:`~repro_torch.graph.mutation.MutationSchedule` (graph mutation
+batches) — and every rebuild, with :meth:`Middleware.rebalance` and
+:meth:`Middleware.apply_mutations` between runs, is one versioned event on
+its :class:`~repro_torch.plug.epoch.StructureEpochBus`; the loops adopt it
+without a checkpoint.  Out-of-core execution raises
+``NotImplementedError`` naming its ROADMAP item (11).
 """
 from __future__ import annotations
 
@@ -46,18 +54,22 @@ import torch
 
 from repro_torch.core import pipeline as pl
 from repro_torch.core.balance import CapacityEstimator, lemma2_fractions
-from repro_torch.core.blocks import build_blocks
+from repro_torch.core.blocks import build_blocks, widen_vblocks
 from repro_torch.core.pow2 import next_pow2
 from repro_torch.core.sync import LRUVertexCache, SyncStats, can_skip_sync
 from repro_torch.core.template import VertexProgram
 from repro_torch.device import resolve_device
+from repro_torch.dist import fault as dist_fault
+from repro_torch.graph import mutation as graph_mutation
 from repro_torch.graph.structure import EdgePartition, Graph
 from repro_torch.plug.computation import BSP, GAS, AsyncModel, get_model
 from repro_torch.plug.daemons import get_daemon
-from repro_torch.plug.protocols import (DevicePartialUpper,
+from repro_torch.plug.epoch import StructureEpoch, StructureEpochBus
+from repro_torch.plug.protocols import (DevicePartialUpper, ElasticUpper,
                                         MaskCapableDaemon, PlugOptions,
                                         PriorityAsyncModel, Result,
-                                        ShardCapableDaemon, not_ported_error)
+                                        ShardCapableDaemon, divisor_mesh,
+                                        not_ported_error)
 from repro_torch.plug.uppers import get_upper_system
 
 # Computation-model orders the barriered fused loop realizes.  BSP and GAS
@@ -127,24 +139,50 @@ class Middleware:
       daemon: accelerator backend — a registry name (``"reference"``,
         ``"cuda"``, ``"sharded"``, ``"blocked"``, ``"pipelined"``,
         ``"naive"``, …) or an unbound Daemon instance.
-      upper: upper system — ``"host"`` or an instance.
-      model: computation model — ``"bsp"`` / ``"gas"`` or an instance.
+      upper: upper system — ``"host"`` / ``"mesh"`` or an instance.
+      model: computation model — ``"bsp"`` / ``"gas"`` / ``"async"`` or an
+        instance.
       partitions: explicit edge partitions; defaults to the upper
         system's partitioner over ``num_shards``.
       capacities: per-shard per-entity costs c_j; shard sizes follow
         Lemma 2.  Ignored when explicit ``partitions`` are given.
+      monitor: a :class:`~repro_torch.dist.fault.FleetMonitor` with one
+        slot per logical device of the fused shard axis — enables elastic
+        fault tolerance: between fused iterations the middleware polls the
+        monitor and, on a device failure, a recovered device or a fresh
+        straggler, migrates the live run onto a survivor axis without a
+        checkpoint.  Requires a fused loop (``daemon="sharded"``,
+        ``upper="mesh"`` with an exact wire).
+      failures: a :class:`~repro_torch.dist.fault.FailureSchedule`
+        injecting deterministic kills, recoveries and straggler reports
+        into the monitor ("kill device d at iteration k").  Implies a
+        monitor (one is created if not given).
+      mutations: a :class:`~repro_torch.graph.mutation.MutationSchedule`
+        injecting graph-mutation batches between fused iterations ("apply
+        batch b at iteration k").  The run continues incrementally (the
+        dirty frontier re-activated) when the monoid is idempotent and the
+        batch only adds, else the carried state resets (a cold restart
+        mid-run).  Needs a fused loop; between runs, use
+        :meth:`apply_mutations` / :meth:`run_dynamic`.
+      oocore: the out-of-core option — not ported yet (ROADMAP Queue A
+        item 11); passing one raises ``NotImplementedError``.
       options: :class:`~repro_torch.plug.protocols.PlugOptions`.
       device: where the daemon and MSGApply run; ``"cuda"`` (the
         default) raises on a machine without a GPU.
-      monitor, failures, mutations, oocore: the fused loop's elastic,
-        dynamic-graph and out-of-core options — not ported yet; passing
-        one raises ``NotImplementedError``.
 
     With a shard-capable daemon (``daemon="sharded"``) and a device-partial
     upper system (``upper="mesh"``), ``run`` drives the fused
     :class:`DriveLoop` for a BSP/GAS model and the fused
     :class:`AsyncDriveLoop` for ``AsyncModel``; otherwise the
     :class:`HostDriveLoop`.
+
+    Every structure rebuild — kill, join, rebalance, mutation — is
+    published on ``self.epochs`` (a
+    :class:`~repro_torch.plug.epoch.StructureEpochBus`); the subscribed
+    hooks re-target the upper system, re-stack the daemon's block tensors
+    and restart the capacity windows, in that order.  Drive loops react to
+    the bus version between iterations and never rebuild anything
+    themselves.
     """
 
     def __init__(
@@ -158,19 +196,15 @@ class Middleware:
         partitions: list[EdgePartition] | None = None,
         num_shards: int = 1,
         capacities=None,
-        monitor=None,
-        failures=None,
-        mutations=None,
+        monitor: "dist_fault.FleetMonitor | None" = None,
+        failures: "dist_fault.FailureSchedule | None" = None,
+        mutations: "graph_mutation.MutationSchedule | None" = None,
         oocore=None,
         options: PlugOptions | None = None,
         device="cuda",
     ):
-        for name, value, item in (("monitor=", monitor, 9),
-                                  ("failures=", failures, 9),
-                                  ("mutations=", mutations, 10),
-                                  ("oocore=", oocore, 11)):
-            if value is not None:
-                raise not_ported_error(name, item)
+        if oocore is not None:
+            raise not_ported_error("oocore=", 11)
         self.device = resolve_device(device)
         self.graph = graph
         self.program = program
@@ -180,6 +214,7 @@ class Middleware:
                       else upper)
         self.model = get_model(model) if isinstance(model, str) else model
 
+        self._owns_partitions = partitions is None
         if partitions is None:
             if capacities is not None:
                 c = np.asarray(capacities, dtype=np.float64)
@@ -208,8 +243,95 @@ class Middleware:
         if self._fused:
             self.daemon.bind_shards(self.blocksets, mesh=self.upper.mesh,
                                     axis=self.upper.axis)
+
+        # -- elastic fault tolerance ----------------------------------------
+        self.monitor = monitor
+        self.failures = failures
+        self._mesh_device_ids: list[int] = []
+        self._handled_stragglers: set[int] = set()
+        if monitor is not None or failures is not None:
+            if not self._fused:
+                raise ValueError(
+                    "elastic fault tolerance (monitor=/failures=) needs the "
+                    "fused device-resident loop: a shard-capable daemon "
+                    "(daemon='sharded') with a device-partial upper system "
+                    "over an exact wire (upper='mesh') and a fusable model")
+            if not isinstance(self.upper, ElasticUpper):
+                raise ValueError(
+                    f"upper system {type(self.upper).__name__} cannot "
+                    "remesh/migrate (see plug.protocols.ElasticUpper)")
+            # the fleet is the shard axis' logical devices, ids 0 … m0 − 1
+            m0 = divisor_mesh(self.num_shards, self.upper.mesh)
+            self.fleet_devices = list(range(m0))
+            if self.monitor is None:
+                self.monitor = dist_fault.FleetMonitor(num_hosts=m0,
+                                                       model_parallel=1)
+            if self.monitor.num_hosts != m0:
+                raise ValueError(
+                    f"monitor tracks {self.monitor.num_hosts} hosts but the "
+                    f"fused shard axis has {m0} devices — one monitor slot "
+                    "per logical device")
+            self._mesh_device_ids = list(range(m0))
+            # the initial placement acknowledges what the monitor already
+            # knows; straggler migrations key off drift from this baseline
+            self.monitor.ack_capacity()
+
+        # -- dynamic graphs --------------------------------------------------
+        self.mutations = mutations
+        if mutations is not None and not self._fused:
+            raise ValueError(
+                "a mid-run MutationSchedule needs a fused device-resident "
+                "loop (the host loop re-reads the graph every iteration "
+                "and never polls for due batches); apply batches between "
+                "runs with apply_mutations() instead")
+        self.last_restart: dict | None = None
+        self._last_state: np.ndarray | None = None
+
+        # -- the structure-epoch layer (plug/epoch.py) -----------------------
+        # Every rebuild trigger publishes here; the hooks run in this order:
+        # the upper's shard axis first, the block tensors second, the
+        # capacity windows last.
+        self.epochs = StructureEpochBus()
+        self.epochs.subscribe("upper", self._epoch_upper)
+        self.epochs.subscribe("daemon", self._epoch_daemon)
+        self.epochs.subscribe("capacity", self._epoch_capacity)
+        self.epochs.initialize(StructureEpoch(
+            version=0, cause="init",
+            mesh=self.upper.mesh if self._fused else None,
+            partitions=tuple(self.partitions),
+            blocksets=tuple(self.blocksets)))
         self._loop = {"bsp": DriveLoop, "async": AsyncDriveLoop,
                       None: HostDriveLoop}[self._fused_kind](self)
+
+    # -- structure-epoch rebuild hooks -------------------------------------
+    def _epoch_upper(self, new: StructureEpoch, old) -> None:
+        """Re-targets the upper system at the epoch's shard axis (fused) or
+        re-binds it for the new shard layout (host path)."""
+        if self._fused:
+            self.upper.remesh(new.mesh)
+        else:
+            self.upper.bind(self.program, self.num_shards)
+
+    def _epoch_daemon(self, new: StructureEpoch, old) -> None:
+        """Re-stacks the daemon's block tensors for the epoch (fused).  On
+        the host path blocks go to the device every iteration, so nothing
+        is re-placed: stale per-blockset caches are pruned instead."""
+        if self._fused:
+            self.daemon.remesh(new.mesh, blocksets=list(new.blocksets))
+        else:
+            prune = getattr(self.daemon, "prune_block_caches", None)
+            if prune is not None:
+                prune(new.blocksets)
+
+    def _epoch_capacity(self, new: StructureEpoch, old) -> None:
+        """Restarts capacity estimation under the new epoch: per-shard
+        costs measured against the old structure say nothing about the new
+        one, so the estimator is replaced and the fleet monitor's step-time
+        windows are re-keyed (``FleetMonitor.on_epoch``)."""
+        self._estimator = CapacityEstimator(self.num_shards,
+                                            epoch=new.version)
+        if self.monitor is not None:
+            self.monitor.on_epoch(new.version)
 
     # -- setup ------------------------------------------------------------
     def _resolve_block_size(self) -> int:
@@ -258,7 +380,8 @@ class Middleware:
 
         ``init`` overrides ``program.init`` for this run only
         (``init(graph) -> (state0, aux)``, same shapes); ``frontier``
-        overrides the initial active mask (default: every vertex).
+        overrides the initial active mask (default: every vertex) — the
+        seam :meth:`run_dynamic` resumes through.
         """
         # Fresh per-run accounting: stats and LRU caches reset at loop entry.
         self.stats = SyncStats()
@@ -266,20 +389,436 @@ class Middleware:
             LRUVertexCache(self.options.cache_capacity)
             for _ in range(self.num_shards)
         ]
-        return self._loop.run(max_iterations, init=init, frontier=frontier)
+        res = self._loop.run(max_iterations, init=init, frontier=frontier)
+        # the previous fixed point the next run_dynamic() may resume from
+        self._last_state = np.asarray(res.state)
+        return res
 
-    # -- later slices -----------------------------------------------------
+    # -- between-iteration structure polling -------------------------------
+    def _poll_structure(self, it: int) -> dict:
+        """The between-iteration poll of the fused drive loops: feeds due
+        failure-schedule events and due mutation batches through their
+        structure-epoch publishers.  Returns the extra entries for the
+        iteration record ({} when nothing fired; host work only, and none
+        without a monitor or a mutation schedule) — the loop reacts to the
+        bus *version*, never to this dict, so externally triggered
+        publishes are adopted the same way."""
+        out: dict = {}
+        if self.monitor is not None:
+            mig = self._poll_faults(it)
+            if mig is not None:
+                out["migration"] = mig
+        mut = self._poll_mutations(it)
+        if mut is not None:
+            out["mutation"] = mut
+        return out
+
+    def _poll_mutations(self, it: int) -> dict | None:
+        """Applies the mutation batches due at iteration ``it``.  Each batch
+        publishes its own epoch; when several are due at once the final
+        epoch's meta is widened (frontier union, incremental AND), so the
+        loop's one adoption of the latest version loses nothing."""
+        if self.mutations is None:
+            return None
+        due = self.mutations.due_at(it)
+        if not due:
+            return None
+        t0 = time.perf_counter()
+        eps = [self.apply_mutations(b) for b in due]
+        # an all-empty batch publishes nothing and returns the current
+        # epoch, whose meta carries no frontier — drop it
+        eps = [e for e in eps if e.meta.get("frontier") is not None]
+        if not eps:
+            return None
+        ep = eps[-1]
+        for e in eps[:-1]:
+            ep.meta["frontier"] = ep.meta["frontier"] | e.meta["frontier"]
+            ep.meta["incremental"] = (ep.meta["incremental"]
+                                      and e.meta["incremental"])
+        return {
+            "batches": len(due),
+            "edges_added": sum(e.meta["edges_added"] for e in eps),
+            "edges_removed": sum(e.meta["edges_removed"] for e in eps),
+            "dirty_vertices": int(sum(e.meta["dirty_count"] for e in eps)),
+            "incremental": bool(ep.meta["incremental"]),
+            "seconds": time.perf_counter() - t0,
+        }
+
+    # -- elastic fault tolerance ------------------------------------------
+    def _poll_faults(self, it: int) -> dict | None:
+        """The between-iteration elastic check of the fused drive loops.
+
+        Feeds the failure schedule's due events into the monitor (step-time
+        reports, recoveries, then kills) and migrates when a dead device
+        sits in the active shard axis, when recovered devices let it grow,
+        when a straggler is flagged for the first time, or when a handled
+        straggler's capacity kept drifting past the monitor's threshold
+        since the placement last acknowledged it.  Returns the migration
+        record for the iteration log, or None when the fleet is healthy.
+        """
+        mon = self.monitor
+        if mon is None:
+            return None
+        newly: list[int] = []
+        rejoined: list[int] = []
+        if self.failures is not None:
+            for dev, seconds in self.failures.slow_reports(it):
+                if not mon.failed[dev]:
+                    mon.record(dev, seconds)
+            for dev in self.failures.recoveries_at(it):
+                if mon.failed[dev]:
+                    mon.mark_recovered(dev)
+                    rejoined.append(dev)
+            for dev in self.failures.kills_at(it):
+                if not mon.failed[dev]:
+                    mon.mark_failed(dev)
+                    newly.append(dev)
+        failed = mon.failed
+        if any(failed[d] for d in self._mesh_device_ids):
+            return self.migrate(killed=newly, joined=rejoined)
+        if self._feasible_mesh_size() > len(self._mesh_device_ids):
+            # elastic JOIN: keyed off the monitor's fleet view, not the
+            # consumed recovery event, so every middleware sharing this
+            # monitor grows at its own next poll
+            return self.migrate(joined=rejoined)
+        if self._owns_partitions:
+            # only stragglers that carry shards warrant a migration
+            flagged = [int(d) for d in np.nonzero(mon.stragglers())[0]
+                       if int(d) in self._mesh_device_ids]
+            fresh = [d for d in flagged
+                     if d not in self._handled_stragglers]
+            # a straggler seen before still warrants a migration when its
+            # capacity kept degrading after the placement that absorbed it
+            if fresh or (flagged and mon.drifted()):
+                self._handled_stragglers.update(fresh)
+                return self.migrate(stragglers=fresh or flagged)
+        return None
+
+    def _feasible_mesh_size(self) -> int:
+        """Largest shard-axis length the surviving fleet can host: the
+        largest divisor of ``num_shards`` ≤ the number of alive devices.
+        Shrink and grow are the same computation."""
+        alive = int(self.monitor.alive_hosts)
+        for d in range(min(self.num_shards, alive), 0, -1):
+            if self.num_shards % d == 0:
+                return d
+        return 1
+
     def migrate(self, *, killed=(), stragglers=(), joined=()) -> dict:
-        raise not_ported_error("Middleware.migrate", 9)
+        """Checkpoint-free elastic migration onto the survivor shard axis.
 
+        Re-plans the shard placement from the monitor's view of the fleet
+        and re-targets the fused composition:
+
+        1. the new axis length m′ is the largest divisor of ``num_shards``
+           the survivors can host, and the m′ devices with the highest
+           Lemma-2 capacity are kept;
+        2. every shard — the dead devices' orphans in particular — is
+           reassigned to a survivor with
+           :func:`~repro_torch.dist.fault.reassign_shards` (Lemma-2
+           entitlement, ``cap = num_shards // m′`` so the stacked layout
+           stays rectangular);
+        3. with capacity data (step-time reports), the graph is
+           re-partitioned so each device's shard slots carry edges in
+           proportion to its Lemma-2 fraction; without data — or on
+           caller-supplied partitions — the partitions are kept and only
+           re-ordered onto their new devices (the same blocks, another
+           placement);
+        4. the rebuild is *published* as a structure epoch (cause
+           ``"kill"`` / ``"join"`` / ``"rebalance"``) whose ``mesh`` is
+           the int m′: the hooks re-target the upper system
+           (``MeshUpperSystem.remesh``), re-stack the daemon's block
+           tensors (``ShardedDaemon.remesh``) and restart capacity
+           estimation.
+
+        The fused drive loop sees the version change at its next poll and
+        re-places its carry; the vertex state stays on the card.  Also
+        callable directly after ``monitor.mark_failed(...)``.  Returns the
+        record: ``killed``, ``stragglers``, ``joined``, ``devices_before``,
+        ``devices_after``, ``device_ids``, ``assignment``,
+        ``repartitioned``, ``dirty_vertices`` and ``seconds``.
+        """
+        t0 = time.perf_counter()
+        mon = self.monitor
+        if mon is None:
+            raise ValueError("migrate() needs a Middleware(monitor=...)")
+        alive = [int(d) for d in mon.alive_indices()]
+        if not alive:
+            raise ValueError("no surviving devices to migrate onto")
+        m_new = self._feasible_mesh_size()
+        frac_fleet = mon.batch_fractions()  # dead hosts are exactly 0
+        order = sorted(alive, key=lambda d: (-frac_fleet[d], d))
+        chosen = sorted(order[:m_new])
+        frac = np.asarray(frac_fleet[chosen], dtype=np.float64)
+        frac = (np.full(m_new, 1.0 / m_new) if frac.sum() <= 0
+                else frac / frac.sum())
+        cap = self.num_shards // m_new
+        assign = dist_fault.reassign_shards(self.num_shards, frac, cap=cap)
+        perm = np.argsort(assign, kind="stable")  # device-major slot order
+        m_old = len(self._mesh_device_ids)
+        cap_old = self.num_shards // max(1, m_old)
+        repartitioned = self._owns_partitions and mon.observed
+        if repartitioned:
+            # capacity-aware re-partition: device chosen[i] holds `cap`
+            # slots, each sized frac[i]/cap of the edges (Lemma 2)
+            slot_frac = np.repeat(frac / cap, cap)
+            self.partitions = list(self.upper.partition(
+                self.graph, self.num_shards, fractions=slot_frac))
+            self._setup_blocks()
+            dirty = None  # arbitrary edges changed shards: no vertex clean
+        else:
+            # Pure re-placement.  A vertex's merged value depends only on
+            # the device grouping of the shards holding its in-edges, so at
+            # an unchanged axis length only the destinations of shards that
+            # moved device are dirty; a changed length re-reduces all.
+            if m_new != m_old:
+                dirty = None
+            else:
+                moved = [int(perm[s]) for s in range(self.num_shards)
+                         if (self._mesh_device_ids[int(perm[s]) // cap_old]
+                             != chosen[s // cap])]
+                dirty = (np.empty(0, np.int64) if not moved
+                         else np.unique(np.concatenate(
+                             [self.partitions[j].dst for j in moved]
+                         ).astype(np.int64)))
+            self.partitions = [self.partitions[int(i)] for i in perm]
+            # reorder, don't rebuild: the BlockSet objects keep their
+            # identity, so the daemon's per-blockset tiles stay cached
+            self.blocksets = [self.blocksets[int(i)] for i in perm]
+        before, self._mesh_device_ids = self._mesh_device_ids, list(chosen)
+        record = {
+            "killed": [int(d) for d in killed],
+            "stragglers": [int(d) for d in stragglers],
+            "joined": [int(d) for d in joined],
+            "devices_before": len(before),
+            "devices_after": m_new,
+            "device_ids": [int(d) for d in chosen],
+            "assignment": [int(a) for a in assign],
+            "repartitioned": bool(repartitioned),
+            "dirty_vertices": (None if dirty is None
+                               else [int(v) for v in dirty]),
+        }
+        cause = ("kill" if killed
+                 else "join" if (joined or m_new > m_old) else "rebalance")
+        self.epochs.publish(cause, mesh=m_new, partitions=self.partitions,
+                            blocksets=self.blocksets, dirty_vertices=dirty,
+                            meta=record)
+        record["seconds"] = time.perf_counter() - t0
+        return record
+
+    # -- Lemma-2 rebalancing ----------------------------------------------
     def rebalance(self, capacities=None) -> np.ndarray:
-        raise not_ported_error("Middleware.rebalance", 9)
+        """Capacity-aware re-assignment of blocks to shards (Lemma 2).
 
-    def apply_mutations(self, batch):
-        raise not_ported_error("Middleware.apply_mutations", 10)
+        Uses explicit per-entity costs when given; otherwise the costs the
+        :class:`~repro_torch.core.balance.CapacityEstimator` learned from
+        the host loop's per-shard busy times, or the fleet monitor's
+        per-device step times.  Re-partitions the graph with
+        ``lemma2_fractions``, rebuilds the block sets, publishes a
+        ``"rebalance"`` epoch (whose hooks re-stack the sharded daemon's
+        block tensors) and returns the fractions used.
 
-    def run_dynamic(self, batch, *, max_iterations: int | None = None):
-        raise not_ported_error("Middleware.run_dynamic", 10)
+        The fused loops time all shards as one program and observe no
+        per-shard busy times, so a fused-only middleware needs explicit
+        ``capacities`` (or a reporting monitor).  A middleware built on
+        caller-supplied ``partitions`` refuses: re-partitioning would
+        replace the caller's partitioning with the upper system's default.
+        """
+        if not self._owns_partitions:
+            raise ValueError(
+                "rebalance() would replace the explicit partitions this "
+                "Middleware was constructed with by the upper system's "
+                "default partitioner; construct without partitions= (or "
+                "with capacities=) to let the middleware own the "
+                "assignment")
+        if capacities is not None:
+            c = np.asarray(capacities, dtype=np.float64)
+            if c.shape != (self.num_shards,):
+                raise ValueError(
+                    f"capacities must have shape ({self.num_shards},), got "
+                    f"{c.shape}")
+        elif self._estimator.observed:
+            c = self._estimator.costs
+        elif self.monitor is not None and self.monitor.observed:
+            # the monitor's per-device step times of the CURRENT axis'
+            # devices stand in; dead devices are never in it
+            t = self.monitor.mean_times()[self._mesh_device_ids]
+            fill = np.nanmean(t) if np.any(np.isfinite(t)) else 1.0
+            t = np.where(np.isfinite(t), t, fill)
+            c = np.repeat(t, self.num_shards // len(self._mesh_device_ids))
+        else:
+            raise ValueError(
+                "rebalance() has no observed per-shard busy times (the "
+                "fused drive loop times all shards as one program) — pass "
+                "capacities= explicitly, attach a reporting "
+                "FleetMonitor, or run the host path first")
+        fractions = lemma2_fractions(c)
+        self.partitions = list(self.upper.partition(
+            self.graph, self.num_shards, fractions=fractions))
+        self._setup_blocks()
+        self.epochs.publish(
+            "rebalance",
+            mesh=self.upper.mesh if self._fused else None,
+            partitions=self.partitions, blocksets=self.blocksets,
+            dirty_vertices=None,  # edges changed shards arbitrarily
+            meta={"fractions": [float(f) for f in fractions]})
+        return fractions
+
+    def oocore_replan(self, config=None):
+        """The out-of-core re-plan (cause ``"oocore_replan"``) is ROADMAP
+        Queue A item 11's."""
+        raise not_ported_error("Middleware.oocore_replan", 11)
+
+    # -- dynamic graphs ---------------------------------------------------
+    def _rebuild_dirty_blocksets(self, dirty_shards) -> list[int]:
+        """Recuts blocks for exactly the shards a mutation touched.
+
+        Clean shards keep their BlockSets (the mutation layer reuses their
+        edge arrays by reference, so their blocks are still exact), which
+        keeps the daemons' per-blockset tile caches warm.  Block and
+        vertex-block sizes stay pinned.  A dirty shard that outgrows the
+        pinned vertex-block width widens it for every shard: the JAX
+        package rebuilds all shards then, while here the clean shards'
+        vertex blocks are only padded to the new width (the same arrays a
+        rebuild gives, :func:`~repro_torch.core.blocks.widen_vblocks`),
+        with their edge arrays — and so their compacted tiles — kept.  Only
+        when the auto block size moved too is every shard rebuilt.
+        Returns the shards whose blocks were rebuilt."""
+        dirty_shards = [int(j) for j in dirty_shards]
+        new_sets = list(self.blocksets)
+        grown = []
+        for j in dirty_shards:
+            try:
+                new_sets[j] = build_blocks(self.partitions[j],
+                                           self.block_size,
+                                           vblock_size=self.vblock_size)
+            except ValueError:
+                grown.append(j)
+        if grown:
+            if self._resolve_block_size() != self.block_size:
+                self._setup_blocks()
+                return list(range(self.num_shards))
+            for j in grown:
+                new_sets[j] = build_blocks(self.partitions[j],
+                                           self.block_size)
+            # the widest grown shard sets the width every shard pads to,
+            # as _setup_blocks would pick it: no unchanged shard exceeds
+            # the old width
+            self.vblock_size = max(bs.vblock_size for bs in new_sets)
+            new_sets = [widen_vblocks(bs, self.vblock_size)
+                        for bs in new_sets]
+        self.blocksets = new_sets
+        return dirty_shards
+
+    def apply_mutations(self, batch) -> StructureEpoch:
+        """Applies one batched graph mutation and publishes a
+        ``"mutation"`` structure epoch.
+
+        The batch (a :class:`~repro_torch.graph.mutation.MutationBatch`,
+        or a :class:`~repro_torch.graph.mutation.MutationLog`, frozen
+        first) lands in a deterministic order.  Only dirty shards' blocks
+        are recut; vertex additions re-bind the daemon and the upper
+        system, which recuts every shard's tiles (the tiles were compacted
+        against the old vertex count).  The returned epoch's ``meta``
+        carries the dirty frontier (touched vertices and their
+        out-neighbours) and whether an *incremental* restart from the
+        previous fixed point is sound — an idempotent monoid and no
+        removals — which :meth:`run_dynamic` consumes.  An empty batch
+        publishes nothing and returns the current epoch.
+        """
+        if isinstance(batch, graph_mutation.MutationLog):
+            batch = batch.freeze()
+        batch.validate(self.n)
+        if batch.empty:
+            return self.epochs.epoch
+        t0 = time.perf_counter()
+        n_old = self.n
+        (self.graph, self.partitions, dirty_shards,
+         dirty) = graph_mutation.apply_to_partitions(
+             self.graph, self.partitions, batch)
+        self.n = self.graph.num_vertices
+        recut = self._rebuild_dirty_blocksets(dirty_shards)
+        if self.n != n_old:
+            # per-vertex shapes changed: the daemon and the upper re-bind.
+            # Programs whose closures captured the old N (pagerank's
+            # (1-d)/n) must be rebuilt by the caller; those deriving
+            # everything from init(graph) (sssp, wcc, bfs) work unchanged.
+            self.daemon.bind(self.program, self.n, device=self.device)
+            self.upper.bind(self.program, self.num_shards)
+        incremental = (self.program.monoid.idempotent
+                       and not batch.has_removals)
+        meta = {
+            "incremental": bool(incremental),
+            "frontier": graph_mutation.dirty_frontier(self.graph, dirty),
+            "edges_added": int(batch.num_added_edges),
+            "edges_removed": int(batch.num_removed_edges),
+            "vertices_added": int(batch.add_vertices),
+            "vertices_removed": int(batch.remove_vertices.size),
+            "dirty_count": int(dirty.size),
+            "shards_recut": len(recut),
+            "shards_clean": self.num_shards - len(recut),
+        }
+        ep = self.epochs.publish(
+            "mutation",
+            mesh=self.upper.mesh if self._fused else None,
+            partitions=self.partitions, blocksets=self.blocksets,
+            dirty_vertices=dirty, meta=meta)
+        ep.meta["seconds"] = time.perf_counter() - t0
+        return ep
+
+    def run_dynamic(self, batch, *, max_iterations: int | None = None
+                    ) -> Result:
+        """Applies ``batch`` and restarts the program on the mutated graph
+        — incrementally when that is sound, cold otherwise.
+
+        Incremental restart resumes from the previous run's fixed point
+        with only the dirty frontier active: for an idempotent monoid and
+        an add-only batch the old fixed point is a valid intermediate of
+        the new computation, so convergence from it is exact — bit-equal
+        to a cold restart, in fewer iterations for small batches.
+        Removals or a non-idempotent monoid fall back to a cold restart;
+        ``self.last_restart`` records the mode (``"dirty"``, ``"cold"``
+        or ``"cold_fallback"``), why, and the iterations.
+        """
+        prev = self._last_state
+        ep = self.apply_mutations(batch)
+        meta = ep.meta if ep.cause == "mutation" else {}
+        incremental = bool(meta.get("incremental")) and prev is not None
+        if incremental:
+            if prev.shape[0] < self.n:
+                # added vertex ids start at the program's initial state
+                state0, _ = self.program.init(self.graph)
+                prev = np.concatenate([prev, state0[prev.shape[0]:]],
+                                      axis=0)
+            prev_state = np.asarray(prev)
+
+            def init(g, _s=prev_state, _i=self.program.init):
+                return _s, _i(g)[1]
+
+            res = self.run(max_iterations, init=init,
+                           frontier=meta["frontier"])
+            mode = "dirty"
+        else:
+            res = self.run(max_iterations)
+            mode = ("cold_fallback"
+                    if meta and prev is not None and not meta.get(
+                        "incremental") else "cold")
+        if incremental:
+            reason = ""
+        elif prev is None:
+            reason = "no previous fixed point"
+        elif not self.program.monoid.idempotent:
+            reason = "non-idempotent monoid"
+        else:
+            reason = "batch removes edges/vertices"
+        self.last_restart = {
+            "mode": mode,
+            "incremental": bool(incremental),
+            "reason": reason,
+            "dirty_count": int(meta.get("dirty_count", 0)),
+            "iterations": int(res.iterations),
+        }
+        return res
 
 
 class HostDriveLoop:
@@ -478,20 +1017,24 @@ class _FusedLoopBase:
 
     A subclass defines the carry it threads between iterations
     (:meth:`_init_carry`; element 0 is the vertex state), :meth:`_advance`,
-    one iteration on the device, and :meth:`_read_extra`, which reads its
-    own values from the iteration's fetch.  The base owns the rest: placing
-    state, aux and the frontier on the device, the ``init=`` /
-    ``frontier=`` overrides, the iteration loop, ONE device→host fetch an
+    one iteration on the device, :meth:`_read_extra`, which reads its own
+    values from the iteration's fetch, and :meth:`_migrate_carry`, the
+    carry re-placed for a kill, join or rebalance epoch.  The base owns the
+    rest: placing state, aux and the frontier on the device, the ``init=``
+    / ``frontier=`` overrides, the iteration loop, ONE device→host fetch an
     iteration, the per-iteration records and the single final transfer of
-    the state.  The JAX package's between-iteration structure poll
-    (elastic migration and graph mutations, ROADMAP Queue A items 9 and
-    10) is not ported.
+    the state — and, between iterations, the structure poll: the
+    middleware publishes the due kills, joins, straggler migrations and
+    mutation batches as structure epochs, and the loop adopts a new epoch
+    by its version (:meth:`_adopt_epoch`), never rebuilding anything
+    itself.
     """
 
     def __init__(self, mw: Middleware):
         self.mw = mw
         self._use_frontier = (mw.program.frontier_driven
                               and mw.options.frontier_block_skipping)
+        self._epoch_seen = -1  # the bus version the carry is placed for
 
     def _init_carry(self, state, active, active0):
         """The first carry from the placed state and frontier (``active0``
@@ -507,13 +1050,48 @@ class _FusedLoopBase:
         """The fetched ``extra`` values → ``(carry', record entries)``."""
         return carry, {}
 
+    def _migrate_carry(self, carry):
+        """The carry re-placed for a kill, join or rebalance epoch."""
+        raise NotImplementedError
+
+    def _mutate_carry(self, carry, state0, ep):
+        """The carry re-placed for a mid-run mutation epoch (the shard axis
+        is unchanged; the graph under the run is not).  Incremental: keep
+        the state so far and force the dirty frontier active — sound for
+        add-only batches under an idempotent monoid, where the current
+        state is a valid intermediate of the new computation.  Cold: the
+        new graph's initial state with every vertex active — the rest of
+        the run IS the cold restart."""
+        state, active = carry[0], carry[1]
+        dev = self.mw.device
+        if ep.meta.get("incremental"):
+            return (state, active | torch.as_tensor(ep.meta["frontier"],
+                                                    device=dev))
+        return (torch.as_tensor(state0, device=dev),
+                torch.ones(self.mw.n, dtype=torch.bool, device=dev))
+
+    def _adopt_epoch(self, carry, aux, init_fn):
+        """Re-places the carry for the epoch the middleware just published
+        → ``(carry', aux')``.  A migration keeps the state where it lies
+        (``upper.migrate``); a mutation epoch recomputes aux from the
+        mutated graph (degrees changed) and goes through
+        :meth:`_mutate_carry`."""
+        mw = self.mw
+        ep = mw.epochs.epoch
+        if ep.cause == "mutation":
+            state0, aux0 = init_fn(mw.graph)
+            return (self._mutate_carry(carry, state0, ep),
+                    torch.as_tensor(aux0, device=mw.device))
+        return self._migrate_carry(carry), mw.upper.migrate(aux)
+
     def run(self, max_iterations: int | None = None, *,
             init=None, frontier=None) -> Result:
         mw = self.mw
         prog = mw.program
         mw.upper.reset()
         max_it = max_iterations or prog.max_iterations
-        state0, aux = (init or prog.init)(mw.graph)
+        init_fn = init or prog.init
+        state0, aux = init_fn(mw.graph)
         active0 = (np.ones(mw.n, dtype=bool) if frontier is None
                    else np.asarray(frontier, dtype=bool))
         if active0.shape != (mw.n,):
@@ -523,6 +1101,7 @@ class _FusedLoopBase:
         state, aux, active = (torch.as_tensor(a, device=dev)
                               for a in (state0, aux, active0))
         carry = self._init_carry(state, active, active0)
+        self._epoch_seen = mw.epochs.version
         # captured after _init_carry, which may arm the priority buckets
         stacked = mw.daemon.stacked
         blocks_total = int(sum(bs.num_blocks for bs in mw.blocksets))
@@ -533,6 +1112,24 @@ class _FusedLoopBase:
         converged = False
 
         for it in range(1, max_it + 1):
+            # The structure check between fused iterations: a device killed
+            # (or a batch due) "at iteration k" lands before iteration k
+            # runs.  The poll publishes epochs; the loop reacts to the bus
+            # VERSION and resumes from the carry — no checkpoint.
+            ev = mw._poll_structure(it)
+            if mw.epochs.version != self._epoch_seen:
+                t_reb = time.perf_counter()
+                carry, aux = self._adopt_epoch(carry, aux, init_fn)
+                # after the adoption, which may re-arm the buckets
+                stacked = mw.daemon.stacked
+                self._epoch_seen = mw.epochs.version
+                blocks_total = int(sum(bs.num_blocks
+                                       for bs in mw.blocksets))
+                reb_s = time.perf_counter() - t_reb
+                for r in ev.values():  # charge the rebuild to its trigger
+                    if "seconds" in r:
+                        r["seconds"] += reb_s
+                        break
             carry, flags = self._advance(carry, aux, it, stacked)
             mw.stats.rounds_total += 1
             # the iteration's ONE device→host fetch: every record scalar
@@ -544,6 +1141,7 @@ class _FusedLoopBase:
                    "blocks_total": blocks_total,
                    "blocks_run": sum(shard_blocks),
                    "shard_blocks_run": shard_blocks, "active": n_active}
+            rec.update(ev)
             rec.update(extra)
             per_iter.append(rec)
             if done:
@@ -579,6 +1177,11 @@ class DriveLoop(_FusedLoopBase):
 
     def _init_carry(self, state, active, active0):
         return (state, active)
+
+    def _migrate_carry(self, carry):
+        # state and frontier are what every logical device reads: the move
+        # is a re-placement, and on one card they already lie there
+        return tuple(self.mw.upper.migrate(list(carry)))
 
     def _advance(self, carry, aux, it, stacked):
         mw = self.mw
@@ -645,8 +1248,12 @@ class AsyncDriveLoop(_FusedLoopBase):
     empty, every device refreshed and no backlog is pending.  The records
     add ``async``, ``refreshed``, ``devices``, ``theta``, ``gen_run`` (the
     device bodies run), ``gen_skipped`` and ``run_mask`` to the base keys.
-    The JAX package's migration and mutation carries (elasticity and
-    dynamic graphs, ROADMAP Queue A items 9 and 10) are not ported.
+
+    A migration or a mutation restarts the scheduling state at the new
+    axis length (:meth:`_migrate_carry`, :meth:`_mutate_carry`): held
+    partials at the identity, so the next merge is one barriered step;
+    the union of the backlogs, formed on the card, goes to each source's
+    new owner; θ carries over; every device runs the next iteration.
     """
 
     def __init__(self, mw: Middleware):
@@ -661,46 +1268,128 @@ class AsyncDriveLoop(_FusedLoopBase):
         self._decay = float(np.float32(mw.model.decay))
         self._floor = float(np.float32(mw.model.floor))
         self._src_masks = None
+        self._theta_host = float(np.float32(mw.model.theta0))
 
-    def _init_carry(self, state, active, active0):
+    def _arm(self):
+        """Derives the loop's view of the structure: m, the priority
+        buckets (``bind_shards`` re-stacks without them) and the
+        per-device source masks.  Called when a run starts and when an
+        epoch is adopted.  Returns the masks' host copy, or None."""
         mw = self.mw
         model = mw.model
-        m, n, dev = self.m, mw.n, mw.device
-        masks = None
+        self.m = mw.daemon.m
+        self._src_masks = masks = None
         if self._maskable:
             mw.daemon.configure_buckets(
                 int(getattr(model, "bucket_k", 0) or 0),
                 int(getattr(model, "bucket_cap", 32) or 32))
             if self._use_frontier:
-                masks = _device_source_masks(mw.partitions, m, n)
-                self._src_masks = torch.as_tensor(masks, device=dev)
-        # the scheduling state starts all-stale at the identity: the first
-        # fresh partials score the highest priority wherever a message is
+                masks = _device_source_masks(mw.partitions, self.m, mw.n)
+                self._src_masks = torch.as_tensor(masks, device=mw.device)
+        return masks
+
+    def _owner_masks(self):
+        """(m, N) bool on the device: the sources each logical device owns
+        edges of (built here when the free hold did not build them)."""
+        if self._src_masks is not None:
+            return self._src_masks
+        mw = self.mw
+        return torch.as_tensor(_device_source_masks(mw.partitions, self.m,
+                                                    mw.n), device=mw.device)
+
+    def _schedule(self, state, backlog, theta, theta_host, rows):
+        """A carry with the scheduling state restarted: held partials at
+        the identity and zero counts (the first fresh partials score the
+        highest priority wherever a message is), ``prev_pri`` at float max
+        (no committed priority: every device may run) and a zero residual
+        (nothing has moved).  The first iteration's predict half is formed
+        on the host from θ's host value; ``rows`` says which backlog rows
+        hold a source."""
+        mw = self.mw
+        m, n, dev = self.m, mw.n, mw.device
         held_p = torch.full((m, n, mw.k), mw.program.monoid.identity,
                             dtype=torch.float32, device=dev)
         held_c = torch.zeros((m, n), dtype=torch.int32, device=dev)
-        theta0 = np.float32(model.theta0)
-        theta = torch.full((), float(theta0), dtype=torch.float32,
-                           device=dev)
-        # no committed priority yet: float max makes every device run first
         fmax = np.finfo(np.float32).max
         prev_pri = torch.full((m,), float(fmax), dtype=torch.float32,
                               device=dev)
         residual = torch.zeros(n, dtype=torch.float32, device=dev)
-        backlog, rows = None, [True] * m
-        if self._use_frontier:
-            host = np.broadcast_to(active0[None, :], (m, n))
-            if masks is not None:
-                host = host & masks
-            backlog = torch.as_tensor(np.ascontiguousarray(host), device=dev)
-            rows = host.any(axis=1).tolist()
-        # iteration 1's predict half on the host: prev_pri at float max,
-        # the residual zero
-        run = [bool((fmax >= theta0) | (theta0 <= np.float32(self._floor)))
+        th = np.float32(theta_host)
+        run = [bool((fmax >= th) | (th <= np.float32(self._floor)))
                if self._maskable else True] * m
         run_dev = torch.as_tensor(np.array(run), device=dev)
         return (state, backlog, held_p, held_c, theta, prev_pri, residual,
                 run_dev, run, rows)
+
+    def _init_carry(self, state, active, active0):
+        mw = self.mw
+        masks = self._arm()
+        theta0 = np.float32(mw.model.theta0)
+        theta = torch.full((), float(theta0), dtype=torch.float32,
+                           device=mw.device)
+        self._theta_host = float(theta0)
+        backlog, rows = None, [True] * self.m
+        if self._use_frontier:
+            host = np.broadcast_to(active0[None, :], (self.m, mw.n))
+            if masks is not None:
+                host = host & masks
+            backlog = torch.as_tensor(np.ascontiguousarray(host),
+                                      device=mw.device)
+            rows = host.any(axis=1).tolist()
+        return self._schedule(state, backlog, theta, self._theta_host, rows)
+
+    def _redeliver(self, backlog, extra=None):
+        """The union of every backlog row (a dead device's included), with
+        ``extra`` sources, delivered only to the devices owning their edges
+        after the rebuild — formed on the card.  Re-delivery may recompute
+        work but never loses an update.  Returns it and its non-empty rows
+        (one (m,) fetch, which only the free hold reads)."""
+        merged = backlog.any(dim=0)
+        if extra is not None:
+            merged = merged | extra
+        backlog = merged[None, :] & self._owner_masks()
+        rows = (backlog.any(dim=1).tolist() if self._maskable
+                else [True] * self.m)
+        return backlog, rows
+
+    def _migrate_carry(self, carry):
+        """Re-placement of the async carry for a new axis length m′.  The
+        state stays where it lies (``upper.migrate``).  The scheduling
+        state restarts for m′ (:meth:`_schedule`): held partials at the
+        identity make the next merge consume every device's fresh partial,
+        so nothing a device was holding is lost, and ``prev_pri`` at float
+        max makes every survivor run before it may hold again.  The union
+        of the old backlogs goes to each source's new owner; θ carries
+        over."""
+        state, backlog, theta = carry[0], carry[1], carry[4]
+        (state,) = self.mw.upper.migrate((state,))
+        self._arm()
+        rows = [True] * self.m
+        if backlog is not None:
+            backlog, rows = self._redeliver(backlog)
+        return self._schedule(state, backlog, theta, self._theta_host, rows)
+
+    def _mutate_carry(self, carry, state0, ep):
+        """A mid-run mutation under the async model.  Held partials were
+        computed on the old graph and must never be consumed, so the
+        scheduling state restarts (:meth:`_schedule`).  Incremental: state
+        and θ carry over, and the dirty frontier joins the union of the
+        backlogs, delivered to each source's owner in the mutated graph's
+        shards.  Cold: the full async reset on the new graph, as a run
+        starts."""
+        mw = self.mw
+        if not ep.meta.get("incremental"):
+            ones = np.ones(mw.n, dtype=bool)
+            return self._init_carry(
+                torch.as_tensor(state0, device=mw.device),
+                torch.as_tensor(ones, device=mw.device), ones)
+        state, backlog, theta = carry[0], carry[1], carry[4]
+        self._arm()
+        rows = [True] * self.m
+        if backlog is not None:
+            backlog, rows = self._redeliver(backlog, torch.as_tensor(
+                ep.meta["frontier"], device=mw.device))
+        return self._schedule(state, backlog, theta, self._theta_host, rows)
 
     def _advance(self, carry, aux, it, stacked):
         mw = self.mw
@@ -772,8 +1461,9 @@ class AsyncDriveLoop(_FusedLoopBase):
         executed = ([r and a for r, a in zip(run, rows)]
                     if self._use_frontier else run)
         gen_run = sum(executed)
+        self._theta_host = np.int32(theta_bits).view(np.float32).item()
         rec = {"async": True, "refreshed": n_refreshed, "devices": m,
-               "theta": np.int32(theta_bits).view(np.float32).item(),
+               "theta": self._theta_host,
                "gen_run": gen_run, "gen_skipped": m - gen_run,
                "run_mask": run}
         run_next = [bool(x) for x in extra[2:2 + m]]

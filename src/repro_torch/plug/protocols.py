@@ -15,8 +15,10 @@ shard stacked on one leading axis) and :class:`DevicePartialUpper`
 (``merge_partials`` of the per-device partials).  Two more select and
 speed up the fused async loop: :class:`PriorityAsyncModel` (the model's
 priority threshold) and :class:`MaskCapableDaemon` (a hold that skips the
-held devices' work).  The out-of-core and elastic capabilities of the JAX
-package come with ROADMAP Queue A items 11 and 9.
+held devices' work).  :class:`ElasticUpper` lets a fused composition
+survive a change of the shard axis mid-run (a kill, a join, a
+straggler's re-partition).  The out-of-core capability of the JAX package
+comes with ROADMAP Queue A item 11.
 """
 from __future__ import annotations
 
@@ -239,6 +241,43 @@ def divisor_mesh(num_items: int, mesh=None) -> int:
         raise ValueError(f"mesh={m} logical devices must be >= 1 and divide "
                          f"the {num_items} shards")
     return m
+
+
+@runtime_checkable
+class ElasticUpper(Protocol):
+    """Optional upper-system capability: survive a mid-run mesh change.
+
+    Elastic fault tolerance is checkpoint-free: when a logical device dies
+    between fused iterations, the middleware re-plans the shard axis from
+    the survivors and *migrates* the live run — stacked block tensors, the
+    vertex state and any per-device scheduling carries — onto it.  The
+    upper system's half of that contract is this pair:
+
+    * :meth:`remesh` re-targets the merge at a new axis length m′ (an int
+      of logical devices on the one card, as
+      :func:`divisor_mesh` takes it): m is re-derived and the shard-count
+      divisibility checked before anything changes.
+      ``MeshUpperSystem`` implements it.
+    * :meth:`migrate` moves tensors onto the re-meshed device set.  On one
+      card they already lie there, so it returns them unchanged: no copy
+      and no host round trip.
+
+    ``Middleware(monitor=...)`` / ``failures=`` require this capability
+    (together with :class:`ShardCapableDaemon` + :class:`DevicePartialUpper`
+    — i.e. a fused drive loop).
+    """
+
+    mesh: object
+    axis: str
+
+    def remesh(self, mesh):
+        """Re-targets the merge at ``mesh``; returns self."""
+        ...
+
+    def migrate(self, tree):
+        """Places ``tree`` (tensors, or a list / tuple of them) on the
+        current mesh; returns it."""
+        ...
 
 
 # ``gather`` passed to a ComputationModel: calls every shard's daemon and

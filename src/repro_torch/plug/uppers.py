@@ -11,9 +11,10 @@ in the JAX package's ``plug/uppers.py``.
   ``merge_partials`` for the fused loop's device-resident (m, N, K)
   partials, which stay where the daemon left them, and
   ``merge_partials_async``, the fused async loop's commit half.  The axis
-  spans m logical devices on the one card (``protocols.divisor_mesh``);
-  the reduction across cards or ranks and the compressed wire are ROADMAP
-  Queue A item 13b's.
+  spans m logical devices on the one card (``protocols.divisor_mesh``),
+  and ``remesh`` / ``migrate`` (``protocols.ElasticUpper``) move a live
+  run onto another m; the reduction across cards or ranks and the
+  compressed wire are ROADMAP Queue A item 13b's.
 """
 from __future__ import annotations
 
@@ -111,6 +112,24 @@ class MeshUpperSystem(HostUpperSystem):
         self.m = divisor_mesh(num_shards, self.mesh)
         self.mesh = self.m
         return self
+
+    def remesh(self, mesh):
+        """Re-targets the merge at a survivor shard axis of ``mesh`` logical
+        devices — checkpoint-free migration's upper half.  The only caller
+        is the middleware's structure-epoch ``"upper"`` hook: triggers
+        publish an epoch, the hooks rebuild, and the drive loops adopt the
+        result when they see the version move.  The new axis is validated
+        (an int that divides the bound shard count) before anything
+        changes; then the rebind re-derives m."""
+        divisor_mesh(self.num_shards, mesh)
+        self.mesh = mesh
+        return self.bind(self.program, self.num_shards)
+
+    def migrate(self, tree):
+        """Places ``tree`` on the re-meshed device set.  Every logical
+        device of the one card already reads the same tensors, so they
+        are returned unchanged: no copy and no host round trip."""
+        return tree
 
     def reset(self):
         # per-run state: the wire counters restart with every run

@@ -977,3 +977,68 @@ def test_model_kernels_count_launches_on_cuda_tensors_only(cuda):
     torch.cuda.synchronize()
     assert (fa.flash_attention.launches, ssd.ssd_chunk.launches) == (
         before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["bsp", "async"])
+def test_kill_mid_run_on_the_card(cuda, model, autotune_cache):
+    """Logical device 2 of 8 dies before iteration 3 with kernel="cuda" on
+    the card: the run migrates to 4 devices and reaches run_reference's
+    fixed point bit for bit, with no sweep (the pinned config stays), the
+    re-ordered tilesets reused, and under BSP one csr_tile launch an
+    iteration before and after the migration."""
+    g = generate.rmat(256, 2048, seed=9)
+    prog = algorithms.sssp_bf(g)
+    daemon = plug.ShardedDaemon(kernel="cuda", csr_config=ops.CSRConfig())
+    mw = plug.Middleware(
+        g, prog, daemon=daemon, upper=plug.MeshUpperSystem(mesh=8),
+        num_shards=8, model=model, options=plug.PlugOptions(block_size=64),
+        failures=plug.FailureSchedule(kills=[(3, 2)]), device=cuda)
+    reused, recut = daemon.tilesets_reused, daemon.tiles_recut
+    before = ebk.csr_tile.launches
+    res = mw.run(max_iterations=300)
+    launched = ebk.csr_tile.launches - before
+    (mig,) = [r["migration"] for r in res.per_iteration if "migration" in r]
+    assert mig["killed"] == [2] and mig["devices_after"] == 4
+    assert daemon.m == mw.upper.m == 4
+    assert autotune.CACHE.sweeps == 0
+    assert (daemon.tiles_recut, daemon.tilesets_reused) == (recut,
+                                                            reused + 8)
+    if model == "bsp":
+        assert launched == res.iterations
+    ref_state, _ = plug.run_reference(g, prog, device=cuda)
+    np.testing.assert_array_equal(res.state, ref_state)
+
+
+@pytest.mark.cuda
+def test_mid_run_add_batch_recuts_one_shard_on_the_card(cuda,
+                                                        autotune_cache):
+    """An add batch whose sources own edges in shard 0 lands before
+    iteration 3: one shard's tiles are recut, seven reused, and the run
+    reaches run_reference's fixed point on the mutated graph."""
+    g = generate.rmat(256, 2048, seed=9)
+    prog = algorithms.sssp_bf(g)
+    daemon = plug.ShardedDaemon(kernel="cuda", csr_config=ops.CSRConfig())
+    probe = plug.Middleware(g, prog, num_shards=8, device="cpu",
+                            options=plug.PlugOptions(block_size=64))
+    rng = np.random.default_rng(0)
+    srcs = rng.choice(np.unique(probe.partitions[0].src), 16)
+    log = plug.MutationLog()
+    for s, d in zip(srcs, rng.integers(0, g.num_vertices, 16)):
+        log.add_edge(int(s), int(d), float(rng.uniform(1.0, 10.0)))
+    mw = plug.Middleware(
+        g, prog, daemon=daemon, upper=plug.MeshUpperSystem(mesh=8),
+        num_shards=8, options=plug.PlugOptions(block_size=64),
+        mutations=plug.MutationSchedule(events=[(3, log)]), device=cuda)
+    reused, recut = daemon.tilesets_reused, daemon.tiles_recut
+    before = ebk.csr_tile.launches
+    res = mw.run()
+    assert [r["iteration"] for r in res.per_iteration
+            if "mutation" in r] == [3]
+    assert (daemon.tiles_recut - recut, daemon.tilesets_reused - reused) \
+        == (1, 7)
+    assert ebk.csr_tile.launches - before == res.iterations
+    assert autotune.CACHE.sweeps == 0
+    ref_state, _ = plug.run_reference(mw.graph, algorithms.sssp_bf(mw.graph),
+                                      device=cuda)
+    np.testing.assert_array_equal(res.state, ref_state)

@@ -226,10 +226,13 @@ def test_csr_config_rejects_unknown_or_kernel_less_choices(kwargs):
     ({"oocore": object()}, 11),
 ])
 def test_later_slices_raise_not_implemented(kwargs, item):
-    """A composition of a later slice raises naming its ROADMAP item; one
-    whose item is ported (item 8, the async model) now runs: the fused
-    async loop with the sharded daemon and the mesh upper, the host loop
-    otherwise, to run_reference's fixed point."""
+    """A composition of a later slice raises naming its ROADMAP item.  One
+    whose item is ported runs: item 8, the async model, is the fused async
+    loop with the sharded daemon and the mesh upper and the host loop
+    otherwise, to run_reference's fixed point; items 9 and 10 (``monitor=``,
+    ``failures=``, ``mutations=``) are options of the fused loops, which
+    this composition (``daemon="reference"``, ``upper="host"``) refuses
+    with a ``ValueError`` naming it, as the JAX package does."""
     g = _graph()
     prog = algorithms.bfs(g)
     if item == 8:
@@ -243,6 +246,10 @@ def test_later_slices_raise_not_implemented(kwargs, item):
         ref, _ = plug.run_reference(g, prog, device="cpu")
         np.testing.assert_array_equal(res.state, ref)
         return
+    if item in (9, 10):
+        with pytest.raises(ValueError, match="fused"):
+            plug.Middleware(g, prog, device="cpu", **kwargs)
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         plug.Middleware(g, prog, device="cpu", **kwargs)
 
@@ -251,8 +258,24 @@ def test_later_slices_raise_not_implemented(kwargs, item):
     ("migrate", 9), ("rebalance", 9), ("apply_mutations", 10),
     ("run_dynamic", 10)])
 def test_later_slice_methods_raise_not_implemented(method, item):
+    """Items 9 and 10 are ported: on a host-loop middleware without a
+    monitor, ``migrate`` and an unobserved ``rebalance`` refuse with a
+    ``ValueError`` as the JAX package's do; an empty batch publishes no
+    epoch, and ``run_dynamic`` of it restarts cold to run_reference's fixed
+    point.  Only the out-of-core re-plan still raises, naming item 11."""
     g = _graph()
-    mw = plug.Middleware(g, algorithms.bfs(g), device="cpu")
-    args = () if method in ("migrate", "rebalance") else (None,)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        getattr(mw, method)(*args)
+    prog = algorithms.bfs(g)
+    mw = plug.Middleware(g, prog, device="cpu")
+    if method in ("migrate", "rebalance"):
+        with pytest.raises(ValueError, match="monitor|busy times"):
+            getattr(mw, method)()
+    elif method == "apply_mutations":
+        assert mw.apply_mutations(plug.MutationLog()) is mw.epochs.epoch
+        assert mw.epochs.version == 0
+    else:
+        res = mw.run_dynamic(plug.MutationLog())
+        assert mw.last_restart["mode"] == "cold"
+        ref, _ = plug.run_reference(g, prog, device="cpu")
+        np.testing.assert_array_equal(res.state, ref)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        mw.oocore_replan()
