@@ -85,20 +85,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
               host ``busy`` seconds and its event-timed device span, beside
               the blocked run's, and ``pipelined_over_blocked`` (s an
               iteration).  Then ``calibration``: the stage times per block
-              of the blocked daemon over shard 0's edges at block sizes
-              4,096..262,144, Lemma 1's (k1, k2, k3, a) fitted to the host
+              of the blocked daemon over shard 0's edges at four block
+              sizes, 4,096..262,144, Lemma 1's (k1, k2, k3, a) fitted to the host
               stage times and to the device spans (``core.pipeline.
               calibrate``) with the upload's host merge cut in its
               halves (``scatter_at``, ``np.add.at``) per block, ``b_opt``,
               its branch and the block size
               ``block_size="auto"`` gives, beside the defaults'.  Then a
-              pipelined run at the host fit's block size (3 iterations,
+              pipelined run at the host fit's block size (2 iterations,
               against ``run_reference`` cut there), and Fig. 8's ratio at
               R-MAT scale 12 on one shard: ``daemon="naive"`` (a per-edge
               loop on the host), the blocked, pipelined and ``"cuda"``
-              daemons over 3 iterations against the cut reference (the
+              daemons over 2 iterations against the cut reference (the
               last three also to the fixed point), ``naive_over`` each.
-              ``reduced`` names both cuts.
+              ``reduced`` names the cuts.
 5d. autotune — ``kernels.autotune.autotune_csr`` for pagerank and sssp_bf
               on the shard with the most live edges, over the card's space
               (the flat merge at edge tiles 256, 512, 1024; the CSR-tile
@@ -120,7 +120,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               checked as in phase 5b and against phase 5b's ``mesh=1``
               runs (sssp_bf bit-equal, pagerank within rtol/atol below);
               ``merge_partials`` must receive (4, N, K) every iteration;
-              s an iteration beside ``mesh=1``.
+              s an iteration beside ``mesh=1``, and phase 5b's
+              ``profile`` (beside phase 5h's).
 5f. async   — the fused async loop (``model=AsyncModel(...)``, so
               ``AsyncDriveLoop``) at ``mesh=4`` with ``CSRConfig()`` pinned:
               sssp_bf to its fixed point under README's three arms
@@ -141,8 +142,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               (``run_mask`` False), launches per iteration, and for
               ``holding`` the ``profile`` of phase 5b.  With every vertex
               active Graph500's R-MAT skips few or no bodies, so
-              ``holding`` and ``buckets`` also run as
-              ``benchmarks/bench_accel.py``'s async table runs them: its
+              ``holding`` also runs as
+              ``benchmarks/bench_accel.py``'s async table runs it: its
               skewed R-MAT (a=0.7, b=0.15, c=0.1, no dedup) at the same
               scale and edge factor, sources 0-3 the only active
               vertices, beside the barriered ``mesh=4`` run (GAS) of the
@@ -157,8 +158,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               sssp_bf with step-time reports putting device 1 at 3× the
               others (a Lemma-2 re-partition that recompacts every tile);
               (f) ``rebalance(capacities=linspace(1, 2, 4))`` between two
-              sssp_bf runs, fused and on the host loop with
-              ``daemon="cuda"``; (g) a ``MutationSchedule`` batch at
+              sssp_bf runs of the fused loop, and before one on the host
+              loop with ``daemon="cuda"`` (its run before is phase 5's); (g) a ``MutationSchedule`` batch at
               iteration 3 adding 65,536 edges whose sources own edges in
               shard 0 (destinations uniform, weights in the generator's
               range, from ``--seed``); (h) ``run_dynamic`` of the same
@@ -179,6 +180,42 @@ Phases, each printing one JSON line; any failure exits non-zero:
               iterations, s an iteration in each segment between rebinds
               beside phase 5e's ``mesh=4`` runs, and the incremental
               iterations against the cold ones.
+5h. oocore  — out-of-core execution (``Middleware(oocore=OocoreConfig(...))``,
+              so ``OocoreDriveLoop``) at ``mesh=4`` with ``CSRConfig()``
+              pinned, on the same graph and shards, under a budget of a
+              quarter of phase 5e's resident CSR bytes per logical device
+              (``benchmarks/bench_accel.py``'s div=4), hot fraction 0.25:
+              the hot set stays on the card, the cold super-shards are
+              pinned on the host and copied on a side CUDA stream.  (a)
+              sssp_bf GAS with prefetch, (b) the same without (a re-plan
+              of the same middleware switches it off), (c) pagerank BSP
+              (10 its), (d) sssp_bf with device 3 killed before iteration
+              3 (4 → 2, the plan's column bytes must double), then
+              ``oocore_replan`` to half the budget and a second run, (e)
+              sssp_bf at the config phase 5d memoized (no sweep; the flat
+              merge launches no ``csr_tile``), (f) sssp_bf on
+              ``grid_road(1024, seed=1)`` (1,048,576 vertices) for 60
+              iterations with and without prefetch, beside its resident
+              ``mesh=4`` run.  Each run, after a warm-up iteration: the
+              state bit-equal to ``run_reference`` and to the resident
+              run (pagerank within rtol/atol below), equal iterations;
+              one small fetch in each step, none in a rebuild or a
+              re-plan, one vertex-sized (the final state); ``csr_tile``
+              launched (hot set > 0) + uploads times an iteration;
+              uploads + skipped = Σ super-shards; hot hits + cold misses
+              = blocks run; wait ≤ transfer (raw event readings, to
+              their grain) so 0 ≤ overlap ≤ 1, exactly 0 and no skip
+              without prefetch; at most two groups live, in at most two
+              device slots of one group's bytes (one without prefetch);
+              the device's peak allocation over the run's start, with
+              prefetch, at most one slot and the scheduler's gather above
+              the no-prefetch arm's ((a) against (b), (f) against its
+              twin); the hot set's device bytes m × hot_cols ×
+              col_bytes_dev; a skip in (f) with prefetch.  Prints the plan, s an iteration beside the
+              resident step, transfer and wait seconds, the overlap, GB
+              uploaded and the copies' GB/s (event-timed), skips, the hot
+              hit rate, the kill's and re-plans' seconds, and for (a)
+              and (c) phase 5b's ``profile``.
 
 6. attention — a qwen2-72b attention layer at ``train_4k`` (B=1, Hq=64,
               Hkv=8, S=4096, D=128, bf16, causal) through
@@ -251,12 +288,14 @@ PR_RTOL, PR_ATOL = 1e-4, 1e-12  # pagerank state after the same iterations
 EDGE_FACTOR = 16    # Graph500's edges per vertex
 SHARDS = 4
 PR_ITERATIONS = 10  # pagerank runs a fixed count (it converges slowly)
-# phase 5c: block sizes at which the stage times are fitted, the blocks
-# timed at each, the iterations of the cut runs, and Fig. 8's graph scale
-CALIBRATION_SIZES = (4096, 8192, 16384, 32768, 65536, 131072, 262144)
+# phase 5c: block sizes at which the stage times are fitted (every second
+# power of two of the range; the fit has two coefficients a line), the
+# blocks timed at each, the iterations of the cut runs, and Fig. 8's
+# graph scale
+CALIBRATION_SIZES = (4096, 16384, 65536, 262144)
 CALIBRATION_BLOCKS = 16
 MERGE_REPS = 5
-CUT_ITERATIONS = 3
+CUT_ITERATIONS = 2
 FIG8_SCALE = 12
 # (label, B, Hq, Hkv, S, D, dtype, causal); the first is the main path
 ATTN_CASES = (("qwen2-72b/bf16/causal", 1, 64, 8, 4096, 128, "bfloat16", True),
@@ -1141,6 +1180,369 @@ def daemon_seconds(res, key, iterations) -> float:
                for r in it.get(key, ()))
 
 
+# phase 5h: out-of-core execution.  The budget is a quarter of the resident
+# CSR columns' bytes per logical device (benchmarks/bench_accel.py's div=4),
+# a quarter of it the hot set's.
+OOCORE_DIV = 4
+OOCORE_HOT = 0.25
+OOCORE_KILL = [(3, 3)]  # device 3 dies before iteration 3: 4 → 2
+ROAD_SIDE = 1024        # grid_road(1024): 1,048,576 vertices, a metro road net
+ROAD_SEED = 1
+ROAD_ITERATIONS = 60
+OOCORE_EPS_S = 2e-6     # a copy's two events' grain (0.5 µs each, twice)
+_OOCORE_SUMS = ("iterations", "transfer_s", "wait_s", "hidden_s", "hot_hits",
+                "cold_misses", "uploads", "upload_bytes", "skipped")
+
+
+def oocore_plan(label, mw) -> dict:
+    """The binding's plan, checked: the hot set's device bytes are
+    m × hot_cols × col_bytes_dev."""
+    import dataclasses
+
+    d = mw.daemon
+    plan = d.oocore_plan
+    hot = (0 if d.hot_stacked is None else
+           sum(t.numel() * t.element_size()
+               for t in d.hot_stacked["csr"].values()))
+    if hot != d.m * plan.hot_cols * plan.col_bytes_dev:
+        raise AssertionError(f"{label}: hot set {hot} bytes on the device, "
+                             f"plan {d.m} × {plan.hot_cols} × "
+                             f"{plan.col_bytes_dev}")
+    return {**dataclasses.asdict(plan), "m": d.m,
+            "fields": sorted(d._cold[0]) if d._cold else [],
+            "hot_bytes_device": hot,
+            "super_shard_bytes_dev": plan.super_shard_bytes_dev,
+            "resident_bytes_dev": plan.resident_bytes_dev,
+            "upload_bytes": d.super_shard_nbytes}
+
+
+def oocore_run(label, mw, ref, tol, ref_it, resident, *,
+               max_iterations=None, expect_kill=False,
+               profile=False) -> tuple:
+    """One probed run of phase 5h on an out-of-core middleware, after a
+    warm-up iteration: the state against ``run_reference`` and against
+    ``resident`` (phase 5e's ``mesh=4`` run of the same program, or (f)'s;
+    (label, state, s an iteration)), the iterations against ``ref_it``;
+    in every iteration one small fetch in the step and none in a rebuild,
+    ``csr_tile`` launched (hot set > 0) + uploads times (none for the flat
+    merge), hot hits + cold misses = blocks run, wait ≤ transfer (raw,
+    to the events' grain) and overlap ≤ 1 (exactly 0, and no skip, without
+    prefetch); over the run uploads + skipped = Σ super-shards, at most two
+    groups live in at most two slots of one group's bytes (one without
+    prefetch) and one vertex-sized fetch.  The device's peak allocation
+    over the run's start (no cold group live then) goes in the line as
+    ``peak_bytes_over_base``.  ``profile`` adds phase 5b's ``profile`` of one
+    more run.  Returns its line and its csr_tile launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import edge_block as ebk
+
+    n = mw.n
+    flat = mw.daemon._csr_config.merge == "flat"
+    mw.run(max_iterations=1)
+    # no cold group live: the base holds the hot set and everything else
+    # of the process, the peak over it the run's slots and working set
+    if mw._loop._uploader is not None:
+        mw._loop._uploader.close()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = {k: mw.oocore_stats.get(k, 0) for k in _OOCORE_SUMS}
+    calls, its = [], []
+    probe_loop(mw, calls, its)
+    l0 = ebk.csr_tile.launches
+    try:
+        with counting_fetches(calls):
+            res = mw.run(max_iterations)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+    finally:  # the probe's wrappers go: the next run probes afresh
+        for obj, name in ((mw, "_poll_structure"),
+                          (mw._loop, "_adopt_epoch"),
+                          (mw._loop, "_advance"), (mw._loop, "_read_extra")):
+            vars(obj).pop(name, None)
+    launched = ebk.csr_tile.launches - l0
+    st = mw.oocore_stats
+    d = {k: st[k] - before[k] for k in _OOCORE_SUMS}
+    recs = [r["oocore"] for r in res.per_iteration]
+    if len(its) != res.iterations or d["iterations"] != res.iterations:
+        raise AssertionError(f"{label}: {len(its)} probed iterations, "
+                             f"{d['iterations']} counted, of "
+                             f"{res.iterations}")
+    for i, r, oc in zip(its, res.per_iteration, recs):
+        where = f"{label}: iteration {i['iteration']}"
+        if len(i["step_fetches"]) != 1 or i["step_fetches"][0][1] >= n:
+            raise AssertionError(f"{where}: step fetches {i['step_fetches']}")
+        if i["rebuild_fetches"]:
+            raise AssertionError(f"{where}: rebuild fetches "
+                                 f"{i['rebuild_fetches']}")
+        uploads = oc["super_shards"] - oc["skipped"]
+        want = 0 if flat else int(oc["hot_cols"] > 0) + uploads
+        if i["csr_tile"] != want:
+            raise AssertionError(f"{where}: csr_tile launched "
+                                 f"{i['csr_tile']} times, expected {want}")
+        if oc["hot_hits"] + oc["cold_misses"] != r["blocks_run"]:
+            raise AssertionError(f"{where}: hot hits {oc['hot_hits']} + "
+                                 f"cold misses {oc['cold_misses']} != "
+                                 f"blocks run {r['blocks_run']}")
+        # raw readings: a wait past its transfers (overlap below 0 by more
+        # than the events' grain) is a mis-paired or mis-timed event
+        if (oc["wait_s"] > oc["transfer_s"] + OOCORE_EPS_S * (uploads + 1)
+                or oc["overlap_efficiency"] > 1.0):
+            raise AssertionError(f"{where}: wait {oc['wait_s']} s, "
+                                 f"transfer {oc['transfer_s']} s, overlap "
+                                 f"{oc['overlap_efficiency']}")
+        if not oc["prefetch"] and (oc["skipped"] or oc["hidden_s"] != 0.0
+                                   or oc["overlap_efficiency"] != 0.0):
+            raise AssertionError(f"{where}: without prefetch {oc}")
+    big = [c for c in calls if c[1] >= n]
+    if big != [("cpu", n * mw.k)]:
+        raise AssertionError(f"{label}: vertex-sized fetches {big}")
+    if d["uploads"] + d["skipped"] != sum(oc["super_shards"] for oc in recs):
+        raise AssertionError(f"{label}: uploads {d['uploads']} + skipped "
+                             f"{d['skipped']} over {res.iterations} "
+                             "iterations")
+    up = mw._loop._uploader  # this run's: each run arms its own
+    live = up.max_live_groups if up is not None else 0
+    if live > 2 or (up is not None and not up.prefetch and live != 1):
+        raise AssertionError(f"{label}: {live} groups live")
+    slots = up.slot_allocations if up is not None else 0
+    slot_bytes = up.slot_bytes if up is not None else 0
+    if (slots > (2 if up is not None and up.prefetch else 1)
+            or slot_bytes != slots * mw.daemon.super_shard_nbytes):
+        raise AssertionError(f"{label}: {slots} slots of {slot_bytes} "
+                             f"bytes, a group {mw.daemon.super_shard_nbytes}")
+    if res.iterations != ref_it:
+        raise AssertionError(f"{label}: {res.iterations} iterations, "
+                             f"reference ran {ref_it}")
+    max_abs = check_state(label, res.state, ref, tol)
+    r_label, r_state, r_s = resident
+    max_abs_res = check_state(f"{label} against {r_label}", res.state,
+                              r_state, tol)
+    migs = [r["migration"] for r in res.per_iteration if "migration" in r]
+    if expect_kill != bool(migs):
+        raise AssertionError(f"{label}: migrations {migs}")
+    steps = [i["step_s"] for i in its]
+    transfer, wait = d["transfer_s"], d["wait_s"]
+    seen = d["hot_hits"] + d["cold_misses"]
+    per_it = res.wall_time / res.iterations
+    rec = {"run": label, "prefetch": recs[0]["prefetch"],
+           "iterations": res.iterations, "converged": res.converged,
+           "s_per_iteration": per_it,
+           "median_step_s": sorted(steps)[len(steps) // 2],
+           "resident_run": r_label, "resident_per_iteration_s": r_s,
+           "over_resident": per_it / r_s,
+           "transfer_s": transfer, "wait_s": wait, "hidden_s": d["hidden_s"],
+           "overlap_efficiency": (1.0 - wait / transfer
+                                  if transfer > 0 else None),
+           "uploads": d["uploads"], "skipped": d["skipped"],
+           "skipped_per_iteration": [oc["skipped"] for oc in recs],
+           "upload_gb": d["upload_bytes"] / 1e9,
+           "copy_gb_per_s": (d["upload_bytes"] / transfer / 1e9
+                             if transfer > 0 else None),
+           "hot_hit_rate": d["hot_hits"] / seen if seen else None,
+           "max_live_groups": live,
+           "slots": slots, "slot_bytes": slot_bytes,
+           "peak_bytes_over_base": peak,
+           "csr_tile": launched,
+           "csr_tile_per_iteration": [i["csr_tile"] for i in its],
+           "max_abs_err_vs_reference": max_abs,
+           "max_abs_err_vs_resident": max_abs_res}
+    if migs:
+        rec["migration"] = {k: migs[0][k] for k in (
+            "killed", "devices_before", "devices_after", "seconds")}
+    if profile:
+        prof = fused_profile(mw)
+        rec.update(profile=prof, device_idle_share_unprofiled=(
+            1.0 - prof["device_busy_s_per_iteration"] / per_it))
+    return rec, launched
+
+
+def phase_oocore(g, parts, pr, sp, refs, resident4, autotuned) -> tuple:
+    """Phase 5h: out-of-core execution at ``mesh=SHARDS`` with
+    ``CSRConfig()`` pinned, on phase 3's graph and shards, under a budget of
+    a quarter of the resident CSR columns' bytes per logical device
+    (``resident4``: phase 5e's runs, name → (label, state, s an iteration,
+    those bytes); ``autotuned``: phase 5d's sssp_bf run, (label, s an
+    iteration)): (a) sssp_bf GAS with prefetch, (b) the same without,
+    (c) pagerank BSP, (d) sssp_bf with device 3 killed before iteration 3,
+    then ``oocore_replan`` to half the budget and a second run, (e)
+    sssp_bf at the config phase 5d memoized (no sweep), (f) sssp_bf on
+    ``grid_road(1024)`` for 60 iterations with and without prefetch.
+    (a), (b) and (d) share one middleware (a re-plan switches prefetch),
+    and (f)'s two arms another.  Returns the phase's line and its
+    csr_tile launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import plug
+    from repro_torch.graph import generate
+    from repro_torch.graph.algorithms import sssp_bf
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.ops import CSRConfig
+
+    sweeps = autotune.CACHE.sweeps
+    sp_ref, sp_it = refs[sp.name]
+    pr_ref, pr_it = refs[pr.name]
+    res_sp, res_pr = (resident4[p.name][:3] for p in (sp, pr))
+    budget = resident4[sp.name][3] // OOCORE_DIV
+    out = {"phase": "oocore", "m": SHARDS, "runs": [],
+           "budget": {"csr_bytes_per_device": resident4[sp.name][3],
+                      "hbm_budget": budget, "hot_fraction": OOCORE_HOT},
+           "reduced": {"road": f"grid_road({ROAD_SIDE}) runs "
+                       f"{ROAD_ITERATIONS} iterations (against "
+                       "run_reference cut there), as bench_accel's "
+                       "out-of-core table does"}}
+    launches_tile = 0
+
+    def config(b, prefetch=True):
+        return plug.OocoreConfig(hbm_budget=b, hot_fraction=OOCORE_HOT,
+                                 prefetch=prefetch)
+
+    def make(graph, prog, model, b, partitions, csr_config=CSRConfig(),
+             **kw):
+        t0 = time.perf_counter()
+        mw = plug.Middleware(
+            graph, prog, daemon=plug.ShardedDaemon(
+                kernel="cuda", mesh=SHARDS, csr_config=csr_config),
+            upper=plug.MeshUpperSystem(mesh=SHARDS), model=model,
+            partitions=partitions, oocore=config(b), device="cuda", **kw)
+        torch.cuda.synchronize()
+        if mw._fused_kind != "oocore":
+            raise AssertionError(f"fused kind {mw._fused_kind}")
+        return mw, time.perf_counter() - t0
+
+    def keep(rec, launches, **extra):
+        nonlocal launches_tile
+        rec.update(extra)
+        emit({**rec, "phase": "oocore"})
+        out["runs"].append(rec["run"])
+        launches_tile += launches
+
+    def peak_check(label, pre, npf, mw):
+        """With prefetch the device holds at most one slot more than
+        without, besides the scheduler's gather of the cold groups' sources
+        (a bool and an int32 each): copies that ran ahead of compute would
+        show here as more groups."""
+        n_src = mw.daemon._cold_index[0].numel()
+        allow = mw.daemon.super_shard_nbytes + 5 * n_src + 2**21
+        over = pre["peak_bytes_over_base"] - npf["peak_bytes_over_base"]
+        out.setdefault("peak_checks", []).append(
+            {"run": label, "prefetch_over_no_prefetch_bytes": over,
+             "allowed_bytes": allow})
+        if over > allow:
+            raise AssertionError(f"{label}: prefetch peaks {over} bytes above "
+                                 f"no prefetch, allowed {allow}")
+
+    def replan(mw, cfg):
+        calls = []
+        with counting_fetches(calls):
+            ep = mw.oocore_replan(cfg)
+        torch.cuda.synchronize()
+        if calls:
+            raise AssertionError(f"oocore_replan fetched {calls}")
+        return ep.meta["seconds"]
+
+    # (a), (b), (d): one sssp_bf middleware, a monitor for the kill
+    mw, init_s = make(g, sp, "gas", budget, parts,
+                      monitor=plug.FleetMonitor(num_hosts=SHARDS,
+                                                model_parallel=1))
+    plan = oocore_plan("sssp_bf", mw)
+    out["plan"] = plan
+    rec_a, n_l = oocore_run("sssp_bf/oocore/prefetch/gas", mw, sp_ref, None,
+                            sp_it, res_sp, profile=True)
+    keep(rec_a, n_l, init_s=init_s, plan=plan)
+    s = replan(mw, config(budget, prefetch=False))
+    rec, n_l = oocore_run("sssp_bf/oocore/no-prefetch/gas", mw, sp_ref, None,
+                          sp_it, res_sp)
+    keep(rec, n_l, replan_s=s, plan=oocore_plan("no-prefetch", mw))
+    peak_check("sssp_bf", rec_a, rec, mw)
+    s = replan(mw, config(budget))
+    col_bytes = mw.daemon.oocore_plan.col_bytes_dev
+    mw.failures = plug.FailureSchedule(kills=OOCORE_KILL)
+    rec, n_l = oocore_run("sssp_bf/oocore/kill/gas", mw, sp_ref, None, sp_it,
+                          res_sp, expect_kill=True)
+    mig = rec["migration"]
+    if (mig["killed"], mig["devices_after"]) != ([3], 2) or (
+            mw.daemon.oocore_plan.col_bytes_dev != 2 * col_bytes):
+        raise AssertionError(f"kill: {mig}, col_bytes_dev "
+                             f"{mw.daemon.oocore_plan.col_bytes_dev} after "
+                             f"{col_bytes}")
+    keep(rec, n_l, replan_s=s, plan=oocore_plan("kill", mw))
+    s = replan(mw, config(budget // 2))
+    rec, n_l = oocore_run("sssp_bf/oocore/kill/replan-half/gas", mw, sp_ref,
+                          None, sp_it, res_sp)
+    keep(rec, n_l, replan_s=s, plan=oocore_plan("replan", mw),
+         hbm_budget=budget // 2)
+    del mw
+    torch.cuda.empty_cache()
+
+    # (c): pagerank
+    mw, init_s = make(g, pr, "bsp", budget, parts)
+    rec, n_l = oocore_run("pagerank/oocore/prefetch/bsp", mw, pr_ref,
+                          (PR_RTOL, PR_ATOL), pr_it, res_pr, profile=True)
+    keep(rec, n_l, init_s=init_s, plan=oocore_plan("pagerank", mw))
+    del mw
+    torch.cuda.empty_cache()
+
+    # (e): the config phase 5d memoized for sssp_bf: a lookup, no sweep
+    mw, init_s = make(g, sp, "gas", budget, parts, csr_config=None)
+    chosen = mw.daemon._csr_config
+    if autotune.CACHE.sweeps != sweeps:
+        raise AssertionError("(e) swept: 5d's memo did not answer")
+    rec, n_l = oocore_run("sssp_bf/oocore/autotuned/gas", mw, sp_ref, None,
+                          sp_it, (autotuned[0], sp_ref, autotuned[1]))
+    keep(rec, n_l, init_s=init_s, chosen=chosen.label,
+         plan=oocore_plan("autotuned", mw))
+    del mw
+    torch.cuda.empty_cache()
+
+    # (f): the road network, where the frontier is a wavefront
+    t0 = time.perf_counter()
+    gr = generate.grid_road(ROAD_SIDE, seed=ROAD_SEED)
+    spr = sssp_bf(gr, sources=[0, 1, 2, 3])
+    parts_r = plug.HostUpperSystem().partition(gr, SHARDS)
+    ref_r, ref_r_it = plug.run_reference(gr, spr,
+                                         max_iterations=ROAD_ITERATIONS,
+                                         device="cuda")
+    out["road"] = {"side": ROAD_SIDE, "vertices": gr.num_vertices,
+                   "edges": gr.num_edges, "data_s": time.perf_counter() - t0}
+    label = "road/sssp_bf/sharded-cuda/mesh4/gas"
+    res, launches, mw, rrec = run_e2e(
+        label, gr, spr, plug.ShardedDaemon(kernel="cuda", mesh=SHARDS,
+                                           csr_config=CSRConfig()),
+        "gas", parts_r, ref_r, None, upper=plug.MeshUpperSystem(mesh=SHARDS),
+        max_iterations=ROAD_ITERATIONS)
+    check_fused_run(label, res, mw, rrec, launches, res.iterations)
+    road_bytes = sum(t.numel() * t.element_size()
+                     for t in mw.daemon.stacked["csr"].values()) // mw.daemon.m
+    resident_r = (label, np.asarray(res.state), rrec["per_iteration_s"])
+    keep(rrec, launches["csr_tile"], csr_bytes_per_device=road_bytes)
+    del mw
+    torch.cuda.empty_cache()
+    mw, init_s = make(gr, spr, "gas", road_bytes // OOCORE_DIV, parts_r)
+    road_plan = oocore_plan("road", mw)
+    rec_a, n_l = oocore_run("road/sssp_bf/oocore/prefetch/gas", mw, ref_r,
+                            None, ref_r_it, resident_r,
+                            max_iterations=ROAD_ITERATIONS)
+    if rec_a["skipped"] == 0:
+        raise AssertionError("road with prefetch skipped no group")
+    keep(rec_a, n_l, init_s=init_s, plan=road_plan,
+         hbm_budget=road_bytes // OOCORE_DIV)
+    s = replan(mw, config(road_bytes // OOCORE_DIV, prefetch=False))
+    rec, n_l = oocore_run("road/sssp_bf/oocore/no-prefetch/gas", mw, ref_r,
+                          None, ref_r_it, resident_r,
+                          max_iterations=ROAD_ITERATIONS)
+    keep(rec, n_l, replan_s=s)
+    peak_check("road", rec_a, rec, mw)
+    del mw
+    torch.cuda.empty_cache()
+    if autotune.CACHE.sweeps != sweeps:
+        raise AssertionError("phase 5h swept")
+    return out, launches_tile
+
+
 def stage_calibration(part, program, graph) -> list:
     """Per-block stage times of ``BlockedDaemon(kernel="cuda")`` over shard
     0's edges, at each of CALIBRATION_SIZES: each stage's host time (the
@@ -1259,6 +1661,10 @@ def phase_pipeline(g, parts, pr, sp, pr_ref, pr_ref_it, sp_ref, sp_ref_it,
     device_fit = pl.calibrate([(r["block_size"], *r["device_s"].values())
                                for r in rows])
     o = plug.PlugOptions()
+    out["reduced"]["calibration"] = (
+        f"{len(CALIBRATION_SIZES)} block sizes, every second power of two "
+        "from 4,096 to 262,144 edges: the fit is two lines, a slope and an "
+        "affine one")
     out["calibration"] = {
         "shard0_edges": d, "samples": rows,
         "host_stage_fit": lemma1(d, host_fit),
@@ -1487,7 +1893,9 @@ def phase_mesh(g, parts, pr, sp, refs, mesh1) -> tuple:
     """Phase 5e: the fused loop at ``mesh=SHARDS`` (one logical device a
     shard) with ``CSRConfig()`` pinned, against phase 5b's ``mesh=1`` runs
     (``mesh1``: a program's name → (label, state, s an iteration)).
-    Returns the phase's line and its csr_tile launches."""
+    Returns the phase's line, its csr_tile launches and, for phase 5h, each
+    program's run: name → (label, state, s an iteration, the stacked CSR
+    fields' bytes per logical device)."""
     import numpy as np
     import torch
 
@@ -1496,6 +1904,7 @@ def phase_mesh(g, parts, pr, sp, refs, mesh1) -> tuple:
 
     out = {"phase": "mesh", "m": SHARDS}
     launches_tile = 0
+    resident = {}
     runs = (("sssp_bf/sharded-cuda/mesh4/gas", sp, "gas", None),
             ("pagerank/sharded-cuda/mesh4/bsp", pr, "bsp",
              (PR_RTOL, PR_ATOL)))
@@ -1530,15 +1939,24 @@ def phase_mesh(g, parts, pr, sp, refs, mesh1) -> tuple:
             if not np.allclose(state, m1_state, rtol=tol[0], atol=tol[1]):
                 raise AssertionError(f"{label}: outside rtol={tol[0]} of "
                                      f"{m1_label} (max abs {max_abs})")
+        csr_bytes = sum(t.numel() * t.element_size()
+                        for t in mw.daemon.stacked["csr"].values())
+        prof = fused_profile(mw)  # beside phase 5h's out-of-core profiles
+        rec.update(profile=prof, device_idle_share_unprofiled=(
+            1.0 - prof["device_busy_s_per_iteration"]
+            / rec["per_iteration_s"]))
         rec.update(phase="mesh", merge_partials_shapes=sorted(shapes),
                    mesh1_run=m1_label, mesh1_per_iteration_s=m1_s,
                    max_abs_err_vs_mesh1=max_abs,
-                   mesh4_over_mesh1=rec["per_iteration_s"] / m1_s)
+                   mesh4_over_mesh1=rec["per_iteration_s"] / m1_s,
+                   csr_bytes_per_device=csr_bytes // mw.daemon.m)
         out[label] = rec
+        resident[prog.name] = (label, state, rec["per_iteration_s"],
+                               csr_bytes // mw.daemon.m)
         launches_tile += launches["csr_tile"]
         del mw
         torch.cuda.empty_cache()
-    return out, launches_tile
+    return out, launches_tile, resident
 
 
 # benchmarks/bench_accel.py's skewed R-MAT (_async_skew_table; no dedup)
@@ -1645,10 +2063,9 @@ def phase_async(g, parts, pr, sp, refs, mesh4, seed) -> tuple:
     point under the three arms and pagerank ``eager`` for PR_ITERATIONS,
     each against ``run_reference``, beside phase 5e's run of the same
     program (``mesh4``: a program's name → (label, s an iteration)); then
-    sssp_bf ``holding`` and ``buckets`` as the JAX package's async
-    benchmark runs them — its skewed R-MAT (here at the same scale and
-    edge factor), the four sources the only active vertices — beside the
-    barriered run of the same.  Returns the phase's line and its csr_tile
+    sssp_bf ``holding`` as the JAX package's async benchmark runs it — its
+    skewed R-MAT (here at the same scale and edge factor), the four sources
+    the only active vertices — beside the barriered run of the same.  Returns the phase's line and its csr_tile
     launches."""
     import numpy as np
     import torch
@@ -1669,7 +2086,9 @@ def phase_async(g, parts, pr, sp, refs, mesh4, seed) -> tuple:
                   "benchmarks/bench_accel.py's async table does: its "
                   "skewed R-MAT (a=0.7, b=0.15, c=0.1, no dedup) at the "
                   "same scale and edge factor, sources 0-3 the only active "
-                  "vertices; there holding must skip a body"}}
+                  "vertices; there holding must skip a body.  Only holding "
+                  "runs there: buckets' checks are those it passes on "
+                  "Graph500's R-MAT"}}
     launches_tile = 0
 
     def keep(label, rec, launches, mw, profile=False, frontier=None):
@@ -1719,7 +2138,7 @@ def phase_async(g, parts, pr, sp, refs, mesh4, seed) -> tuple:
     check_fused_run(bsp_label, res, mw, rec, launches, res.iterations)
     keep(bsp_label, rec, launches["csr_tile"], mw)
     bsp = (bsp_label, rec["per_iteration_s"])
-    for arm, kw in ASYNC_ARMS[1:]:
+    for arm, kw in ASYNC_ARMS[1:2]:
         label = f"sssp_bf/skewed/async-{arm}/mesh4"
         rec, launches, mw = async_run(label, gs, parts_s, sps, kw, ref_s,
                                       None, None, bsp, frontier)
@@ -1964,7 +2383,9 @@ def phase_elastic(g, parts, pr, sp, refs, mesh4, seed) -> tuple:
     n = g.num_vertices
     sweeps = autotune.CACHE.sweeps
     out = {"phase": "elastic", "m": SHARDS, "runs": [], "mesh4_runs": {
-        k: {"run": v[0], "s_per_iteration": v[1]} for k, v in mesh4.items()}}
+        k: {"run": v[0], "s_per_iteration": v[1]} for k, v in mesh4.items()},
+        "reduced": {"rebalance": "the host loop's rebalance runs only after "
+                    "it: its run before is phase 5's sssp_bf/cuda/gas"}}
     launches_tile = 0
     sp_ref = refs[sp.name][0]
     pr_ref = refs[pr.name][0]
@@ -2016,9 +2437,11 @@ def phase_elastic(g, parts, pr, sp, refs, mesh4, seed) -> tuple:
               if fused else dict(daemon=pinned_csr_daemon()))
         mw = plug.Middleware(g, sp, model="gas", num_shards=SHARDS,
                              device="cuda", **kw)
-        mw.run(max_iterations=1)
+        if fused:
+            mw.run(max_iterations=1)
         rec = {"run": label, "fused": fused}
-        for when in ("before", "after"):
+        # the host loop's run before the rebalance is phase 5's
+        for when in ("before", "after") if fused else ("after",):
             if when == "after":
                 t0 = time.perf_counter()
                 fr = mw.rebalance(capacities=caps)
@@ -2362,7 +2785,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # -- 5e. the shard axis at four logical devices -------------------------
-    mesh_rec, mesh_launches = phase_mesh(g, parts, pr, sp, refs, mesh1)
+    mesh_rec, mesh_launches, resident4 = phase_mesh(g, parts, pr, sp, refs,
+                                                    mesh1)
     emit(mesh_rec)
     e2e_launches["csr_tile"] += tune_launches + mesh_launches
     torch.cuda.empty_cache()
@@ -2381,6 +2805,15 @@ def main(argv=None) -> int:
                                                   mesh4, args.seed)
     emit(elastic_rec)
     e2e_launches["csr_tile"] += elastic_launches
+    torch.cuda.empty_cache()
+
+    # -- 5h. out-of-core: super-shards streamed from pinned host memory ----
+    tuned = "sssp_bf/sharded-autotuned/mesh/gas"
+    oocore_rec, oocore_launches = phase_oocore(
+        g, parts, pr, sp, refs, resident4,
+        (tuned, tune_rec[tuned]["per_iteration_s"]))
+    emit(oocore_rec)
+    e2e_launches["csr_tile"] += oocore_launches
     torch.cuda.empty_cache()
 
     # -- 6. attention at qwen2-72b width (and whisper-base's head dim) -----
@@ -2420,7 +2853,8 @@ def main(argv=None) -> int:
                {"launches_autotuned": tune_launches,
                 "launches_mesh4": mesh_launches,
                 "launches_async": async_launches,
-                "launches_elastic": elastic_launches}),
+                "launches_elastic": elastic_launches,
+                "launches_oocore": oocore_launches}),
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],

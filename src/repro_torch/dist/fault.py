@@ -395,10 +395,23 @@ class FleetMonitor:
 
 def oocore_replan(num_cols: int, col_bytes_shard: int, num_shards: int,
                   mesh_size: int, config):
-    """Re-plans super-shard ownership for a (possibly shrunken) mesh — the
-    out-of-core planner's half of a migration.  The planner
-    (``oocore/config.py``) is ROADMAP Queue A item 11's, so this raises
-    ``NotImplementedError`` naming it."""
-    from repro_torch.plug.protocols import not_ported_error
+    """Re-plans super-shard ownership for a (possibly shorter) shard axis.
 
-    raise not_ported_error("dist.fault.oocore_replan", 11)
+    Out-of-core migration is more than moving resident shards: the budget
+    is per logical device, and after a kill each survivor holds
+    ``num_shards / mesh_size`` shards' columns, so the per-device cost of a
+    column grows and the same budget buys fewer resident and streamed
+    columns.  This is the one place that conversion happens — the initial
+    bind and every remesh call it, so the hot set and the super-shard
+    count always reflect the current axis.
+
+    ``config`` is a :class:`~repro_torch.oocore.OocoreConfig`; returns an
+    :class:`~repro_torch.oocore.OocorePlan`.
+    """
+    from repro_torch.oocore.config import plan_super_shards
+
+    if num_shards % mesh_size:
+        raise ValueError(f"num_shards={num_shards} not divisible by "
+                         f"mesh_size={mesh_size}")
+    col_bytes_dev = int(col_bytes_shard) * (num_shards // mesh_size)
+    return plan_super_shards(num_cols, col_bytes_dev, config)

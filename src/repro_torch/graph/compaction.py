@@ -311,3 +311,27 @@ def src_adjacency(src, dst, weights, num_vertices: int
     np.cumsum(counts, out=ptr[1:])
     return (ptr.astype(np.int32), dst[order].astype(np.int32),
             weights[order].astype(np.float32))
+
+
+def tile_access_scores(gsrc: np.ndarray, emask: np.ndarray,
+                       degrees: np.ndarray) -> np.ndarray:
+    """Access-frequency proxy per edge group (CSR tile or padded block).
+
+    A group's score is the summed out-degree of its live source vertices:
+    groups touching hubs are re-read every iteration by every frontier that
+    reaches the hub, so they are the ones worth keeping in the
+    device-resident hot set.  Works on any ``(..., edges)`` layout —
+    ``(nt, ET)`` for one tileset or ``(s, nt, ET)`` for a stack of shards.
+    """
+    return (degrees[gsrc] * emask).sum(axis=-1)
+
+
+def take_tiles(ts: CSRTileSet, order: np.ndarray) -> CSRTileSet:
+    """Reorders or selects whole tiles of a tileset (cuts stay
+    tile-aligned)."""
+    order = np.asarray(order, dtype=np.int64)
+    return dataclasses.replace(
+        ts, num_tiles=int(order.shape[0]),
+        rows=ts.rows[order], seg=ts.seg[order], lsrc=ts.lsrc[order],
+        svids=ts.svids[order], w=ts.w[order], emask=ts.emask[order],
+        gsrc=ts.gsrc[order], gdst=ts.gdst[order], eblock=ts.eblock[order])

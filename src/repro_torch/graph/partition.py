@@ -106,3 +106,22 @@ PARTITIONERS = {
     "contiguous": partition_contiguous,
     "hash": partition_hash,
 }
+
+
+def super_shard_cuts(num_cols: int, hot_cols: int, cols_per_super: int
+                     ) -> tuple[slice, list[slice]]:
+    """Column ranges of an out-of-core layout over a hot-first ordering.
+
+    Columns are whole blocks (or whole CSR tiles), so every cut here is
+    tile-aligned: the resident prefix ``[0, hot_cols)`` and equal-width
+    cold groups covering the rest.  The final group may be short — the
+    caller pads it with dead columns so all super-shards share one shape.
+    """
+    if not 0 <= hot_cols <= num_cols:
+        raise ValueError(f"hot_cols={hot_cols} outside [0, {num_cols}]")
+    cold = num_cols - hot_cols
+    if cold and cols_per_super < 1:
+        raise ValueError("cols_per_super must be >= 1 when cold columns exist")
+    cold_slices = [slice(lo, min(lo + cols_per_super, num_cols))
+                   for lo in range(hot_cols, num_cols, cols_per_super)] if cold else []
+    return slice(0, hot_cols), cold_slices

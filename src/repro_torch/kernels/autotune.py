@@ -179,9 +179,23 @@ def backend(device) -> str:
 
 def signature(num_vertices: int, num_edges: int, program: VertexProgram,
               space: tuple[CSRConfig, ...], device="cuda") -> tuple:
+    """The memo key.  It carries the program's ``gen_op``: the kernel runs
+    only programs that have one, so a winner found for one program cannot
+    stand for another of the same shape that the kernel cannot run."""
     return (backend(device), int(num_vertices), int(num_edges),
             program.state_width, program.aux_width, program.monoid.name,
-            tuple(c.label for c in space))
+            tuple(c.label for c in space), program.gen_op)
+
+
+def runnable_space(space: tuple[CSRConfig, ...], program: VertexProgram
+                   ) -> tuple[CSRConfig, ...]:
+    """The points of ``space`` that can run ``program``: all of them for a
+    program with a ``gen_op``, only the points that launch no kernel
+    (``lowering="torch"``) for one without, whose ``msg_gen`` the kernel
+    cannot compute."""
+    if program.gen_op is not None:
+        return space
+    return tuple(c for c in space if c.lowering == "torch")
 
 
 def _sync(device) -> None:
@@ -224,12 +238,19 @@ def autotune_csr(src: np.ndarray, dst: np.ndarray,
                  cache: AutotuneCache | None = None,
                  repeats: int = 3, device="cuda") -> CSRConfig:
     """Sweeps the space on this edge list on ``device`` and returns the
-    fastest point.  Results are memoized in ``cache`` (default:
-    :data:`CACHE`) keyed by (device, |V|, |E|, K, A, monoid, space), so
-    re-binding an identically-shaped problem is a lookup.  A point that
-    fails to build or to launch fails the sweep."""
+    fastest point.  A program without a ``gen_op`` sweeps only the points
+    that launch no kernel (:func:`runnable_space`).  Results are memoized
+    in ``cache`` (default: :data:`CACHE`) keyed by (device, |V|, |E|, K, A,
+    monoid, space, gen_op), so re-binding an identically-shaped problem is
+    a lookup.  A point that fails to build or to launch fails the
+    sweep."""
     device = torch.device(device)
-    space = default_space(device) if space is None else tuple(space)
+    space = runnable_space(
+        default_space(device) if space is None else tuple(space), program)
+    if not space:
+        raise ValueError(f"no point of the space can run program "
+                         f"{program.name!r} (gen_op=None needs a "
+                         "lowering='torch' point)")
     cache = CACHE if cache is None else cache
     key = signature(num_vertices, len(src), program, space, device)
     entry = cache.lookup(key)

@@ -190,8 +190,9 @@ def csr_tile(vsrc, vaux, rowst, lsrc, seg, w, emask_f32, *,
     partials; split hub rows still need the cross-tile combine.
 
     ``rowst`` (the tiles' dst rows) feeds only the plain version's
-    ``msg_gen``: no kernel message function reads dst state, so on CUDA
-    tensors only its shape is used and it may be a broadcast view.
+    ``msg_gen``, through a gather: no kernel message function reads dst
+    state, so only its shape is used and it may be a broadcast view on
+    either device.
     """
     mon = _monoid_op(program)
     t, st, k = vsrc.shape
@@ -206,7 +207,7 @@ def csr_tile(vsrc, vaux, rowst, lsrc, seg, w, emask_f32, *,
                 lsrc=(torch.int32, (t, et)), seg=(torch.int32, (t, et)),
                 w=(torch.float32, (t, et, 1)),
                 emask_f32=(torch.float32, (t, et))), vsrc.device,
-           unread=() if vsrc.device.type == "cpu" else ("rowst",))
+           unread=("rowst",))
     if vsrc.device.type == "cpu":
         return csr_tile_plain(vsrc, vaux, rowst, lsrc, seg, w, emask_f32,
                               program=program)

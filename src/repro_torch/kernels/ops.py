@@ -111,11 +111,13 @@ def _csr_tiles_torch(vsrc, vaux, rowst, lsrc, seg, w, emask, *,
     return partial, live.sum(dim=1, dtype=torch.int32)
 
 
-def _dst_rows(state, idx):
-    """``state[idx]`` on the CPU.  Only the plain versions' ``msg_gen``
-    reads dst rows; no kernel message function does, so on the card a
-    broadcast view of the same shape stands in for the gather."""
-    if state.device.type == "cpu":
+def _dst_rows(program: VertexProgram, state, idx):
+    """The dst rows ``msg_gen`` is handed: ``state[idx]`` for a program
+    without a ``gen_op``, whose ``msg_gen`` may read them.  A program with
+    one computes the kernels' message function, which reads no dst row, so
+    a broadcast view of the same shape stands in for the gather on every
+    device."""
+    if program.gen_op is None:
         return state[idx]
     return state.new_zeros(()).expand(*idx.shape, state.shape[1])
 
@@ -153,7 +155,8 @@ def csr_aggregate_groups(state, aux, csr: dict, *, program: VertexProgram,
         gsrc = csr["gsrc"].long().reshape(-1)
         gdst = csr["gdst"].long()
         emf = emask.reshape(-1)
-        msgs = program.msg_gen(state[gsrc], _dst_rows(state, gdst.reshape(-1)),
+        msgs = program.msg_gen(state[gsrc],
+                               _dst_rows(program, state, gdst.reshape(-1)),
                                w.reshape(-1, 1), aux[gsrc])
         msgs = torch.where(emf[:, None], msgs,
                            torch.full_like(msgs, monoid.identity))
@@ -167,7 +170,7 @@ def csr_aggregate_groups(state, aux, csr: dict, *, program: VertexProgram,
         rows = csr["rows"].long()
         vsrc = state[svids]            # (T, ST, K) compact src blocks
         vaux = aux[svids]
-        rowst = _dst_rows(state, rows)  # (T, RT, K) compact row blocks
+        rowst = _dst_rows(program, state, rows)  # (T, RT, K) row blocks
         if config.lowering == "cuda":
             partial, counts = csr_tile(vsrc, vaux, rowst, csr["lsrc"],
                                        csr["seg"], w,

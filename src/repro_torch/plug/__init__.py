@@ -51,9 +51,19 @@ the monoid is idempotent and the batch only adds) or mid-run
 (``mutations=MutationSchedule(events=[(k, log)])``).  Every rebuild is one
 versioned event on ``mw.epochs`` (:class:`StructureEpochBus`).
 
+Out of core, ``oocore=OocoreConfig(hbm_budget=..., hot_fraction=...)``
+keeps a hot set of the sharded daemon's columns on the card and streams
+the rest from pinned host memory, double-buffered on a copy stream
+(:class:`OocoreDriveLoop`); ``mw.oocore_replan(config)`` re-plans it under
+a new budget:
+
+    mw = plug.Middleware(g, sssp_bf(g),
+                         daemon=plug.get_daemon("sharded", kernel="cuda"),
+                         upper="mesh", num_shards=4,
+                         oocore=plug.OocoreConfig(hbm_budget=1 << 28))
+
 ``device="cuda"`` is the default; ``device="cpu"`` runs the plain PyTorch
-versions of the kernels.  Out-of-core execution comes with a later slice
-(ROADMAP Queue A item 11).
+versions of the kernels.
 """
 from repro_torch.dist.fault import FailureSchedule, FleetMonitor
 from repro_torch.graph.mutation import (MutationBatch, MutationLog,
@@ -65,12 +75,13 @@ from repro_torch.plug.daemons import (BlockedDaemon, NaiveDaemon,
                                       VectorizedDaemon, daemon_names,
                                       get_daemon, register_daemon)
 from repro_torch.plug.epoch import StructureEpoch, StructureEpochBus
+from repro_torch.oocore.config import OocoreConfig
 from repro_torch.plug.middleware import (AsyncDriveLoop, DriveLoop,
                                          HostDriveLoop, Middleware,
-                                         make_apply_fn)
+                                         OocoreDriveLoop, make_apply_fn)
 from repro_torch.plug.protocols import (ComputationModel, Daemon,
                                         DevicePartialUpper, ElasticUpper,
-                                        MaskCapableDaemon,
+                                        MaskCapableDaemon, OutOfCoreCapable,
                                         PlugOptions, PriorityAsyncModel,
                                         Result, ShardCapableDaemon,
                                         UpperSystem)
@@ -85,6 +96,7 @@ __all__ = [
     "ElasticUpper", "FailureSchedule", "FleetMonitor", "HostDriveLoop",
     "HostUpperSystem", "MaskCapableDaemon", "MeshUpperSystem", "Middleware",
     "MutationBatch", "MutationLog", "MutationSchedule", "NaiveDaemon",
+    "OocoreConfig", "OocoreDriveLoop", "OutOfCoreCapable",
     "PipelinedDaemon", "PlugOptions", "PriorityAsyncModel", "Result",
     "ShardCapableDaemon", "ShardedDaemon", "StructureEpoch",
     "StructureEpochBus", "UpperSystem", "VectorizedDaemon",

@@ -27,7 +27,8 @@ Every daemon implements ``bind(program, n, device=...)`` then
   (``plug.protocols.ShardCapableDaemon``) is what the middleware detects
   to drive the device-resident fused loop; its masked ``run_all_shards``
   (``plug.protocols.MaskCapableDaemon``) makes the async loop's holds
-  free.
+  free, and its out-of-core binding (``plug.protocols.OutOfCoreCapable``)
+  streams super-shards of columns from pinned host memory.
 
 With ``kernel="cuda"`` the CSR aggregation's config is autotuned once per
 binding (``kernels.autotune.autotune_csr``) unless ``csr_config`` pins it,
@@ -516,6 +517,12 @@ class ShardedDaemon(VectorizedDaemon):
     bucket's partial, :meth:`configure_buckets`) and runs no tile.
     ``instrument=True`` counts the device bodies run (``gen_invocations``)
     and the bucket runs (``bucket_invocations``) on that path.
+
+    Out of core (:class:`~repro_torch.plug.protocols.OutOfCoreCapable`),
+    :meth:`bind_super_shards` keeps a hot set of columns on the device and
+    the rest as pinned host super-shards that :meth:`upload_super_shard`
+    copies on the current stream; ``run_all_shards(stacked=)`` runs on
+    either, one ``csr_tile`` launch each.
     """
 
     name = "sharded"
@@ -544,6 +551,8 @@ class ShardedDaemon(VectorizedDaemon):
         self.instrument = False
         self.gen_invocations = 0
         self.bucket_invocations = 0
+        # out-of-core binding (bind_super_shards)
+        self._clear_oocore()
 
     def share_from(self, donor: "ShardedDaemon | None"):
         """Declares a donor whose stacked device tensors this daemon may
@@ -575,21 +584,8 @@ class ShardedDaemon(VectorizedDaemon):
         them on the device once.  Shards with fewer blocks are padded with
         dead blocks (``emask`` all False: identity partials, zero counts),
         so one rectangular layout serves all shards.  Returns self."""
-        if axis is not None:
-            self.axis = axis
-        if mesh is not None:
-            self.mesh = mesh
-        s = len(blocksets)
-        vbs = {bs.vblock_size for bs in blocksets}
-        bbs = {bs.block_size for bs in blocksets}
-        if len(vbs) != 1 or len(bbs) != 1:
-            raise ValueError(
-                "bind_shards needs one (block, vblock) shape across shards; "
-                f"got B={sorted(bbs)} VB={sorted(vbs)}")
-        self.m = divisor_mesh(s, self.mesh)
-        self.mesh = self.m
-        self.num_shards = s
-        self._blocksets = list(blocksets)
+        self._setup_shard_axis(blocksets, mesh, axis)
+        self._clear_oocore()
 
         # Digest-verified adoption (see share_from).  Digests are recorded
         # whether or not there is a donor, so this daemon can be one.
@@ -617,6 +613,26 @@ class ShardedDaemon(VectorizedDaemon):
             self._stacked["csr"] = self._stack_csr_tiles(blocksets,
                                                          place_or_adopt)
         return self
+
+    def _setup_shard_axis(self, blocksets, mesh, axis):
+        """The shared head of :meth:`bind_shards` and
+        :meth:`bind_super_shards`: checks the shard layout and resolves the
+        shard axis' length m."""
+        if axis is not None:
+            self.axis = axis
+        if mesh is not None:
+            self.mesh = mesh
+        s = len(blocksets)
+        vbs = {bs.vblock_size for bs in blocksets}
+        bbs = {bs.block_size for bs in blocksets}
+        if len(vbs) != 1 or len(bbs) != 1:
+            raise ValueError(
+                "bind_shards needs one (block, vblock) shape across shards; "
+                f"got B={sorted(bbs)} VB={sorted(vbs)}")
+        self.m = divisor_mesh(s, self.mesh)
+        self.mesh = self.m
+        self.num_shards = s
+        self._blocksets = list(blocksets)
 
     def _stack_csr_tiles(self, blocksets, place):
         """Compacts every shard's blockset into CSR tiles (cached per
@@ -653,7 +669,133 @@ class ShardedDaemon(VectorizedDaemon):
         return {k: place("csr/" + k, np.stack([a[k] for a in arrays]))
                 for k in fields}
 
-    def remesh(self, mesh, *, blocksets=None):
+    # -- out-of-core (OutOfCoreCapable) ----------------------------------
+    def _clear_oocore(self):
+        self._oocore_config = None
+        self._cold = []
+        self._cold_srcs = []
+        self._cold_index = None
+        self.oocore_plan = None
+        self.num_super_shards = 0
+        self.hot_stacked = None
+
+    def bind_super_shards(self, blocksets, *, mesh=None, axis=None,
+                          config=None):
+        """The out-of-core binding: host column stacks and a device hot set.
+
+        Instead of placing the full stacked tensors on the device
+        (:meth:`bind_shards`), the columns — padded blocks, or CSR tiles
+        under ``kernel="cuda"`` — stay in host memory, reordered hottest
+        first by an access-frequency score (summed live out-degree,
+        :func:`~repro_torch.graph.compaction.tile_access_scores`), and are
+        split per ``config`` (an :class:`~repro_torch.oocore.OocoreConfig`):
+        the hot prefix is placed once and stays on the device; the cold
+        remainder is cut into equal super-shards, each pinned once (on the
+        card) and served by :meth:`upload_super_shard`.  The plan is made
+        for the current shard-axis length
+        (:func:`~repro_torch.dist.fault.oocore_replan`), so a post-kill
+        :meth:`remesh` re-plans for the survivors' larger per-device column
+        cost.  The CSR stack holds the fields the shard body reads (``gdst``
+        only for the flat merge), so a column weighs less than the JAX
+        package's, which streams every tile field.  Returns self."""
+        from repro_torch.dist import fault as dist_fault
+        from repro_torch.graph.compaction import tile_access_scores
+        from repro_torch.oocore.supershard import build_super_shards
+
+        if config is None:
+            config = self._oocore_config
+        if config is None:
+            raise ValueError("bind_super_shards needs an OocoreConfig")
+        self._setup_shard_axis(blocksets, mesh, axis)
+        if self.kernel == "cuda":
+            fields = self._stack_csr_tiles(blocksets, lambda name, a: a)
+        else:
+            fields = _host_block_stacks(blocksets)
+        gsrc, emask = fields["gsrc"], fields["emask"]
+        deg = np.bincount(gsrc[emask].ravel(), minlength=self.n)
+        scores = tile_access_scores(gsrc, emask, deg)
+        col_bytes_shard = sum(
+            int(a.itemsize) * int(np.prod(a.shape[2:], dtype=np.int64))
+            for a in fields.values())
+        plan = dist_fault.oocore_replan(scores.shape[1], col_bytes_shard,
+                                        self.num_shards, self.m, config)
+        sss = build_super_shards(fields, scores, plan)
+        del fields
+        dev = self.device
+        pin = dev.type == "cuda"
+        self._stacked = None
+        self._stacked_digests = {}
+        self.adopted_fields = 0
+        self._oocore_config = config
+        self.oocore_plan = plan
+        self.num_super_shards = plan.num_super_shards
+        self.hot_stacked = (self._wrap_oocore(
+            {k: torch.from_numpy(a).to(dev) for k, a in sss.hot_host.items()})
+            if sss.hot_host is not None else None)
+        # each cold group's numpy copy goes once it is pinned, so the cold
+        # columns sit in host memory once
+        self._cold = []
+        while sss.cold_hosts:
+            group = sss.cold_hosts.pop(0)
+            self._cold.append({k: (torch.from_numpy(a).pin_memory() if pin
+                                   else torch.from_numpy(a))
+                               for k, a in group.items()})
+        self._cold_srcs = sss.cold_srcs
+        srcs, group = sss.source_index()
+        self._cold_index = (torch.from_numpy(srcs).to(dev),
+                            torch.from_numpy(group).to(dev))
+        return self
+
+    def upload_super_shard(self, index: int, out=None):
+        """Copies cold super-shard ``index`` to the device on the current
+        stream (``non_blocking`` from pinned memory on the card; the host
+        arrays themselves on the CPU) → a dict ``run_all_shards(stacked=)``
+        takes.  ``out``, a dict this returned before, is overwritten and
+        returned instead of allocating (the groups share one shape)."""
+        if self.oocore_plan is None:
+            raise RuntimeError(
+                "upload_super_shard before bind_super_shards")
+        host = self._cold[index]
+        if out is None:
+            return self._wrap_oocore(
+                {k: t.to(self.device, non_blocking=True)
+                 for k, t in host.items()})
+        dst = out["csr"] if self.kernel == "cuda" else out
+        for k, t in host.items():
+            dst[k].copy_(t, non_blocking=True)
+        return out
+
+    @property
+    def super_shard_nbytes(self) -> int:
+        """Host bytes of one cold super-shard (== one upload)."""
+        return (sum(t.numel() * t.element_size()
+                    for t in self._cold[0].values()) if self._cold else 0)
+
+    def super_shard_active(self, index: int, active) -> bool:
+        """Does cold super-shard ``index`` touch any active source?  The
+        host twin of the shard body's per-edge ``emask & active[gsrc]``:
+        when no live source of the group is active its partial is exactly
+        the monoid identity, so it needs neither upload nor compute.
+        ``active`` is a host (N,) bool."""
+        srcs = self._cold_srcs[index]
+        return bool(np.any(active[srcs])) if srcs.size else False
+
+    def super_shard_activity(self, active):
+        """:meth:`super_shard_active` of every cold group at once, on the
+        device: ``active`` (N,) bool → (num_super_shards,) bool, with no
+        host round trip."""
+        srcs, group = self._cold_index
+        hits = torch.zeros(self.num_super_shards, dtype=torch.int32,
+                           device=active.device)
+        hits.index_add_(0, group, active[srcs].to(torch.int32))
+        return hits > 0
+
+    def _wrap_oocore(self, placed):
+        # the CSR body reads the tiles under a "csr" key; the block body
+        # reads the block fields at the top level
+        return {"csr": placed} if self.kernel == "cuda" else placed
+
+    def remesh(self, mesh, *, blocksets=None, config=None):
         """Re-stacks the bound block tensors over a survivor shard axis of
         ``mesh`` logical devices — the daemon half of checkpoint-free
         migration.  Each logical device's slice of the stacked axis grows
@@ -663,12 +805,18 @@ class ShardedDaemon(VectorizedDaemon):
         re-ordered BlockSet keeps its identity, so its compacted tiles are
         reused (``tilesets_reused``), and the binding's CSR config stays:
         a migration never sweeps again.  The priority buckets are not
-        re-stacked: the async loop re-arms them."""
+        re-stacked: the async loop re-arms them.  An out-of-core binding is
+        re-planned for the new axis (:meth:`bind_super_shards` under
+        ``config``, an :class:`~repro_torch.oocore.OocoreConfig`, or the
+        stored one), not re-stacked."""
         if blocksets is None:
             blocksets = self._blocksets
             if blocksets is None:
                 raise RuntimeError(
                     "ShardedDaemon.remesh called before bind_shards")
+        if config is not None or self._oocore_config is not None:
+            return self.bind_super_shards(blocksets, mesh=mesh,
+                                          axis=self.axis, config=config)
         return self.bind_shards(blocksets, mesh=mesh, axis=self.axis)
 
     def run_all_shards(self, state, aux, active=None, *, run_mask=None,

@@ -9,7 +9,7 @@ global merge to the :class:`~repro_torch.plug.protocols.UpperSystem`, and
 Gen/Merge/Apply ordering to the
 :class:`~repro_torch.plug.protocols.ComputationModel`.
 
-Three drive loops implement the iteration:
+Four drive loops implement the iteration:
 
 * :class:`HostDriveLoop` — the classic per-shard path: every iteration
   calls each shard's daemon, brings the aggregates to the host, runs the
@@ -32,6 +32,12 @@ Three drive loops implement the iteration:
   held device runs no gather, Gen or Merge.  Which devices hold in
   iteration t + 1 is decided at the end of step t and rides its one fetch,
   so the hold is decided on the host at no extra sync.
+* :class:`OocoreDriveLoop` — the barriered fused step out of core, with
+  ``oocore=`` (an :class:`~repro_torch.oocore.OocoreConfig`) and a daemon
+  that can bind super-shards
+  (:class:`~repro_torch.plug.protocols.OutOfCoreCapable`): a hot set of
+  columns stays on the device, the rest streams from pinned host memory on
+  a copy stream, group by group, into one merge an iteration.
 
 Between fused iterations the middleware polls its structure triggers — a
 :class:`~repro_torch.dist.fault.FailureSchedule` or
@@ -41,8 +47,7 @@ on the shard axis' logical devices) and a
 batches) — and every rebuild, with :meth:`Middleware.rebalance` and
 :meth:`Middleware.apply_mutations` between runs, is one versioned event on
 its :class:`~repro_torch.plug.epoch.StructureEpochBus`; the loops adopt it
-without a checkpoint.  Out-of-core execution raises
-``NotImplementedError`` naming its ROADMAP item (11).
+without a checkpoint.
 """
 from __future__ import annotations
 
@@ -62,14 +67,15 @@ from repro_torch.device import resolve_device
 from repro_torch.dist import fault as dist_fault
 from repro_torch.graph import mutation as graph_mutation
 from repro_torch.graph.structure import EdgePartition, Graph
+from repro_torch.oocore.prefetch import AsyncUploader
 from repro_torch.plug.computation import BSP, GAS, AsyncModel, get_model
 from repro_torch.plug.daemons import get_daemon
 from repro_torch.plug.epoch import StructureEpoch, StructureEpochBus
 from repro_torch.plug.protocols import (DevicePartialUpper, ElasticUpper,
-                                        MaskCapableDaemon, PlugOptions,
-                                        PriorityAsyncModel, Result,
-                                        ShardCapableDaemon, divisor_mesh,
-                                        not_ported_error)
+                                        MaskCapableDaemon, OutOfCoreCapable,
+                                        PlugOptions, PriorityAsyncModel,
+                                        Result, ShardCapableDaemon,
+                                        divisor_mesh)
 from repro_torch.plug.uppers import get_upper_system
 
 # Computation-model orders the barriered fused loop realizes.  BSP and GAS
@@ -164,8 +170,12 @@ class Middleware:
         batch only adds, else the carried state resets (a cold restart
         mid-run).  Needs a fused loop; between runs, use
         :meth:`apply_mutations` / :meth:`run_dynamic`.
-      oocore: the out-of-core option — not ported yet (ROADMAP Queue A
-        item 11); passing one raises ``NotImplementedError``.
+      oocore: an :class:`~repro_torch.oocore.OocoreConfig` — out-of-core
+        execution.  The daemon keeps a hot set of its columns on the device
+        and streams the rest as super-shards from pinned host memory
+        (:class:`OocoreDriveLoop`).  Needs the barriered fused composition
+        (``daemon="sharded"``, ``upper="mesh"``, BSP or GAS); any other
+        raises rather than running resident.
       options: :class:`~repro_torch.plug.protocols.PlugOptions`.
       device: where the daemon and MSGApply run; ``"cuda"`` (the
         default) raises on a machine without a GPU.
@@ -173,11 +183,11 @@ class Middleware:
     With a shard-capable daemon (``daemon="sharded"``) and a device-partial
     upper system (``upper="mesh"``), ``run`` drives the fused
     :class:`DriveLoop` for a BSP/GAS model and the fused
-    :class:`AsyncDriveLoop` for ``AsyncModel``; otherwise the
-    :class:`HostDriveLoop`.
+    :class:`AsyncDriveLoop` for ``AsyncModel``, and with ``oocore=`` the
+    :class:`OocoreDriveLoop`; otherwise the :class:`HostDriveLoop`.
 
-    Every structure rebuild — kill, join, rebalance, mutation — is
-    published on ``self.epochs`` (a
+    Every structure rebuild — kill, join, rebalance, out-of-core re-plan,
+    mutation — is published on ``self.epochs`` (a
     :class:`~repro_torch.plug.epoch.StructureEpochBus`); the subscribed
     hooks re-target the upper system, re-stack the daemon's block tensors
     and restart the capacity windows, in that order.  Drive loops react to
@@ -203,12 +213,11 @@ class Middleware:
         options: PlugOptions | None = None,
         device="cuda",
     ):
-        if oocore is not None:
-            raise not_ported_error("oocore=", 11)
         self.device = resolve_device(device)
         self.graph = graph
         self.program = program
         self.options = options or PlugOptions()
+        self.oocore = oocore  # OocoreConfig | None — out-of-core execution
         self.daemon = get_daemon(daemon) if isinstance(daemon, str) else daemon
         self.upper = (get_upper_system(upper) if isinstance(upper, str)
                       else upper)
@@ -240,7 +249,13 @@ class Middleware:
         self._estimator = CapacityEstimator(self.num_shards)
         self._fused_kind = self._detect_fused()
         self._fused = self._fused_kind is not None
-        if self._fused:
+        self.oocore_stats: dict = {}
+        if self._fused_kind == "oocore":
+            self.daemon.bind_super_shards(self.blocksets,
+                                          mesh=self.upper.mesh,
+                                          axis=self.upper.axis,
+                                          config=self.oocore)
+        elif self._fused:
             self.daemon.bind_shards(self.blocksets, mesh=self.upper.mesh,
                                     axis=self.upper.axis)
 
@@ -299,8 +314,11 @@ class Middleware:
             version=0, cause="init",
             mesh=self.upper.mesh if self._fused else None,
             partitions=tuple(self.partitions),
-            blocksets=tuple(self.blocksets)))
+            blocksets=tuple(self.blocksets),
+            oocore_plan=(self.daemon.oocore_plan
+                         if self._fused_kind == "oocore" else None)))
         self._loop = {"bsp": DriveLoop, "async": AsyncDriveLoop,
+                      "oocore": OocoreDriveLoop,
                       None: HostDriveLoop}[self._fused_kind](self)
 
     # -- structure-epoch rebuild hooks -------------------------------------
@@ -313,11 +331,18 @@ class Middleware:
             self.upper.bind(self.program, self.num_shards)
 
     def _epoch_daemon(self, new: StructureEpoch, old) -> None:
-        """Re-stacks the daemon's block tensors for the epoch (fused).  On
-        the host path blocks go to the device every iteration, so nothing
-        is re-placed: stale per-blockset caches are pruned instead."""
+        """Re-stacks the daemon's block tensors for the epoch (fused).  Out
+        of core, the daemon re-plans its super-shards and fills
+        ``new.oocore_plan``: the plan is an output of the rebuild, not an
+        input to it; an ``oocore_config`` in the epoch's meta re-binds
+        under that new budget.  On the host path blocks go to the device
+        every iteration, so nothing is re-placed: stale per-blockset caches
+        are pruned instead."""
         if self._fused:
-            self.daemon.remesh(new.mesh, blocksets=list(new.blocksets))
+            self.daemon.remesh(new.mesh, blocksets=list(new.blocksets),
+                               config=new.meta.get("oocore_config"))
+            if self._fused_kind == "oocore":
+                new.oocore_plan = self.daemon.oocore_plan
         else:
             prune = getattr(self.daemon, "prune_block_caches", None)
             if prune is not None:
@@ -359,10 +384,32 @@ class Middleware:
         BSP/GAS share the barriered one (``"bsp"``), a priority/async model
         whose upper also has ``merge_partials_async`` gets the async one
         (``"async"``), and anything else gets None (the host loop, which
-        drives the model's hooks)."""
+        drives the model's hooks).  With ``oocore=`` the answer is
+        ``"oocore"`` or a ``ValueError``: an unfused composition, a daemon
+        that cannot bind super-shards or the async model is refused."""
         caps = (isinstance(self.daemon, ShardCapableDaemon)
                 and isinstance(self.upper, DevicePartialUpper)
                 and getattr(self.upper, "wire", "exact") == "exact")
+        if self.oocore is not None:
+            # out-of-core is opt-in and never falls back: a composition
+            # that cannot stream super-shards is a configuration error, not
+            # a reason to run resident anyway
+            if not caps:
+                raise ValueError(
+                    "oocore= needs the fused device-resident loop: a "
+                    "shard-capable daemon (daemon='sharded') with a "
+                    "device-partial upper system over an exact wire "
+                    "(upper='mesh')")
+            if not isinstance(self.daemon, OutOfCoreCapable):
+                raise ValueError(
+                    f"daemon {type(self.daemon).__name__} cannot bind "
+                    "super-shards (see plug.protocols.OutOfCoreCapable)")
+            if not _model_is_fusable(self.model):
+                raise ValueError(
+                    "oocore= supports the barriered BSP/GAS step only — "
+                    "the async model's held partials assume the full "
+                    "column range is resident every iteration")
+            return "oocore"
         if not caps:
             return None
         if _model_is_fusable(self.model):
@@ -664,10 +711,40 @@ class Middleware:
             meta={"fractions": [float(f) for f in fractions]})
         return fractions
 
-    def oocore_replan(self, config=None):
-        """The out-of-core re-plan (cause ``"oocore_replan"``) is ROADMAP
-        Queue A item 11's."""
-        raise not_ported_error("Middleware.oocore_replan", 11)
+    def oocore_replan(self, config=None) -> StructureEpoch:
+        """Re-plans super-shard ownership at run time — the out-of-core
+        structure trigger (cause ``"oocore_replan"``).
+
+        ``config`` replaces the composition's ``OocoreConfig`` (a smaller
+        device budget mid-deployment, another hot fraction); omitted, the
+        current config is re-planned as it is.  The daemon hook recuts the
+        hot set and the cold super-shards under the budget and fills the
+        published epoch's ``oocore_plan``.  The cut never changes merged
+        values for idempotent monoids, but a sum accumulates super-shards
+        in plan order, so like every placement change the epoch is
+        published with ``dirty_vertices=None``.  The meta carries
+        ``super_shards_before`` / ``_after``, ``hot_cols_before`` /
+        ``_after`` and the rebuild's ``seconds``.
+        """
+        if self._fused_kind != "oocore":
+            raise ValueError(
+                "oocore_replan() needs an out-of-core composition "
+                "(Middleware(oocore=OocoreConfig(...)))")
+        t0 = time.perf_counter()
+        if config is not None:
+            self.oocore = config
+        before = self.daemon.oocore_plan
+        ep = self.epochs.publish(
+            "oocore_replan", mesh=self.upper.mesh,
+            partitions=self.partitions, blocksets=self.blocksets,
+            dirty_vertices=None,
+            meta={"oocore_config": self.oocore,
+                  "super_shards_before": int(before.num_super_shards),
+                  "hot_cols_before": int(before.hot_cols)})
+        ep.meta["super_shards_after"] = int(ep.oocore_plan.num_super_shards)
+        ep.meta["hot_cols_after"] = int(ep.oocore_plan.hot_cols)
+        ep.meta["seconds"] = time.perf_counter() - t0
+        return ep
 
     # -- dynamic graphs ---------------------------------------------------
     def _rebuild_dirty_blocksets(self, dirty_shards) -> list[int]:
@@ -1197,6 +1274,207 @@ class DriveLoop(_FusedLoopBase):
         flags = torch.cat([torch.stack([(n_active == 0).long(), n_active]),
                            blocks_run.long()])
         return (new_state, new_active), flags
+
+
+class OocoreDriveLoop(_FusedLoopBase):
+    """The out-of-core fused drive loop: super-shards streamed onto the card.
+
+    Each iteration runs the same shard body as :class:`DriveLoop`, once per
+    column group instead of once: first over the device-resident hot set,
+    then over each cold super-shard as it arrives from pinned host memory.
+    Per-device partials accumulate across groups with ``monoid.combine``
+    into identity-filled (m, N, K) / (m, N) accumulators, and the upper's
+    ``merge_partials``, :func:`apply_step` and the convergence check run
+    once at the end — so the state trajectory is the resident loop's, bit
+    for bit for idempotent monoids.
+
+    With ``prefetch`` on, super-shard i + 1 copies on a side CUDA stream
+    while super-shard i computes (:class:`~repro_torch.oocore.AsyncUploader`:
+    two device slots, so at most two cold groups live), wrapping around so the next iteration's
+    first group copies during this iteration's tail.  For frontier-driven
+    programs the scheduler skips a cold group none of whose live sources is
+    active — its partial is exactly the identity — upload and compute both.
+    The verdict for iteration t + 1 is formed on the card at the end of
+    step t from the new frontier (``super_shard_activity``) and rides the
+    step's one fetch, so the (N,) frontier never crosses to the host; the
+    first iteration's comes from the frontier's host copy.  After a
+    structure epoch re-cut the groups, the next iteration takes every
+    group (a group without an active source adds the identity), and the
+    verdicts resume from its fetch.  Without prefetch every group is
+    copied on the compute stream and computed in turn, and none is
+    skipped.
+
+    The fetch also carries the hot hits and cold misses (active tiles or
+    blocks served from the hot set and from streamed groups).  Each record
+    gets ``oocore``: ``super_shards``, ``hot_cols``, ``prefetch``,
+    ``seconds``, ``transfer_s`` (the copies, event-timed, a dropped
+    wrap-around guess's included), ``wait_s`` (how long the compute stream
+    stalled on them), ``hidden_s``,
+    ``overlap_efficiency``, ``skipped``, ``hot_hits``, ``cold_misses`` and
+    ``hot_hit_rate``; ``Middleware.oocore_stats`` sums them over every run,
+    with ``uploads``, ``upload_bytes`` and ``max_live_groups``.
+    """
+
+    def __init__(self, mw: Middleware):
+        super().__init__(mw)
+        self._uploader = None
+        self._side = None  # the copy stream, one for every uploader
+        self._acc0 = None
+        self._prefetching = False
+        self._activity = None  # next iteration's group verdicts, or None
+        self._step_info = None  # this iteration's spans, read after its fetch
+
+    def _arm(self):
+        """The loop's view of the current binding: identity accumulators at
+        the axis length and a fresh uploader, warmed with group 0.  Called
+        when a run starts and when an epoch is adopted."""
+        mw = self.mw
+        daemon = mw.daemon
+        dev = mw.device
+        # the old binding's slots and accumulators go before the new ones
+        # are allocated
+        if self._uploader is not None:
+            self._uploader.close()
+        self._uploader = self._acc0 = None
+        self._acc0 = (
+            torch.full((daemon.m, mw.n, mw.k), mw.program.monoid.identity,
+                       dtype=torch.float32, device=dev),
+            torch.zeros((daemon.m, mw.n), dtype=torch.int32, device=dev))
+        num_ss = daemon.num_super_shards
+        self._prefetching = bool(mw.oocore.prefetch) and num_ss > 0
+        if num_ss:
+            if (self._side is None and self._prefetching
+                    and dev.type == "cuda"):
+                self._side = torch.cuda.Stream(device=dev)
+            self._uploader = AsyncUploader(daemon.upload_super_shard, dev,
+                                           prefetch=self._prefetching,
+                                           stream=self._side)
+            self._uploader.request(0)  # warm the pipe before iteration 1
+        self._activity = None
+
+    def _init_carry(self, state, active, active0):
+        self._arm()
+        if self._prefetching and self._use_frontier:
+            daemon = self.mw.daemon
+            self._activity = [daemon.super_shard_active(p, active0)
+                              for p in range(daemon.num_super_shards)]
+        return (state, active)
+
+    def _migrate_carry(self, carry):
+        # state and frontier lie where every logical device reads them; the
+        # groups were re-cut, so the loop re-arms for the new binding
+        carry = tuple(self.mw.upper.migrate(list(carry)))
+        self._arm()
+        return carry
+
+    def _mutate_carry(self, carry, state0, ep):
+        carry = super()._mutate_carry(carry, state0, ep)
+        self._arm()
+        return carry
+
+    def _advance(self, carry, aux, it, stacked):
+        # ``stacked`` is the resident stack of the other fused loops, unused
+        # here: columns come from the hot set and the host stream
+        mw = self.mw
+        daemon, upper, prog = mw.daemon, mw.upper, mw.program
+        monoid = prog.monoid
+        state, active = carry
+        act = active if self._use_frontier else None
+        t_iter = time.perf_counter()
+        acc_p, acc_c = self._acc0
+        num_ss = daemon.num_super_shards
+        hot_br = cold_br = None
+        if daemon.hot_stacked is not None:
+            p, c, hot_br = daemon.run_all_shards(state, aux, act,
+                                                 stacked=daemon.hot_stacked)
+            acc_p, acc_c = monoid.combine(acc_p, p), acc_c + c
+        todo = list(range(num_ss))
+        if self._activity is not None:
+            todo = [g for g in todo if self._activity[g]]
+        up = self._uploader
+        spans = []
+        for i, g in enumerate(todo):
+            group, transfer, wait = up.take(g)
+            spans.append((transfer, wait))
+            if self._prefetching:
+                # double buffer: the next group copies while this one
+                # computes; the wrap-around is iteration it + 1's first
+                up.request(todo[(i + 1) % len(todo)])
+            p, c, br = daemon.run_all_shards(state, aux, act, stacked=group)
+            acc_p, acc_c = monoid.combine(acc_p, p), acc_c + c
+            cold_br = br if cold_br is None else cold_br + br
+            del group
+            up.release(g)
+        # copies dropped as stale guesses ran on the copy stream all the
+        # same: a wait that sat behind one is matched by its transfer
+        stale = up.pop_stale() if up is not None else []
+        agg, cnt = upper.merge_partials(acc_p, acc_c)
+        new_state, new_active = apply_step(prog, state, agg, cnt > 0, aux, it)
+        n_active = new_active.sum()
+        zero = torch.zeros(mw.num_shards, dtype=torch.int32,
+                           device=mw.device)
+        hot_br = zero if hot_br is None else hot_br
+        cold_br = zero if cold_br is None else cold_br
+        nxt = (daemon.super_shard_activity(new_active)
+               if self._prefetching and self._use_frontier
+               else zero[:0].bool())
+        flags = torch.cat([
+            torch.stack([(n_active == 0).long(), n_active]),
+            (hot_br + cold_br).long(),
+            torch.stack([hot_br.sum(), cold_br.sum()]).long(), nxt.long()])
+        self._step_info = (t_iter, num_ss, len(todo), spans, stale)
+        return (new_state, new_active), flags
+
+    def _read_extra(self, carry, extra):
+        mw = self.mw
+        daemon = mw.daemon
+        t_iter, num_ss, uploads, spans, stale = self._step_info
+        hot_hits, misses = extra[:2]
+        if self._prefetching and self._use_frontier:
+            self._activity = [bool(x) for x in extra[2:2 + num_ss]]
+        # the copies' events: the compute stream has passed them all
+        transfer_s = (sum(t.seconds() for t, _ in spans)
+                      + sum(t.seconds() for t in stale))
+        wait_s = sum(w.seconds() for _, w in spans)
+        iter_s = time.perf_counter() - t_iter
+        skipped = num_ss - uploads
+        total = hot_hits + misses
+        # unclamped: a wait longer than its transfers would read below 0
+        overlap = 1.0 if transfer_s <= 0 else 1.0 - wait_s / transfer_s
+        rec = {"super_shards": num_ss,
+               "hot_cols": int(daemon.oocore_plan.hot_cols),
+               "prefetch": self._prefetching,
+               "seconds": iter_s,
+               "transfer_s": transfer_s, "wait_s": wait_s,
+               "hidden_s": transfer_s - wait_s,
+               "overlap_efficiency": overlap,
+               "skipped": skipped,
+               "hot_hits": hot_hits, "cold_misses": misses,
+               "hot_hit_rate": hot_hits / total if total else 0.0}
+        st = mw.oocore_stats
+        if not st:
+            st.update(iterations=0, transfer_s=0.0, wait_s=0.0,
+                      hidden_s=0.0, hot_hits=0, cold_misses=0, uploads=0,
+                      upload_bytes=0, skipped=0, super_shards=num_ss,
+                      prefetch=self._prefetching, max_live_groups=0)
+        st["iterations"] += 1
+        st["transfer_s"] += transfer_s
+        st["wait_s"] += wait_s
+        st["hidden_s"] += transfer_s - wait_s
+        st["hot_hits"] += hot_hits
+        st["cold_misses"] += misses
+        st["uploads"] += uploads
+        st["upload_bytes"] += uploads * daemon.super_shard_nbytes
+        st["skipped"] += skipped
+        seen = st["hot_hits"] + st["cold_misses"]
+        st["hot_hit_rate"] = st["hot_hits"] / seen if seen else 0.0
+        st["overlap_efficiency"] = (
+            1.0 if st["transfer_s"] <= 0
+            else 1.0 - st["wait_s"] / st["transfer_s"])
+        if self._uploader is not None:
+            st["max_live_groups"] = max(st["max_live_groups"],
+                                        self._uploader.max_live_groups)
+        return carry, {"oocore": rec}
 
 
 class AsyncDriveLoop(_FusedLoopBase):

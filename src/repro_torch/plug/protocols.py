@@ -199,6 +199,44 @@ class MaskCapableDaemon(Protocol):
 
 
 @runtime_checkable
+class OutOfCoreCapable(Protocol):
+    """Optional daemon capability: graphs bigger than the device budget.
+
+    An out-of-core daemon keeps its column stacks (padded blocks or CSR
+    tiles) in host memory, keeps an access-frequency-ordered hot prefix on
+    the device, and serves the cold remainder as equal *super-shards*
+    copied onto the device on demand.  The middleware detects this
+    protocol when ``Middleware(oocore=...)`` is passed and drives the
+    out-of-core loop, which accumulates ``run_all_shards`` partials across
+    super-shards with the program's monoid before the single upper-system
+    merge — bit-identical to the all-resident fused path for idempotent
+    monoids.
+    """
+
+    num_super_shards: int
+    hot_stacked: object      # the resident hot set's stack, or None
+    oocore_plan: object      # OocorePlan of the current binding
+    super_shard_nbytes: int  # host bytes of one cold super-shard
+
+    def bind_super_shards(self, blocksets, *, mesh=None, axis=None,
+                          config=None):
+        """Cuts the shards' column stacks into a hot set and host
+        super-shards."""
+        ...
+
+    def upload_super_shard(self, index: int):
+        """Copies cold super-shard ``index`` to the device on the current
+        stream; returns a stacked dict ``run_all_shards(stacked=...)``
+        takes."""
+        ...
+
+    def super_shard_activity(self, active):
+        """(N,) bool frontier on the device → (num_super_shards,) bool on
+        the device: which cold groups hold an active live source."""
+        ...
+
+
+@runtime_checkable
 class DevicePartialUpper(Protocol):
     """Optional upper-system capability: merge device-resident partials.
 

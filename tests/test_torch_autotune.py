@@ -15,7 +15,12 @@ package's, on the CPU.
   around every test.
 * The fused loop at an explicit flat config equals the JAX package's fused
   loop at the same config.
+* A program without a ``gen_op`` whose ``msg_gen`` reads the dst rows gets
+  the real rows through the flat merge and the tiled plain twin, sweeps
+  only the points that launch no kernel, and has a memo key of its own.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -264,3 +269,100 @@ def test_fused_loop_at_the_flat_config_matches_jax(prog_name):
     for key in RECORD_KEYS:
         assert [r[key] for r in res.per_iteration] == \
             [r[key] for r in want.per_iteration], key
+
+
+# --------------------------------------------------------------------------
+# a program without a gen_op: real dst rows, its own sweep and memo key
+# --------------------------------------------------------------------------
+def _dst_min(gj, gt):
+    """sssp_bf with ``msg_gen = min(s + w, d + 1)``: it reads the dst rows
+    and names no ``gen_op``, so no kernel can run it.  ``d + 1`` never
+    undercuts ``d``, so its fixed point is sssp_bf's; a dst row read as 0
+    would cap every message at 1."""
+    pj = dataclasses.replace(
+        jalg.sssp_bf(gj), name="dst_min",
+        msg_gen=lambda s, d, w, a: jnp.minimum(s + w, d + 1.0))
+    pt = dataclasses.replace(
+        talg.sssp_bf(gt), name="dst_min", gen_op=None,
+        msg_gen=lambda s, d, w, a: torch.minimum(s + w, d + 1.0))
+    return pj, pt
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("config", [
+    FLAT, CSRConfig(edge_tile=256, lowering="torch", merge="sorted")],
+    ids=lambda c: c.label)
+def test_program_without_gen_op_reads_real_dst_rows(config, groups):
+    """``csr_aggregate_groups`` hands such a program ``state[gdst]`` (flat)
+    and ``state[rows]`` (tiled), as the JAX package does: each group's
+    aggregate equals JAX's ``csr_aggregate`` over that group's tiles."""
+    src, dst, w, n = _edges(8)
+    pj, pt = _dst_min(*_graphs())
+    rng = np.random.default_rng(2)
+    state = rng.uniform(0.0, 20.0, (n, 4)).astype(np.float32)
+    aux = np.zeros((n, 0), np.float32)
+    csr = jcompaction.build_csr_tiles(src, dst, w, n,
+                                      edge_tile=config.edge_tile).arrays()
+    t = csr["emask"].shape[0] // groups * groups
+    csr = {f: v[:t] for f, v in csr.items()}
+    got, got_c = tops.csr_aggregate_groups(
+        torch.from_numpy(state), torch.from_numpy(aux),
+        {f: torch.from_numpy(v) for f, v in csr.items()}, program=pt,
+        num_vertices=n, config=config, groups=groups)
+    for g in range(groups):
+        part = {f: jnp.asarray(v[g * t // groups:(g + 1) * t // groups])
+                for f, v in csr.items()}
+        want, want_c = jops.csr_aggregate(
+            jnp.asarray(state), jnp.asarray(aux), part, program=pj,
+            num_vertices=n, config=jax_config(config), interpret=True)
+        np.testing.assert_array_equal(got[g].numpy(), np.asarray(want))
+        np.testing.assert_array_equal(got_c[g].numpy(), np.asarray(want_c))
+
+
+def test_program_without_gen_op_sweeps_only_kernel_free_points():
+    """The sweep times only the ``lowering="torch"`` points for such a
+    program, and its memo entry is its own: sssp_bf, of the same shape,
+    sweeps again instead of taking its winner."""
+    src, dst, w, n = _edges(4, e=900)
+    _, pt = _dst_min(*_graphs())
+    autotune.autotune_csr(src, dst, w, n, pt, repeats=1, device="cpu")
+    (entry,) = autotune.CACHE.report()["entries"]
+    assert set(entry["table"]) == {c.label for c in autotune.CPU_SPACE
+                                   if c.lowering == "torch"}
+    assert autotune.runnable_space(autotune.CUDA_SPACE, pt) == \
+        autotune.CUDA_SPACE[:3]
+    sssp = talg.sssp_bf(_graphs()[1])
+    assert autotune.runnable_space(autotune.CUDA_SPACE, sssp) == \
+        autotune.CUDA_SPACE
+    autotune.autotune_csr(src, dst, w, n, sssp, repeats=1, device="cpu")
+    assert (autotune.CACHE.sweeps, autotune.CACHE.hits) == (2, 0)
+    assert autotune.signature(n, 900, pt, autotune.CPU_SPACE, "cpu") != \
+        autotune.signature(n, 900, sssp, autotune.CPU_SPACE, "cpu")
+    with pytest.raises(ValueError, match="lowering='torch'"):
+        autotune.autotune_csr(src, dst, w, n, pt, space=(CSRConfig(),),
+                              device="cpu")
+
+
+@pytest.mark.parametrize("csr_config", [None, FLAT], ids=["swept", "flat"])
+def test_fused_loop_runs_a_dst_reading_program_exactly(csr_config):
+    """The fused loop (swept, or pinned to the flat merge) runs the
+    dst-reading program to ``run_reference``'s fixed point and to the JAX
+    package's fused loop at the flat config, bit for bit."""
+    gj, gt = _graph("sssp_bf")
+    pj, pt = _dst_min(gj, gt)
+    mw = tplug.Middleware(gt, pt, daemon=tplug.ShardedDaemon(
+        kernel="cuda", csr_config=csr_config), upper="mesh", num_shards=4,
+        options=tplug.PlugOptions(block_size=BLOCK), device="cpu")
+    assert mw.daemon._csr_config.lowering == "torch"
+    res = mw.run()
+    want = jplug.Middleware(
+        gj, pj, daemon=jplug.get_daemon("sharded", kernel="pallas",
+                                        csr_config=jax_config(FLAT)),
+        upper="mesh", num_shards=4,
+        options=jplug.PlugOptions(block_size=BLOCK)).run()
+    ref, ref_it = tplug.run_reference(gt, pt, device="cpu")
+    assert res.converged and res.iterations == want.iterations
+    np.testing.assert_array_equal(res.state, np.asarray(want.state))
+    np.testing.assert_array_equal(res.state, ref)
+    sssp, _ = tplug.run_reference(gt, talg.sssp_bf(gt), device="cpu")
+    np.testing.assert_array_equal(res.state, sssp)

@@ -1042,3 +1042,176 @@ def test_mid_run_add_batch_recuts_one_shard_on_the_card(cuda,
     ref_state, _ = plug.run_reference(mw.graph, algorithms.sssp_bf(mw.graph),
                                       device=cuda)
     np.testing.assert_array_equal(res.state, ref_state)
+
+
+@pytest.mark.cuda
+def test_dst_reading_program_through_the_card_sweep(cuda, autotune_cache):
+    """A min program whose ``msg_gen`` reads the dst rows and names no
+    ``gen_op`` (``min(s + w, d + 1)``) through ``daemon="cuda"`` with the
+    default sweep: only the flat points are timed, the winner is one of
+    them, and the state is run_reference's bit for bit."""
+    g = generate.rmat(512, 4096, seed=5)
+    prog = dataclasses.replace(
+        algorithms.sssp_bf(g), name="dst_min", gen_op=None,
+        msg_gen=lambda s, d, w, a: torch.minimum(s + w, d + 1.0))
+    before = ebk.csr_tile.launches
+    res = plug.Middleware(g, prog, daemon="cuda", num_shards=2,
+                          options=plug.PlugOptions(block_size=64),
+                          device=cuda).run()
+    (entry,) = autotune_cache.report()["entries"]
+    flat = {c.label for c in autotune.CUDA_SPACE if c.lowering == "torch"}
+    assert set(entry["table"]) == flat and entry["chosen"] in flat
+    assert ebk.csr_tile.launches == before
+    ref_state, ref_it = plug.run_reference(g, prog, device=cuda)
+    np.testing.assert_array_equal(res.state, ref_state)
+    assert res.iterations == ref_it
+
+
+def _oocore_mw(g, prog, device, **oocore):
+    return plug.Middleware(
+        g, prog, daemon=plug.ShardedDaemon(kernel="cuda",
+                                           csr_config=ops.CSRConfig()),
+        upper=plug.MeshUpperSystem(mesh=4), num_shards=4,
+        options=plug.PlugOptions(block_size=256), device=device,
+        oocore=plug.OocoreConfig(**oocore) if oocore else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefetch", [True, False])
+def test_uploader_on_the_card(cuda, prefetch):
+    """Pinned sources, copies on the side stream with prefetch (on the
+    compute stream without), two device slots (one without prefetch)
+    allocated once and overwritten after, so the device's allocations stop
+    growing after the first uploads, at most two groups live, 0 ≤ overlap
+    ≤ 1 and exactly 0 without prefetch, and the groups' bytes intact."""
+    from repro_torch import oocore
+
+    g = generate.rmat(4096, 65536, seed=2)
+    mw = _oocore_mw(g, algorithms.sssp_bf(g), cuda, num_super_shards=4,
+                    hot_fraction=0.25, prefetch=prefetch)
+    d = mw.daemon
+    assert all(t.is_pinned() for grp in d._cold for t in grp.values())
+    streams = []
+
+    def upload(i, out=None):
+        streams.append(torch.cuda.current_stream(cuda))
+        return d.upload_super_shard(i, out=out)
+
+    up = oocore.AsyncUploader(upload, cuda, prefetch=prefetch)
+    spans, ptrs, allocated = [], set(), []
+    for _ in range(2):
+        for i in range(d.num_super_shards):
+            grp, transfer, wait = up.take(i)
+            if prefetch:
+                up.request((i + 1) % d.num_super_shards)
+            for k, t in grp["csr"].items():
+                torch.testing.assert_close(t.cpu(), d._cold[i][k], rtol=0,
+                                           atol=0)
+            ptrs.add(grp["csr"]["gsrc"].data_ptr())
+            spans.append((transfer, wait))
+            up.release(i)
+            allocated.append(torch.cuda.memory_allocated(cuda))
+    torch.cuda.synchronize()
+    compute = torch.cuda.current_stream(cuda)
+    assert all((s != compute) == prefetch for s in streams)
+    slots = 2 if prefetch else 1
+    assert up.slot_allocations == len(ptrs) == slots
+    assert up.slot_bytes == slots * sum(
+        t.numel() * t.element_size() for t in d._cold[0].values())
+    assert len(set(allocated[1:])) == 1
+    assert 1 <= up.max_live_groups <= 2
+    tr = sum(t.seconds() for t, _ in spans)
+    wt = sum(w.seconds() for _, w in spans)
+    assert tr > 0.0 and 0.0 <= wt
+    overlap = 1.0 - wt / tr
+    assert 0.0 <= overlap <= 1.0
+    if not prefetch:
+        assert all(t is w for t, w in spans) and overlap == 0.0
+    up.close()
+
+
+@pytest.mark.cuda
+def test_uploader_slot_waits_for_its_reader(cuda):
+    """A copy into a slot waits, on the device, for the compute stream to
+    pass the last read of the group that held it: with every read queued
+    behind a long sleep, each read still sees its own group's bytes."""
+    from repro_torch import oocore
+
+    g = generate.rmat(4096, 65536, seed=2)
+    mw = _oocore_mw(g, algorithms.sssp_bf(g), cuda, num_super_shards=4,
+                    hot_fraction=0.25)
+    d = mw.daemon
+    up = oocore.AsyncUploader(d.upload_super_shard, cuda)
+    up.request(0)
+    reads = []
+    for i in range(d.num_super_shards):
+        grp, _, _ = up.take(i)
+        up.request((i + 1) % d.num_super_shards)
+        torch.cuda._sleep(20_000_000)  # holds the compute stream ~10 ms
+        reads.append({k: t.clone() for k, t in grp["csr"].items()})
+        up.release(i)
+    torch.cuda.synchronize()
+    for i, got in enumerate(reads):
+        for k, t in got.items():
+            torch.testing.assert_close(t.cpu(), d._cold[i][k], rtol=0,
+                                       atol=0)
+    assert up.slot_allocations == 2
+    up.close()
+
+
+@pytest.mark.cuda
+def test_uploader_wait_reads_the_stall(cuda):
+    """With the copy stream held by a sleep, the compute stream stalls on
+    the copy: the wait span reads it (above 0, at most the copy's start
+    to end plus the sleep), and with nothing held it reads 0."""
+    from repro_torch import oocore
+
+    g = generate.rmat(4096, 65536, seed=2)
+    mw = _oocore_mw(g, algorithms.sssp_bf(g), cuda, num_super_shards=4,
+                    hot_fraction=0.25)
+    d = mw.daemon
+    side = torch.cuda.Stream(device=cuda)
+    up = oocore.AsyncUploader(d.upload_super_shard, cuda, stream=side)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(20_000_000)  # ~10 ms before the copy starts
+    _, transfer, wait = up.take(0)
+    up.release(0)
+    up.request(1)
+    torch.cuda._sleep(20_000_000)  # the compute stream arrives late
+    _, transfer1, wait1 = up.take(1)
+    up.release(1)
+    torch.cuda.synchronize()
+    assert wait.seconds() > 1e-3 > transfer.seconds() > 0.0
+    assert wait1.seconds() == 0.0 and transfer1.seconds() > 0.0
+    up.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prog_name", ["sssp_bf", "pagerank"])
+def test_oocore_run_matches_resident_on_the_card(cuda, prog_name):
+    """A small out-of-core fused run through the CSR kernel: sssp_bf bit for
+    bit and pagerank within tolerance of the resident run, in as many
+    iterations, with csr_tile launched (hot set > 0) + uploads times an
+    iteration and at most two groups live."""
+    g = generate.rmat(4096, 65536, seed=2)
+    prog = algorithms.ALGORITHMS[prog_name](g)
+    max_it = 10 if prog_name == "pagerank" else None
+    want = _oocore_mw(g, prog, cuda).run(max_iterations=max_it)
+    mw = _oocore_mw(g, prog, cuda, num_super_shards=4, hot_fraction=0.25)
+    before = ebk.csr_tile.launches
+    res = mw.run(max_iterations=max_it)
+    launched = ebk.csr_tile.launches - before
+    assert res.iterations == want.iterations
+    if prog.monoid.idempotent:
+        np.testing.assert_array_equal(res.state, want.state)
+    else:
+        np.testing.assert_allclose(res.state, want.state, rtol=1e-5,
+                                   atol=1e-6)
+    recs = [r["oocore"] for r in res.per_iteration]
+    assert launched == sum((r["hot_cols"] > 0) + r["super_shards"]
+                           - r["skipped"] for r in recs)
+    st = mw.oocore_stats
+    assert 1 <= st["max_live_groups"] <= 2
+    assert 0.0 <= st["overlap_efficiency"] <= 1.0
+    assert st["uploads"] + st["skipped"] == \
+        res.iterations * mw.daemon.num_super_shards

@@ -268,7 +268,36 @@ def test_empty_mutation_publishes_nothing():
 
 
 def test_oocore_replan_waits_for_item_11():
-    with pytest.raises(NotImplementedError, match="item 11"):
+    """Item 11 is ported: the re-plan publishes an ``"oocore_replan"``
+    epoch whose plan is the rebuild's output, with JAX's meta, and needs an
+    out-of-core composition (tests/test_epoch.py's two cases)."""
+    _, gt = _graph("sssp_bf")
+    gj, _ = _graph("sssp_bf")
+    m = _jax_mw().daemon.m
+    cfg = dict(hbm_budget=40_000, hot_fraction=0.3)
+    mw = tplug.Middleware(
+        gt, talg.sssp_bf(gt),
+        daemon=tplug.ShardedDaemon(mesh=m, csr_config=CSRConfig()),
+        upper=tplug.MeshUpperSystem(mesh=m), num_shards=SHARDS,
+        options=tplug.PlugOptions(block_size=BLOCK), device="cpu",
+        oocore=tplug.OocoreConfig(**cfg))
+    jmw = jplug.Middleware(
+        gj, jalg.sssp_bf(gj), daemon="sharded", upper="mesh",
+        num_shards=SHARDS, options=jplug.PlugOptions(block_size=BLOCK),
+        oocore=jplug.OocoreConfig(**cfg))
+    assert mw.epochs.epoch.oocore_plan is mw.daemon.oocore_plan
+    new = dict(hbm_budget=20_000, hot_fraction=0.2)
+    ep = mw.oocore_replan(tplug.OocoreConfig(**new))
+    jep = jmw.oocore_replan(jplug.OocoreConfig(**new))
+    assert (ep.cause, ep.version) == (jep.cause, jep.version) == \
+        ("oocore_replan", 1)
+    assert ep.oocore_plan is mw.daemon.oocore_plan
+    assert ep.global_change and ep.dirty_vertices is None
+    for key in ("super_shards_before", "hot_cols_before",
+                "super_shards_after", "hot_cols_after"):
+        assert ep.meta[key] == jep.meta[key], key
+    assert ep.meta["hot_cols_after"] <= ep.meta["hot_cols_before"]
+    with pytest.raises(ValueError, match="out-of-core"):
         _mw().oocore_replan()
 
 
@@ -276,7 +305,8 @@ def test_oocore_replan_waits_for_item_11():
 # enforcement: loops react to the version, they never rebuild
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("loop_cls", [tplug.DriveLoop, tplug.AsyncDriveLoop,
-                                      tplug.HostDriveLoop])
+                                      tplug.HostDriveLoop,
+                                      tplug.OocoreDriveLoop])
 def test_drive_loops_never_call_rebuild_methods(loop_cls):
     """No port drive loop's source holds a structure-rebuild call: they go
     through ``Middleware._poll_structure`` → publish → hooks, and adopt the
@@ -332,7 +362,7 @@ def test_rebuilds_happen_only_while_the_bus_is_rebuilding(model):
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("kernel", ["reference", "cuda"])
 @pytest.mark.parametrize("trigger", ["kill", "join", "rebalance",
-                                     "mutation"])
+                                     "mutation", "oocore_replan"])
 def test_rebuild_path_equivalence(trigger, kernel):
     """Whatever rebuilt the structure, the fixed point is bit-equal to a
     middleware built fresh on the post-trigger graph, and to JAX's run of
@@ -349,6 +379,28 @@ def test_rebuild_path_equivalence(trigger, kernel):
         caps = np.linspace(2.0, 1.0, SHARDS)
         mw.rebalance(capacities=caps)
         jmw.rebalance(capacities=caps)
+        res, want = mw.run(), jmw.run()
+    elif trigger == "oocore_replan":
+        gj, _ = _graph("sssp_bf")
+        m = _jax_mw().daemon.m
+        cfg, new = (dict(hbm_budget=40_000, hot_fraction=0.3),
+                    dict(hbm_budget=20_000, hot_fraction=0.2))
+        mw = tplug.Middleware(
+            gt, talg.sssp_bf(gt),
+            daemon=tplug.ShardedDaemon(kernel=kernel, mesh=m,
+                                       csr_config=CSRConfig()),
+            upper=tplug.MeshUpperSystem(mesh=m), num_shards=SHARDS,
+            options=tplug.PlugOptions(block_size=BLOCK), device="cpu",
+            oocore=tplug.OocoreConfig(**cfg))
+        jmw = jplug.Middleware(
+            gj, jalg.sssp_bf(gj), daemon=_jax_daemon(jkernel),
+            upper="mesh", num_shards=SHARDS,
+            options=jplug.PlugOptions(block_size=BLOCK),
+            oocore=jplug.OocoreConfig(**cfg))
+        mw.run()
+        jmw.run()
+        mw.oocore_replan(tplug.OocoreConfig(**new))
+        jmw.oocore_replan(jplug.OocoreConfig(**new))
         res, want = mw.run(), jmw.run()
     else:
         mw, jmw = _mw(kernel), _jax_mw(jkernel)

@@ -440,8 +440,21 @@ def test_remesh_rejects_a_bad_survivor_axis_before_changing_anything():
 
 
 def test_oocore_replan_waits_for_item_11():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tfault.oocore_replan(10, 100, 8, 4, None)
+    """Item 11 is ported: ``oocore_replan`` plans as JAX's does at every
+    axis length, budget and explicit split, and refuses a non-divisor
+    axis."""
+    from repro.oocore import OocoreConfig as JConfig
+    from repro_torch.oocore import OocoreConfig as TConfig
+
+    for cfg in (dict(hbm_budget=4096, hot_fraction=0.25),
+                dict(hbm_budget=100, hot_fraction=0.0),
+                dict(num_super_shards=3, hot_fraction=0.3)):
+        for mesh in (8, 4, 2, 1):
+            got = tfault.oocore_replan(64, 16, 8, mesh, TConfig(**cfg))
+            want = jfault.oocore_replan(64, 16, 8, mesh, JConfig(**cfg))
+            assert vars(got) == vars(want), (cfg, mesh)
+    with pytest.raises(ValueError, match="divisible"):
+        tfault.oocore_replan(10, 100, 8, 3, TConfig(num_super_shards=2))
 
 
 # --------------------------------------------------------------------------

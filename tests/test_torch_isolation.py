@@ -229,10 +229,11 @@ def test_later_slices_raise_not_implemented(kwargs, item):
     """A composition of a later slice raises naming its ROADMAP item.  One
     whose item is ported runs: item 8, the async model, is the fused async
     loop with the sharded daemon and the mesh upper and the host loop
-    otherwise, to run_reference's fixed point; items 9 and 10 (``monitor=``,
-    ``failures=``, ``mutations=``) are options of the fused loops, which
-    this composition (``daemon="reference"``, ``upper="host"``) refuses
-    with a ``ValueError`` naming it, as the JAX package does."""
+    otherwise, to run_reference's fixed point; items 9, 10 and 11
+    (``monitor=``, ``failures=``, ``mutations=``, ``oocore=``) are options
+    of the fused loops, which this composition (``daemon="reference"``,
+    ``upper="host"``) refuses with a ``ValueError`` naming it, as the JAX
+    package does — out of core never falls back to a resident run."""
     g = _graph()
     prog = algorithms.bfs(g)
     if item == 8:
@@ -246,7 +247,7 @@ def test_later_slices_raise_not_implemented(kwargs, item):
         ref, _ = plug.run_reference(g, prog, device="cpu")
         np.testing.assert_array_equal(res.state, ref)
         return
-    if item in (9, 10):
+    if item in (9, 10, 11):
         with pytest.raises(ValueError, match="fused"):
             plug.Middleware(g, prog, device="cpu", **kwargs)
         return
@@ -262,7 +263,9 @@ def test_later_slice_methods_raise_not_implemented(method, item):
     monitor, ``migrate`` and an unobserved ``rebalance`` refuse with a
     ``ValueError`` as the JAX package's do; an empty batch publishes no
     epoch, and ``run_dynamic`` of it restarts cold to run_reference's fixed
-    point.  Only the out-of-core re-plan still raises, naming item 11."""
+    point.  Item 11 is ported too: no ``NotImplementedError`` is left, and
+    the out-of-core re-plan refuses a composition that is not out of core
+    with a ``ValueError``, as the JAX package's does."""
     g = _graph()
     prog = algorithms.bfs(g)
     mw = plug.Middleware(g, prog, device="cpu")
@@ -277,5 +280,5 @@ def test_later_slice_methods_raise_not_implemented(method, item):
         assert mw.last_restart["mode"] == "cold"
         ref, _ = plug.run_reference(g, prog, device="cpu")
         np.testing.assert_array_equal(res.state, ref)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="out-of-core"):
         mw.oocore_replan()

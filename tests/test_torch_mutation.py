@@ -7,8 +7,9 @@ the CPU.
   ``apply_to_partitions`` and ``dirty_frontier`` give JAX's arrays, dirty
   vertices and dirty shards on the same logs;
 * the ``run_dynamic`` matrix {pagerank, sssp_bf, wcc} × {add, remove,
-  mixed} × {bsp, async} (resident; out-of-core is ROADMAP item 11's): the
-  restart mode (``dirty`` exactly for an idempotent monoid and an add-only
+  mixed} × {bsp, async}, resident, and × bsp out of core (JAX's
+  ``storage="oocore"`` axis, with the budget cut to this graph so that a
+  hot block and two or three groups a shard stream): the restart mode (``dirty`` exactly for an idempotent monoid and an add-only
   batch, else ``cold_fallback``), its reason and JAX's fixed point — min
   programs bit for bit and in as many iterations, pagerank within rtol
   1e-5 / atol 1e-6;
@@ -86,25 +87,31 @@ def _m():
                             upper="mesh", num_shards=SHARDS).daemon.m
 
 
-def _pair(prog_name, model="bsp", kernel="reference", mutations=None):
+def _pair(prog_name, model="bsp", kernel="reference", mutations=None,
+          oocore=None, block=BLOCK):
     """(port, JAX) fused middlewares on the same graph; ``mutations`` is a
-    pair of events lists."""
+    pair of events lists, ``oocore`` an ``OocoreConfig``'s keywords."""
     gj, gt = _graph(prog_name)
     m = _m()
+    ooc = ({} if oocore is None else
+           {"oocore": (tplug.OocoreConfig(**oocore),
+                       jplug.OocoreConfig(**oocore))})
     port = tplug.Middleware(
         gt, talg.ALGORITHMS[prog_name](gt), model=model,
         daemon=tplug.ShardedDaemon(kernel=kernel, mesh=m,
                                    csr_config=CSRConfig()),
         upper=tplug.MeshUpperSystem(mesh=m), num_shards=SHARDS,
-        options=tplug.PlugOptions(block_size=BLOCK), device="cpu",
+        options=tplug.PlugOptions(block_size=block), device="cpu",
         mutations=(None if mutations is None
-                   else tplug.MutationSchedule(events=mutations[0])))
+                   else tplug.MutationSchedule(events=mutations[0])),
+        **{k: v[0] for k, v in ooc.items()})
     jax = jplug.Middleware(
         gj, jalg.ALGORITHMS[prog_name](gj), daemon=_jax_daemon(kernel),
         upper="mesh", model=model, num_shards=SHARDS,
-        options=jplug.PlugOptions(block_size=BLOCK),
+        options=jplug.PlugOptions(block_size=block),
         mutations=(None if mutations is None
-                   else jplug.MutationSchedule(events=mutations[1])))
+                   else jplug.MutationSchedule(events=mutations[1])),
+        **{k: v[1] for k, v in ooc.items()})
     return port, jax
 
 
@@ -278,6 +285,69 @@ def test_run_dynamic_matrix_matches_jax(prog_name, kind, model):
     ref, _ = tplug.run_reference(g2, talg.ALGORITHMS[prog_name](g2),
                                  max_iterations=CAP, device="cpu")
     _assert_same_state(prog_name, res.state, ref)
+
+
+# tests/test_mutation.py's oocore budget is 60,000 bytes on its graph; on
+# this one at 64-edge blocks 8,000 keeps one block a shard hot and streams
+# the rest in two or three groups
+OOCORE = dict(hbm_budget=8_000, hot_fraction=0.3)
+OOCORE_BLOCK = 64
+
+
+@pytest.mark.parametrize("kind", ["add", "remove", "mixed"])
+@pytest.mark.parametrize("prog_name", PROGRAMS)
+def test_run_dynamic_out_of_core_matches_jax(prog_name, kind):
+    """tests/test_mutation.py's ``storage="oocore"`` axis (BSP only: the
+    async model does not stream): the mutation epoch re-plans the
+    super-shards, and the restart gives JAX's mode and fixed point and
+    run_reference's."""
+    port, jax = _pair(prog_name, oocore=OOCORE, block=OOCORE_BLOCK)
+    assert isinstance(port._loop, tplug.OocoreDriveLoop)
+    assert port.daemon.num_super_shards == jax.daemon.num_super_shards > 0
+    assert port.run(max_iterations=CAP).converged
+    jax.run(max_iterations=CAP)
+    tlog, jlog = _logs(prog_name, kind)
+    res = port.run_dynamic(tlog, max_iterations=CAP)
+    want = jax.run_dynamic(jlog, max_iterations=CAP)
+    assert res.converged and port.epochs.epoch.cause == "mutation"
+    assert port.epochs.epoch.oocore_plan is port.daemon.oocore_plan
+    sound = port.program.monoid.idempotent and kind == "add"
+    got_r, want_r = port.last_restart, jax.last_restart
+    assert got_r["mode"] == want_r["mode"] == ("dirty" if sound
+                                               else "cold_fallback")
+    for key in ("incremental", "reason", "dirty_count"):
+        assert got_r[key] == want_r[key], key
+    if prog_name != "pagerank":
+        assert res.iterations == want.iterations
+        assert [r["oocore"]["skipped"] for r in res.per_iteration] == \
+            [r["oocore"]["skipped"] for r in want.per_iteration]
+    _assert_same_state(prog_name, res.state, want.state)
+    g2, _ = tmutation.apply_to_graph(_graph(prog_name)[1], tlog.freeze())
+    ref, _ = tplug.run_reference(g2, talg.ALGORITHMS[prog_name](g2),
+                                 max_iterations=CAP, device="cpu")
+    _assert_same_state(prog_name, res.state, ref)
+
+
+@pytest.mark.parametrize("kernel", ["reference", "cuda"])
+def test_mid_run_batch_out_of_core_matches_jax(kernel):
+    """An add batch before iteration 3 of an out-of-core sssp_bf: the run
+    continues incrementally over the re-planned super-shards to JAX's
+    fixed point, in as many iterations."""
+    tlog, jlog = _logs("sssp_bf", "add")
+    port, jax = _pair("sssp_bf", kernel=kernel, oocore=OOCORE,
+                      block=OOCORE_BLOCK,
+                      mutations=([(3, tlog)], [(3, jlog)]))
+    res = port.run(max_iterations=CAP)
+    want = jax.run(max_iterations=CAP)
+    assert res.converged and res.iterations == want.iterations
+    (mut,) = [r["mutation"] for r in res.per_iteration if "mutation" in r]
+    assert mut["incremental"] and "mutation" in res.per_iteration[2]
+    for a, b in zip(res.per_iteration, want.per_iteration):
+        assert a["active"] == b["active"], a["iteration"]
+    np.testing.assert_array_equal(res.state, np.asarray(want.state))
+    ref, _ = tplug.run_reference(port.graph, talg.sssp_bf(port.graph),
+                                 device="cpu")
+    np.testing.assert_array_equal(res.state, ref)
 
 
 def test_incremental_restart_takes_fewer_iterations():
