@@ -217,6 +217,51 @@ Phases, each printing one JSON line; any failure exits non-zero:
               hit rate, the kill's and re-plans' seconds, and for (a)
               and (c) phase 5b's ``profile``.
 
+5i. serve  — online graph-query serving (``repro_torch.serve``) on phase
+              3's graph and shards at ``mesh=4`` with ``CSRConfig()``
+              pinned, ``GraphServeSession(kernel="cuda", max_batch=8)``:
+              (a) a batch of 8 queries of each kind (``khop`` at hops 3,
+              ``sssp``, ``ppr``; six vertices with out-edges drawn from
+              ``--seed``, a duplicate and a 3-seed query), khop and sssp
+              columns bit-equal to ``run_reference`` of the same program
+              on the card, duplicates equal, each ppr column within rtol
+              1e-4 / atol 1e-8, and within 1e-5 of its mass in L1, of its
+              query's solo ``run_reference`` at the apply where the freeze
+              stops it (the state before the apply that found it quiet; an
+              apply either side where float32 rounding moves the quiet
+              test: ``stop_offsets``); every sum program's reference in
+              this phase runs in float64, since a float32 dense
+              reference's atomic sums into a hub drift by ~3e-5 at scale
+              20.  Each batch runs twice (the second is the
+              family's steady state), and sssp's first query as a batch of
+              one, bit-equal to its column; (b) a ``lookup`` of
+              ``pagerank`` against ``run_reference`` at the session's 60
+              iterations (rtol 1e-4 / atol 1e-7); (c) a seeded
+              ``generate_workload`` (khop, sssp, ppr, lookup; repeat
+              fraction 0.2; 16,000 requests a virtual second, so batches
+              flush full) replayed through ``GraphServeRouter(
+              max_batch=8)``, cut to the longest prefix of its 64 requests
+              whose batches all land on (a)'s families; every batch answer
+              against its solo reference, every cache hit equal to its
+              first answer; (d) ``tests/test_serve.py``'s kill arm on a
+              session of its own: a khop answer cached, device 2 killed at
+              iteration 5 and rejoining at 8 inside one ppr run (two
+              migrations, 4 → 2 → 4), the volatile entry alone flushed, the
+              durable answer still hit, and the answers after the join
+              exact.  Every serving run: the fused loop, ``csr_tile`` once
+              an iteration, one small fetch an iteration and one
+              vertex-sized a run; no sweep.  Prints ``init_s`` per family,
+              ``service_s`` per batch and s per query at B = 8 beside B =
+              1, the replay's qps and p50/p99, and the migrations' seconds;
+              then ``csr_tile`` at the serve triples (add_one/min,
+              add_weight/min, pr_div_deg/sum at K = 8, each with its
+              program's aux: none for the min programs, padded to the
+              kernel's one zero column as the main path pads it, 1 + 8
+              wide for ppr) over a serve family's stacked tiles, against
+              its plain version as in phase 4.  Every graph kernel's bound
+              counts the aux columns its message function reads (1 for
+              pr_div_deg, else 0), not the aux it is handed.
+
 6. attention — a qwen2-72b attention layer at ``train_4k`` (B=1, Hq=64,
               Hkv=8, S=4096, D=128, bf16, causal) through
               ``kernels.ops.flash_attention``, with the launch counter zeroed
@@ -391,6 +436,14 @@ def bound(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def aux_read(program) -> int:
+    """Aux columns a kernel's message function reads at a live source:
+    ``pr_div_deg`` divides by column 0 (the out-degree), the other message
+    functions read none.  Wider aux (PPR's restart columns) is the apply's,
+    not the kernel's, so the bound counts only this many."""
+    return 1 if program.gen_op == "pr_div_deg" else 0
+
+
 def edge_bytes(emask) -> int:
     """Edge-slot bytes a kernel must read: a live slot's src index, dst
     index, weight and mask (16 B); a dead or padded slot's mask alone
@@ -452,9 +505,11 @@ def phase_csr_tile(tiles, program, state, aux, active, label):
     import torch
 
     from repro_torch.kernels import edge_block as ebk
+    from repro_torch.kernels import ops
 
     dev = state.device
     csr = {k: torch.as_tensor(v, device=dev) for k, v in tiles.items()}
+    aux = ops._pad_aux(state, aux)  # a zero-width aux as the main path pads it
     svids = csr["svids"].long()
     vsrc = state[svids].contiguous()
     vaux = aux[svids].contiguous()
@@ -476,8 +531,8 @@ def phase_csr_tile(tiles, program, state, aux, active, label):
     rt = rowst.shape[1]
     live_src = torch.unique(
         (torch.arange(t, device=dev)[:, None] * st + csr["lsrc"])[emask])
-    nbytes = edge_bytes(emask) + live_src.numel() * (k + a) * 4 \
-        + t * rt * (k + 1) * 4
+    nbytes = edge_bytes(emask) + live_src.numel() * (k + aux_read(
+        program)) * 4 + t * rt * (k + 1) * 4
     ops = int(emask.sum()) * k * 2
     msgs = program.msg_gen(
         torch.take_along_dim(vsrc, csr["lsrc"].long()[..., None], 1
@@ -538,8 +593,8 @@ def phase_edge_block(bs, program, state, aux, active, label,
     vb, k, a = vstate.shape[1], vstate.shape[2], vaux.shape[2]
     live_src = torch.unique(
         (torch.arange(nb, device=dev)[:, None] * vb + lsrc)[emask])
-    nbytes = (edge_bytes(emask) + live_src.numel() * (k + a) * 4
-              + nb * vb * (k + 1) * 4) // launches
+    nbytes = (edge_bytes(emask) + live_src.numel() * (k + aux_read(
+        program)) * 4 + nb * vb * (k + 1) * 4) // launches
     ops = int(emask.sum()) * k * 2 // launches
     msgs = program.msg_gen(
         torch.take_along_dim(vstate, lsrc.long()[..., None], 1
@@ -2577,6 +2632,498 @@ def phase_elastic(g, parts, pr, sp, refs, mesh4, seed) -> tuple:
     return out, launches_tile
 
 
+# phase 5i: online graph-query serving (repro_torch.serve) at mesh=4 with
+# CSRConfig() pinned.  (c)'s workload arrives faster than the admission
+# deadline, so batches flush full (or at the end's drain), and its request
+# count is cut until every batch lands on a family (a) built: a drained
+# partial batch would build a bucket-1, -2 or -4 family (a scale-20
+# construction, 14-19 s each) that the smoke has no room for.
+SERVE_B = 8                   # the session's and the router's max_batch
+SERVE_HOPS = 3
+SERVE_REQUESTS = 64
+SERVE_MIN_REQUESTS = 32       # (c) is cut no further
+SERVE_RATE = 16000.0          # requests per virtual second
+SERVE_REPEAT = 0.2
+SERVE_KILL = {"kills": [(5, 2)], "recoveries": [(8, 2)]}  # 4 → 2 → 4
+# PPR on the card against its query's solo float64 reference at the apply
+# where the freeze stops the column (ppr_tail, check_ppr): element-wise, and
+# as the L1 distance over the column's L1 norm (a mass most vertices hold
+# at ~1e-6 each, where an atol says little).  float32 rounding alone is
+# ~2e-7 of the L1 norm and under 1% of the element tolerance (R-MAT scale
+# 16, plain path); the column rounded to bf16 is 1.5e-3 and 30x, and one
+# apply more or less 2e-5 (scale 11) to 5e-5 (scale 14).
+# pagerank lookups stop at pagerank's tol 1e-8, so a run one iteration
+# apart differs by about that
+PPR_RTOL, PPR_ATOL, PPR_L1 = 1e-4, 1e-8, 1e-5
+LOOKUP_RTOL, LOOKUP_ATOL = 1e-4, 1e-7
+
+
+def serve_reference(g, prog, max_iterations=None):
+    """``run_reference`` of a serve program on the card: as it is for the
+    min programs (exact), in float64 for the sum programs.  At scale 20 a
+    float32 dense reference scatters millions of messages into a hub with
+    atomics, and its rounding there moves a PPR column by ~3e-5."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import plug
+
+    if prog.monoid.idempotent:
+        return plug.run_reference(g, prog, max_iterations, device="cuda")
+    init = prog.init
+    wide = dataclasses.replace(prog, init=lambda gr: tuple(
+        a.astype(np.float64) for a in init(gr)))
+    return plug.run_reference(g, wide, max_iterations, device="cuda")
+
+
+def ppr_tail(g, seeds) -> list:
+    """One PPR query's float64 ``run_reference`` on the card: its states
+    after its last three applies, the last one the apply that left it quiet
+    (numpy (N,) columns, oldest first).  A served column stops at the state
+    before the apply that found its query quiet (the per-query freeze of
+    ``apply_step``): the middle one, or a neighbour where float32 rounding
+    moves the quiet test (max change < tol) an iteration."""
+    import collections
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import plug
+    from repro_torch.graph.algorithms import BATCHED_QUERIES
+
+    prog = BATCHED_QUERIES["ppr"](g, [seeds])
+    init, apply = prog.init, prog.msg_apply
+    tail = collections.deque(maxlen=3)
+
+    def recorded(state, merged, has_msg, aux, it):
+        if not tail:
+            tail.append(state[:, 0].clone())
+        new, active = apply(state, merged, has_msg, aux, it)
+        tail.append(new[:, 0].clone())
+        return new, active
+
+    wide = dataclasses.replace(prog, msg_apply=recorded, init=lambda gr:
+                               tuple(a.astype(np.float64) for a in init(gr)))
+    plug.run_reference(g, wide, device="cuda")
+    return [t.cpu().numpy() for t in tail]
+
+
+def check_ppr(label, got, tail) -> tuple:
+    """A served PPR column against the state of ``tail`` (``ppr_tail``)
+    nearest it in L1, within PPR_RTOL / PPR_ATOL element-wise and PPR_L1 of
+    its mass.  Returns (max |Δ|, the L1 share, the stop's offset from the
+    float64 run's: 0 where both stop at the same apply)."""
+    import numpy as np
+
+    shares = [l1_share(got, t) for t in tail]
+    at = int(np.argmin(shares))
+    return (check_answers(label, "ppr", got, tail[at]), shares[at],
+            at - (len(tail) - 2))
+
+
+def serve_seeds(g, seed) -> list:
+    """(a)'s 8 queries: six vertices with out-edges drawn from ``seed``, a
+    duplicate of the second and a 3-seed query."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 27)
+    live = np.flatnonzero(g.out_degrees() > 0)
+    v = [int(x) for x in rng.choice(live, size=9, replace=False)]
+    return v[:6] + [v[1], tuple(v[6:])]
+
+
+@contextlib.contextmanager
+def recording_runs(runs: list):
+    """Appends (middleware, ``Result``) to ``runs`` for each
+    ``Middleware.run`` while the block runs (a serving call's family and
+    analytics runs), so their records can be checked."""
+    from repro_torch import plug
+
+    run = plug.Middleware.run
+
+    def recorded(self, *args, **kwargs):
+        res = run(self, *args, **kwargs)
+        runs.append((self, res))
+        return res
+
+    plug.Middleware.run = recorded
+    try:
+        yield runs
+    finally:
+        plug.Middleware.run = run
+
+
+def check_serve_runs(label, runs, calls, launches, n) -> dict:
+    """Phase 5i's checks of the fused runs a serving step made: each on the
+    fused loop with every record ``fused``; ``csr_tile`` once an iteration;
+    one small fetch an iteration and one vertex-sized (the final state) a
+    run."""
+    its = sum(res.iterations for _, res in runs)
+    for mw, res in runs:
+        if mw._fused_kind != "bsp" or not all(
+                r.get("fused") for r in res.per_iteration):
+            raise AssertionError(f"{label}: ran the host loop, not the fused "
+                                 f"one (_fused_kind={mw._fused_kind!r})")
+    if launches != its:
+        raise AssertionError(f"{label}: csr_tile launched {launches} times "
+                             f"in {its} fused iterations")
+    small = [c for c in calls if c[1] < n]
+    big = [c for c in calls if c[1] >= n]
+    if len(small) != its or big != [("cpu", n * mw.k) for mw, _ in runs]:
+        raise AssertionError(f"{label}: {len(small)} small fetches in {its} "
+                             f"iterations, vertex-sized {big}")
+    return {"runs": len(runs), "iterations": its, "csr_tile": launches,
+            "fetches_per_iteration": len(small) / max(its, 1),
+            "vertex_sized_fetches": len(big)}
+
+
+def serve_step(label, fn, n):
+    """Runs ``fn()`` (a session or router call) with launches and fetches
+    counted; returns its value, the fused runs it made and their checks."""
+    from repro_torch.kernels import edge_block as ebk
+
+    calls, runs, before = [], [], ebk.csr_tile.launches
+    t0 = time.perf_counter()
+    with counting_fetches(calls), recording_runs(runs):
+        out = fn()
+    wall = time.perf_counter() - t0
+    checks = check_serve_runs(label, runs, calls,
+                              ebk.csr_tile.launches - before, n)
+    return out, runs, dict(checks, wall_s=wall)
+
+
+def l1_share(got, want) -> float:
+    """|got − want|'s L1 norm over want's."""
+    import numpy as np
+
+    want = np.asarray(want, dtype=np.float64)
+    return float(np.abs(np.asarray(got, dtype=np.float64) - want).sum()
+                 / max(np.abs(want).sum(), LIVE_MIN))
+
+
+def check_answers(label, kind, got, want) -> float:
+    """A served column against its reference: khop/sssp bit-equal, ppr and
+    lookup within their tolerances, ppr also within PPR_L1 of its mass.
+    Returns max |Δ|."""
+    tol = {"ppr": (PPR_RTOL, PPR_ATOL),
+           "lookup": (LOOKUP_RTOL, LOOKUP_ATOL)}.get(kind)
+    max_abs = check_state(label, got, want, tol)
+    if kind == "ppr" and l1_share(got, want) > PPR_L1:
+        raise AssertionError(f"{label}: L1 distance {l1_share(got, want)} "
+                             f"of the column's mass, above {PPR_L1}")
+    return max_abs
+
+
+def serve_plan(serve, wl, families) -> int:
+    """The longest prefix of workload ``wl``, down to SERVE_MIN_REQUESTS,
+    whose replay (simulated: admission and caching decide alone) runs only
+    batches of ``families`` (kind, params, bucket) and lookups."""
+    from repro_torch.core.pow2 import pow2_bucket
+
+    class Recorder:
+        max_batch = SERVE_B
+
+        def __init__(self):
+            self.keys = set()
+
+        def execute_batch(self, kind, params, seeds_list):
+            if kind != "lookup":
+                self.keys.add((kind, params,
+                               pow2_bucket(len(seeds_list), SERVE_B)))
+            return [0.0 for _ in seeds_list], {
+                "batch": len(seeds_list), "iterations": 0, "service_s": 0.0,
+                "durable": True, "migrations": []}
+
+    for count in range(len(wl), SERVE_MIN_REQUESTS - 1, -1):
+        rec = Recorder()
+        serve.replay(serve.GraphServeRouter(rec, max_batch=SERVE_B),
+                     wl[:count])
+        if rec.keys <= set(families):
+            return count
+    return len(wl)
+
+
+def phase_serve(g, seed) -> tuple:
+    """Phase 5i: ``repro_torch.serve`` on phase 3's graph and shards at
+    ``mesh=SHARDS`` with ``CSRConfig()`` pinned: (a) a batch of 8 of each
+    kind (and sssp's first query alone), (b) a pagerank lookup, (c) a
+    seeded replay through ``GraphServeRouter``, (d) a kill and a join under
+    live traffic, then the CSR tile at the serve triples' stacked shape.
+    Returns the phase's line, its csr_tile launches and its kernel
+    cases."""
+    import numpy as np
+    import torch
+
+    from repro_torch import plug, serve
+    from repro_torch.graph.algorithms import BATCHED_QUERIES, pagerank
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.ops import CSRConfig
+
+    t_phase = time.perf_counter()
+    n = g.num_vertices
+    sweeps = autotune.CACHE.sweeps
+    dev = torch.device("cuda")
+    out = {"phase": "serve", "m": SHARDS, "max_batch": SERVE_B,
+           "reduced": {}}
+    launches_tile = 0
+    session = serve.GraphServeSession(
+        g, num_shards=SHARDS, kernel="cuda", max_batch=SERVE_B,
+        device="cuda", mesh=SHARDS, csr_config=CSRConfig())
+    seeds = serve_seeds(g, seed)
+    params = {"khop": (("hops", SERVE_HOPS),), "sssp": (), "ppr": ()}
+
+    # (a) a batch of 8 of each kind, each column against run_reference of
+    # the same program on the card; sssp's first query alone too
+    batch8, batches = {}, []
+    for kind in ("khop", "sssp", "ppr"):
+        label = f"{kind}/B{SERVE_B}"
+        (answers, rec), runs, checks = serve_step(
+            label, lambda: session.execute_batch(kind, params[kind], seeds),
+            n)
+        launches_tile += checks["csr_tile"]
+        prog = BATCHED_QUERIES[kind](g, seeds, **dict(params[kind]))
+        ref, ref_it = serve_reference(g, prog)
+        extra = {}
+        if kind == "ppr":
+            # the batched contract: column q is query q's solo run (the
+            # freeze stops a quiet column where its solo run stops), held
+            # against the float64 solo run where it stops (check_ppr)
+            got = [check_ppr(f"{label}/q{q}", answers[q],
+                             ppr_tail(g, seeds[q])) for q in range(SERVE_B)]
+            max_abs = max(x[0] for x in got)
+            extra["l1_share_vs_reference"] = max(x[1] for x in got)
+            extra["stop_offsets"] = [x[2] for x in got]
+        else:
+            max_abs = max(check_answers(f"{label}/q{q}", kind, answers[q],
+                                        ref[:, q]) for q in range(SERVE_B))
+        if not np.array_equal(answers[1], answers[6]):
+            raise AssertionError(f"{label}: duplicate columns differ")
+        # the same batch again: the family's steady state
+        (again, rec2), _, checks2 = serve_step(
+            label + "/again",
+            lambda: session.execute_batch(kind, params[kind], seeds), n)
+        launches_tile += checks2["csr_tile"]
+        for q in range(SERVE_B):
+            check_answers(f"{label}/again/q{q}", kind, again[q], answers[q])
+        batch8[kind] = (answers, prog)
+        batches.append({
+            "batch": label, "iterations": rec["iterations"],
+            "reference_iterations": ref_it, "converged": rec["converged"],
+            "service_s": rec["service_s"], "service_s_again":
+            rec2["service_s"], "s_per_query": rec2["service_s"] / SERVE_B,
+            "max_abs_err_vs_reference": max_abs, **extra, **checks})
+        emit({"phase": "serve", "step": batches[-1]})
+    (one, rec1), _, checks = serve_step(
+        "sssp/B1", lambda: session.execute_batch("sssp", (), seeds[:1]), n)
+    launches_tile += checks["csr_tile"]
+    (again, rec1b), _, checks1b = serve_step(
+        "sssp/B1/again",
+        lambda: session.execute_batch("sssp", (), seeds[:1]), n)
+    launches_tile += checks1b["csr_tile"]
+    for got in (one[0], again[0]):
+        if not np.array_equal(got, batch8["sssp"][0][0]):
+            raise AssertionError("sssp/B1: not bit-equal to its column of "
+                                 f"the batch of {SERVE_B}")
+    batches.append({"batch": "sssp/B1", "iterations": rec1["iterations"],
+                    "service_s": rec1["service_s"],
+                    "service_s_again": rec1b["service_s"],
+                    "s_per_query": rec1b["service_s"], **checks})
+    b8 = next(b for b in batches if b["batch"] == f"sssp/B{SERVE_B}")
+    out["batches"] = batches
+    out["sssp_s_per_query_b8_over_b1"] = b8["s_per_query"] / rec1b[
+        "service_s"]
+
+    # (b) a pagerank lookup: the converged field against run_reference
+    field = (("field", "pagerank"),)
+    look_seeds = [(seeds[0], seeds[2], seeds[4]), (seeds[1],)]
+    (looked, recl), look_runs, checks = serve_step(
+        "lookup/pagerank",
+        lambda: session.execute_batch("lookup", field, look_seeds), n)
+    launches_tile += checks["csr_tile"]
+    pr_ref, pr_ref_it = serve_reference(
+        g, pagerank(g), max_iterations=session.analytics_iterations)
+    lk_abs = check_answers("lookup/pagerank", "lookup",
+                           session._analytics["pagerank"], pr_ref[:, 0])
+    for s, got in zip(look_seeds, looked):
+        check_answers("lookup/pagerank/answer", "lookup", got,
+                      pr_ref[list(s), 0])
+    out["lookup"] = {"service_s": recl["service_s"],
+                     "analytics_iterations": look_runs[-1][1].iterations,
+                     "reference_iterations": pr_ref_it,
+                     "max_abs_err_vs_reference": lk_abs, **checks}
+    emit({"phase": "serve", "step": "lookup", **out["lookup"]})
+
+    # (c) a seeded replay through the router, every batch on (a)'s families
+    wl = serve.generate_workload(
+        num_requests=SERVE_REQUESTS, num_vertices=n, rate=SERVE_RATE,
+        seed=seed, hops=SERVE_HOPS, repeat_fraction=SERVE_REPEAT)
+    count = serve_plan(serve, wl, session.compiled_families)
+    if count < SERVE_REQUESTS:
+        out["reduced"]["replay_requests"] = (
+            f"{count} of {SERVE_REQUESTS}: the longest prefix whose batches "
+            "all land on families (a) built (no family build in the replay)")
+    router = serve.GraphServeRouter(session, max_batch=SERVE_B)
+    fams_before = len(session.compiled_families)
+    (answers, stats), runs, checks = serve_step(
+        "replay", lambda: serve.replay(router, wl[:count]), n)
+    launches_tile += checks["csr_tile"]
+    # replay lists the cache hits first (at submit) and the batches' answers
+    # after them; the router's cache starts empty, so each hit's key was
+    # answered by a batch, and every batch answer of a key is the same
+    solo, first, rep_abs, rep_l1, offsets = {}, {}, 0.0, 0.0, []
+    for a in answers:
+        key = a.query.cache_key
+        if not a.cached and key in first and not np.array_equal(
+                np.asarray(a.value), first[key]):
+            raise AssertionError(f"replay: two answers of {key} differ")
+        if not a.cached:
+            first.setdefault(key, np.asarray(a.value))
+    for a in answers:
+        key = a.query.cache_key
+        if a.cached:
+            if key not in first or not np.array_equal(
+                    np.asarray(a.value), first[key]):
+                raise AssertionError(f"replay: cached {key} is not its "
+                                     "first answer")
+            continue
+        q = a.query
+        if q.kind == "ppr":
+            if key not in solo:
+                solo[key] = ppr_tail(g, q.seeds)
+            max_abs, share, off = check_ppr("replay/ppr",
+                                            np.asarray(a.value), solo[key])
+            rep_abs, rep_l1 = max(rep_abs, max_abs), max(rep_l1, share)
+            offsets.append(off)
+            continue
+        if q.kind == "lookup":
+            want = pr_ref[np.asarray(q.seeds), 0]
+        else:
+            if key not in solo:
+                prog = BATCHED_QUERIES[q.kind](g, [q.seeds], **dict(q.params))
+                solo[key] = serve_reference(g, prog)[0][:, 0]
+            want = solo[key]
+        rep_abs = max(rep_abs, check_answers(f"replay/{q.kind}", q.kind,
+                                             np.asarray(a.value), want))
+    out["replay"] = {
+        "requests": count, "rate_per_virtual_s": SERVE_RATE,
+        "repeat_fraction": SERVE_REPEAT, "completed": stats["completed"],
+        "cached": stats["cached"], "qps": stats["throughput_qps"],
+        "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+        "wall_s": stats["wall_s"], "kinds": stats["kinds"],
+        "batch_sizes": [res.state.shape[1] for _, res in runs],
+        "families_built": len(session.compiled_families) - fams_before,
+        "solo_references": len(solo), "max_abs_err_vs_reference": rep_abs,
+        "ppr_l1_share_vs_reference": rep_l1, "ppr_stop_offsets": offsets,
+        **checks}
+    if stats["completed"] != count:
+        raise AssertionError(f"replay: {stats['completed']} of {count} "
+                             "requests completed")
+    emit({"phase": "serve", "step": "replay", **out["replay"]})
+    out["families"] = len(session.compiled_families)
+    out["init_s"] = {"/".join(str(x) for x in k): v
+                     for k, v in session.init_s.items()}
+
+    # the CSR tile at the serve triples' stacked shape: all shards' tiles of
+    # a serve family, the states (a) answered
+    fam = session._family("sssp", (), SERVE_B)
+    stacked = {k: v.flatten(0, 1) for k, v in
+               fam["mw"].daemon.stacked["csr"].items()}
+    rng = np.random.default_rng(seed + 9)
+    active = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+    cases = []
+    for kind, label in (("khop", "khop_min_k8/serve"),
+                        ("sssp", "sssp_min_k8/serve"),
+                        ("ppr", "ppr_sum_k8/serve")):
+        answers, prog = batch8[kind]
+        state = torch.from_numpy(np.stack(answers, 1)).to(dev)
+        # each program's own aux: (n, 0) for khop/sssp, (n, 1 + B) for ppr
+        aux = torch.from_numpy(prog.init(g)[1]).to(dev)
+        act = (torch.ones(n, dtype=torch.bool, device=dev) if kind == "ppr"
+               else active)
+        rec = phase_csr_tile(stacked, prog, state, aux, act, label)
+        emit({"phase": "kernel", **rec})
+        cases.append(rec)
+    del stacked, fam, session, router
+    torch.cuda.empty_cache()
+
+    # (d) a kill and a join under live traffic: tests/test_serve.py's
+    # acceptance arm on a session of its own
+    t0 = time.perf_counter()
+    ks = serve.GraphServeSession(
+        g, num_shards=SHARDS, kernel="cuda", max_batch=SERVE_B,
+        monitor=plug.FleetMonitor(num_hosts=SHARDS),
+        failures=plug.FailureSchedule(**SERVE_KILL), device="cuda",
+        mesh=SHARDS, csr_config=CSRConfig())
+    router = serve.GraphServeRouter(ks, max_wait=0.0)
+    warm_q = serve.Query.make("khop", seeds[0], hops=2)
+    t_warm, _ = router.submit(warm_q)
+    router.clock.advance(0.01)
+    _, _, checks_w = serve_step("kill/warm", router.pump, n)
+    launches_tile += checks_w["csr_tile"]
+    warm = router.result(t_warm)
+    if warm is None or warm.cached or ks.mesh_epoch != 0:
+        raise AssertionError("kill/warm: the warm khop did not run before "
+                             "the kill")
+    router.cache.insert(("sentinel",), 0, durable=False)
+    t_ppr, _ = router.submit(serve.Query.make("ppr", seeds[2]))
+    router.clock.advance(0.01)
+    _, runs, checks_p = serve_step("kill/ppr", router.pump, n)
+    launches_tile += checks_p["csr_tile"]
+    migs = [r["migration"] for r in runs[0][1].per_iteration
+            if "migration" in r]
+    ppr_fam = ks._family("ppr", (), 1)
+    if (ks.mesh_epoch != 2 or [m["killed"] for m in migs] != [[2], []]
+            or [m["joined"] for m in migs] != [[], [2]]
+            or ppr_fam["mw"].daemon.m != SHARDS):
+        raise AssertionError(f"kill/ppr: epoch {ks.mesh_epoch}, migrations "
+                             f"{migs}, m={ppr_fam['mw'].daemon.m}")
+    if (("sentinel",) in router.cache or router.cache.stats.flushed != 1
+            or warm_q.cache_key not in router.cache):
+        raise AssertionError("kill/ppr: the migration flushed "
+                             f"{router.cache.stats.as_dict()}, expected the "
+                             "volatile sentinel alone")
+    _, hit = router.submit(serve.Query.make("khop", seeds[0], hops=2))
+    if hit is None or not hit.cached or not np.array_equal(hit.value,
+                                                           warm.value):
+        raise AssertionError("kill: the durable khop answer did not survive")
+    warm_ref = serve_reference(g, BATCHED_QUERIES["khop"](
+        g, [seeds[0]], hops=2))[0][:, 0]
+    check_answers("kill/warm", "khop", warm.value, warm_ref)
+    ppr_abs, ppr_l1, ppr_off = check_ppr(
+        "kill/ppr", router.result(t_ppr).value, ppr_tail(g, seeds[2]))
+    after = [seeds[3], seeds[7]]
+    (ans_after, rec_after), _, checks_a = serve_step(
+        "kill/after", lambda: ks.execute_batch("sssp", (), after), n)
+    launches_tile += checks_a["csr_tile"]
+    if rec_after["mesh_epoch"] != 2 or rec_after["migrations"]:
+        raise AssertionError(f"kill/after: {rec_after}")
+    for q, s in enumerate(after):
+        want = serve_reference(g, BATCHED_QUERIES["sssp"](g, [s]))[0][:, 0]
+        check_answers(f"kill/after/q{q}", "sssp", ans_after[q], want)
+    out["kill"] = {
+        "schedule": SERVE_KILL, "mesh_epoch": ks.mesh_epoch,
+        "migrations": [{k: m[k] for k in ("killed", "joined",
+                                          "devices_before", "devices_after",
+                                          "seconds")} for m in migs],
+        "migration_s": [m["seconds"] for m in migs],
+        "ppr_iterations": runs[0][1].iterations,
+        "ppr_max_abs_err_vs_reference": ppr_abs,
+        "ppr_l1_share_vs_reference": ppr_l1, "ppr_stop_offset": ppr_off,
+        "cache": router.cache.stats.as_dict(),
+        "init_s": {"/".join(str(x) for x in k): v
+                   for k, v in ks.init_s.items()},
+        "checks": [checks_w, checks_p, checks_a],
+        "seconds": time.perf_counter() - t0}
+    del ks, router
+    torch.cuda.empty_cache()
+    if autotune.CACHE.sweeps != sweeps:
+        raise AssertionError(f"phase 5i swept {autotune.CACHE.sweeps - sweeps}"
+                             " times with CSRConfig() pinned")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, launches_tile, cases
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20,
@@ -2816,6 +3363,13 @@ def main(argv=None) -> int:
     e2e_launches["csr_tile"] += oocore_launches
     torch.cuda.empty_cache()
 
+    # -- 5i. online graph-query serving -------------------------------------
+    serve_rec, serve_launches, serve_cases = phase_serve(g, args.seed)
+    emit(serve_rec)
+    e2e_launches["csr_tile"] += serve_launches
+    cases.extend(serve_cases)
+    torch.cuda.empty_cache()
+
     # -- 6. attention at qwen2-72b width (and whisper-base's head dim) -----
     attn = []
     for case in ATTN_CASES:
@@ -2854,7 +3408,8 @@ def main(argv=None) -> int:
                 "launches_mesh4": mesh_launches,
                 "launches_async": async_launches,
                 "launches_elastic": elastic_launches,
-                "launches_oocore": oocore_launches}),
+                "launches_oocore": oocore_launches,
+                "launches_serve": serve_launches}),
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],

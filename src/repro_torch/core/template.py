@@ -135,6 +135,20 @@ class VertexProgram:
     # Only edges whose src was active last iteration generate messages.
     frontier_driven: bool = True
     gen_op: str | None = None
+    # -- batched multi-query programs (repro_torch.serve) ------------------
+    # B > 0 declares the state a stack of B independent queries, each
+    # owning K/B consecutive state columns.  ``query_activity(old, new) ->
+    # (N, B) bool`` reports which vertices changed per query; the apply
+    # step then freezes converged queries by reverting their columns
+    # (``plug.middleware.apply_step``), so a finished query stops feeding
+    # the shared frontier while its batch-mates keep running.
+    num_queries: int = 0
+    query_activity: Callable[..., torch.Tensor] | None = None
 
     def supports_sync_skipping(self) -> bool:
         return self.monoid.idempotent
+
+    def is_batched_query(self) -> bool:
+        """True iff this program declares the per-query convergence
+        contract (``plug.protocols.BatchQueryCapable``)."""
+        return self.num_queries > 0 and self.query_activity is not None

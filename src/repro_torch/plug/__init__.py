@@ -79,21 +79,21 @@ from repro_torch.oocore.config import OocoreConfig
 from repro_torch.plug.middleware import (AsyncDriveLoop, DriveLoop,
                                          HostDriveLoop, Middleware,
                                          OocoreDriveLoop, make_apply_fn)
-from repro_torch.plug.protocols import (ComputationModel, Daemon,
-                                        DevicePartialUpper, ElasticUpper,
-                                        MaskCapableDaemon, OutOfCoreCapable,
-                                        PlugOptions, PriorityAsyncModel,
-                                        Result, ShardCapableDaemon,
-                                        UpperSystem)
+from repro_torch.plug.protocols import (BatchQueryCapable, ComputationModel,
+                                        Daemon, DevicePartialUpper,
+                                        ElasticUpper, MaskCapableDaemon,
+                                        OutOfCoreCapable, PlugOptions,
+                                        PriorityAsyncModel, Result,
+                                        ShardCapableDaemon, UpperSystem)
 from repro_torch.plug.reference import run_reference
 from repro_torch.plug.uppers import (HostUpperSystem, MeshUpperSystem,
                                      get_upper_system, register_upper_system,
                                      upper_system_names)
 
 __all__ = [
-    "AsyncDriveLoop", "AsyncModel", "BSP", "GAS", "BlockedDaemon",
-    "ComputationModel", "Daemon", "DevicePartialUpper", "DriveLoop",
-    "ElasticUpper", "FailureSchedule", "FleetMonitor", "HostDriveLoop",
+    "AsyncDriveLoop", "AsyncModel", "BSP", "BatchQueryCapable", "GAS",
+    "BlockedDaemon", "ComputationModel", "Daemon", "DevicePartialUpper",
+    "DriveLoop", "ElasticUpper", "FailureSchedule", "FleetMonitor", "HostDriveLoop",
     "HostUpperSystem", "MaskCapableDaemon", "MeshUpperSystem", "Middleware",
     "MutationBatch", "MutationLog", "MutationSchedule", "NaiveDaemon",
     "OocoreConfig", "OocoreDriveLoop", "OutOfCoreCapable",

@@ -114,13 +114,29 @@ def _async_model_is_fusable(model) -> bool:
 
 
 def apply_step(program: VertexProgram, state, merged, has_msg, aux, it):
-    """MSGApply on tensors, where they lie → ``(new_state, active)``; both
-    drive loops apply through it."""
+    """MSGApply on tensors, where they lie → ``(new_state, active)``; every
+    drive loop applies through it."""
     # Vertices with no message keep identity-merged values; msg_apply
     # implementations treat identity correctly (min/max) or use has_msg.
     merged = torch.where(has_msg[:, None], merged,
                          torch.full_like(merged, program.monoid.identity))
-    return program.msg_apply(state, merged, has_msg[:, None], aux, it)
+    new, active = program.msg_apply(state, merged, has_msg[:, None], aux, it)
+    if program.is_batched_query():
+        # Per-query convergence masking (BatchQueryCapable): a query whose
+        # columns went quiet is FROZEN by reverting them and dropped from
+        # the shared frontier — finished queries exit early while their
+        # batch-mates keep running.  It lives here, in the one apply every
+        # drive loop shares, so all loops mask identically; the flags stay
+        # tensors on the state's device (no fetch).
+        qact = program.query_activity(state, new)         # (N, B) bool
+        q_run = qact.any(dim=0)                           # (B,) still going
+        per_q = new.shape[1] // program.num_queries
+        colmask = torch.repeat_interleave(q_run, per_q)   # (K,)
+        new = torch.where(colmask[None, :], new, state)
+        # a frozen query has no active vertex, so the frontier is the
+        # running queries' activity
+        active = qact.any(dim=1)
+    return new, active
 
 
 def make_apply_fn(program: VertexProgram, device="cuda"):

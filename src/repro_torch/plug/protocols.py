@@ -282,6 +282,44 @@ def divisor_mesh(num_items: int, mesh=None) -> int:
 
 
 @runtime_checkable
+class BatchQueryCapable(Protocol):
+    """Optional *program* capability: a batch of B independent queries
+    stacked into the state columns (``repro_torch.serve``'s contract).
+
+    A :class:`~repro_torch.core.template.VertexProgram` exposing
+    ``num_queries > 0`` plus ``query_activity`` declares that its ``(N, K)``
+    state is a stack of B queries, each owning ``K/B`` consecutive columns.
+    ``query_activity(old, new) -> (N, B)`` bool reports per-query vertex
+    activity; the apply step every drive loop shares
+    (``plug.middleware.apply_step``) reduces it to a per-query run mask and
+    **freezes converged queries by reverting their columns**:
+
+    * a query whose columns went quiet stops contributing to the shared
+      frontier — its batch-mates keep iterating, it exits early;
+    * freeze-by-revert keeps the contract stateless (no done flags in the
+      carries), and for **idempotent monoids** a quiet round is already
+      the column's fixed point, so revert == commit and the batched answer
+      is bit-identical to B single-query runs (the serving cache relies on
+      it: an answer does not depend on the batch it rode in);
+    * for tolerance-converged sum-monoid programs (personalized PageRank)
+      the revert drops a sub-tolerance apply — answers lie within a few
+      ``tol`` of an unmasked run, and equal across batch compositions up
+      to the summation order of the merge.
+
+    The mask, the run flags and the masked frontier stay tensors where the
+    state lies: the freeze adds no device→host transfer to any loop.
+    """
+
+    num_queries: int
+
+    def query_activity(self, old_state, new_state):
+        ...
+
+    def is_batched_query(self) -> bool:
+        ...
+
+
+@runtime_checkable
 class ElasticUpper(Protocol):
     """Optional upper-system capability: survive a mid-run mesh change.
 

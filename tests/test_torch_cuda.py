@@ -1215,3 +1215,48 @@ def test_oocore_run_matches_resident_on_the_card(cuda, prog_name):
     assert 0.0 <= st["overlap_efficiency"] <= 1.0
     assert st["uploads"] + st["skipped"] == \
         res.iterations * mw.daemon.num_super_shards
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2, 4, 8])
+@pytest.mark.parametrize("kind", ["khop", "sssp", "ppr"])
+def test_batched_query_programs_on_the_card(cuda, kind, b, autotune_cache):
+    """The serving layer's batched programs at B queries through
+    ShardedDaemon(kernel="cuda") on the card (the CSR-tile kernel at K = B:
+    add_one/min, add_weight/min, pr_div_deg/sum with aux 1 + B wide), one
+    launch an iteration, against run_reference of the same program: min
+    programs bit for bit, PPR within rtol 1e-4 / atol 1e-5 (the per-query
+    freeze reverts a sub-tolerance apply that the reference keeps).  The
+    session over the same daemons answers each column as the loop does."""
+    from repro_torch import serve
+
+    g = generate.rmat(256, 2048, seed=9)
+    seeds = [3, (5, 9), 17, 17, 40, (1, 2, 3), 200, 7][:b]
+    prog = algorithms.BATCHED_QUERIES[kind](g, seeds)
+    assert prog.state_width == b and prog.is_batched_query()
+    mw = plug.Middleware(
+        g, prog, daemon=plug.ShardedDaemon(kernel="cuda", mesh=4,
+                                           csr_config=ops.CSRConfig()),
+        upper=plug.MeshUpperSystem(mesh=4), num_shards=8,
+        options=plug.PlugOptions(block_size=64), device=cuda)
+    before = ebk.csr_tile.launches
+    res = mw.run()
+    assert ebk.csr_tile.launches - before == res.iterations
+    ref_state, _ = plug.run_reference(g, prog, device=cuda)
+    if kind == "ppr":
+        np.testing.assert_allclose(res.state, ref_state, rtol=1e-4,
+                                   atol=1e-5)
+    else:
+        np.testing.assert_array_equal(res.state, ref_state)
+    session = serve.GraphServeSession(
+        g, num_shards=8, block_size=64, kernel="cuda", mesh=4,
+        csr_config=ops.CSRConfig(), device=cuda)
+    answers, rec = session.execute_batch(kind, (), seeds)
+    assert rec["bucket"] == b and len(answers) == b
+    for q in range(b):
+        if kind == "ppr":
+            np.testing.assert_allclose(answers[q], res.state[:, q],
+                                       rtol=1e-4, atol=1e-5)
+        else:
+            np.testing.assert_array_equal(answers[q], res.state[:, q])
+    assert autotune.CACHE.sweeps == 0
