@@ -159,12 +159,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
               others (a Lemma-2 re-partition that recompacts every tile);
               (f) ``rebalance(capacities=linspace(1, 2, 4))`` between two
               sssp_bf runs of the fused loop, and before one on the host
-              loop with ``daemon="cuda"`` (its run before is phase 5's); (g) a ``MutationSchedule`` batch at
-              iteration 3 adding 65,536 edges whose sources own edges in
-              shard 0 (destinations uniform, weights in the generator's
-              range, from ``--seed``); (h) ``run_dynamic`` of the same
-              batch after a converged run (incremental, mode ``dirty``),
-              beside a cold run of a fresh middleware on the mutated
+              loop with ``daemon="cuda"`` (phase 5's sssp_bf middleware,
+              whose run before it is phase 5's); (g) a ``MutationSchedule``
+              batch at iteration 3 adding 65,536 edges whose sources own
+              edges in shard 0 (destinations uniform, weights in the
+              generator's range, from ``--seed``); (h) ``run_dynamic`` of
+              the same batch after a converged run (incremental, mode
+              ``dirty``), beside a cold run of a fresh middleware on the mutated
               graph; (i) ``run_dynamic`` of a batch removing 65,536 of
               shard 0's edge pairs (mode ``cold_fallback``).  Each is held
               against ``run_reference`` on the post-trigger graph (sssp
@@ -243,16 +244,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
               max_batch=8)``, cut to the longest prefix of its 64 requests
               whose batches all land on (a)'s families; every batch answer
               against its solo reference, every cache hit equal to its
-              first answer; (d) ``tests/test_serve.py``'s kill arm on a
-              session of its own: a khop answer cached, device 2 killed at
-              iteration 5 and rejoining at 8 inside one ppr run (two
-              migrations, 4 → 2 → 4), the volatile entry alone flushed, the
-              durable answer still hit, and the answers after the join
-              exact.  Every serving run: the fused loop, ``csr_tile`` once
-              an iteration, one small fetch an iteration and one
-              vertex-sized a run; no sweep.  Prints ``init_s`` per family,
-              ``service_s`` per batch and s per query at B = 8 beside B =
-              1, the replay's qps and p50/p99, and the migrations' seconds;
+              first answer; (d) ``tests/test_serve.py``'s kill arm on (a)'s
+              session and families (one ``FleetMonitor`` from the start,
+              the schedule armed here): a khop batch cached, device 2
+              killed at iteration 5 and rejoining at 8 inside one ppr batch
+              (two migrations, 4 → 2 → 4), the volatile entry alone
+              flushed, the durable answers still hit, the ppr answers
+              against their float64 solo runs and the sssp batch after the
+              join bit-equal to (a)'s, no family built.  Every serving run:
+              the fused loop, ``csr_tile`` once an iteration, one small
+              fetch an iteration and one vertex-sized a run; no sweep.
+              Prints ``init_s`` per family, ``service_s`` per batch and s
+              per query at B = 8 beside B = 1, the replay's qps and
+              p50/p99, and the migrations' seconds;
               then ``csr_tile`` at the serve triples (add_one/min,
               add_weight/min, pr_div_deg/sum at K = 8, each with its
               program's aux: none for the min programs, padded to the
@@ -298,6 +302,46 @@ Phases, each printing one JSON line; any failure exits non-zero:
               flops at 495 TFLOP/s, with the FMA units' bound beside it as
               ``fma_bound_ms``.  No single PyTorch call computes the SSD,
               so it has no library time.
+8. model     — language-model serving at zamba2-2.7b's published config
+              (54 Mamba2 layers, the shared attention block after every 6,
+              2,422,386,848 float32 parameters made from ``--seed`` on the
+              card, bf16 compute): ``repro_torch.models.Model(kernel=
+              "cuda")``'s prefill of B=2 prompts of S=4096 tokens
+              (``cache_len`` 4096 + 32), the launch counters zeroed just
+              before and read just after (flash attention once a shared
+              block invocation, 9; the SSD chunk kernel once a Mamba2
+              layer, 54); the same prefill through ``kernel="reference"``
+              (the same parameters).  Layer level, on the kernel prefill's
+              own activations: the first Mamba2 layer's SSD (y and final
+              state, float32) within phase 7's tolerance, the first shared
+              block's attention within phase 6's bf16 tolerance, each
+              timed at these shapes beside its plain version (and SDPA)
+              with its bound.  End to end: the last position's logits,
+              every layer's final SSM state and conv tail and the KV
+              caches within ``MODEL_TOL``·max |want| of the reference's
+              (a tolerance fixed on the CPU, PERF.md).  Then greedy
+              generation of 32 tokens (the prefill's token and 31 decode
+              steps), twice, with identical tokens and no model-kernel
+              launch in decode; prefill s, decode ms a step, tokens/s, the
+              peak allocation (the bf16 copies of the weights, made once
+              and kept, counted in it), and, for information, the tokens
+              that agree with a generation from the reference prefill's
+              cache.  Last, the compressed wire on phase 3's graph and
+              shards: pagerank's host loop as phase 5 runs it (10
+              iterations, ``daemon="cuda"`` pinned to ``CSRConfig()``) with
+              ``MeshUpperSystem(mesh=4, wire="compressed")``: every merge
+              bit-equal to a NumPy oracle of the int8 error-feedback wire
+              (per-device scales, the shared max, int32 sum, one
+              dequantize, the residual carried) on the merge's own
+              per-shard aggregates; after ``reset`` the same merges
+              replayed through the same upper bit-equal; ``wire_stats``
+              ((N·K·4·bits)//32 + 4)·m a merge; then ``bits=4`` held to
+              its oracle (one run each: a second run differs from the
+              first only by the daemon's float sums, which vary with the
+              combine's atomics, PERF.md §6).  The distance to phase 5's
+              exact state is reported, not bounded: a per-tensor scale
+              puts most R-MAT aggregates under one quantization step
+              (PERF.md §6).
 
 Float32 matrix products run in full float32 (TF32 off) throughout.  Then the
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
@@ -359,6 +403,17 @@ SSD = dict(b=1, s=4096, h=64, p=64, g=1, n=128, chunk=256)
 # chunk's Σ|a|·dt stays O(1), so decay and gate are live
 SSD_DT_RANGE = (1e-3, 1e-1)
 LIVE_MIN = 1e-30    # a per-element relative check needs |want| above this
+# phase 8: the served model and its prompt batch
+MODEL_ARCH = "zamba2-2.7b"
+MODEL_B, MODEL_S, MODEL_GEN = 2, 4096, 32
+# end to end, the kernel prefill against kernel="reference": |Δ| ≤
+# MODEL_TOL · max |want| for the logits and every cache leaf.  The kernels'
+# last-bit differences (one bf16 ulp in attention, float32 rounding in the
+# SSD) pass through 54 random-weight layers; emulated on the CPU at this
+# depth they move the logits by 1.0% and the caches by 1.3–1.6% of max
+# |want| (bf16 against float32 itself 1.5–2.1%), so 2^-4 leaves a margin
+# of ~4 (PERF.md §6)
+MODEL_TOL = 2.0 ** -4
 # the bf16 attention kernel (csrc/flash_attention_sm90.cu) and the SASS
 # instructions that show it runs on wgmma and TMA loads
 SASS_KERNEL = "attn_sm90_kernel"
@@ -1159,7 +1214,7 @@ def check_state(label, state, ref, tol) -> float:
 
 def run_e2e(label, graph, program, daemon, model, parts, ref_state, sum_tol,
             device="cuda", upper="host", options=None, max_iterations=None,
-            on_timed=None, frontier=None):
+            on_timed=None, frontier=None, num_shards=1):
     import numpy as np
     import torch
 
@@ -1169,7 +1224,7 @@ def run_e2e(label, graph, program, daemon, model, parts, ref_state, sum_tol,
     t0 = time.perf_counter()
     mw = plug.Middleware(graph, program, daemon=daemon, upper=upper,
                          model=model, partitions=parts, options=options,
-                         device=device)
+                         num_shards=num_shards, device=device)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     # one warm-up iteration: the daemon compacts each shard's CSR tiles on
@@ -2420,12 +2475,14 @@ def shard0_removals(part, seed):
     return log.freeze()
 
 
-def phase_elastic(g, parts, pr, sp, refs, mesh4, seed) -> tuple:
+def phase_elastic(g, parts, pr, sp, refs, mesh4, seed, host_sp) -> tuple:
     """Phase 5g: the structure-epoch layer at ``mesh=SHARDS`` with
     ``CSRConfig()`` pinned — kills, a join, a straggler, rebalances and
     mutation batches, each against ``run_reference`` on the post-trigger
     graph.  ``mesh4`` maps a program's name to phase 5e's (label, s an
-    iteration).  Returns the phase's line and its csr_tile launches."""
+    iteration); ``host_sp`` holds phase 5's host-loop sssp_bf middleware,
+    which (f) takes out and rebalances.  Returns the phase's line and its
+    csr_tile launches."""
     import numpy as np
     import torch
 
@@ -2440,7 +2497,8 @@ def phase_elastic(g, parts, pr, sp, refs, mesh4, seed) -> tuple:
     out = {"phase": "elastic", "m": SHARDS, "runs": [], "mesh4_runs": {
         k: {"run": v[0], "s_per_iteration": v[1]} for k, v in mesh4.items()},
         "reduced": {"rebalance": "the host loop's rebalance runs only after "
-                    "it: its run before is phase 5's sssp_bf/cuda/gas"}}
+                    "it, on phase 5's sssp_bf/cuda/gas middleware: its run "
+                    "before is phase 5's"}}
     launches_tile = 0
     sp_ref = refs[sp.name][0]
     pr_ref = refs[pr.name][0]
@@ -2482,20 +2540,20 @@ def phase_elastic(g, parts, pr, sp, refs, mesh4, seed) -> tuple:
             raise AssertionError(f"{label}: {rec['iterations']} iterations")
         keep(rec, launches, mw)
 
-    # (f): rebalance between runs, fused and on the host loop
+    # (f): rebalance between runs, fused and on the host loop (phase 5's
+    # sssp_bf/cuda/gas middleware, whose run before the rebalance is
+    # phase 5's)
     caps = np.linspace(1.0, 2.0, SHARDS)
+    fused_mw = plug.Middleware(
+        g, sp, model="gas", num_shards=SHARDS, device="cuda",
+        daemon=plug.ShardedDaemon(kernel="cuda", mesh=SHARDS,
+                                  csr_config=CSRConfig()),
+        upper=plug.MeshUpperSystem(mesh=SHARDS))
+    fused_mw.run(max_iterations=1)
     for label, fused in (("sssp_bf/rebalance/sharded-cuda/gas", True),
                          ("sssp_bf/rebalance/cuda/gas", False)):
-        kw = (dict(daemon=plug.ShardedDaemon(kernel="cuda", mesh=SHARDS,
-                                             csr_config=CSRConfig()),
-                   upper=plug.MeshUpperSystem(mesh=SHARDS))
-              if fused else dict(daemon=pinned_csr_daemon()))
-        mw = plug.Middleware(g, sp, model="gas", num_shards=SHARDS,
-                             device="cuda", **kw)
-        if fused:
-            mw.run(max_iterations=1)
+        mw = fused_mw if fused else host_sp.pop()
         rec = {"run": label, "fused": fused}
-        # the host loop's run before the rebalance is phase 5's
         for when in ("before", "after") if fused else ("after",):
             if when == "after":
                 t0 = time.perf_counter()
@@ -2526,6 +2584,7 @@ def phase_elastic(g, parts, pr, sp, refs, mesh4, seed) -> tuple:
         if mw.epochs.epoch.cause != "rebalance":
             raise AssertionError(f"{label}: epoch {mw.epochs.epoch.cause}")
         keep(rec, 0, mw)
+    del fused_mw, mw
 
     # (g)–(i): mutation batches in shard 0
     t0 = time.perf_counter()
@@ -2844,6 +2903,19 @@ def serve_plan(serve, wl, families) -> int:
     return len(wl)
 
 
+def later_schedule():
+    """A ``FailureSchedule`` that holds no event until ``arm(kills=...,
+    recoveries=...)`` gives it its events, so one session's families serve
+    healthy first and then under a kill."""
+    from repro_torch import plug
+
+    class Later(plug.FailureSchedule):
+        def arm(self, **events):
+            plug.FailureSchedule.__init__(self, **events)
+
+    return Later()
+
+
 def phase_serve(g, seed) -> tuple:
     """Phase 5i: ``repro_torch.serve`` on phase 3's graph and shards at
     ``mesh=SHARDS`` with ``CSRConfig()`` pinned: (a) a batch of 8 of each
@@ -2867,8 +2939,11 @@ def phase_serve(g, seed) -> tuple:
     out = {"phase": "serve", "m": SHARDS, "max_batch": SERVE_B,
            "reduced": {}}
     launches_tile = 0
+    # one monitor for every family; (d) arms the schedule's kill and join
+    failures = later_schedule()
     session = serve.GraphServeSession(
         g, num_shards=SHARDS, kernel="cuda", max_batch=SERVE_B,
+        monitor=plug.FleetMonitor(num_hosts=SHARDS), failures=failures,
         device="cuda", mesh=SHARDS, csr_config=CSRConfig())
     seeds = serve_seeds(g, seed)
     params = {"khop": (("hops", SERVE_HOPS),), "sssp": (), "ppr": ()}
@@ -2889,8 +2964,9 @@ def phase_serve(g, seed) -> tuple:
             # the batched contract: column q is query q's solo run (the
             # freeze stops a quiet column where its solo run stops), held
             # against the float64 solo run where it stops (check_ppr)
-            got = [check_ppr(f"{label}/q{q}", answers[q],
-                             ppr_tail(g, seeds[q])) for q in range(SERVE_B)]
+            tails = [ppr_tail(g, s) for s in seeds]  # (d) reuses them
+            got = [check_ppr(f"{label}/q{q}", answers[q], tails[q])
+                   for q in range(SERVE_B)]
             max_abs = max(x[0] for x in got)
             extra["l1_share_vs_reference"] = max(x[1] for x in got)
             extra["stop_offsets"] = [x[2] for x in got]
@@ -3044,84 +3120,439 @@ def phase_serve(g, seed) -> tuple:
         rec = phase_csr_tile(stacked, prog, state, aux, act, label)
         emit({"phase": "kernel", **rec})
         cases.append(rec)
-    del stacked, fam, session, router
-    torch.cuda.empty_cache()
+    del stacked, fam, router
 
     # (d) a kill and a join under live traffic: tests/test_serve.py's
-    # acceptance arm on a session of its own
+    # acceptance arm on (a)'s session and families
     t0 = time.perf_counter()
-    ks = serve.GraphServeSession(
-        g, num_shards=SHARDS, kernel="cuda", max_batch=SERVE_B,
-        monitor=plug.FleetMonitor(num_hosts=SHARDS),
-        failures=plug.FailureSchedule(**SERVE_KILL), device="cuda",
-        mesh=SHARDS, csr_config=CSRConfig())
-    router = serve.GraphServeRouter(ks, max_wait=0.0)
-    warm_q = serve.Query.make("khop", seeds[0], hops=2)
-    t_warm, _ = router.submit(warm_q)
+    fams_before = len(session.compiled_families)
+    failures.arm(**SERVE_KILL)
+    router = serve.GraphServeRouter(session, max_wait=0.0)
+    khop_qs = [serve.Query.make("khop", s, hops=SERVE_HOPS) for s in seeds]
+    t_warm = [router.submit(q)[0] for q in khop_qs]
     router.clock.advance(0.01)
     _, _, checks_w = serve_step("kill/warm", router.pump, n)
     launches_tile += checks_w["csr_tile"]
-    warm = router.result(t_warm)
-    if warm is None or warm.cached or ks.mesh_epoch != 0:
-        raise AssertionError("kill/warm: the warm khop did not run before "
-                             "the kill")
+    warm = [router.result(t) for t in t_warm]
+    if (any(a is None or a.cached for a in warm)
+            or session.mesh_epoch != 0):
+        raise AssertionError("kill/warm: the warm khop batch did not run "
+                             "before the kill")
+    for q, a in enumerate(warm):
+        if not np.array_equal(a.value, batch8["khop"][0][q]):
+            raise AssertionError(f"kill/warm/q{q}: not (a)'s answer")
     router.cache.insert(("sentinel",), 0, durable=False)
-    t_ppr, _ = router.submit(serve.Query.make("ppr", seeds[2]))
+    t_ppr = [router.submit(serve.Query.make("ppr", s))[0] for s in seeds]
     router.clock.advance(0.01)
     _, runs, checks_p = serve_step("kill/ppr", router.pump, n)
     launches_tile += checks_p["csr_tile"]
     migs = [r["migration"] for r in runs[0][1].per_iteration
             if "migration" in r]
-    ppr_fam = ks._family("ppr", (), 1)
-    if (ks.mesh_epoch != 2 or [m["killed"] for m in migs] != [[2], []]
+    ppr_fam = session._family("ppr", (), SERVE_B)
+    if (session.mesh_epoch != 2 or [m["killed"] for m in migs] != [[2], []]
             or [m["joined"] for m in migs] != [[], [2]]
             or ppr_fam["mw"].daemon.m != SHARDS):
-        raise AssertionError(f"kill/ppr: epoch {ks.mesh_epoch}, migrations "
-                             f"{migs}, m={ppr_fam['mw'].daemon.m}")
+        raise AssertionError(f"kill/ppr: epoch {session.mesh_epoch}, "
+                             f"migrations {migs}, "
+                             f"m={ppr_fam['mw'].daemon.m}")
     if (("sentinel",) in router.cache or router.cache.stats.flushed != 1
-            or warm_q.cache_key not in router.cache):
+            or any(q.cache_key not in router.cache for q in khop_qs)):
         raise AssertionError("kill/ppr: the migration flushed "
                              f"{router.cache.stats.as_dict()}, expected the "
                              "volatile sentinel alone")
-    _, hit = router.submit(serve.Query.make("khop", seeds[0], hops=2))
-    if hit is None or not hit.cached or not np.array_equal(hit.value,
-                                                           warm.value):
-        raise AssertionError("kill: the durable khop answer did not survive")
-    warm_ref = serve_reference(g, BATCHED_QUERIES["khop"](
-        g, [seeds[0]], hops=2))[0][:, 0]
-    check_answers("kill/warm", "khop", warm.value, warm_ref)
-    ppr_abs, ppr_l1, ppr_off = check_ppr(
-        "kill/ppr", router.result(t_ppr).value, ppr_tail(g, seeds[2]))
-    after = [seeds[3], seeds[7]]
+    for q, s in enumerate(seeds):
+        _, hit = router.submit(serve.Query.make("khop", s, hops=SERVE_HOPS))
+        if (hit is None or not hit.cached
+                or not np.array_equal(hit.value, warm[q].value)):
+            raise AssertionError(f"kill/q{q}: the durable khop answer did "
+                                 "not survive")
+    got = [check_ppr(f"kill/ppr/q{q}", router.result(t).value, tails[q])
+           for q, t in enumerate(t_ppr)]
     (ans_after, rec_after), _, checks_a = serve_step(
-        "kill/after", lambda: ks.execute_batch("sssp", (), after), n)
+        "kill/after", lambda: session.execute_batch("sssp", (), seeds), n)
     launches_tile += checks_a["csr_tile"]
     if rec_after["mesh_epoch"] != 2 or rec_after["migrations"]:
         raise AssertionError(f"kill/after: {rec_after}")
-    for q, s in enumerate(after):
-        want = serve_reference(g, BATCHED_QUERIES["sssp"](g, [s]))[0][:, 0]
-        check_answers(f"kill/after/q{q}", "sssp", ans_after[q], want)
+    for q in range(SERVE_B):
+        if not np.array_equal(ans_after[q], batch8["sssp"][0][q]):
+            raise AssertionError(f"kill/after/q{q}: not (a)'s answer")
+    if len(session.compiled_families) != fams_before:
+        raise AssertionError("kill: built a family")
     out["kill"] = {
-        "schedule": SERVE_KILL, "mesh_epoch": ks.mesh_epoch,
+        "schedule": SERVE_KILL, "mesh_epoch": session.mesh_epoch,
         "migrations": [{k: m[k] for k in ("killed", "joined",
                                           "devices_before", "devices_after",
                                           "seconds")} for m in migs],
         "migration_s": [m["seconds"] for m in migs],
         "ppr_iterations": runs[0][1].iterations,
-        "ppr_max_abs_err_vs_reference": ppr_abs,
-        "ppr_l1_share_vs_reference": ppr_l1, "ppr_stop_offset": ppr_off,
+        "ppr_max_abs_err_vs_reference": max(x[0] for x in got),
+        "ppr_l1_share_vs_reference": max(x[1] for x in got),
+        "ppr_stop_offsets": [x[2] for x in got],
         "cache": router.cache.stats.as_dict(),
-        "init_s": {"/".join(str(x) for x in k): v
-                   for k, v in ks.init_s.items()},
+        "families_built": 0,
         "checks": [checks_w, checks_p, checks_a],
         "seconds": time.perf_counter() - t0}
-    del ks, router
+    emit({"phase": "serve", "step": "kill", **out["kill"]})
+    del session, router
     torch.cuda.empty_cache()
     if autotune.CACHE.sweeps != sweeps:
         raise AssertionError(f"phase 5i swept {autotune.CACHE.sweeps - sweeps}"
                              " times with CSRConfig() pinned")
     out["seconds"] = time.perf_counter() - t_phase
     return out, launches_tile, cases
+
+
+@contextlib.contextmanager
+def first_calls(module, names):
+    """Records the arguments of the first call of each ``module.<name>``
+    (the model reaches its kernels through these module attributes) and
+    passes every call through, so the launches stay as they are."""
+    got: dict = {}
+    originals = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            got.setdefault(name, (args, kwargs))
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in originals.items():
+        setattr(module, name, wrap(name, fn))
+    try:
+        yield got
+    finally:
+        for name, fn in originals.items():
+            setattr(module, name, fn)
+
+
+def model_attention(q, k, v) -> dict:
+    """The first shared block's attention on the model's own q, k, v: the
+    kernel against ``impl="reference"`` within phase 6's bf16 tolerance,
+    timed beside its plain version and SDPA, with its bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    b, hq, s, d = q.shape
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = ops.flash_attention(q, k, v, causal=True, impl="reference")
+    chk = check_close("model/attention", got, want, rtol=BF16_RTOL,
+                      atol=BF16_ATOL)
+    del got, want
+    pairs = s * (s + 1) // 2
+    ops_count = 4 * d * pairs * b * hq
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return dict(
+        B=b, Hq=hq, Hkv=k.shape[1], S=s, D=d, dtype=str(q.dtype),
+        check=chk, max_abs_err=chk["max_abs_err"],
+        kernel_ms=cuda_time_ms(lambda: fa.flash_attention(q, k, v),
+                               reps=10, warmup=2),
+        plain_ms=cuda_time_ms(lambda: fa.flash_attention_plain(q, k, v),
+                              reps=3, warmup=1),
+        library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)),
+        bytes=nbytes, ops=ops_count, ops_per_s=BF16_OPS_PER_S,
+        **bound(nbytes, ops_count, BF16_OPS_PER_S))
+
+
+def model_ssd(args, kwargs) -> dict:
+    """The first Mamba2 layer's SSD on the model's own inputs, in float32:
+    y and the final state of ``ops.ssd_scan`` against ``impl="reference"``
+    within phase 7's tolerance; ``ssd_chunk`` timed at these shapes beside
+    ``ssd_chunk_plain``, with its bound."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+
+    x, dt, a, bm, cm = args
+    chunk = kwargs["chunk"]
+    x = x.float()
+    y, state = ops.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
+                            return_final_state=True)
+    y_ref, state_ref = ops.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
+                                    impl="reference",
+                                    return_final_state=True)
+    checks = {"y": check_close("model/ssd y", y, y_ref),
+              "final_state": check_close("model/ssd final state", state,
+                                         state_ref)}
+    del y, y_ref, state, state_ref
+    b, s, h, p = x.shape
+    g, n = bm.shape[2], bm.shape[3]
+    nc = s // chunk
+    chunk_args = (x.reshape(b, nc, chunk, h, p),
+                  dt.float().contiguous().reshape(b, nc, chunk, h),
+                  a.float().contiguous(),
+                  bm.float().contiguous().reshape(b, nc, chunk, g, n),
+                  cm.float().contiguous().reshape(b, nc, chunk, g, n))
+    torch.cuda.synchronize()
+    tri = chunk * (chunk + 1) // 2
+    ops_count = (b * nc * g * 2 * n * tri
+                 + b * nc * h * (2 * p * tri + 2 * chunk * n * p))
+    nbytes = 4 * (2 * b * s * h * p + b * nc * h * n * p + 2 * b * s * h
+                  + 2 * b * s * g * n + b * nc * h + h)
+    tc_ops = TF32_PRODUCTS * ops_count
+    return dict(
+        B=b, S=s, H=h, P=p, G=g, N=n, chunk=chunk, checks=checks,
+        max_abs_err=max(c["max_abs_err"] for c in checks.values()),
+        kernel_ms=cuda_time_ms(lambda: ssd.ssd_chunk(*chunk_args)),
+        entry_ms=cuda_time_ms(lambda: ops.ssd_scan(x, dt, a, bm, cm,
+                                                   chunk=chunk)),
+        plain_ms=cuda_time_ms(lambda: ssd.ssd_chunk_plain(*chunk_args),
+                              reps=3, warmup=1),
+        library_ms=None, bytes=nbytes, ops=ops_count,
+        ops_per_s=TF32_OPS_PER_S, tensor_core_ops=tc_ops,
+        fma_bound_ms=bound(nbytes, ops_count)["bound_ms"],
+        **bound(nbytes, tc_ops, TF32_OPS_PER_S))
+
+
+def model_checks(logits, cache, ref_logits, ref_cache) -> dict:
+    """The kernel prefill's logits and every cache leaf against the
+    reference prefill's, each within MODEL_TOL · max |want|."""
+    out = {}
+    for name, got, want in [("logits", logits, ref_logits),
+                            *((k, cache[k], ref_cache[k])
+                              for k in sorted(ref_cache))]:
+        scale = float(want.float().abs().max())
+        chk = check_close(f"model/{name}", got, want,
+                          atol=MODEL_TOL * scale)
+        out[name] = {**chk, "share_of_max": chk["max_abs_err"] / scale}
+    return out
+
+
+def phase_model(seed) -> tuple:
+    """Phase 8's model half; returns its record and the kernels' records
+    at the model's shapes."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import Model
+    from repro_torch.train.serve import decode_from, make_prefill_step
+
+    dev = torch.device("cuda")
+    cfg = get_config(MODEL_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = Model(cfg, kernel="cuda", device=dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    out = {"phase": "model", "arch": MODEL_ARCH, "family": cfg.family,
+           "parameters": model.num_params(),
+           "parameter_bytes": sum(p.numel() * p.element_size()
+                                  for p in model.parameters()),
+           "allocated_bytes_after_init": torch.cuda.memory_allocated(dev),
+           "init_s": time.perf_counter() - t0,
+           "B": MODEL_B, "S": MODEL_S, "cache_len": MODEL_S + MODEL_GEN,
+           "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+           "model_tol": MODEL_TOL}
+    groups = cfg.num_layers // cfg.attn_every
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (MODEL_B, MODEL_S),
+                           generator=gen, device=dev, dtype=torch.int32)
+    batch = {"tokens": tokens}
+    prefill = make_prefill_step(model, cache_len=MODEL_S + MODEL_GEN)
+
+    # (b) the main path: the kernel prefill, counted alone
+    fa.flash_attention.launches = 0
+    ssd.ssd_chunk.launches = 0
+    t0 = time.perf_counter()
+    with first_calls(ops, ("flash_attention", "ssd_scan")) as first:
+        logits, cache = prefill(batch)
+    torch.cuda.synchronize()
+    out["prefill_first_s"] = time.perf_counter() - t0
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "ssd_chunk": ssd.ssd_chunk.launches}
+    out["launches"] = launches
+    if launches != {"flash_attention": groups, "ssd_chunk": cfg.num_layers}:
+        raise AssertionError(f"model: prefill launched {launches}, expected "
+                             f"{groups} flash_attention and "
+                             f"{cfg.num_layers} ssd_chunk")
+    out["compute_copy_bytes"] = model.compute_bytes()
+
+    reference = model.with_kernel("reference")
+    t0 = time.perf_counter()
+    ref_logits, ref_cache = reference.prefill(
+        batch, cache_len=MODEL_S + MODEL_GEN)
+    torch.cuda.synchronize()
+    out["reference_prefill_s"] = time.perf_counter() - t0
+    if (fa.flash_attention.launches, ssd.ssd_chunk.launches) != (
+            groups, cfg.num_layers):
+        raise AssertionError("model: the reference prefill launched a kernel")
+    out["end_to_end"] = model_checks(logits, cache, ref_logits, ref_cache)
+    ref_next = ref_logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    out["last_token_agrees"] = float(
+        (logits[:, -1].argmax(-1) == ref_next[:, 0]).float().mean())
+    del logits, ref_logits
+    (q, k, v), _ = first["flash_attention"]
+    attn = model_attention(q, k, v)
+    del q, k, v
+    ssd_rec = model_ssd(*first["ssd_scan"])
+    del first
+    out["layer"] = {"attention": attn["check"], "ssd": ssd_rec["checks"]}
+
+    # (c) greedy generation from the kernel prefill, twice
+    runs = []
+    for _ in range(2):
+        del cache
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(batch)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        fa.flash_attention.launches = 0
+        ssd.ssd_chunk.launches = 0
+        t0 = time.perf_counter()
+        toks = decode_from(model, cache, tok, MODEL_S, MODEL_GEN)
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+        decode_launches = (fa.flash_attention.launches
+                           + ssd.ssd_chunk.launches)
+        if decode_launches:
+            raise AssertionError(f"model: decode launched {decode_launches} "
+                                 "model kernels")
+        runs.append({"prefill_s": t_prefill, "decode_s": t_decode,
+                     "tokens": toks.cpu()})
+    if not torch.equal(runs[0]["tokens"], runs[1]["tokens"]):
+        raise AssertionError("model: two greedy generations differ")
+    steps = MODEL_GEN - 1
+    plain_toks = decode_from(model, ref_cache, ref_next, MODEL_S,
+                             MODEL_GEN).cpu()
+    out["generation"] = {
+        "tokens": MODEL_GEN, "decode_steps": steps,
+        "runs": [{k: r[k] for k in ("prefill_s", "decode_s")} | {
+            "decode_ms_per_step": 1e3 * r["decode_s"] / steps,
+            "decode_tokens_per_s": steps * MODEL_B / r["decode_s"],
+            "tokens_per_s": MODEL_GEN * MODEL_B / (r["prefill_s"]
+                                                    + r["decode_s"])}
+                 for r in runs],
+        "identical": True, "decode_model_kernel_launches": 0,
+        "first_row": runs[0]["tokens"][0].tolist(),
+        "agree_with_reference_prefill": int(
+            (runs[0]["tokens"] == plain_toks).sum()),
+        "of": plain_toks.numel()}
+    out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del model, reference, cache, ref_cache
+    torch.cuda.empty_cache()
+    return out, attn, ssd_rec
+
+
+def recording_upper(bits: int):
+    """``MeshUpperSystem(mesh=4, wire="compressed", bits=bits)`` that keeps
+    every merge's per-shard aggregates and its result (a run's worth)."""
+    import numpy as np
+
+    from repro_torch import plug
+
+    class Recording(plug.MeshUpperSystem):
+        rounds: list = []
+
+        def reset(self):
+            super().reset()
+            self.rounds = []
+
+        def merge(self, states, aggs, cnts):
+            base, agg, cnt = super().merge(states, aggs, cnts)
+            self.rounds.append((np.stack([np.asarray(a, np.float32)
+                                          for a in aggs]),
+                                np.array(agg, np.float32)))
+            return base, agg, cnt
+
+    return Recording(mesh=SHARDS, wire="compressed", bits=bits)
+
+
+def host_wire(rounds, m: int, bits: int) -> dict:
+    """Each recorded merge against a NumPy oracle of the int error-feedback
+    wire: the m devices' partials (their S/m shards added in order), each
+    device's scale max(amax, 1e-12)/qmax, the shared max, int32 sum, one
+    dequantize, the residual carried to the next merge; the sum is the
+    mean times m.  Raises unless every merge is bit-equal."""
+    import numpy as np
+
+    qmax = (1 << (bits - 1)) - 1
+    residual = None
+    for i, (aggs, got) in enumerate(rounds):
+        groups = aggs.reshape(m, aggs.shape[0] // m, *aggs.shape[1:])
+        parts = groups[:, 0].copy()
+        for j in range(1, groups.shape[1]):
+            parts = parts + groups[:, j]
+        if residual is None:
+            residual = np.zeros_like(parts)
+        t = parts + residual
+        local = (np.maximum(np.abs(t).reshape(m, -1).max(axis=1),
+                            np.float32(1e-12)) / np.float32(qmax))
+        shared = local.max()
+        q = np.clip(np.round(t / shared), -qmax, qmax).astype(np.int8)
+        acc = q.astype(np.int32).sum(axis=0, dtype=np.int32)
+        want = (acc.astype(np.float32) * shared / np.float32(m)
+                * np.float32(m))
+        residual = t - q.astype(np.float32) * shared
+        if got.shape != want.shape or not np.array_equal(got, want):
+            bad = int((got != want).sum()) if got.shape == want.shape else -1
+            raise AssertionError(f"wire/bits={bits}: merge {i} differs from "
+                                 f"the host oracle at {bad} elements")
+    return {"merges": len(rounds), "bit_equal_to_oracle": True}
+
+
+def phase_wire(g, parts, pr, exact_state) -> dict:
+    """Phase 8's compressed-wire half (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import plug
+
+    out = {"phase": "model", "step": "compressed_wire", "m": SHARDS,
+           "iterations": PR_ITERATIONS, "runs": {}}
+    n, k = g.num_vertices, pr.state_width
+    want = np.asarray(exact_state)
+    zeros = [np.zeros((n, k), np.float32)] * SHARDS
+    no_counts = [np.zeros(n, np.int32)] * SHARDS
+    for bits in (8, 4):
+        upper = recording_upper(bits)
+        t0 = time.perf_counter()
+        mw = plug.Middleware(g, pr, daemon=pinned_csr_daemon(), upper=upper,
+                             partitions=parts, device="cuda")
+        if mw._fused:
+            raise AssertionError("wire: the compressed wire took a fused loop")
+        init_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = mw.run(PR_ITERATIONS)
+        wall = time.perf_counter() - t0
+        rounds = upper.rounds
+        oracle = host_wire(rounds, upper.m, bits)
+        per_merge = ((n * k * 4 * bits) // 32 + 4) * upper.m
+        stats = dict(upper.wire_stats)
+        if stats != {"exact_bytes": 0,
+                     "compressed_bytes": per_merge * len(rounds)}:
+            raise AssertionError(f"wire/bits={bits}: wire_stats {stats}, "
+                                 f"expected {per_merge} a merge")
+        # the wire restarts clean: after reset the same aggregates
+        # through the same upper give the same sums, bit for bit
+        upper.reset()
+        for i, (aggs, got) in enumerate(rounds):
+            again = upper.merge(zeros, list(aggs), no_counts)[1]
+            if not np.array_equal(again, got):
+                raise AssertionError(f"wire/bits={bits}: merge {i} "
+                                     "replayed after reset differs")
+        state = np.asarray(res.state)
+        if not np.isfinite(state).all() or state.shape != want.shape:
+            raise AssertionError(f"wire/bits={bits}: bad state")
+        err = np.abs(state - want)
+        out["runs"][f"bits{bits}"] = dict(
+            init_s=init_s, wall_s=wall, iterations=res.iterations,
+            **oracle, replay_bit_equal=True, wire_stats=stats,
+            bytes_per_merge=per_merge,
+            exact_bytes_per_merge=n * k * 4 * upper.m,
+            max_abs_vs_exact=float(err.max()),
+            max_share_vs_exact=float(err.max() / np.abs(want).max()),
+            l1_share_vs_exact=float(err.sum() / np.abs(want).sum()))
+        del mw
+        torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None) -> int:
@@ -3236,13 +3667,27 @@ def main(argv=None) -> int:
             ("sssp_bf/blocked-cuda/bsp", sp, "bsp", sp_ref, None,
              "edge_block"))
     host_per_it = {}
+    host_sp = []  # sssp_bf's host-loop middleware, rebalanced in 5g (f)
     for label, prog, model, ref, tol, kernel in runs:
         daemon = (pinned_csr_daemon() if kernel == "csr_tile"
                   else plug.BlockedDaemon(kernel="cuda"))
-        res, launches, _, rec = run_e2e(label, g, prog, daemon, model, parts,
-                                        ref, tol)
+        # that middleware owns its partitions (rebalance refuses given
+        # ones): the host upper's default cut, as parts is
+        own = prog is sp and kernel == "csr_tile"
+        res, launches, mw, rec = run_e2e(label, g, prog, daemon, model,
+                                         None if own else parts, ref, tol,
+                                         num_shards=SHARDS)
+        if own:
+            if not all(np.array_equal(a.src, b.src)
+                       and np.array_equal(a.dst, b.dst)
+                       for a, b in zip(mw.partitions, parts, strict=True)):
+                raise AssertionError(f"{label}: its own cut is not parts")
+            host_sp.append(mw)
+        del mw
         if kernel == "edge_block":
             blocked_run = (res, launches, rec)
+        if prog is pr:
+            pr_exact = res.state  # phase 8 holds the compressed wire to it
         if prog is pr and res.iterations != pr_ref_it:
             raise AssertionError(f"{label}: {res.iterations} iterations, "
                                  f"reference ran {pr_ref_it}")
@@ -3349,7 +3794,7 @@ def main(argv=None) -> int:
 
     # -- 5g. the structure-epoch layer: kills, joins, mutations ------------
     elastic_rec, elastic_launches = phase_elastic(g, parts, pr, sp, refs,
-                                                  mesh4, args.seed)
+                                                  mesh4, args.seed, host_sp)
     emit(elastic_rec)
     e2e_launches["csr_tile"] += elastic_launches
     torch.cuda.empty_cache()
@@ -3381,6 +3826,13 @@ def main(argv=None) -> int:
     # -- 7. ssd at mamba2-1.3b width ---------------------------------------
     ssd_rec = phase_ssd(args.seed)
     emit(ssd_rec)
+    torch.cuda.empty_cache()
+
+    # -- 8. zamba2-2.7b served through both model kernels; the compressed
+    # wire on the graph path ------------------------------------------------
+    model_rec, model_attn, model_ssd_rec = phase_model(args.seed)
+    emit({**model_rec, "attention": model_attn, "ssd": model_ssd_rec})
+    emit(phase_wire(g, parts, pr, pr_exact))
 
     # -- the kernels line --------------------------------------------------
     sources_of = {
@@ -3418,16 +3870,21 @@ def main(argv=None) -> int:
                 "kernel_ms", "plain_ms", "bound_ms", "library_ms",
                 "max_abs_err")} for c in mine},
         })
-    main_attn = attn[0]
+    # the model kernels' main path is phase 8's prefill: their launches
+    # there, and their times at its shapes (phases 6-7's in "cases")
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:69",
-        "launches": main_attn["launches"],
-        "max_abs_err": main_attn["max_abs_err"],
-        "ms": main_attn["kernel_ms"], "plain_ms": main_attn["plain_ms"],
-        "bound_ms": main_attn["bound_ms"], "bound_by": main_attn["bound_by"],
-        "library_ms": main_attn["library_ms"],
+        "launches": model_rec["launches"]["flash_attention"],
+        "launches_entry_point": attn[0]["launches"],
+        "max_abs_err": max([model_attn["max_abs_err"]]
+                           + [c["max_abs_err"] for c in attn]),
+        "ms": model_attn["kernel_ms"], "plain_ms": model_attn["plain_ms"],
+        "bound_ms": model_attn["bound_ms"],
+        "bound_by": model_attn["bound_by"],
+        "library_ms": model_attn["library_ms"],
+        "model_case": f"{MODEL_ARCH}/prefill/B{MODEL_B}/S{MODEL_S}",
         "design": {
             "bf16": "flash_attention_sm90.cu: 3-stage TMA ring of "
                     "128-key k/v tiles, wgmma m64n128k16 q·kᵀ, online "
@@ -3456,12 +3913,20 @@ def main(argv=None) -> int:
         "name": "ssd_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:61",
-        "launches": ssd_rec["launches"],
-        "max_abs_err": ssd_rec["max_abs_err"],
-        "ms": ssd_rec["kernel_ms"], "plain_ms": ssd_rec["plain_ms"],
-        "bound_ms": ssd_rec["bound_ms"], "bound_by": ssd_rec["bound_by"],
-        "library_ms": None, "entry_ms": ssd_rec["entry_ms"],
-        "fma_bound_ms": ssd_rec["fma_bound_ms"],
+        "launches": model_rec["launches"]["ssd_chunk"],
+        "launches_entry_point": ssd_rec["launches"],
+        "max_abs_err": max(ssd_rec["max_abs_err"],
+                           model_ssd_rec["max_abs_err"]),
+        "ms": model_ssd_rec["kernel_ms"],
+        "plain_ms": model_ssd_rec["plain_ms"],
+        "bound_ms": model_ssd_rec["bound_ms"],
+        "bound_by": model_ssd_rec["bound_by"],
+        "library_ms": None, "entry_ms": model_ssd_rec["entry_ms"],
+        "fma_bound_ms": model_ssd_rec["fma_bound_ms"],
+        "model_case": f"{MODEL_ARCH}/prefill/B{MODEL_B}/S{MODEL_S}",
+        "cases": {ssd_rec["case"]: {k: ssd_rec[k] for k in (
+            "kernel_ms", "entry_ms", "plain_ms", "bound_ms", "fma_bound_ms",
+            "max_abs_err")}},
         "design": "ssd_scan.cu: 3xTF32 on mma.sync m16n8k8 (each product "
                   "as a_s·b_b + a_b·b_s + a_b·b_b), 256 threads a CTA; one "
                   "launch of y CTAs (batch, chunk, group, block of 16 "

@@ -1,7 +1,8 @@
 """``repro_torch`` — the GX-Plug middleware on PyTorch and CUDA.
 
 A second package beside the JAX package ``repro``, mirroring its layout
-(``core``, ``dist``, ``graph``, ``kernels``, ``oocore``, ``plug``) so each module's
+(``configs``, ``core``, ``dist``, ``graph``, ``kernels``, ``launch``,
+``models``, ``oocore``, ``plug``, ``serve``, ``train``) so each module's
 counterpart sits at the same path.  It imports ``torch`` and ``numpy`` only; the JAX
 package is the reference it is tested against (``tests/test_torch_*.py``).
 

@@ -1,5 +1,5 @@
 """Carries data across from the JAX package: the graph and a program's
-initial state take the place a model's weights have in a model port.
+initial state, and a model's parameter tree.
 
 Nothing here imports the JAX package; the arguments are its plain NumPy
 arrays (a ``repro`` ``Graph``'s fields) or any object with an ``init``.
@@ -32,3 +32,42 @@ def program_inputs(program, graph, *, device="cuda"):
     state, aux = program.init(graph)
     return (torch.as_tensor(np.asarray(state, np.float32), device=dev),
             torch.as_tensor(np.asarray(aux, np.float32), device=dev))
+
+
+def model_params_from_jax(params, axes, cfg) -> dict:
+    """A JAX-package model's parameters as the port's ``state_dict``.
+
+    ``params`` is the JAX parameter tree with NumPy leaves (e.g.
+    ``jax.tree.map(np.asarray, params)``) and ``axes`` its logical-axes
+    tree from the same ``init``.  A leaf whose axes start with
+    ``"layers"`` is stacked for the JAX package's scan: it is unstacked
+    into ``layers.<i>.<path>``.  The port keeps every weight at the JAX
+    shape (the einsum weights ``wq`` (d, H, hd), ``wo`` (H, hd, d), …), so
+    nothing else is reshaped; leaves keep their dtype (``cfg.param_dtype``
+    in both packages)."""
+    out: dict = {}
+
+    def walk(p, a, path):
+        if isinstance(p, dict):
+            if set(p) != set(a):
+                raise ValueError(f"axes at {'.'.join(path) or 'the root'} "
+                                 f"do not match the parameters")
+            for k in p:
+                walk(p[k], a[k], path + (k,))
+            return
+        arr = np.asarray(p)
+        if len(a) != arr.ndim:
+            raise ValueError(f"{'.'.join(path)}: axes {a} for shape "
+                             f"{arr.shape}")
+        if a and a[0] == "layers":
+            if path[0] != "layers" or arr.shape[0] != cfg.num_layers:
+                raise ValueError(f"{'.'.join(path)}: a stacked leaf outside "
+                                 f"the {cfg.num_layers} layers")
+            for i in range(arr.shape[0]):
+                key = ".".join(("layers", str(i)) + path[1:])
+                out[key] = torch.from_numpy(np.array(arr[i]))
+        else:
+            out[".".join(path)] = torch.from_numpy(np.array(arr))
+
+    walk(params, axes, ())
+    return out

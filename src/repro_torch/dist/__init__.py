@@ -1,11 +1,26 @@
-"""The upper system's fleet side, as in the JAX package's ``dist``:
-``fault`` — fleet monitoring, straggler detection and Lemma-2
-rebalancing, elastic re-mesh planning after a device loss, and the
-deterministic fault-injection seam.  The sharding rules and the compressed
-collectives are ROADMAP Queue A item 13b's."""
+"""The upper system's distributed side, as in the JAX package's ``dist``,
+by the paper's three optimization horizons:
+
+* ``sharding``    — intra-iteration: logical-axis partitioning rules that
+                    place every tensor dimension on a mesh axis, as specs
+                    and ``torch.distributed.tensor`` placements (on one
+                    card every tensor lies whole on the device);
+* ``collectives`` — inter-iteration: compressed synchronization (int8/int4
+                    quantization with error feedback) over the port's m
+                    logical devices, which ``MeshUpperSystem(wire=
+                    "compressed")`` runs;
+* ``fault``       — beyond-iteration: fleet monitoring, straggler
+                    detection and Lemma-2 rebalancing, elastic re-mesh
+                    planning after a device loss, and the deterministic
+                    fault-injection seam.
+
+A reduction across cards or ranks (``torch.distributed``) is ROADMAP Queue
+A item 13c's."""
+from repro_torch.dist import collectives, fault, sharding
 from repro_torch.dist.fault import (FailureSchedule, FleetMonitor, MeshPlan,
                                     detect_stragglers, elastic_plan,
                                     reassign_shards)
 
-__all__ = ["FailureSchedule", "FleetMonitor", "MeshPlan",
-           "detect_stragglers", "elastic_plan", "fault", "reassign_shards"]
+__all__ = ["FailureSchedule", "FleetMonitor", "MeshPlan", "collectives",
+           "detect_stragglers", "elastic_plan", "fault", "reassign_shards",
+           "sharding"]

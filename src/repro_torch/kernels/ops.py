@@ -241,15 +241,19 @@ def flash_attention(q, k, v, *, causal: bool = True, impl: str = "cuda",
 # --------------------------------------------------------------------------
 # SSD scan (Mamba2)
 # --------------------------------------------------------------------------
-def ssd_scan(x, dt, a, b_mat, c_mat, *, chunk: int = 64, impl: str = "cuda"):
+def ssd_scan(x, dt, a, b_mat, c_mat, *, chunk: int = 64, impl: str = "cuda",
+             return_final_state: bool = False):
     """Full SSD: within-chunk kernel + cross-chunk recurrence.
 
     x (B, S, H, P), dt (B, S, H), a (H,), b_mat/c_mat (B, S, G, N) with
     H % G == 0.  Returns y (B, S, H, P) in x's dtype.  The kernel reads B
     and C by group; only the (B, NC, L, G, N) views of them are formed.
+    ``return_final_state`` also returns the (B, H, N, P) float32 state
+    after the last chunk (the prefill → decode handoff).
     """
     if impl == "reference":
-        return ref.ssd_scan_chunked_ref(x, dt, a, b_mat, c_mat, chunk=chunk)
+        return ref.ssd_scan_chunked_ref(x, dt, a, b_mat, c_mat, chunk=chunk,
+                                        return_final_state=return_final_state)
     _check_impl(impl)
     bsz, s, h, p = x.shape
     g, n = b_mat.shape[2], b_mat.shape[3]
@@ -277,4 +281,6 @@ def ssd_scan(x, dt, a, b_mat, c_mat, *, chunk: int = 64, impl: str = "cuda"):
         "bclgn,bcgrnp->bclgrp", cc, carry_in.reshape(bsz, nc, g, r, n, p))
     y_carry = y_carry * gates.reshape(bsz, nc, chunk, g, r)[..., None]
     y = (y_local + y_carry.reshape(bsz, nc, chunk, h, p)).reshape(bsz, s, h, p)
+    if return_final_state:
+        return y.to(x.dtype), hstate
     return y.to(x.dtype)

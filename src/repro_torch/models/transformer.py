@@ -1,0 +1,329 @@
+"""Decoder-only stacks — dense, SSM (Mamba2), hybrid (Zamba2) and VLM — for
+serving: the forward pass, prefill and one-token decode, as in the JAX
+package's ``models/transformer.py``.
+
+The parameters are a tree of modules (:class:`~repro_torch.models.layers.
+ParamNode`): one module per layer kind (:class:`DenseLayer`,
+:class:`SSMLayer`), a :class:`Stack` over the layers (the JAX package
+stacks them on a leading axis for its ``lax.scan``; its logical-axes tree
+carries a leading ``"layers"`` axis, and so does ``Stack.axes``), and the
+hybrid family's shared attention block held once.  The math is in plain
+functions.  The hybrid family runs groups: ``attn_every`` Mamba2 layers,
+then the shared block (one weight set, a fresh KV cache entry per
+invocation).  Caches keep the JAX package's layout: stacked (layers or
+groups, B, …) tensors.  The MoE family is ROADMAP Queue A item 14b's.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import nn
+
+from repro_torch.dist import sharding as shd
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
+from repro_torch.models.common import ModelConfig
+
+
+# --------------------------------------------------------------------------
+# the parameter tree
+# --------------------------------------------------------------------------
+def _node(leaves=None, children=None, *, cfg, device):
+    return L.ParamNode(leaves, children, dtype=cfg.tparam_dtype,
+                       device=device)
+
+
+class DenseLayer(L.ParamNode):
+    """Attention + FFN with two RMSNorms."""
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        kw = dict(cfg=cfg, device=device)
+        super().__init__(children={
+            "ln1": _node(L.rmsnorm_leaves(cfg.d_model), **kw),
+            "attn": _node(A.attention_leaves(cfg), **kw),
+            "ln2": _node(L.rmsnorm_leaves(cfg.d_model), **kw),
+            "ffn": _node(L.ffn_leaves(cfg.d_model, cfg.d_ff,
+                                      cfg.activation), **kw),
+        })
+
+
+class SSMLayer(L.ParamNode):
+    """RMSNorm + Mamba2 block."""
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        kw = dict(cfg=cfg, device=device)
+        super().__init__(children={
+            "ln1": _node(L.rmsnorm_leaves(cfg.d_model), **kw),
+            "ssm": _node(S.ssm_leaves(cfg), **kw),
+        })
+
+
+class Stack(nn.ModuleList):
+    """The layers, in order.  Its logical axes and abstract tree are the
+    JAX package's stacked ones: each leaf with a leading ``"layers"`` dim."""
+
+    def axes(self) -> dict:
+        def prefix(t):
+            if isinstance(t, dict):
+                return {k: prefix(v) for k, v in t.items()}
+            return ("layers", *t)
+        return prefix(self[0].axes())
+
+    def abstract(self) -> dict:
+        def stack(t):
+            if isinstance(t, dict):
+                return {k: stack(v) for k, v in t.items()}
+            return torch.empty((len(self), *t.shape), device="meta")
+        return stack(self[0].abstract())
+
+    def init_(self, gen: torch.Generator) -> None:
+        for layer in self:
+            layer.init_(gen)
+
+
+def layer_kind(cfg: ModelConfig) -> str:
+    return {"dense": "dense", "vlm": "dense", "ssm": "ssm",
+            "hybrid": "ssm"}[cfg.family]
+
+
+def build(cfg: ModelConfig, *, device) -> dict:
+    """The root's children, in the JAX package's key order."""
+    kw = dict(cfg=cfg, device=device)
+    layer = DenseLayer if layer_kind(cfg) == "dense" else SSMLayer
+    children: dict[str, Any] = {
+        "embed": _node(L.embed_leaves(cfg.padded_vocab, cfg.d_model), **kw),
+        "layers": Stack([layer(cfg, device=device)
+                         for _ in range(cfg.num_layers)]),
+        "final_norm": _node(L.rmsnorm_leaves(cfg.d_model), **kw),
+    }
+    if not cfg.tie_embeddings:
+        children["unembed"] = _node(
+            L.embed_leaves(cfg.padded_vocab, cfg.d_model), **kw)
+    if cfg.family == "hybrid":
+        children["shared_attn"] = DenseLayer(cfg, device=device)
+    if cfg.family == "vlm":
+        children["patch_proj"] = _node(L.dense_leaves(
+            cfg.d_model, cfg.d_model, shd.FSDP, shd.TENSOR), **kw)
+    return children
+
+
+# --------------------------------------------------------------------------
+# layer forward (training / prefill path)
+# --------------------------------------------------------------------------
+def dense_layer_fwd(p, h, positions, cfg: ModelConfig, *, kernel: str):
+    """Returns ``(h, (k, v))``: the layer's output and its keys/values."""
+    x = L.rmsnorm(p["ln1"], h, cfg.norm_eps)
+    q, k, v = A.qkv_project(p["attn"], x, positions, cfg)
+    o = A.causal_attention(q, k, v, kernel=kernel)
+    h = h + A.out_project(p["attn"], o)
+    x = L.rmsnorm(p["ln2"], h, cfg.norm_eps)
+    h = h + L.ffn(p["ffn"], x, cfg.activation)
+    return L.maybe_bf16_cotangent(h, cfg.bf16_cotangent), (k, v)
+
+
+def ssm_layer_fwd(p, h, cfg: ModelConfig, *, kernel: str):
+    x = L.rmsnorm(p["ln1"], h, cfg.norm_eps)
+    return L.maybe_bf16_cotangent(
+        h + S.ssm_forward(p["ssm"], x, cfg, kernel=kernel),
+        cfg.bf16_cotangent)
+
+
+def _groups(cfg: ModelConfig):
+    """The hybrid family's groups: (group index, its layer indices)."""
+    per = cfg.attn_every
+    return [(g, range(g * per, (g + 1) * per))
+            for g in range(cfg.num_layers // per)]
+
+
+def stack_forward(params, h, positions, cfg: ModelConfig, *, kernel: str):
+    layers = params["layers"]
+    if cfg.family == "hybrid":
+        for _, idx in _groups(cfg):
+            for i in idx:
+                h = ssm_layer_fwd(layers[i], h, cfg, kernel=kernel)
+            h, _ = dense_layer_fwd(params["shared_attn"], h, positions, cfg,
+                                   kernel=kernel)
+        return h
+    for lp in layers:
+        if layer_kind(cfg) == "dense":
+            h, _ = dense_layer_fwd(lp, h, positions, cfg, kernel=kernel)
+        else:
+            h = ssm_layer_fwd(lp, h, cfg, kernel=kernel)
+    return h
+
+
+# --------------------------------------------------------------------------
+# embedding in / out
+# --------------------------------------------------------------------------
+def embed_tokens(params, tokens, cfg: ModelConfig, *, patch_embeds=None):
+    dt = cfg.tdtype
+    h = L.embed(params["embed"], tokens, dt, iota=cfg.iota_embed)
+    h = h * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
+    if cfg.family == "vlm" and patch_embeds is not None:
+        pe = L.dense(params["patch_proj"], patch_embeds.to(dt))
+        npatch = pe.shape[1]
+        h[:, :npatch, :] += pe
+    return shd.constrain(h, (shd.BATCH_DP, None, None))
+
+
+def lm_logits(params, h, cfg: ModelConfig):
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    logits = L.unembed(table, h)
+    if cfg.padded_vocab != cfg.vocab_size:
+        # padding columns carry no probability mass
+        col = torch.arange(cfg.padded_vocab, device=logits.device)
+        logits = logits.masked_fill(col >= cfg.vocab_size, -1e30)
+    return shd.constrain(logits, (shd.BATCH_DP, None, shd.VOCAB))
+
+
+def _positions(b: int, s: int, device):
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
+def forward(params, tokens, cfg: ModelConfig, *, kernel: str,
+            patch_embeds=None):
+    """Returns ``(logits (B, S, V_padded), aux)``; aux is the MoE load
+    loss, 0 for every family here."""
+    b, s = tokens.shape
+    positions = _positions(b, s, tokens.device)
+    h = embed_tokens(params, tokens, cfg, patch_embeds=patch_embeds)
+    h = stack_forward(params, h, positions, cfg, kernel=kernel)
+    h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return lm_logits(params, h, cfg), aux
+
+
+def train_loss(params, batch, cfg: ModelConfig, *, kernel: str,
+               aux_weight: float = 0.01):
+    logits, aux = forward(params, batch["tokens"], cfg, kernel=kernel,
+                          patch_embeds=batch.get("patch_embeds"))
+    return L.cross_entropy(logits, batch["labels"]) + aux_weight * aux
+
+
+# --------------------------------------------------------------------------
+# prefill / decode (serving)
+# --------------------------------------------------------------------------
+DEFAULT_MODEL_SHARDS = 16  # production mesh model-axis width
+
+
+def kv_cache_axes(cfg: ModelConfig, *,
+                  model_shards: int = DEFAULT_MODEL_SHARDS):
+    """KV-cache layout policy: KV heads on the model axis when they divide
+    it, else the cache's sequence dim (flash-decoding)."""
+    if cfg.num_kv_heads % model_shards == 0:
+        return ("layers", shd.BATCH, None, shd.KV_HEADS, None)
+    return ("layers", shd.BATCH, shd.KV_SEQ, None, None)
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
+    """Decode cache skeleton (zeros) and its logical axes."""
+    hd, hkv = cfg.resolved_head_dim, cfg.num_kv_heads
+    dt = cfg.tdtype
+    kv_axes = kv_cache_axes(cfg)
+    cache: dict[str, Any] = {}
+    axes: dict[str, Any] = {}
+    if layer_kind(cfg) == "dense":
+        shape = (cfg.num_layers, batch, cache_len, hkv, hd)
+        cache = {"k": torch.zeros(shape, dtype=dt, device=device),
+                 "v": torch.zeros(shape, dtype=dt, device=device)}
+        axes = {"k": kv_axes, "v": kv_axes}
+        return cache, axes
+    one = S.init_ssm_cache(cfg, batch, dt, device)
+    cache = {k: torch.zeros((cfg.num_layers, *x.shape), dtype=x.dtype,
+                            device=device) for k, x in one.items()}
+    axes = {k: ("layers", *ax) for k, ax in S.ssm_cache_axes(cfg).items()}
+    if cfg.family == "hybrid":
+        shape = (cfg.num_layers // cfg.attn_every, batch, cache_len, hkv, hd)
+        cache["k"] = torch.zeros(shape, dtype=dt, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dt, device=device)
+        axes["k"] = kv_axes
+        axes["v"] = kv_axes
+    return cache, axes
+
+
+def prefill(params, tokens, cfg: ModelConfig, *, kernel: str,
+            cache_len: int | None = None, patch_embeds=None):
+    """Processes the prompt; returns ``(last-position logits (B, 1, V),
+    cache)``.  Keys and values are padded to ``cache_len`` positions."""
+    b, s = tokens.shape
+    cache_len = cache_len or s
+    if cache_len < s:
+        raise ValueError(f"cache_len={cache_len} is shorter than the "
+                         f"prompt ({s})")
+    positions = _positions(b, s, tokens.device)
+    h = embed_tokens(params, tokens, cfg, patch_embeds=patch_embeds)
+    cache, _ = init_cache(cfg, b, cache_len, tokens.device)
+    layers = params["layers"]
+
+    def ssm_prefill_layer(i, hh):
+        x = L.rmsnorm(layers[i]["ln1"], hh, cfg.norm_eps)
+        y, c = S.ssm_prefill(layers[i]["ssm"], x, cfg, kernel=kernel)
+        cache["ssm"][i] = c["ssm"]
+        cache["conv"][i] = c["conv"]
+        return hh + y
+
+    if cfg.family == "hybrid":
+        for g, idx in _groups(cfg):
+            for i in idx:
+                h = ssm_prefill_layer(i, h)
+            h, (k, v) = dense_layer_fwd(params["shared_attn"], h, positions,
+                                        cfg, kernel=kernel)
+            A.update_cache(cache["k"][g], cache["v"][g], k, v, 0)
+    elif layer_kind(cfg) == "dense":
+        for i, lp in enumerate(layers):
+            h, (k, v) = dense_layer_fwd(lp, h, positions, cfg, kernel=kernel)
+            A.update_cache(cache["k"][i], cache["v"][i], k, v, 0)
+    else:  # ssm
+        for i in range(len(layers)):
+            h = ssm_prefill_layer(i, h)
+
+    h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    return lm_logits(params, h[:, -1:, :], cfg), cache
+
+
+def _attn_decode(p, h, k_cache, v_cache, pos: int, cfg: ModelConfig):
+    """One-token attention with the cache updated in place. h (B, 1, D)."""
+    x = L.rmsnorm(p["ln1"], h, cfg.norm_eps)
+    positions = torch.full((h.shape[0], 1), pos, dtype=torch.int32,
+                           device=h.device)
+    q, k, v = A.qkv_project(p["attn"], x, positions, cfg)
+    A.update_cache(k_cache, v_cache, k, v, pos)
+    o = A.decode_attention(q, k_cache, v_cache, pos + 1)
+    h = h + A.out_project(p["attn"], o)
+    x = L.rmsnorm(p["ln2"], h, cfg.norm_eps)
+    return h + L.ffn(p["ffn"], x, cfg.activation)
+
+
+def decode_step(params, cache, token, pos: int, cfg: ModelConfig):
+    """token (B, 1) int; ``pos`` the position being generated.  Returns
+    ``(logits (B, 1, V), cache)``; the cache is updated in place (the JAX
+    package's ``launch/serve.py`` donates it to the step)."""
+    h = embed_tokens(params, token, cfg)
+    layers = params["layers"]
+
+    def ssm_decode_layer(i, hh):
+        x = L.rmsnorm(layers[i]["ln1"], hh, cfg.norm_eps)
+        y, c = S.ssm_decode_step(
+            layers[i]["ssm"], x,
+            {"ssm": cache["ssm"][i], "conv": cache["conv"][i]}, cfg)
+        cache["ssm"][i] = c["ssm"]
+        cache["conv"][i] = c["conv"]
+        return hh + y
+
+    if cfg.family == "hybrid":
+        for g, idx in _groups(cfg):
+            for i in idx:
+                h = ssm_decode_layer(i, h)
+            h = _attn_decode(params["shared_attn"], h, cache["k"][g],
+                             cache["v"][g], pos, cfg)
+    elif layer_kind(cfg) == "dense":
+        for i, lp in enumerate(layers):
+            h = _attn_decode(lp, h, cache["k"][i], cache["v"][i], pos, cfg)
+    else:  # ssm
+        for i in range(len(layers)):
+            h = ssm_decode_layer(i, h)
+
+    h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    return lm_logits(params, h, cfg), cache

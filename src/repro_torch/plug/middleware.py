@@ -258,7 +258,7 @@ class Middleware:
         self._setup_blocks()
 
         self.daemon.bind(program, self.n, device=self.device)
-        self.upper.bind(program, self.num_shards)
+        self.upper.bind(program, self.num_shards, device=self.device)
         self._apply_fn = make_apply_fn(program, self.device)
         self.stats = SyncStats()
         self._caches: list[LRUVertexCache] = []  # created per-run by run()
@@ -344,7 +344,8 @@ class Middleware:
         if self._fused:
             self.upper.remesh(new.mesh)
         else:
-            self.upper.bind(self.program, self.num_shards)
+            self.upper.bind(self.program, self.num_shards,
+                            device=self.device)
 
     def _epoch_daemon(self, new: StructureEpoch, old) -> None:
         """Re-stacks the daemon's block tensors for the epoch (fused).  Out
@@ -837,7 +838,8 @@ class Middleware:
             # (1-d)/n) must be rebuilt by the caller; those deriving
             # everything from init(graph) (sssp, wcc, bfs) work unchanged.
             self.daemon.bind(self.program, self.n, device=self.device)
-            self.upper.bind(self.program, self.num_shards)
+            self.upper.bind(self.program, self.num_shards,
+                            device=self.device)
         incremental = (self.program.monoid.idempotent
                        and not batch.has_removals)
         meta = {

@@ -101,7 +101,10 @@ class UpperSystem(Protocol):
         requests capacity-aware shard sizes (Lemma 2, Sec. III-C)."""
         ...
 
-    def bind(self, program: VertexProgram, num_shards: int) -> "UpperSystem":
+    def bind(self, program: VertexProgram, num_shards: int, *,
+             device=None) -> "UpperSystem":
+        """Binds to a program and a shard count; ``device`` is the
+        middleware's, where an upper that works on tensors keeps them."""
         ...
 
     def reset(self) -> None:
@@ -265,7 +268,7 @@ def divisor_mesh(num_items: int, mesh=None) -> int:
     ``num_items`` gives m logical devices on the one card; an int that
     does not divide it, or is under 1, raises ``ValueError``.  Any other
     mesh (a device mesh across cards or ranks, ``torch.distributed``) is
-    ROADMAP Queue A item 13b's and raises :func:`not_ported_error`."""
+    ROADMAP Queue A item 13c's and raises :func:`not_ported_error`."""
     if num_items < 1:
         raise ValueError(f"need at least one shard, got {num_items}")
     if mesh is None:

@@ -13,8 +13,10 @@ in the JAX package's ``plug/uppers.py``.
   ``merge_partials_async``, the fused async loop's commit half.  The axis
   spans m logical devices on the one card (``protocols.divisor_mesh``),
   and ``remesh`` / ``migrate`` (``protocols.ElasticUpper``) move a live
-  run onto another m; the reduction across cards or ranks and the
-  compressed wire are ROADMAP Queue A item 13b's.
+  run onto another m.  ``wire="compressed"`` sends the host loop's summed
+  aggregate through ``dist.collectives``' int8 error-feedback all-reduce
+  over the m logical devices; the reduction across cards or ranks is
+  ROADMAP Queue A item 13c's.
 """
 from __future__ import annotations
 
@@ -25,9 +27,10 @@ import torch
 
 from repro_torch.core.sync import lazy_exchange_plan
 from repro_torch.core.template import VertexProgram
+from repro_torch.dist.collectives import make_compressed_allreduce
 from repro_torch.graph.partition import partition_contiguous
 from repro_torch.graph.structure import Graph
-from repro_torch.plug.protocols import divisor_mesh, not_ported_error
+from repro_torch.plug.protocols import divisor_mesh
 
 
 class HostUpperSystem:
@@ -40,7 +43,8 @@ class HostUpperSystem:
         ``core.balance.lemma2_fractions``) sizes shards capacity-aware."""
         return partition_contiguous(graph, num_shards, fractions)
 
-    def bind(self, program: VertexProgram, num_shards: int):
+    def bind(self, program: VertexProgram, num_shards: int, *,
+             device=None):
         self.program = program
         self.monoid = program.monoid
         self.num_shards = num_shards
@@ -86,9 +90,15 @@ class MeshUpperSystem(HostUpperSystem):
     contiguous shards, then the m results fold in group order.  Every fold
     happens on the device the partials lie on.
 
-    ``wire="exact"`` (the default) keeps the merge lossless;
-    ``wire="compressed"`` (the int8 error-feedback all-reduce) raises
-    ``NotImplementedError`` at ``bind``, and ``bits`` is kept for it.
+    ``wire="exact"`` (the default) keeps the merge lossless.
+    ``wire="compressed"`` carries a sum monoid's aggregate over the int8
+    (``bits``-bit) error-feedback all-reduce of ``dist.collectives``: the
+    S per-shard aggregates fold into m per-device partials on the device
+    ``bind`` was given (the middleware's), the wire returns their mean, and
+    the sum is the mean times m.  The error-feedback residual is per-run
+    state, cleared by ``reset``; the compressed wire runs on the host loop
+    only (``merge_partials`` and ``merge_partials_async`` refuse it, as
+    the JAX package's do).
     """
 
     name = "mesh"
@@ -103,14 +113,29 @@ class MeshUpperSystem(HostUpperSystem):
         self.wire = wire
         self.bits = bits
         self.m = 0
+        self.device = torch.device("cpu")
+        self._allreduce = None
+        self._residual = None
         self.wire_stats = {"exact_bytes": 0, "compressed_bytes": 0}
 
-    def bind(self, program: VertexProgram, num_shards: int):
+    def bind(self, program: VertexProgram, num_shards: int, *,
+             device=None):
         super().bind(program, num_shards)
-        if self.wire == "compressed":
-            raise not_ported_error('MeshUpperSystem(wire="compressed")', 13)
+        if device is not None:
+            self.device = torch.device(device)
+        # a rebind (another shard count, a remesh) must not keep the wire
+        # or the residual built for the previous layout
+        self._allreduce = None
+        self._residual = None
+        if self.wire == "compressed" and program.monoid.idempotent:
+            raise ValueError(
+                "wire='compressed' quantizes a summed aggregate; idempotent "
+                "(min/max) merges must use wire='exact'")
         self.m = divisor_mesh(num_shards, self.mesh)
         self.mesh = self.m
+        if self.wire == "compressed":
+            self._allreduce = make_compressed_allreduce(
+                self.m, self.axis, bits=self.bits)
         return self
 
     def remesh(self, mesh):
@@ -132,7 +157,9 @@ class MeshUpperSystem(HostUpperSystem):
         return tree
 
     def reset(self):
-        # per-run state: the wire counters restart with every run
+        # per-run state: the error-feedback residual and the wire counters
+        # restart with every run
+        self._residual = None
         self.wire_stats = {"exact_bytes": 0, "compressed_bytes": 0}
 
     def _fold_axis(self, stack: torch.Tensor) -> torch.Tensor:
@@ -158,13 +185,39 @@ class MeshUpperSystem(HostUpperSystem):
                       for x in (states, aggs, cnts))
         base = self._fold_groups(st) if self.monoid.idempotent else st[0]
         cnt = cn.sum(0, dtype=torch.int32)
-        self.wire_stats["exact_bytes"] += st[0].numel() * 4 * self.m
-        return base.numpy(), self._fold_groups(ag).numpy(), cnt.numpy()
+        nbytes = st[0].numel() * 4
+        if self.wire == "compressed":
+            agg = self._compressed_sum(ag)
+            self.wire_stats["compressed_bytes"] += (
+                (nbytes * self.bits) // 32 + 4) * self.m
+        else:
+            agg = self._fold_groups(ag).numpy()
+            self.wire_stats["exact_bytes"] += nbytes * self.m
+        return base.numpy(), agg, cnt.numpy()
+
+    def _compressed_sum(self, aggs: torch.Tensor) -> np.ndarray:
+        """A sum monoid's aggregate over the int8 error-feedback wire: the
+        (S, N, K) per-shard aggregates fold, on the bound device, into the m
+        devices' partials (each its S/m contiguous shards in order); the
+        all-reduce hands every device the mean of the m partials, and the
+        sum is that mean times m."""
+        stack = aggs.to(self.device, torch.float32)
+        parts = torch.stack([self._fold_axis(g) for g in stack.reshape(
+            self.m, -1, *stack.shape[1:]).unbind(0)])
+        if self._residual is None:
+            self._residual = torch.zeros_like(parts)
+        means, self._residual = self._allreduce(parts, self._residual)
+        return (means[0] * self.m).cpu().numpy()
 
     def merge_partials(self, partials: torch.Tensor, counts: torch.Tensor):
         """Reduces the per-device partials (m, N, K) / counts (m, N) over
         axis 0 in group order → ``(agg (N, K), cnt (N,) int32)`` on their
-        device: min or max for an idempotent monoid, a sum otherwise."""
+        device: min or max for an idempotent monoid, a sum otherwise.  The
+        compressed wire's residual is per-run host-loop state, so it is
+        refused here."""
+        if self.wire != "exact":
+            raise ValueError("merge_partials supports wire='exact' only; "
+                             "compressed merges take the classic path")
         return self._fold_axis(partials), counts.sum(0, dtype=torch.int32)
 
     def merge_partials_async(self, fresh_p, fresh_c, held_p, held_c,

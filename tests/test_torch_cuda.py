@@ -1260,3 +1260,109 @@ def test_batched_query_programs_on_the_card(cuda, kind, b, autotune_cache):
         else:
             np.testing.assert_array_equal(answers[q], res.state[:, q])
     assert autotune.CACHE.sweeps == 0
+
+
+# --------------------------------------------------------------------------
+# the model stack through the model kernels
+# --------------------------------------------------------------------------
+def _model_pair(cuda, arch, dtype):
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import Model
+
+    cfg = get_reduced(arch).replace(dtype=dtype)
+    model = Model(cfg, device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    return model, model.with_kernel("reference")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "mamba2-1.3b",
+                                  "zamba2-2.7b", "pixtral-12b"])
+def test_model_prefill_through_the_kernels(cuda, arch, dtype):
+    """``kernel="cuda"`` launches flash attention once an attention layer
+    (invocation) and the SSD chunk kernel once a Mamba2 layer, none in
+    decode, and agrees with ``kernel="reference"``: float32 within
+    1e-4·max |want| (the kernels' float32 sums), bf16 within 2^-5·max
+    |want| (one bf16 ulp in attention carried through the layers)."""
+    model, reference = _model_pair(cuda, arch, dtype)
+    cfg = model.cfg
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 64),
+                                     generator=gen, device=cuda,
+                                     dtype=torch.int32)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = 0.05 * torch.randn(
+            (2, cfg.num_patches, cfg.d_model), generator=gen, device=cuda)
+    attn_layers = {"dense": cfg.num_layers, "vlm": cfg.num_layers,
+                   "ssm": 0, "hybrid": cfg.num_layers // cfg.attn_every}
+    ssm_layers = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    fa.flash_attention.launches = 0
+    ssd.ssd_chunk.launches = 0
+    with torch.no_grad():
+        logits, cache = model.prefill(batch, cache_len=72)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches == attn_layers[cfg.family]
+        assert ssd.ssd_chunk.launches == ssm_layers
+        want, ref_cache = reference.prefill(batch, cache_len=72)
+        assert fa.flash_attention.launches == attn_layers[cfg.family]
+    tol = 1e-4 if dtype == "float32" else 2.0 ** -5
+    for name, got, ref_ in [("logits", logits, want),
+                            *((k, cache[k], ref_cache[k]) for k in cache)]:
+        scale = float(ref_.float().abs().max())
+        err = float((got.float() - ref_.float()).abs().max())
+        assert err <= tol * scale, (name, err, scale)
+    with torch.no_grad():  # decode (it updates the cache) launches neither
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        model.decode_step(cache, tok, 64)
+    assert ssd.ssd_chunk.launches == ssm_layers
+    assert fa.flash_attention.launches == attn_layers[cfg.family]
+
+
+@pytest.mark.cuda
+def test_model_kernel_path_never_falls_back(cuda):
+    """On the card a kernel the shapes do not fit raises; nothing carries
+    on with the plain version."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import Model
+
+    cfg = get_reduced("mamba2-1.3b")
+    with pytest.raises(ValueError, match="ssd_scan.cu"):
+        Model(cfg.replace(ssm_head_dim=48), device=cuda)
+    x = torch.zeros((1, 16, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        ops.ssd_scan(x, torch.ones((1, 16, 2), device=cuda),
+                     -torch.ones(2, device=cuda),
+                     torch.zeros((1, 16, 1, 8), device=cuda),
+                     torch.zeros((1, 16, 1, 8), device=cuda), chunk=16)
+
+
+@pytest.mark.cuda
+def test_compressed_wire_on_the_card(cuda):
+    """``MeshUpperSystem(wire="compressed")`` folds and quantizes on the
+    card: pagerank through it within atol 5e-3 of run_reference at m = 1,
+    2 and 4, and each merge equal to the CPU's on the same aggregates."""
+    from repro_torch.dist import collectives as C
+
+    g = generate.rmat(256, 2048, seed=9)
+    prog = algorithms.pagerank(g)
+    ref_state, _ = plug.run_reference(g, prog, max_iterations=8,
+                                      device="cpu")
+    for m in (1, 2, 4):
+        upper = plug.MeshUpperSystem(mesh=m, wire="compressed")
+        mw = plug.Middleware(g, prog, upper=upper, num_shards=4,
+                             options=plug.PlugOptions(block_size=256),
+                             device=cuda)
+        assert upper.device == cuda
+        res = mw.run(max_iterations=8)
+        np.testing.assert_allclose(res.state, ref_state, atol=5e-3)
+        assert upper._residual.device.type == "cuda"
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.pareto(1.5, (4 * 300, 2)).astype(np.float32))
+    r = torch.zeros_like(x)
+    for bits in (8, 4):
+        run = C.make_compressed_allreduce(4, bits=bits)
+        got = run(x.to(cuda), r.to(cuda))
+        want = run(x, r)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)

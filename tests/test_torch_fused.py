@@ -450,14 +450,16 @@ def test_share_from_adopts_the_donors_stacked_tensors():
 def test_not_ported_parts_raise_naming_their_item():
     _, gt = _graph("sssp_bf")
     # an int m is m logical devices on one card; a device mesh across
-    # cards or ranks is item 13b's
+    # cards or ranks is item 13c's
     with pytest.raises(NotImplementedError, match="item 13"):
         _port("sssp_bf", upper=tplug.MeshUpperSystem(mesh=("shard", 2)))
     daemon = tplug.ShardedDaemon(mesh=("shard", 4)).bind(
         talg.sssp_bf(gt), gt.num_vertices, device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         daemon.bind_shards(_port("sssp_bf").blocksets)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # item 13b is ported on one card: the compressed wire refuses a min
+    # program, as the JAX package's does
+    with pytest.raises(ValueError, match="idempotent"):
         _port("sssp_bf", upper=tplug.MeshUpperSystem(wire="compressed"))
     # item 8 is ported: the async model on sharded + mesh is the fused
     # async loop

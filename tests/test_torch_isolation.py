@@ -233,7 +233,8 @@ def test_later_slices_raise_not_implemented(kwargs, item):
     (``monitor=``, ``failures=``, ``mutations=``, ``oocore=``) are options
     of the fused loops, which this composition (``daemon="reference"``,
     ``upper="host"``) refuses with a ``ValueError`` naming it, as the JAX
-    package does — out of core never falls back to a resident run."""
+    package does — out of core never falls back to a resident run.  Item
+    13b's compressed wire runs for a sum and refuses a min program."""
     g = _graph()
     prog = algorithms.bfs(g)
     if item == 8:
@@ -250,6 +251,15 @@ def test_later_slices_raise_not_implemented(kwargs, item):
     if item in (9, 10, 11):
         with pytest.raises(ValueError, match="fused"):
             plug.Middleware(g, prog, device="cpu", **kwargs)
+        return
+    if getattr(kwargs.get("upper"), "wire", "exact") == "compressed":
+        # item 13b's compressed wire is ported: a min program is refused
+        # with the JAX package's ValueError, a sum runs the host loop
+        with pytest.raises(ValueError, match="idempotent"):
+            plug.Middleware(g, prog, device="cpu", **kwargs)
+        mw = plug.Middleware(g, algorithms.pagerank(g), device="cpu",
+                             upper=plug.MeshUpperSystem(wire="compressed"))
+        assert mw._fused_kind is None and mw.run(max_iterations=3).iterations
         return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         plug.Middleware(g, prog, device="cpu", **kwargs)

@@ -17,7 +17,7 @@ CPU.
   ``wire_stats`` included.  The JAX m is read from the JAX object, so no
   assertion depends on how many devices the JAX process has.
 * Bad meshes are refused: an int that does not divide the shards or is
-  under 1 with ``ValueError``, a device mesh (item 13b) with
+  under 1 with ``ValueError``, a device mesh (item 13c) with
   ``NotImplementedError``.
 """
 import numpy as np
