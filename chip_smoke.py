@@ -150,7 +150,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
               same, checked the same way; there ``holding`` must skip a
               device body at least once.
 5g. elastic — the structure-epoch layer at ``mesh=4`` with ``CSRConfig()``
-              pinned, on the same graph: (a) sssp_bf GAS with
+              pinned, on an R-MAT graph of scale 18 made as phase 3's
+              (edge factor 16, ``--seed``; its own 4 shards, pagerank and
+              sssp_bf programs and ``run_reference`` runs; the depth cut
+              that makes room for phase 9, in the line's ``reduced``): (a) sssp_bf GAS with
               ``FailureSchedule(kills=[(3, 2)])`` (4 → 2 logical devices),
               (b) the same kill under ``AsyncModel`` ``holding``, (c)
               pagerank BSP (10 its) with the kill, (d) sssp_bf with
@@ -159,8 +162,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               others (a Lemma-2 re-partition that recompacts every tile);
               (f) ``rebalance(capacities=linspace(1, 2, 4))`` between two
               sssp_bf runs of the fused loop, and before one on the host
-              loop with ``daemon="cuda"`` (phase 5's sssp_bf middleware,
-              whose run before it is phase 5's); (g) a ``MutationSchedule``
+              loop with ``daemon="cuda"`` (phase 5's sssp_bf middleware on
+              the scale-20 graph, whose run before it is phase 5's); (g) a ``MutationSchedule``
               batch at iteration 3 adding 65,536 edges whose sources own
               edges in shard 0 (destinations uniform, weights in the
               generator's range, from ``--seed``); (h) ``run_dynamic`` of
@@ -342,6 +345,51 @@ Phases, each printing one JSON line; any failure exits non-zero:
               exact state is reported, not bounded: a per-tensor scale
               puts most R-MAT aggregates under one quantization step
               (PERF.md §6).
+9. train     — training, on phase 8's model (its parameters; the bf16
+              copies dropped): (a) zamba2-2.7b's loss and backward on
+              B=1 × S=4096 tokens of ``train.data.SyntheticLM(seed)``
+              through the kernels' ``autograd.Function``s against
+              ``kernel="reference"`` on the same parameters, in float32
+              compute (every gradient leaf within ``TRAIN_TOL``·max |want|
+              of that leaf, the loss within ``TRAIN_LOSS_RTOL``) and in
+              the config's bf16 (the loss within ``TRAIN_LOSS_RTOL_BF16``,
+              ||Δ|| / ||want|| over all leaves within ``TRAIN_L2_BF16``),
+              the launch counters zeroed just before and read just after
+              each kernel pass (per-group remat: 18 flash attention, 108
+              ``ssd_chunk``); on that pass's own inputs the first shared
+              block's dq, dk, dv and the first Mamba2 layer's SSD chunk
+              gradients through the Functions bit-equal to plain autograd
+              of the plain versions, and ``ops.ssd_scan``'s gradients
+              within 1e-4·max(1, max |want|) of the reference path's; then
+              a 512-token prefill, 3 AdamW steps through
+              ``train.step.make_train_step`` (each loss finite; s a step,
+              tokens/s, the peak allocation), and the prefill again, now
+              bit-equal to one through freshly cast copies (and moved from
+              the first); one step with ``grad_wire="int8"``: its
+              ``grad_wire_err``, and the first leaf of at most 2^22 floats
+              as sent bit-equal to a NumPy oracle of the int round.  (b)
+              qwen3-moe-235b-a22b at its published width, 2 of its 94
+              layers (in the line's ``reduced``), parameters from
+              ``--seed``: a prefill of B=1 × 4096 tokens through the
+              kernels (one attention launch a layer) against
+              ``kernel="reference"`` within ``MODEL_TOL``·max |want|, 16
+              greedy tokens twice, identical; the share of (token,
+              expert) assignments dropped for want of capacity, prefill s,
+              ms a decode step, the peak.  (c) whisper-base at its
+              published config: frames (2, 1500, 512) from the seed and a
+              448-token prompt; a prefill launches attention 6 times at
+              S=1500 with ``causal=False`` (the encoder) and 6 times
+              causal at S=448, within ``MODEL_TOL`` of the reference, 32
+              greedy tokens twice; its gradients against the reference as
+              in (a), and one AdamW step.  Each model's first attention
+              inputs of a kind are timed through the kernel beside its
+              plain version and SDPA, with the bound.  (d)
+              ``launch.train --reduced`` (stablelm, 6 steps, a checkpoint
+              every 3, ``--grad-wire int8``), its last checkpoint removed
+              and the run repeated: it resumes from step 3 and runs the
+              rest; then ``examples.elastic_restart`` on the card (its
+              restored state bit-equal to the saved one, the resumed
+              losses within its ``LOSS_RTOL`` of an uninterrupted run).
 
 Float32 matrix products run in full float32 (TF32 off) throughout.  Then the
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
@@ -414,6 +462,28 @@ MODEL_B, MODEL_S, MODEL_GEN = 2, 4096, 32
 # |want| (bf16 against float32 itself 1.5–2.1%), so 2^-4 leaves a margin
 # of ~4 (PERF.md §6)
 MODEL_TOL = 2.0 ** -4
+# phase 9: zamba2-2.7b trained at B=1, S=4096 (3 AdamW steps; a 512-token
+# prefill before and after them); the gradients through the kernels
+# against kernel="reference" on the same parameters and batch.  float32
+# compute: every leaf within TRAIN_TOL·max |want| of that leaf, the loss
+# within TRAIN_LOSS_RTOL.  bf16 compute (the config's): the loss within
+# TRAIN_LOSS_RTOL_BF16 and ||Δ|| / ||want|| over all leaves within
+# TRAIN_L2_BF16 — a per-leaf bound cannot hold there: one bf16 ulp on 30%
+# of the attention outputs moves a leaf's gradient by up to 56% of its max
+# through 54 bf16 layers (median 8.5%, global 7.9% in L2), where float32
+# moves it by 2.6e-4 at most (scripts/train_tol_sim.py, d_model 256, S
+# 512); PERF.md §6
+TRAIN_B, TRAIN_S, TRAIN_PREFILL_S, TRAIN_STEPS = 1, 4096, 512, 3
+TRAIN_TOL = 2.0 ** -9
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_LOSS_RTOL_BF16 = 2.0 ** -10
+TRAIN_L2_BF16 = 2.0 ** -2
+WIRE_ORACLE_NUMEL = 1 << 22  # the first leaf this small meets the oracle
+# phase 9 (b): qwen3-moe at its published width, 2 of its 94 layers
+MOE_ARCH, MOE_LAYERS, MOE_S, MOE_GEN = "qwen3-moe-235b-a22b", 2, 4096, 16
+# phase 9 (c): whisper-base, a 448-token prompt (no multiple of 128)
+WHISPER_ARCH, WHISPER_B, WHISPER_PROMPT, WHISPER_GEN = (
+    "whisper-base", 2, 448, 32)
 # the bf16 attention kernel (csrc/flash_attention_sm90.cu) and the SASS
 # instructions that show it runs on wgmma and TMA loads
 SASS_KERNEL = "attn_sm90_kernel"
@@ -2267,6 +2337,7 @@ ELASTIC_JOIN = {"kills": [(2, 1)], "recoveries": [(5, 1)]}  # 4 → 2 → 4
 STRAGGLER_IT, STRAGGLER, STRAGGLER_X = 2, 1, 3.0  # 3× the others' step
 MUTATION_EDGES = 65536                        # each batch, all in shard 0
 MUTATION_IT = 3
+ELASTIC_SCALE = 18  # 5g's graph (phase 3's is scale 20)
 WEIGHT_RANGE = (1.0, 10.0)                    # generate.rmat_stream's
 
 
@@ -2475,14 +2546,16 @@ def shard0_removals(part, seed):
     return log.freeze()
 
 
-def phase_elastic(g, parts, pr, sp, refs, mesh4, seed, host_sp) -> tuple:
+def phase_elastic(g, parts, pr, sp, refs, mesh4, seed, host_sp,
+                  host_ref) -> tuple:
     """Phase 5g: the structure-epoch layer at ``mesh=SHARDS`` with
     ``CSRConfig()`` pinned — kills, a join, a straggler, rebalances and
     mutation batches, each against ``run_reference`` on the post-trigger
     graph.  ``mesh4`` maps a program's name to phase 5e's (label, s an
-    iteration); ``host_sp`` holds phase 5's host-loop sssp_bf middleware,
-    which (f) takes out and rebalances.  Returns the phase's line and its
-    csr_tile launches."""
+    iteration); ``host_sp`` holds phase 5's host-loop sssp_bf middleware
+    (phase 3's graph, whose reference state is ``host_ref``), which (f)
+    takes out and rebalances.  Returns the phase's line and its csr_tile
+    launches."""
     import numpy as np
     import torch
 
@@ -2498,7 +2571,11 @@ def phase_elastic(g, parts, pr, sp, refs, mesh4, seed, host_sp) -> tuple:
         k: {"run": v[0], "s_per_iteration": v[1]} for k, v in mesh4.items()},
         "reduced": {"rebalance": "the host loop's rebalance runs only after "
                     "it, on phase 5's sssp_bf/cuda/gas middleware: its run "
-                    "before is phase 5's"}}
+                    "before is phase 5's",
+                    "scale": f"an R-MAT graph of scale {ELASTIC_SCALE} "
+                    "(phase 3's is 20) for every run but the host "
+                    "rebalance, which stays on phase 5's graph"},
+        "vertices": n, "edges": g.num_edges}
     launches_tile = 0
     sp_ref = refs[sp.name][0]
     pr_ref = refs[pr.name][0]
@@ -2574,7 +2651,8 @@ def phase_elastic(g, parts, pr, sp, refs, mesh4, seed, host_sp) -> tuple:
                 "s_per_iteration": res.wall_time / res.iterations,
                 "csr_tile_per_iteration": launched / res.iterations,
                 "max_abs_err_vs_reference": check_state(
-                    f"{label}/{when}", res.state, sp_ref, None)}
+                    f"{label}/{when}", res.state,
+                    sp_ref if fused else host_ref, None)}
             if fused and launched != res.iterations:
                 raise AssertionError(f"{label}: csr_tile {launched} over "
                                      f"{res.iterations} iterations")
@@ -3322,8 +3400,8 @@ def model_checks(logits, cache, ref_logits, ref_cache) -> dict:
 
 
 def phase_model(seed) -> tuple:
-    """Phase 8's model half; returns its record and the kernels' records
-    at the model's shapes."""
+    """Phase 8's model half; returns its record, the kernels' records at
+    the model's shapes, and the model (phase 9 trains it)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3331,6 +3409,7 @@ def phase_model(seed) -> tuple:
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models import Model
+    from repro_torch.models import attention as A
     from repro_torch.train.serve import decode_from, make_prefill_step
 
     dev = torch.device("cuda")
@@ -3360,7 +3439,8 @@ def phase_model(seed) -> tuple:
     fa.flash_attention.launches = 0
     ssd.ssd_chunk.launches = 0
     t0 = time.perf_counter()
-    with first_calls(ops, ("flash_attention", "ssd_scan")) as first:
+    with first_calls(A, ("attend",)) as first, \
+            first_calls(ops, ("ssd_scan",)) as first_ssd:
         logits, cache = prefill(batch)
     torch.cuda.synchronize()
     out["prefill_first_s"] = time.perf_counter() - t0
@@ -3387,11 +3467,11 @@ def phase_model(seed) -> tuple:
     out["last_token_agrees"] = float(
         (logits[:, -1].argmax(-1) == ref_next[:, 0]).float().mean())
     del logits, ref_logits
-    (q, k, v), _ = first["flash_attention"]
+    (q, k, v), _ = first["attend"]
     attn = model_attention(q, k, v)
     del q, k, v
-    ssd_rec = model_ssd(*first["ssd_scan"])
-    del first
+    ssd_rec = model_ssd(*first_ssd["ssd_scan"])
+    del first, first_ssd
     out["layer"] = {"attention": attn["check"], "ssd": ssd_rec["checks"]}
 
     # (c) greedy generation from the kernel prefill, twice
@@ -3436,9 +3516,9 @@ def phase_model(seed) -> tuple:
             (runs[0]["tokens"] == plain_toks).sum()),
         "of": plain_toks.numel()}
     out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
-    del model, reference, cache, ref_cache
+    del reference, cache, ref_cache
     torch.cuda.empty_cache()
-    return out, attn, ssd_rec
+    return out, attn, ssd_rec, model
 
 
 def recording_upper(bits: int):
@@ -3553,6 +3633,648 @@ def phase_wire(g, parts, pr, exact_state) -> dict:
         del mw
         torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------------------------------------
+# phase 9: training
+# --------------------------------------------------------------------------
+@contextlib.contextmanager
+def all_calls(module, name, record, keep=None):
+    """Passes every call of ``module.<name>`` through and appends
+    ``record(*args, **kwargs)`` of each to the list it yields (``None``
+    after the first ``keep`` calls)."""
+    got: list = []
+    fn = getattr(module, name)
+
+    def call(*args, **kwargs):
+        got.append(record(*args, **kwargs)
+                   if keep is None or len(got) < keep else None)
+        return fn(*args, **kwargs)
+
+    setattr(module, name, call)
+    try:
+        yield got
+    finally:
+        setattr(module, name, fn)
+
+
+def twin(model, cfg, kernel: str):
+    """``model``'s very parameters under another config (its compute
+    dtype) and kernel, with compute-dtype copies of its own."""
+    from repro_torch.models import Model
+
+    out = Model(cfg, kernel=kernel, device="meta")
+    out.load_state_dict(model.state_dict(keep_vars=True), assign=True)
+    return out
+
+
+def counted_grads(model, batch):
+    """``loss_and_grads`` with the model kernels' launch counters zeroed
+    just before and read just after; returns (loss, grads, launches, s)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.train.step import loss_and_grads
+
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    ssd.ssd_chunk.launches = 0
+    t0 = time.perf_counter()
+    loss, grads = loss_and_grads(model, batch)
+    torch.cuda.synchronize()
+    return loss, grads, {"flash_attention": fa.flash_attention.launches,
+                         "ssd_chunk": ssd.ssd_chunk.launches}, \
+        time.perf_counter() - t0
+
+
+def grad_checks(label, loss, grads, want_loss, want, *, leaf_tol=None,
+                l2_tol=None, loss_rtol) -> dict:
+    """The gradients through the kernels against the reference's: the loss
+    within ``loss_rtol``; with ``leaf_tol`` every leaf within leaf_tol ·
+    max |want| of that leaf; with ``l2_tol`` ||Δ|| / ||want|| over all
+    leaves.  Reports the per-leaf shares either way."""
+    import torch
+
+    loss_rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    if not math.isfinite(float(loss)) or loss_rel > loss_rtol:
+        raise AssertionError(f"{label}: loss {float(loss)} against "
+                             f"{float(want_loss)} (rel {loss_rel})")
+    shares, num, den = {}, 0.0, 0.0
+    for k, w in want.items():
+        g = grads[k]
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{label}: gradient {k} bad")
+        d = (g.float() - w.float())
+        scale = float(w.float().abs().max())
+        shares[k] = float(d.abs().max()) / scale if scale else 0.0
+        num += float((d * d).sum())
+        den += float((w.float() * w.float()).sum())
+    rel_l2 = math.sqrt(num / den)
+    worst = sorted(shares.items(), key=lambda kv: -kv[1])[:3]
+    if leaf_tol is not None and worst[0][1] > leaf_tol:
+        raise AssertionError(f"{label}: gradient {worst[0][0]} off by "
+                             f"{worst[0][1]} of its max, over {leaf_tol}")
+    if l2_tol is not None and rel_l2 > l2_tol:
+        raise AssertionError(f"{label}: gradients' relative L2 {rel_l2} "
+                             f"over {l2_tol}")
+    ordered = sorted(shares.values())
+    return {"loss": float(loss), "reference_loss": float(want_loss),
+            "loss_rel_diff": loss_rel, "loss_rtol": loss_rtol,
+            "leaves": len(shares), "leaf_tol": leaf_tol,
+            "max_leaf_share": ordered[-1],
+            "median_leaf_share": ordered[len(ordered) // 2],
+            "worst_leaves": worst, "rel_l2": rel_l2, "l2_tol": l2_tol}
+
+
+def function_checks(attn_args, ssd_args, seed) -> dict:
+    """Layer level on the train step's own inputs: the first shared-block
+    attention's dq, dk, dv and the first Mamba2 layer's SSD chunk
+    gradients through the kernels' Functions against plain autograd of
+    their plain versions on the same inputs — bit-equal, since the
+    backward recomputes exactly that; then ``ops.ssd_scan``'s gradients
+    (the Function under the cross-chunk loop) against the reference
+    path's within 1e-4·max(1, max |want|)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    out = {}
+
+    def plain(fn, inputs, grads):
+        xs = [t.detach().clone().requires_grad_(True) for t in inputs]
+        ys = fn(*xs)
+        return torch.autograd.grad(ys if isinstance(ys, tuple) else (ys,),
+                                   xs, grads)
+
+    (q, k, v), kw = attn_args
+    q, k, v = (t.detach() for t in (q, k, v))
+    g = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n0 = fa.flash_attention.launches
+    o = fa.flash_attention(*xs, causal=kw["causal"])
+    if fa.flash_attention.launches != n0 + 1 or o.grad_fn is None:
+        raise AssertionError("train/attention: no kernel launch or no "
+                             "gradient under autograd")
+    got = torch.autograd.grad(o, xs, g)
+    want = plain(lambda *t: fa.flash_attention_plain(
+        *t, causal=kw["causal"]), (q, k, v), (g,))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"train/attention {name}: not bit-equal "
+                                 f"to plain autograd (max |Δ| "
+                                 f"{float((a.float() - b.float()).abs().max())})")
+    out["attention"] = {"shape": list(q.shape), "dtype": str(q.dtype),
+                        "bit_equal": ["dq", "dk", "dv"]}
+    del q, k, v, g, xs, o, got, want
+
+    (x, dt, a, bm, cm), kw = ssd_args
+    chunk = kw["chunk"]
+    b, s, h, p = x.shape
+    nc = s // chunk
+    grp, n = bm.shape[2], bm.shape[3]
+    cin = (x.detach().float().reshape(b, nc, chunk, h, p),
+           dt.detach().float().reshape(b, nc, chunk, h),
+           a.detach().float(),
+           bm.detach().float().reshape(b, nc, chunk, grp, n),
+           cm.detach().float().reshape(b, nc, chunk, grp, n))
+    outs_g = tuple(torch.randn(shape, generator=gen, device="cuda")
+                   for shape in ((b, nc, chunk, h, p), (b, nc, h, n, p),
+                                 (b, nc, h), (b, nc, chunk, h)))
+    xs = [t.clone().requires_grad_(True) for t in cin]
+    ys = ssd.ssd_chunk(*xs)
+    if any(y.grad_fn is None for y in ys):
+        raise AssertionError("train/ssd: an output without a gradient")
+    got = torch.autograd.grad(ys, xs, outs_g)
+    want = plain(ssd.ssd_chunk_plain, cin, outs_g)
+    for name, g1, g2 in zip(("x", "dt", "a", "b", "c"), got, want):
+        if not torch.equal(g1, g2):
+            raise AssertionError(f"train/ssd d{name}: not bit-equal to "
+                                 "plain autograd")
+    flat = tuple(t.detach().float().contiguous() for t in (x, dt, a, bm, cm))
+    gy = torch.randn(flat[0].shape, generator=gen, device="cuda")
+    scan = {}
+    for impl in ("cuda", "reference"):
+        xs = [t.clone().requires_grad_(True) for t in flat]
+        scan[impl] = torch.autograd.grad(
+            ops.ssd_scan(*xs, chunk=chunk, impl=impl), xs, gy)
+    shares = {}
+    for name, g1, g2 in zip(("x", "dt", "a", "b", "c"), scan["cuda"],
+                            scan["reference"]):
+        chk = check_close(f"train/ssd_scan d{name}", g1, g2)
+        shares[name] = chk["tol_share"]
+    out["ssd"] = {"shape": list(x.shape), "chunk": chunk,
+                  "chunk_bit_equal": ["x", "dt", "a", "b", "c"],
+                  "scan_vs_reference_tol_share": shares}
+    return out
+
+
+def attention_case(label, q, k, v, causal) -> dict:
+    """The kernel at a model's own attention inputs: against its plain
+    version (bf16: one ulp), timed beside it and SDPA, with its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, s, d = q.shape
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    tol = (dict(rtol=BF16_RTOL, atol=BF16_ATOL)
+           if q.dtype == torch.bfloat16 else {})
+    chk = check_close(f"attention/{label}", got, want, **tol)
+    del got, want
+    pairs = s * (s + 1) // 2 if causal else s * s
+    ops_count = 4 * d * pairs * b * hq
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return dict(
+        case=label, B=b, Hq=hq, Hkv=k.shape[1], S=s, D=d,
+        dtype=str(q.dtype), causal=causal, max_abs_err=chk["max_abs_err"],
+        tol_share=chk["tol_share"],
+        kernel_ms=cuda_time_ms(lambda: fa.flash_attention(
+            q, k, v, causal=causal), reps=10, warmup=2),
+        plain_ms=cuda_time_ms(lambda: fa.flash_attention_plain(
+            q, k, v, causal=causal), reps=3, warmup=1),
+        library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True)),
+        bytes=nbytes, ops=ops_count,
+        **bound(nbytes, ops_count, BF16_OPS_PER_S))
+
+
+def train_zamba2(model, seed) -> tuple:
+    """Phase 9 (a); returns its record and the kernels' case records."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.dist import collectives as coll
+    from repro_torch.models import attention as A
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.optimizer import AdamW, AdamWConfig
+    from repro_torch.train.step import (as_batch, init_wire_state,
+                                        make_train_step)
+
+    dev = torch.device("cuda")
+    cfg = model.cfg
+    model.params_changed()  # phase 8's bf16 copies: 4.84 GB freed
+    torch.cuda.empty_cache()
+    groups = cfg.num_layers // cfg.attn_every
+    want_launches = {"flash_attention": 2 * groups,
+                     "ssd_chunk": 2 * cfg.num_layers}
+    data = SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=seed)
+    batch = as_batch(data.next_batch(), dev)
+    out = {"arch": cfg.name, "parameters": model.num_params(),
+           "B": TRAIN_B, "S": TRAIN_S, "remat": cfg.remat,
+           "tolerances": {"f32_leaf": TRAIN_TOL, "bf16_rel_l2":
+                          TRAIN_L2_BF16, "f32_loss_rtol": TRAIN_LOSS_RTOL,
+                          "bf16_loss_rtol": TRAIN_LOSS_RTOL_BF16}}
+
+    # float32 compute: every leaf within TRAIN_TOL of the reference's
+    f32 = cfg.replace(dtype="float32")
+    want_loss, want, _, ref_s = counted_grads(twin(model, f32, "reference"),
+                                              batch)
+    loss, grads, launches, s = counted_grads(twin(model, f32, "cuda"), batch)
+    if launches != want_launches:
+        raise AssertionError(f"train/f32: launched {launches}, expected "
+                             f"{want_launches}")
+    out["float32"] = {"launches": launches, "s": s, "reference_s": ref_s,
+                      **grad_checks("train/f32", loss, grads, want_loss,
+                                    want, leaf_tol=TRAIN_TOL,
+                                    loss_rtol=TRAIN_LOSS_RTOL)}
+    del want, grads
+    torch.cuda.empty_cache()
+
+    # the config's bf16 compute: the main path's train pass, counted alone
+    want_loss, want, _, ref_s = counted_grads(model.with_kernel("reference"),
+                                              batch)
+    first = lambda *a, **kw: (a, kw)  # noqa: E731
+    with all_calls(A, "attend", first, keep=1) as attn_calls, \
+            all_calls(ops, "ssd_scan", first, keep=1) as ssd_calls:
+        loss, grads, launches, s = counted_grads(model, batch)
+    if launches != want_launches:
+        raise AssertionError(f"train/bf16: launched {launches}, expected "
+                             f"{want_launches}")
+    out["launches"] = launches
+    out["bfloat16"] = {"launches": launches, "s": s, "reference_s": ref_s,
+                       "attend_calls": len(attn_calls),
+                       "ssd_scan_calls": len(ssd_calls),
+                       **grad_checks("train/bf16", loss, grads, want_loss,
+                                     want, l2_tol=TRAIN_L2_BF16,
+                                     loss_rtol=TRAIN_LOSS_RTOL_BF16)}
+    del want, grads
+    attn_first, ssd_first = attn_calls[0], ssd_calls[0]
+    del attn_calls, ssd_calls
+    torch.cuda.empty_cache()
+    out["layer"] = function_checks(attn_first, ssd_first, seed)
+    (q, k, v), _ = attn_first
+    case = attention_case(f"{cfg.name}/train/B{TRAIN_B}", q.detach(),
+                          k.detach(), v.detach(), True)
+    del attn_first, ssd_first, q, k, v
+
+    # a prefill before the steps (the compute copies made), 3 AdamW steps
+    prompt = {"tokens": batch["tokens"][:, :TRAIN_PREFILL_S]}
+    with torch.no_grad():
+        before, _ = model.prefill(prompt)
+    opt = AdamW(AdamWConfig(peak_lr=1e-4, warmup_steps=1, total_steps=10))
+    state = opt.init(model)
+    step = make_train_step(model, opt)
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = []
+    for i in range(TRAIN_STEPS):
+        b_i = as_batch(data.next_batch(), dev)
+        fa.flash_attention.launches = ssd.ssd_chunk.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b_i)
+        torch.cuda.synchronize()
+        dt_s = time.perf_counter() - t0
+        rec = {"loss": float(metrics["loss"]), "s": dt_s,
+               "tokens_per_s": TRAIN_B * TRAIN_S / dt_s,
+               "grad_norm": float(metrics["grad_norm"]),
+               "lr": float(metrics["lr"]),
+               "launches": {"flash_attention": fa.flash_attention.launches,
+                            "ssd_chunk": ssd.ssd_chunk.launches}}
+        if not math.isfinite(rec["loss"]):
+            raise AssertionError(f"train/step {i}: loss {rec['loss']}")
+        steps.append(rec)
+    out["steps"] = steps
+    out["step_s_warm"] = min(r["s"] for r in steps[1:])
+    out["tokens_per_s_warm"] = TRAIN_B * TRAIN_S / out["step_s_warm"]
+    out["peak_allocated_bytes_steps"] = torch.cuda.max_memory_allocated(dev)
+    out["opt_state_bytes"] = sum(
+        t.numel() * t.element_size() for part in ("m", "v")
+        for t in state[part].values())
+
+    # the prefill after the steps reads fresh compute copies
+    with torch.no_grad():
+        after, _ = model.prefill(prompt)
+        fresh, _ = twin(model, cfg, "cuda").prefill(prompt)
+    if not torch.equal(after, fresh):
+        raise AssertionError("train: the prefill after the steps differs "
+                             "from one through freshly cast copies")
+    if torch.equal(after, before):
+        raise AssertionError("train: the steps did not change the prefill")
+    out["prefill_after_steps"] = {
+        "bit_equal_to_fresh_copies": True,
+        "moved_from_before": float((after.float() - before.float())
+                                   .abs().max())}
+    del before, after, fresh
+    model.params_changed()
+
+    # one step through the int8 wire; one leaf against a NumPy oracle
+    wire = init_wire_state(model)
+    wstep = make_train_step(model, opt, grad_wire="int8")
+    seen = []
+
+    def record_q(t, bits=8):
+        q_, s_ = quantize(t, bits)
+        if not seen and t.numel() <= WIRE_ORACLE_NUMEL:
+            seen.append([t.detach().cpu(), bits, None])
+        return q_, s_
+
+    def record_dq(q_, s_):
+        r = dequantize(q_, s_)
+        if seen and seen[0][2] is None:
+            seen[0][2] = r.detach().cpu()
+        return r
+
+    quantize, dequantize = coll.quantize_int, coll.dequantize_int
+    coll.quantize_int, coll.dequantize_int = record_q, record_dq
+    try:
+        state, wire, metrics = wstep(state, wire, as_batch(
+            data.next_batch(), dev))
+        torch.cuda.synchronize()
+    finally:
+        coll.quantize_int, coll.dequantize_int = quantize, dequantize
+    t_np, bits, sent = seen[0]
+    out["grad_wire"] = {"grad_wire_err": float(metrics["grad_wire_err"]),
+                        "loss": float(metrics["loss"]),
+                        **wire_oracle(t_np, bits, sent)}
+    del state, wire, opt, step, wstep
+    torch.cuda.empty_cache()
+    return out, case
+
+
+def wire_oracle(t, bits, sent) -> dict:
+    """One leaf's sent gradient against a NumPy oracle of the int round:
+    scale max(amax, 1e-12)/qmax, q = clip(rint(t/scale)), sent = q·scale."""
+    import numpy as np
+
+    qmax = (1 << (bits - 1)) - 1
+    x = t.numpy().astype(np.float32)
+    scale = np.float32(max(np.abs(x).max(), np.float32(1e-12))) \
+        / np.float32(qmax)
+    q = np.clip(np.rint(x / scale), -qmax, qmax).astype(np.int8)
+    want = q.astype(np.float32) * scale
+    if not np.array_equal(sent.numpy(), want):
+        raise AssertionError(f"train/grad_wire: the sent leaf differs from "
+                             f"the NumPy oracle at "
+                             f"{int((sent.numpy() != want).sum())} elements")
+    return {"oracle_leaf_numel": int(x.size), "oracle_bit_equal": True}
+
+
+def serve_case(label, model, batch, cache_len, gen_steps, prompt_len):
+    """A model's kernel prefill against ``kernel="reference"`` within
+    MODEL_TOL·max |want| (logits and every cache leaf), then greedy decode
+    twice with identical tokens.  Returns the record and the attention
+    calls of the kernel prefill (their inputs)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as A
+    from repro_torch.train.serve import decode_from, make_prefill_step
+
+    prefill = make_prefill_step(model, cache_len=cache_len)
+    kinds: set = set()
+
+    def record(q, k, v, *, causal, kernel):
+        first = causal not in kinds
+        kinds.add(causal)
+        return {"causal": causal, "S": q.shape[2],
+                "qkv": (q, k, v) if first else None}
+
+    fa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    with all_calls(A, "attend", record) as calls:
+        logits, cache = prefill(batch)
+    torch.cuda.synchronize()
+    out = {"prefill_first_s": time.perf_counter() - t0,
+           "launches": fa.flash_attention.launches,
+           "attend_calls": [{k: c[k] for k in ("causal", "S")}
+                            for c in calls]}
+    t0 = time.perf_counter()
+    ref_logits, ref_cache = model.with_kernel("reference").prefill(
+        batch, cache_len=cache_len)
+    torch.cuda.synchronize()
+    out["reference_prefill_s"] = time.perf_counter() - t0
+    out["end_to_end"] = model_checks(logits, cache, ref_logits, ref_cache)
+    del ref_logits, ref_cache
+    runs = []
+    for _ in range(2):
+        del cache
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(batch)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        toks = decode_from(model, cache, tok, prompt_len, gen_steps)
+        torch.cuda.synchronize()
+        runs.append({"prefill_s": t_prefill,
+                     "decode_ms_per_step": 1e3 * (time.perf_counter() - t0)
+                     / (gen_steps - 1), "tokens": toks.cpu()})
+    if not torch.equal(runs[0]["tokens"], runs[1]["tokens"]):
+        raise AssertionError(f"{label}: two greedy generations differ")
+    out["generation"] = {"tokens": gen_steps, "identical": True,
+                         "first_row": runs[0]["tokens"][0].tolist(),
+                         "runs": [{k: r[k] for k in ("prefill_s",
+                                                     "decode_ms_per_step")}
+                                  for r in runs]}
+    del cache, logits
+    return out, [(*c["qkv"], c["causal"]) for c in calls if c["qkv"]]
+
+
+def train_moe(seed) -> tuple:
+    """Phase 9 (b): qwen3-moe-235b-a22b at its published width, 2 of its
+    94 layers."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models import moe as M
+
+    dev = torch.device("cuda")
+    cfg = get_config(MOE_ARCH).replace(num_layers=MOE_LAYERS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, MOE_S), generator=gen,
+                           device=dev, dtype=torch.int32)
+    stats: dict = {}
+    moe_ffn = M.moe_ffn
+
+    def counting(*a, **kw):
+        return moe_ffn(*a, stats=stats, **kw)
+
+    out = {"arch": cfg.name, "family": cfg.family,
+           "reduced": f"depth: {MOE_LAYERS} of the published 94 layers "
+                      "(published widths)",
+           "parameters": model.num_params(), "init_s":
+           time.perf_counter() - t0, "B": 1, "S": MOE_S,
+           "capacity": M.capacity_for(MOE_S, cfg),
+           "decode_capacity": M.capacity_for(1, cfg)}
+    M.moe_ffn = counting
+    try:
+        rec, calls = serve_case("train/moe", model, {"tokens": tokens},
+                                MOE_S + MOE_GEN, MOE_GEN, MOE_S)
+    finally:
+        M.moe_ffn = moe_ffn
+    if rec["launches"] != MOE_LAYERS:
+        raise AssertionError(f"train/moe: prefill launched "
+                             f"{rec['launches']}, expected {MOE_LAYERS}")
+    out.update(rec)
+    out["dropped_share"] = float(stats["dropped"]) / float(
+        stats["assignments"])
+    out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
+    q, k, v, causal = calls[0]
+    case = attention_case(f"{cfg.name}/prefill/B1", q, k, v, causal)
+    del calls, q, k, v, model
+    torch.cuda.empty_cache()
+    return out, case
+
+
+def train_whisper(seed) -> tuple:
+    """Phase 9 (c): whisper-base at its published config."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.optimizer import AdamW, AdamWConfig
+    from repro_torch.train.step import as_batch, make_train_step
+
+    dev = torch.device("cuda")
+    cfg = get_config(WHISPER_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    frames = 0.02 * torch.randn((WHISPER_B, cfg.encoder_seq, cfg.d_model),
+                                generator=gen, device=dev)
+    data = SyntheticLM(cfg.vocab_size, WHISPER_PROMPT, WHISPER_B, seed=seed)
+    batch = {**as_batch(data.next_batch(), dev), "frames": frames}
+    serve_batch = {"tokens": batch["tokens"], "frames": frames}
+    rec, calls = serve_case("train/whisper", model, serve_batch,
+                            WHISPER_PROMPT + WHISPER_GEN, WHISPER_GEN,
+                            WHISPER_PROMPT)
+    kinds = sorted((c["causal"], c["S"]) for c in rec["attend_calls"])
+    want = sorted([(False, cfg.encoder_seq)] * cfg.num_encoder_layers
+                  + [(True, WHISPER_PROMPT)] * cfg.num_layers)
+    if kinds != want or rec["launches"] != len(want):
+        raise AssertionError(f"train/whisper: attention calls {kinds}, "
+                             f"launches {rec['launches']}")
+    out = {"arch": cfg.name, "family": cfg.family,
+           "parameters": model.num_params(), "B": WHISPER_B,
+           "encoder_S": cfg.encoder_seq, "prompt": WHISPER_PROMPT, **rec}
+    enc = next(c for c in calls if not c[3])
+    dec = next(c for c in calls if c[3])
+    cases = [attention_case(f"{cfg.name}/encoder/B{WHISPER_B}", *enc),
+             attention_case(f"{cfg.name}/decoder/B{WHISPER_B}", *dec)]
+    del calls, enc, dec
+
+    # one train step at full width against the reference, as in (a)
+    want_launches = {"flash_attention": 2 * len(want), "ssd_chunk": 0}
+    f32 = cfg.replace(dtype="float32")
+    wl, wg, _, _ = counted_grads(twin(model, f32, "reference"), batch)
+    gl, gg, launches, _ = counted_grads(twin(model, f32, "cuda"), batch)
+    if launches != want_launches:
+        raise AssertionError(f"train/whisper f32: launched {launches}")
+    out["float32"] = grad_checks("train/whisper f32", gl, gg, wl, wg,
+                                 leaf_tol=TRAIN_TOL,
+                                 loss_rtol=TRAIN_LOSS_RTOL)
+    wl, wg, _, _ = counted_grads(model.with_kernel("reference"), batch)
+    gl, gg, launches, _ = counted_grads(model, batch)
+    if launches != want_launches:
+        raise AssertionError(f"train/whisper bf16: launched {launches}")
+    out["bfloat16"] = grad_checks("train/whisper bf16", gl, gg, wl, wg,
+                                  l2_tol=TRAIN_L2_BF16,
+                                  loss_rtol=TRAIN_LOSS_RTOL_BF16)
+    out["train_launches"] = launches
+    del wg, gg
+    opt = AdamW(AdamWConfig(peak_lr=1e-4, warmup_steps=1, total_steps=10))
+    state, metrics = make_train_step(model, opt)(opt.init(model), batch)
+    if not math.isfinite(float(metrics["loss"])):
+        raise AssertionError("train/whisper: the step's loss is not finite")
+    out["step_loss"] = float(metrics["loss"])
+    out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del model, state, batch, serve_batch, frames
+    torch.cuda.empty_cache()
+    return out, cases
+
+
+def train_launchers() -> dict:
+    """Phase 9 (d): ``launch.train --reduced`` with checkpoints and the
+    int8 wire, cut after its first checkpoint and resumed; then
+    ``examples.elastic_restart``."""
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.examples import elastic_restart
+    from repro_torch.launch import train as tlaunch
+
+    out = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        args = ["--arch", "stablelm-1.6b", "--reduced", "--steps", "6",
+                "--batch", "4", "--seq", "128", "--checkpoint-every", "3",
+                "--log-every", "1", "--grad-wire", "int8",
+                "--checkpoint-dir", work]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            whole = tlaunch.main(args)
+            shutil.rmtree(Path(work) / "step_00000006")
+            resumed = tlaunch.main(args)
+        text = buf.getvalue()
+        if "resumed from step 3" not in text or len(resumed) != 3:
+            raise AssertionError("train/launcher: no resume from step 3")
+        if not all(math.isfinite(x) for x in whole + resumed):
+            raise AssertionError("train/launcher: a loss is not finite")
+        out["launch_train"] = {
+            "args": args[:-1] + ["TMPDIR/..."], "losses": whole,
+            "resumed_losses": resumed,
+            "resumed_max_rel_diff": max(abs(a - b) / abs(b) for a, b in
+                                        zip(resumed, whole[3:])),
+            "last_line": text.strip().splitlines()[-1]}
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rec = elastic_restart.main(["--checkpoint-dir",
+                                        str(Path(work) / "elastic")])
+        if not rec["restored_bit_equal"] or not rec["sharded_loader_slices"]:
+            raise AssertionError("train/elastic: the restored state is not "
+                                 "what was saved")
+        if rec["verdict"] == "mismatch!":
+            raise AssertionError(f"train/elastic: resumed losses off by "
+                                 f"{rec['max_loss_rel_diff']}")
+        out["elastic_restart"] = {k: rec[k] for k in (
+            "plan", "restored_bit_equal", "sharded_loader_slices",
+            "max_param_diff", "max_loss_rel_diff", "loss_rtol", "verdict")}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def phase_train(box: list, seed) -> tuple:
+    """Phase 9 on phase 8's model, handed over in ``box`` (emptied here,
+    so it is freed after (a)); returns its record and the attention cases
+    it timed."""
+    import torch
+
+    t_phase = time.perf_counter()
+    out = {"phase": "train"}
+    t0 = time.perf_counter()
+    out["zamba2"], z_case = train_zamba2(box.pop(), seed)
+    out["zamba2"]["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["moe"], m_case = train_moe(seed)
+    out["moe"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["whisper"], w_cases = train_whisper(seed)
+    out["whisper"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["launchers"] = train_launchers()
+    out["launchers"]["seconds"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, [z_case, m_case, *w_cases]
 
 
 def main(argv=None) -> int:
@@ -3793,8 +4515,19 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # -- 5g. the structure-epoch layer: kills, joins, mutations ------------
-    elastic_rec, elastic_launches = phase_elastic(g, parts, pr, sp, refs,
-                                                  mesh4, args.seed, host_sp)
+    t0 = time.perf_counter()
+    n_e = 1 << ELASTIC_SCALE
+    g_e = generate.rmat_stream(n_e, EDGE_FACTOR * n_e, seed=args.seed)
+    pr_e = pagerank(g_e, max_iterations=PR_ITERATIONS)
+    sp_e = sssp_bf(g_e, sources=sources)
+    refs_e = {p.name: plug.run_reference(g_e, p, device="cuda")
+              for p in (pr_e, sp_e)}
+    setup_e = time.perf_counter() - t0
+    elastic_rec, elastic_launches = phase_elastic(
+        g_e, plug.HostUpperSystem().partition(g_e, SHARDS), pr_e, sp_e,
+        refs_e, mesh4, args.seed, host_sp, sp_ref)
+    elastic_rec["graph_and_references_s"] = setup_e
+    del g_e, pr_e, sp_e, refs_e
     emit(elastic_rec)
     e2e_launches["csr_tile"] += elastic_launches
     torch.cuda.empty_cache()
@@ -3830,9 +4563,18 @@ def main(argv=None) -> int:
 
     # -- 8. zamba2-2.7b served through both model kernels; the compressed
     # wire on the graph path ------------------------------------------------
-    model_rec, model_attn, model_ssd_rec = phase_model(args.seed)
+    model_rec, model_attn, model_ssd_rec, model = phase_model(args.seed)
     emit({**model_rec, "attention": model_attn, "ssd": model_ssd_rec})
     emit(phase_wire(g, parts, pr, pr_exact))
+    del g, parts
+    torch.cuda.empty_cache()
+
+    # -- 9. training: zamba2-2.7b on phase 8's model, qwen3-moe, whisper,
+    # the launchers ----------------------------------------------------------
+    box = [model]
+    del model
+    train_rec, train_cases = phase_train(box, args.seed)
+    emit({**train_rec, "attention_cases": train_cases})
 
     # -- the kernels line --------------------------------------------------
     sources_of = {
@@ -3885,6 +4627,12 @@ def main(argv=None) -> int:
         "bound_by": model_attn["bound_by"],
         "library_ms": model_attn["library_ms"],
         "model_case": f"{MODEL_ARCH}/prefill/B{MODEL_B}/S{MODEL_S}",
+        "launches_train": train_rec["zamba2"]["launches"]["flash_attention"],
+        "launches_moe_prefill": train_rec["moe"]["launches"],
+        "launches_whisper_prefill": train_rec["whisper"]["launches"],
+        "launches_whisper_train":
+            train_rec["whisper"]["train_launches"]["flash_attention"],
+        "gradient": "autograd.Function, plain backward (29)",
         "design": {
             "bf16": "flash_attention_sm90.cu: 3-stage TMA ring of "
                     "128-key k/v tiles, wgmma m64n128k16 q·kᵀ, online "
@@ -3907,7 +4655,9 @@ def main(argv=None) -> int:
                                "library_tol_share":
                                    c["library_check"]["tol_share"]}
                   | {k: c[k] for k in ("fma_bound_ms",) if k in c}
-                  for c in attn},
+                  for c in attn} | {c["case"]: {k: c[k] for k in (
+                      "kernel_ms", "plain_ms", "bound_ms", "library_ms",
+                      "max_abs_err", "tol_share")} for c in train_cases},
     })
     kernels.append({
         "name": "ssd_chunk", "route": "cuda",
@@ -3924,6 +4674,8 @@ def main(argv=None) -> int:
         "library_ms": None, "entry_ms": model_ssd_rec["entry_ms"],
         "fma_bound_ms": model_ssd_rec["fma_bound_ms"],
         "model_case": f"{MODEL_ARCH}/prefill/B{MODEL_B}/S{MODEL_S}",
+        "launches_train": train_rec["zamba2"]["launches"]["ssd_chunk"],
+        "gradient": "autograd.Function, plain backward (29)",
         "cases": {ssd_rec["case"]: {k: ssd_rec[k] for k in (
             "kernel_ms", "entry_ms", "plain_ms", "bound_ms", "fma_bound_ms",
             "max_abs_err")}},

@@ -39,12 +39,16 @@ def model_params_from_jax(params, axes, cfg) -> dict:
 
     ``params`` is the JAX parameter tree with NumPy leaves (e.g.
     ``jax.tree.map(np.asarray, params)``) and ``axes`` its logical-axes
-    tree from the same ``init``.  A leaf whose axes start with
+    tree from the same ``init`` — or any tree of that structure, such as
+    the gradients of the parameters.  A leaf whose axes start with
     ``"layers"`` is stacked for the JAX package's scan: it is unstacked
-    into ``layers.<i>.<path>``.  The port keeps every weight at the JAX
-    shape (the einsum weights ``wq`` (d, H, hd), ``wo`` (H, hd, d), …), so
-    nothing else is reshaped; leaves keep their dtype (``cfg.param_dtype``
-    in both packages)."""
+    into ``<stack>.<i>.<path>`` (the stacks: ``layers``, and the
+    encoder-decoder's ``encoder`` and ``decoder``).  The port keeps every
+    weight at the JAX shape (the einsum weights ``wq`` (d, H, hd), ``wo``
+    (H, hd, d), the experts' (E, d, f), …), so nothing else is reshaped;
+    leaves keep their dtype (``cfg.param_dtype`` in both packages)."""
+    depth = {"layers": cfg.num_layers, "decoder": cfg.num_layers,
+             "encoder": cfg.num_encoder_layers}
     out: dict = {}
 
     def walk(p, a, path):
@@ -60,11 +64,11 @@ def model_params_from_jax(params, axes, cfg) -> dict:
             raise ValueError(f"{'.'.join(path)}: axes {a} for shape "
                              f"{arr.shape}")
         if a and a[0] == "layers":
-            if path[0] != "layers" or arr.shape[0] != cfg.num_layers:
+            if arr.shape[0] != depth.get(path[0]):
                 raise ValueError(f"{'.'.join(path)}: a stacked leaf outside "
-                                 f"the {cfg.num_layers} layers")
+                                 f"the stacks {depth}")
             for i in range(arr.shape[0]):
-                key = ".".join(("layers", str(i)) + path[1:])
+                key = ".".join((path[0], str(i)) + path[1:])
                 out[key] = torch.from_numpy(np.array(arr[i]))
         else:
             out[".".join(path)] = torch.from_numpy(np.array(arr))

@@ -81,28 +81,10 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     return out
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
-                    scale: float | None = None):
-    """Forward attention with an online softmax; GQA by index, no repeat.
-
-    Args: q (B, Hq, S, D); k, v (B, Hkv, S, D) with Hq % Hkv == 0; all
-    three float32 or all bfloat16, contiguous, on one device.  ``scale``
-    defaults to 1/sqrt(D) of the real D.  The CUDA kernels take D in
-    ``HEAD_DIMS`` and any S (a partial last tile reads zeros past S and is
-    masked).  Returns
-    (B, Hq, S, D) in q's dtype.
-    """
-    b, hq, hkv, s, d = _check(q, k, v)
-    if scale is None:
-        scale = 1.0 / (d ** 0.5)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, got "
-                         f"{q.device}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention's CUDA kernels take head dims "
-                         f"{HEAD_DIMS}, got D={d}")
+def _launch(q, k, v, causal: bool, scale: float):
+    """One launch of the CUDA kernel for ``d`` = q's head dim; counts it."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
     out = torch.empty_like(q)
     if b * hq * s == 0:
         return out
@@ -116,6 +98,74 @@ def flash_attention(q, k, v, *, causal: bool = True,
     build.check(rc, "gx_flash_attention")
     flash_attention.launches += 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel's forward with a gradient: the backward recomputes
+    :func:`flash_attention_plain` from the saved inputs and differentiates
+    it, so its gradients are plain autograd's on the same inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        return _launch(q, k, v, causal, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return plain_grads(
+            lambda *t: flash_attention_plain(*t, causal=ctx.causal,
+                                             scale=ctx.scale),
+            ctx.saved_tensors, ctx.needs_input_grad[:3], (grad,)) + (None,
+                                                                    None)
+
+
+def plain_grads(fn, inputs, needs, grads):
+    """A kernel Function's backward: the gradients of the plain version
+    ``fn(*inputs)`` against ``grads`` (one per output), for the inputs
+    flagged in ``needs`` (``None`` for the others)."""
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        outs = fn(*xs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+        wanted = [x for x, n in zip(xs, needs) if n]
+        got = iter(torch.autograd.grad([o for o, _ in pairs],
+                                       wanted, [g for _, g in pairs],
+                                       allow_unused=True))
+    return tuple(next(got) if n else None for n in needs)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    scale: float | None = None):
+    """Forward attention with an online softmax; GQA by index, no repeat.
+
+    Args: q (B, Hq, S, D); k, v (B, Hkv, S, D) with Hq % Hkv == 0; all
+    three float32 or all bfloat16, contiguous, on one device.  ``scale``
+    defaults to 1/sqrt(D) of the real D.  The CUDA kernels take D in
+    ``HEAD_DIMS`` and any S (a partial last tile reads zeros past S and is
+    masked).  Returns
+    (B, Hq, S, D) in q's dtype.  On CUDA tensors under autograd, with an
+    input that requires grad, the launch goes through an
+    ``autograd.Function`` whose backward is plain PyTorch (the JAX package
+    has no backward kernel either); on CPU tensors the plain version
+    differentiates as it is.
+    """
+    b, hq, hkv, s, d = _check(q, k, v)
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, got "
+                         f"{q.device}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention's CUDA kernels take head dims "
+                         f"{HEAD_DIMS}, got D={d}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, scale)
+    return _launch(q, k, v, causal, scale)
 
 
 flash_attention.launches = 0

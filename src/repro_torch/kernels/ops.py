@@ -268,12 +268,13 @@ def ssd_scan(x, dt, a, b_mat, c_mat, *, chunk: int = 64, impl: str = "cuda",
         xc, dtc, a.float().contiguous(), bc, cc)
 
     # Cross-chunk recurrence (the agent-side combine): the state carried
-    # into each chunk.
-    carry_in = torch.empty_like(states)  # (B, NC, H, N, P)
+    # into each chunk, stacked (no in-place write, so it differentiates).
     hstate = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+    carries = []
     for c in range(nc):
-        carry_in[:, c] = hstate
+        carries.append(hstate)
         hstate = hstate * decays[:, c, :, None, None] + states[:, c]
+    carry_in = torch.stack(carries, dim=1)  # (B, NC, H, N, P)
 
     # y_carry[t] = gate_t · C_t · carry_in, with C read by group
     r = h // g

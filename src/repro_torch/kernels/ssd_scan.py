@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.flash_attention import plain_grads
 
 #: Head dims P the CUDA kernel is compiled for (``csrc/ssd_scan.cu``).
 HEAD_DIMS = (16, 32, 64, 128)
@@ -78,7 +79,11 @@ def ssd_chunk(x, dt, a, b_mat, c_mat):
     at P=64, 140 KiB at P=128); a chunk that does not fit the card's
     227 KiB (L > 704 at P=64) is refused by the C entry, as a RuntimeError,
     before anything launches.  Views that do not start on 16 bytes, and N
-    not a multiple of 4, are read one float at a time.
+    not a multiple of 4, are read one float at a time.  Under autograd,
+    with an input that requires grad, the launch goes through an
+    ``autograd.Function`` whose backward differentiates
+    :func:`ssd_chunk_plain` on the saved inputs; on CPU tensors the plain
+    version differentiates as it is.
     """
     bsz, nc, l, h, p, g, n = _check(x, dt, a, b_mat, c_mat)
     if x.device.type == "cpu":
@@ -91,6 +96,16 @@ def ssd_chunk(x, dt, a, b_mat, c_mat):
     if l < 1 or n < 1:
         raise ValueError(f"ssd_chunk's CUDA kernel needs L >= 1 and N >= 1; "
                          f"got L={l}, N={n}")
+    inputs = (x, dt, a, b_mat, c_mat)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return _SSDChunk.apply(*inputs)
+    return _launch(*inputs)
+
+
+def _launch(x, dt, a, b_mat, c_mat):
+    """One launch of the CUDA kernel; counts it."""
+    bsz, nc, l, h, p = x.shape
+    g, n = b_mat.shape[3], b_mat.shape[4]
     dev = x.device
     y = torch.empty((bsz, nc, l, h, p), dtype=torch.float32, device=dev)
     state = torch.empty((bsz, nc, h, n, p), dtype=torch.float32, device=dev)
@@ -109,6 +124,22 @@ def ssd_chunk(x, dt, a, b_mat, c_mat):
     build.check(rc, "gx_ssd_chunk")
     ssd_chunk.launches += 1
     return y, state, decay, gate
+
+
+class _SSDChunk(torch.autograd.Function):
+    """The kernel's forward with a gradient; the backward differentiates
+    :func:`ssd_chunk_plain` on the saved inputs (plain autograd's
+    gradients on the same inputs)."""
+
+    @staticmethod
+    def forward(ctx, *inputs):
+        ctx.save_for_backward(*inputs)
+        return _launch(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return plain_grads(ssd_chunk_plain, ctx.saved_tensors,
+                           ctx.needs_input_grad, grads)
 
 
 ssd_chunk.launches = 0

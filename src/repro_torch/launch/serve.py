@@ -5,7 +5,8 @@
       --batch 2 --prompt-len 4096 --gen 32
 
 The parameters are made from ``--seed`` on the device (no weights are
-read).  On the card the prefill runs through the flash attention and SSD
+read), and so are the stub frontends' inputs (patch embeddings, the
+encoder-decoder's frames).  On the card the prefill runs through the flash attention and SSD
 chunk kernels; ``--device cpu`` runs their plain versions (``--reduced``
 makes that feasible).  It prints the prefill and decode times, the
 tokens/s and the peak allocation beside the card's name and power limit
@@ -59,6 +60,10 @@ def main(argv=None):
         batch["patch_embeds"] = 0.02 * torch.randn(
             (args.batch, min(cfg.num_patches, args.prompt_len), cfg.d_model),
             generator=gen, device=dev)
+    if cfg.family == "encdec":
+        batch["frames"] = 0.02 * torch.randn(
+            (args.batch, cfg.encoder_seq, cfg.d_model), generator=gen,
+            device=dev)
     cache_len = args.prompt_len + args.gen
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)

@@ -1,4 +1,4 @@
-"""The model stack (dense, vlm, ssm and hybrid families) for serving."""
+"""The model stack (every family: dense, vlm, moe, ssm, hybrid, encdec)."""
 from repro_torch.models.model import Model
 
 __all__ = ["Model"]

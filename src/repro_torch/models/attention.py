@@ -2,14 +2,15 @@
 one-token decode against a KV cache, as in the JAX package's
 ``models/attention.py``.
 
-Causal self-attention runs through ``kernels.ops.flash_attention`` (the
-bf16 wgmma kernel, or the 3xTF32 one in float32; on CPU tensors their
-plain version), with q, k, v transposed once per call from the model's
-(B, S, H, D) into the kernel's contiguous (B, H, S, D).  The kernel gives
-the same numbers for any S, so the JAX package's chunking over queries
-(``q_chunk_for``) has no counterpart.  Decode and the full (encoder,
-cross) attention are plain PyTorch, as the JAX package has no kernel for
-them either.
+Self-attention at equal lengths — causal, and the encoder's full one —
+runs through ``kernels/flash_attention.py``'s wrapper (the bf16 wgmma
+kernel, or the 3xTF32 one in float32; on CPU tensors their plain version),
+with q, k, v transposed once per call from the model's (B, S, H, D) into
+the kernel's contiguous (B, H, S, D).  The kernel takes any S and gives
+the same numbers for any S, so neither the JAX package's chunking over
+queries (``q_chunk_for``) nor the Pallas kernel's block check (which
+``kernels.ops.flash_attention`` keeps) applies here.  Decode and
+cross-attention (Sq ≠ Sk) are plain PyTorch, as no kernel computes them.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import numpy as np
 import torch
 
 from repro_torch.dist import sharding as shd
-from repro_torch.kernels import ops
+from repro_torch.kernels import flash_attention as kfa
+from repro_torch.kernels import ref
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
@@ -63,15 +65,27 @@ def out_project(p, o):
     return o.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
 
 
-def causal_attention(q, k, v, *, kernel: str = "cuda"):
-    """Causal self-attention. q (B, S, H, hd); k, v (B, S, Hkv, hd) →
-    (B, S, H, hd), through ``ops.flash_attention`` (``kernel="cuda"``) or
-    its oracle (``"reference"``)."""
+def attend(q, k, v, *, causal: bool, kernel: str):
+    """Heads-first attention through the flash-attention kernel
+    (``kernel="cuda"``: ``kernels/flash_attention.py``, which takes any S)
+    or its oracle (``"reference"``).  q (B, H, S, hd); k, v (B, Hkv, S,
+    hd), contiguous."""
+    if kernel == "reference":
+        return ref.flash_attention(q, k, v, causal=causal)
+    if kernel != "cuda":
+        raise ValueError(f"kernel must be 'cuda' or 'reference', got "
+                         f"{kernel!r}")
+    return kfa.flash_attention(q, k, v, causal=causal)
+
+
+def self_attention(q, k, v, *, causal: bool = True, kernel: str = "cuda"):
+    """Self-attention at equal lengths, causal or full. q (B, S, H, hd);
+    k, v (B, S, Hkv, hd) → (B, S, H, hd), through :func:`attend`."""
     def heads_first(t):
         return t.transpose(1, 2).contiguous()
 
-    o = ops.flash_attention(heads_first(q), heads_first(k), heads_first(v),
-                            causal=True, impl=kernel)
+    o = attend(heads_first(q), heads_first(k), heads_first(v),
+               causal=causal, kernel=kernel)
     return o.transpose(1, 2)
 
 

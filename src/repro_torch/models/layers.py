@@ -232,17 +232,28 @@ def unembed(p, x):
     return x @ cast(p["table"], x.dtype).T
 
 
+class BF16Cotangent(torch.autograd.Function):
+    """Identity whose cotangent is rounded through bf16 (the JAX package's
+    ``bf16_cotangent`` ``custom_vjp``): placed at layer boundaries it makes
+    the backward chain travel in bf16."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).to(g.dtype)
+
+
 def maybe_bf16_cotangent(x, enabled: bool):
-    """The identity in the forward pass.  The JAX package rounds the
-    cotangent through bf16 here in the backward pass, which comes with
-    training."""
-    return x
+    return BF16Cotangent.apply(x) if enabled else x
 
 
 def cross_entropy(logits, labels, *, z_loss: float = 1e-4):
     """Mean CE over tokens with a z-loss, in float32."""
     lf = logits.to(torch.float32)
-    m = lf.amax(dim=-1, keepdim=True)
+    m = lf.amax(dim=-1, keepdim=True).detach()  # JAX's stop_gradient
     shifted = lf - m
     lse = torch.log(torch.exp(shifted).sum(dim=-1)) + m[..., 0]
     gold = torch.take_along_dim(lf, labels.long()[..., None], dim=-1)[..., 0]

@@ -10,19 +10,22 @@ parameters held by the model (an ``nn.Module`` tree)::
     logits, cache = model.decode_step(cache, token, pos)
     cache, cache_axes = model.init_cache(batch_size, cache_len)
 
-``batch`` keys: tokens, labels (+ patch_embeds for the vlm family).
+``batch`` keys: tokens, labels (+ frames for encdec, patch_embeds for
+vlm).
 
 ``kernel="cuda"`` (the default) runs prefill and the forward pass through
 the flash-attention and SSD chunk kernels — on CPU tensors their plain
 versions, as every kernel entry point does; on the card it launches them
-or raises, never falling back.  ``kernel="reference"`` runs the oracles of
+or raises, never falling back, and carries the gradient through them
+(their ``autograd.Function``s) where one is asked for.  ``kernel="reference"`` runs the oracles of
 ``kernels/ref.py`` (tests and the smoke's comparison use it).  Decode is
 plain PyTorch either way.  Prefill and decode read the weights in the
 compute dtype: the model makes that copy of each weight once, at its first
 prefill or decode step, keeps it (``compute_bytes``) and shares it with its
-``with_kernel`` twins; ``init`` and ``load_state_dict`` drop it.  ``device="meta"`` builds the tree without
-allocating it (``num_params``).  The families ``moe`` and ``encdec`` are
-ROADMAP Queue A item 14b's.
+``with_kernel`` twins; ``init``, ``load_state_dict`` and an optimizer step
+(:meth:`Model.params_changed`) drop it.  ``device="meta"`` builds the tree
+without allocating it (``num_params``).  Parameters do not require grad;
+``train.step`` asks for their gradients while it computes them.
 """
 from __future__ import annotations
 
@@ -31,11 +34,10 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import flash_attention as kfa
+from repro_torch.models import encdec, transformer
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
-from repro_torch.models import transformer
 from repro_torch.models.common import ModelConfig
-from repro_torch.plug.protocols import not_ported_error
 
 KERNELS = ("cuda", "reference")
 
@@ -43,8 +45,6 @@ KERNELS = ("cuda", "reference")
 class Model(L.ParamNode):
     def __init__(self, cfg: ModelConfig, *, kernel: str = "cuda",
                  device="cuda"):
-        if cfg.family in ("moe", "encdec"):
-            raise not_ported_error(f"the {cfg.family} family ({cfg.name})", 14)
         if kernel not in KERNELS:
             raise ValueError(f"kernel must be one of {KERNELS}, got "
                              f"{kernel!r}")
@@ -52,7 +52,8 @@ class Model(L.ParamNode):
             check_kernel_shapes(cfg)
         dev = (torch.device("meta") if str(device) == "meta"
                else resolve_device(device))
-        super().__init__(children=transformer.build(cfg, device=dev))
+        family = encdec if cfg.family == "encdec" else transformer
+        super().__init__(children=family.build(cfg, device=dev))
         self.cfg = cfg
         self.kernel = kernel
         # the served tree (compute-dtype copies), made at first use
@@ -68,6 +69,22 @@ class Model(L.ParamNode):
     def load_state_dict(self, state_dict, *args, **kwargs):
         self._compute.clear()
         return super().load_state_dict(state_dict, *args, **kwargs)
+
+    def params_changed(self) -> None:
+        """Drops the compute-dtype copies after the parameters changed in
+        place (an optimizer step); the dict is cleared in place, so the
+        ``with_kernel`` twins that share it see it too."""
+        self._compute.clear()
+
+    def stacked_names(self) -> set:
+        """Names of the parameters the JAX package stacks on a leading
+        layer axis (those under a ``Stack``): one dim more there, which the
+        optimizer's decay rule counts."""
+        out = set()
+        for prefix, mod in self.named_modules():
+            if isinstance(mod, transformer.Stack):
+                out.update(f"{prefix}.{n}" for n, _ in mod.named_parameters())
+        return out
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
@@ -105,29 +122,41 @@ class Model(L.ParamNode):
 
     # -- train ----------------------------------------------------------------
     def forward(self, batch):
+        """``(logits, aux)``; differentiable (the train step's forward)."""
+        if self.cfg.family == "encdec":
+            return encdec.forward(self, batch["tokens"], batch["frames"],
+                                  self.cfg, kernel=self.kernel)
         return transformer.forward(self, batch["tokens"], self.cfg,
                                    kernel=self.kernel,
                                    patch_embeds=batch.get("patch_embeds"))
 
     def train_loss(self, batch):
-        """The training loss of one batch, forward only (the backward pass
-        and the optimizer are item 14b's)."""
+        """The training loss of one batch (``train.step`` differentiates
+        it)."""
+        if self.cfg.family == "encdec":
+            return encdec.train_loss(self, batch, self.cfg,
+                                     kernel=self.kernel)
         return transformer.train_loss(self, batch, self.cfg,
                                       kernel=self.kernel)
 
     # -- serve ----------------------------------------------------------------
     def prefill(self, batch, *, cache_len: int | None = None):
+        if self.cfg.family == "encdec":
+            return encdec.prefill(self.served(), batch["tokens"],
+                                  batch["frames"], self.cfg,
+                                  kernel=self.kernel, cache_len=cache_len)
         return transformer.prefill(self.served(), batch["tokens"], self.cfg,
                                    kernel=self.kernel, cache_len=cache_len,
                                    patch_embeds=batch.get("patch_embeds"))
 
     def decode_step(self, cache, token, pos: int):
-        return transformer.decode_step(self.served(), cache, token, pos,
-                                       self.cfg)
+        family = encdec if self.cfg.family == "encdec" else transformer
+        return family.decode_step(self.served(), cache, token, pos, self.cfg)
 
     def init_cache(self, batch: int, cache_len: int):
-        return transformer.init_cache(self.cfg, batch, cache_len,
-                                      self.embed.table.device)
+        family = encdec if self.cfg.family == "encdec" else transformer
+        return family.init_cache(self.cfg, batch, cache_len,
+                                 self.embed.table.device)
 
 
 def check_kernel_shapes(cfg: ModelConfig) -> None:

@@ -1,17 +1,21 @@
-"""Decoder-only stacks — dense, SSM (Mamba2), hybrid (Zamba2) and VLM — for
-serving: the forward pass, prefill and one-token decode, as in the JAX
-package's ``models/transformer.py``.
+"""Decoder-only stacks — dense, MoE, SSM (Mamba2), hybrid (Zamba2) and
+VLM: the forward pass and training loss, prefill and one-token decode, as
+in the JAX package's ``models/transformer.py``.
 
 The parameters are a tree of modules (:class:`~repro_torch.models.layers.
 ParamNode`): one module per layer kind (:class:`DenseLayer`,
-:class:`SSMLayer`), a :class:`Stack` over the layers (the JAX package
+:class:`MoELayer`, :class:`SSMLayer`), a :class:`Stack` over the layers (the JAX package
 stacks them on a leading axis for its ``lax.scan``; its logical-axes tree
 carries a leading ``"layers"`` axis, and so does ``Stack.axes``), and the
 hybrid family's shared attention block held once.  The math is in plain
 functions.  The hybrid family runs groups: ``attn_every`` Mamba2 layers,
 then the shared block (one weight set, a fresh KV cache entry per
 invocation).  Caches keep the JAX package's layout: stacked (layers or
-groups, B, …) tensors.  The MoE family is ROADMAP Queue A item 14b's.
+groups, B, …) tensors.  Where ``cfg.remat`` is set and grad is enabled,
+each layer (each group in the hybrid family) is rematerialized in the
+backward pass (``torch.utils.checkpoint``, non-reentrant) as the JAX
+package's ``jax.checkpoint`` does; its kernels then launch twice a step.
+Serving runs without grad and is unchanged.
 """
 from __future__ import annotations
 
@@ -19,10 +23,12 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.dist import sharding as shd
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.common import ModelConfig
 
@@ -46,6 +52,23 @@ class DenseLayer(L.ParamNode):
             "ln2": _node(L.rmsnorm_leaves(cfg.d_model), **kw),
             "ffn": _node(L.ffn_leaves(cfg.d_model, cfg.d_ff,
                                       cfg.activation), **kw),
+        })
+
+
+class MoELayer(L.ParamNode):
+    """Attention + MoE FFN (routed experts, an optional shared expert)."""
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        kw = dict(cfg=cfg, device=device)
+        moe = {}
+        if cfg.shared_expert:
+            moe["shared"] = _node(L.ffn_leaves(cfg.d_model, cfg.d_ff,
+                                               cfg.activation), **kw)
+        super().__init__(children={
+            "ln1": _node(L.rmsnorm_leaves(cfg.d_model), **kw),
+            "attn": _node(A.attention_leaves(cfg), **kw),
+            "ln2": _node(L.rmsnorm_leaves(cfg.d_model), **kw),
+            "moe": _node(M.moe_leaves(cfg), moe, **kw),
         })
 
 
@@ -84,14 +107,17 @@ class Stack(nn.ModuleList):
 
 
 def layer_kind(cfg: ModelConfig) -> str:
-    return {"dense": "dense", "vlm": "dense", "ssm": "ssm",
+    return {"dense": "dense", "vlm": "dense", "moe": "moe", "ssm": "ssm",
             "hybrid": "ssm"}[cfg.family]
+
+
+LAYERS = {"dense": DenseLayer, "moe": MoELayer, "ssm": SSMLayer}
 
 
 def build(cfg: ModelConfig, *, device) -> dict:
     """The root's children, in the JAX package's key order."""
     kw = dict(cfg=cfg, device=device)
-    layer = DenseLayer if layer_kind(cfg) == "dense" else SSMLayer
+    layer = LAYERS[layer_kind(cfg)]
     children: dict[str, Any] = {
         "embed": _node(L.embed_leaves(cfg.padded_vocab, cfg.d_model), **kw),
         "layers": Stack([layer(cfg, device=device)
@@ -112,15 +138,22 @@ def build(cfg: ModelConfig, *, device) -> dict:
 # --------------------------------------------------------------------------
 # layer forward (training / prefill path)
 # --------------------------------------------------------------------------
-def dense_layer_fwd(p, h, positions, cfg: ModelConfig, *, kernel: str):
-    """Returns ``(h, (k, v))``: the layer's output and its keys/values."""
+def dense_layer_fwd(p, h, positions, cfg: ModelConfig, *, kernel: str,
+                    causal: bool = True):
+    """Returns ``(h, (k, v), aux)``: the layer's output, its keys/values
+    and its MoE load loss (0 for a dense FFN)."""
     x = L.rmsnorm(p["ln1"], h, cfg.norm_eps)
     q, k, v = A.qkv_project(p["attn"], x, positions, cfg)
-    o = A.causal_attention(q, k, v, kernel=kernel)
+    o = A.self_attention(q, k, v, causal=causal, kernel=kernel)
     h = h + A.out_project(p["attn"], o)
     x = L.rmsnorm(p["ln2"], h, cfg.norm_eps)
-    h = h + L.ffn(p["ffn"], x, cfg.activation)
-    return L.maybe_bf16_cotangent(h, cfg.bf16_cotangent), (k, v)
+    if "ffn" in p:
+        h = h + L.ffn(p["ffn"], x, cfg.activation)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    else:
+        y, aux = M.moe_ffn(p["moe"], x, cfg, return_aux=True)
+        h = h + y
+    return L.maybe_bf16_cotangent(h, cfg.bf16_cotangent), (k, v), aux
 
 
 def ssm_layer_fwd(p, h, cfg: ModelConfig, *, kernel: str):
@@ -137,21 +170,51 @@ def _groups(cfg: ModelConfig):
             for g in range(cfg.num_layers // per)]
 
 
+def maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` rematerialized in the backward pass where ``cfg.remat`` is set
+    and grad is enabled (nothing of it is saved but its inputs), else
+    ``fn`` itself."""
+    def run(*args):
+        if cfg.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return fn(*args)
+    return run
+
+
 def stack_forward(params, h, positions, cfg: ModelConfig, *, kernel: str):
+    """The layer stack; returns ``(h, aux)`` (aux summed over layers)."""
     layers = params["layers"]
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.family == "hybrid":
-        for _, idx in _groups(cfg):
+        def group(hh, idx):
             for i in idx:
-                h = ssm_layer_fwd(layers[i], h, cfg, kernel=kernel)
-            h, _ = dense_layer_fwd(params["shared_attn"], h, positions, cfg,
-                                   kernel=kernel)
-        return h
+                hh = ssm_layer_fwd(layers[i], hh, cfg, kernel=kernel)
+            hh, _, a = dense_layer_fwd(params["shared_attn"], hh, positions,
+                                       cfg, kernel=kernel)
+            return hh, a
+
+        body = maybe_remat(group, cfg)
+        for _, idx in _groups(cfg):
+            h, a = body(h, idx)
+            aux = aux + a
+        return h, aux
+    if layer_kind(cfg) == "ssm":
+        body = maybe_remat(
+            lambda hh, lp: ssm_layer_fwd(lp, hh, cfg, kernel=kernel), cfg)
+        for lp in layers:
+            h = body(h, lp)
+        return h, aux
+
+    def layer(hh, lp):
+        hh, _, a = dense_layer_fwd(lp, hh, positions, cfg, kernel=kernel)
+        return hh, a
+
+    body = maybe_remat(layer, cfg)
     for lp in layers:
-        if layer_kind(cfg) == "dense":
-            h, _ = dense_layer_fwd(lp, h, positions, cfg, kernel=kernel)
-        else:
-            h = ssm_layer_fwd(lp, h, cfg, kernel=kernel)
-    return h
+        h, a = body(h, lp)
+        aux = aux + a
+    return h, aux
 
 
 # --------------------------------------------------------------------------
@@ -169,6 +232,7 @@ def embed_tokens(params, tokens, cfg: ModelConfig, *, patch_embeds=None):
 
 
 def lm_logits(params, h, cfg: ModelConfig):
+    h = L.maybe_bf16_cotangent(h, cfg.bf16_cotangent)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     logits = L.unembed(table, h)
     if cfg.padded_vocab != cfg.vocab_size:
@@ -185,13 +249,12 @@ def _positions(b: int, s: int, device):
 def forward(params, tokens, cfg: ModelConfig, *, kernel: str,
             patch_embeds=None):
     """Returns ``(logits (B, S, V_padded), aux)``; aux is the MoE load
-    loss, 0 for every family here."""
+    loss summed over layers (0 for the other families)."""
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
     h = embed_tokens(params, tokens, cfg, patch_embeds=patch_embeds)
-    h = stack_forward(params, h, positions, cfg, kernel=kernel)
+    h, aux = stack_forward(params, h, positions, cfg, kernel=kernel)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return lm_logits(params, h, cfg), aux
 
 
@@ -224,7 +287,7 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
     kv_axes = kv_cache_axes(cfg)
     cache: dict[str, Any] = {}
     axes: dict[str, Any] = {}
-    if layer_kind(cfg) == "dense":
+    if layer_kind(cfg) in ("dense", "moe"):
         shape = (cfg.num_layers, batch, cache_len, hkv, hd)
         cache = {"k": torch.zeros(shape, dtype=dt, device=device),
                  "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -268,12 +331,13 @@ def prefill(params, tokens, cfg: ModelConfig, *, kernel: str,
         for g, idx in _groups(cfg):
             for i in idx:
                 h = ssm_prefill_layer(i, h)
-            h, (k, v) = dense_layer_fwd(params["shared_attn"], h, positions,
-                                        cfg, kernel=kernel)
+            h, (k, v), _ = dense_layer_fwd(params["shared_attn"], h,
+                                           positions, cfg, kernel=kernel)
             A.update_cache(cache["k"][g], cache["v"][g], k, v, 0)
-    elif layer_kind(cfg) == "dense":
+    elif layer_kind(cfg) in ("dense", "moe"):
         for i, lp in enumerate(layers):
-            h, (k, v) = dense_layer_fwd(lp, h, positions, cfg, kernel=kernel)
+            h, (k, v), _ = dense_layer_fwd(lp, h, positions, cfg,
+                                           kernel=kernel)
             A.update_cache(cache["k"][i], cache["v"][i], k, v, 0)
     else:  # ssm
         for i in range(len(layers)):
@@ -293,7 +357,9 @@ def _attn_decode(p, h, k_cache, v_cache, pos: int, cfg: ModelConfig):
     o = A.decode_attention(q, k_cache, v_cache, pos + 1)
     h = h + A.out_project(p["attn"], o)
     x = L.rmsnorm(p["ln2"], h, cfg.norm_eps)
-    return h + L.ffn(p["ffn"], x, cfg.activation)
+    if "ffn" in p:
+        return h + L.ffn(p["ffn"], x, cfg.activation)
+    return h + M.moe_ffn(p["moe"], x, cfg)
 
 
 def decode_step(params, cache, token, pos: int, cfg: ModelConfig):
@@ -318,7 +384,7 @@ def decode_step(params, cache, token, pos: int, cfg: ModelConfig):
                 h = ssm_decode_layer(i, h)
             h = _attn_decode(params["shared_attn"], h, cache["k"][g],
                              cache["v"][g], pos, cfg)
-    elif layer_kind(cfg) == "dense":
+    elif layer_kind(cfg) in ("dense", "moe"):
         for i, lp in enumerate(layers):
             h = _attn_decode(lp, h, cache["k"][i], cache["v"][i], pos, cfg)
     else:  # ssm

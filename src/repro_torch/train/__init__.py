@@ -1,2 +1,2 @@
-"""Serving steps (``serve``); the training steps are ROADMAP Queue A item
-14b's."""
+"""Training and serving substrate: the optimizer, the train-step factory,
+the synthetic data stream, checkpoints, and the serving steps."""

@@ -1366,3 +1366,135 @@ def test_compressed_wire_on_the_card(cuda):
         want = run(x, r)
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b)
+
+
+def _plain_grads_of(fn, inputs, grads):
+    """Plain autograd of ``fn`` on copies of ``inputs``."""
+    xs = [t.detach().clone().requires_grad_(True) for t in inputs]
+    outs = fn(*xs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return torch.autograd.grad(outs, xs, grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hq, hkv, s, d", [(4, 4, 200, 64), (8, 2, 128, 80),
+                                           (2, 1, 64, 128)])
+def test_flash_attention_gradient_is_plain_autograds(cuda, dtype, causal, hq,
+                                                     hkv, s, d):
+    """Under autograd the kernel launches (once, counted) and its result
+    carries a gradient through the ``autograd.Function``; the gradients
+    equal plain autograd of ``flash_attention_plain`` on the same inputs
+    bit for bit (the backward recomputes exactly that)."""
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn((2, h, s, d), generator=gen, device=cuda)
+               .to(dt) for h in (hq, hkv, hkv))
+    g = torch.randn((2, hq, s, d), generator=gen, device=cuda).to(dt)
+    xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n = fa.flash_attention.launches
+    out = fa.flash_attention(*xs, causal=causal)
+    assert fa.flash_attention.launches == n + 1
+    assert out.grad_fn is not None and out.requires_grad
+    got = torch.autograd.grad(out, xs, g)
+    want = _plain_grads_of(lambda *t: fa.flash_attention_plain(
+        *t, causal=causal), (q, k, v), (g,))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    # the forward is the kernel's, not the plain version's
+    assert torch.equal(out.detach(), fa.flash_attention(q, k, v,
+                                                        causal=causal))
+    # a gradient for k alone
+    kk = k.clone().requires_grad_(True)
+    (gk,) = torch.autograd.grad(fa.flash_attention(q, kk, v, causal=causal),
+                                kk, g)
+    assert torch.equal(gk, want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l, h, g_", [(256, 8, 1), (64, 4, 4), (17, 6, 2)])
+def test_ssd_chunk_gradient_is_plain_autograds(cuda, l, h, g_):
+    """The SSD chunk kernel under autograd: one launch, all four outputs
+    carry a gradient, and the gradients of every input equal plain
+    autograd of ``ssd_chunk_plain`` bit for bit; ``ops.ssd_scan``'s
+    cross-chunk loop differentiates on top of it within 1e-4·max of the
+    reference path's gradients."""
+    gen = torch.Generator(device=cuda).manual_seed(l)
+    b, nc, p, n = 2, 3, 64, 16
+    x = 0.5 * torch.randn((b, nc, l, h, p), generator=gen, device=cuda)
+    dt = torch.exp(torch.empty((b, nc, l, h), device=cuda).uniform_(
+        math.log(1e-3), math.log(1e-1), generator=gen))
+    a = -torch.exp(0.3 * torch.randn((h,), generator=gen, device=cuda))
+    bm, cm = (0.3 * torch.randn((b, nc, l, g_, n), generator=gen,
+                                device=cuda) for _ in range(2))
+    inputs = (x, dt, a, bm, cm)
+    outs_g = (torch.randn((b, nc, l, h, p), generator=gen, device=cuda),
+              torch.randn((b, nc, h, n, p), generator=gen, device=cuda),
+              torch.randn((b, nc, h), generator=gen, device=cuda),
+              torch.randn((b, nc, l, h), generator=gen, device=cuda))
+    xs = [t.clone().requires_grad_(True) for t in inputs]
+    launches = ssd.ssd_chunk.launches
+    outs = ssd.ssd_chunk(*xs)
+    assert ssd.ssd_chunk.launches == launches + 1
+    assert all(o.grad_fn is not None for o in outs)
+    got = torch.autograd.grad(outs, xs, outs_g)
+    want = _plain_grads_of(ssd.ssd_chunk_plain, inputs, outs_g)
+    for a_, b_ in zip(got, want):
+        assert torch.equal(a_, b_)
+
+    # the whole scan: kernel path against the reference path
+    s = nc * l
+    flat = (x.reshape(b, s, h, p), dt.reshape(b, s, h), a,
+            bm.reshape(b, s, g_, n), cm.reshape(b, s, g_, n))
+    gy = torch.randn((b, s, h, p), generator=gen, device=cuda)
+    grads = {}
+    for impl in ("cuda", "reference"):
+        xs = [t.clone().requires_grad_(True) for t in flat]
+        y = ops.ssd_scan(*xs, chunk=l, impl=impl)
+        assert y.grad_fn is not None
+        grads[impl] = torch.autograd.grad(y, xs, gy)
+    for got_, want_ in zip(grads["cuda"], grads["reference"]):
+        scale = float(want_.abs().max())
+        assert float((got_ - want_).abs().max()) <= 1e-4 * max(1.0, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "qwen3-moe-235b-a22b",
+                                  "whisper-base", "stablelm-1.6b"])
+def test_model_gradients_through_the_kernels(cuda, arch):
+    """``train.step.loss_and_grads`` through ``kernel="cuda"`` (both
+    Functions under per-layer rematerialization: each kernel launches twice
+    a layer) against ``kernel="reference"`` in float32: the loss within
+    1e-5 relative, every gradient leaf within 1e-3·max |want| of that leaf
+    (the kernels' float32 sums feed every later layer, and the MoE's
+    gather backward adds with atomics)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import Model
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = get_reduced(arch).replace(dtype="float32")
+    model = Model(cfg, device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 200), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    if cfg.family == "encdec":
+        batch["frames"] = 0.05 * torch.randn(
+            (2, cfg.encoder_seq, cfg.d_model), generator=gen, device=cuda)
+    fa.flash_attention.launches = ssd.ssd_chunk.launches = 0
+    loss, grads = loss_and_grads(model, batch)
+    torch.cuda.synchronize()
+    attn = {"hybrid": cfg.num_layers // cfg.attn_every, "ssm": 0,
+            "encdec": cfg.num_layers + cfg.num_encoder_layers}.get(
+        cfg.family, cfg.num_layers)
+    mamba = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    assert fa.flash_attention.launches == 2 * attn
+    assert ssd.ssd_chunk.launches == 2 * mamba
+    want_loss, want = loss_and_grads(model.with_kernel("reference"), batch)
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(
+        float(want_loss))
+    for k, w in want.items():
+        scale = float(w.abs().max())
+        assert float((grads[k] - w).abs().max()) <= 1e-3 * scale + 1e-30, k

@@ -184,3 +184,100 @@ def test_ssd_scan_refuses_seq_not_in_chunks(impl):
     with pytest.raises(ValueError, match="chunk"):
         tops.ssd_scan(*(torch.from_numpy(t) for t in arrs), chunk=32,
                       impl=impl)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(2, 8, 2, 200, 64), (1, 4, 4, 64, 16)])
+def test_attention_gradients_match_jax(shape, causal):
+    """The gradient of the kernel's wrapper, which the model calls (on CPU
+    tensors the plain version, which differentiates natively; on the card
+    the kernel's ``autograd.Function``, whose backward is this plain
+    version) against ``jax.vjp`` of the JAX package's oracle, float32,
+    atol 2e-5 — at an S that is no multiple of 128 too."""
+    from repro_torch.kernels import flash_attention as tfa
+
+    import jax
+
+    q, k, v = _attn_inputs(5, *shape)
+    g = np.random.default_rng(6).standard_normal(q.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda *t: jref.flash_attention(*t, causal=causal),
+                     *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    xs = [torch.from_numpy(t).requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(
+        tfa.flash_attention(*xs, causal=causal), xs, torch.from_numpy(g))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-5)
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES[:3])
+def test_ssd_scan_gradients_match_jax(shape):
+    """The gradient of ``ops.ssd_scan`` (the within-chunk step's plain
+    version on CPU tensors and the cross-chunk loop, as the card runs
+    around its kernel) against ``jax.vjp`` of the JAX package's
+    ``ssd_scan_chunked_ref``, every input, within 2e-4·max(1, max |want|)
+    (the scan's float32 tolerance)."""
+    import jax
+
+    b, s, h, p, g, n, chunk = shape
+    inputs = _ssd_inputs(7, b, s, h, p, g, n, dt="mamba2")
+    gy = np.random.default_rng(8).standard_normal((b, s, h, p)).astype(
+        np.float32)
+    _, vjp = jax.vjp(lambda *t: jref.ssd_scan_chunked_ref(*t, chunk=chunk),
+                     *map(jnp.asarray, inputs))
+    want = vjp(jnp.asarray(gy))
+    xs = [torch.from_numpy(t).requires_grad_(True) for t in inputs]
+    got = torch.autograd.grad(tops.ssd_scan(*xs, chunk=chunk), xs,
+                              torch.from_numpy(gy))
+    for a, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(a.numpy(), w, rtol=0,
+                                   atol=2e-4 * max(1.0, np.abs(w).max()))
+
+
+def test_kernel_functions_backward_on_the_cpu(monkeypatch):
+    """The kernels' ``autograd.Function``s with the launch stood in by the
+    plain version (the CUDA launch needs a card): their backward gives
+    plain autograd's gradients bit for bit, for every input and for a
+    subset of them, and for the SSD step's four outputs."""
+    from repro_torch.kernels import flash_attention as tfa
+
+    monkeypatch.setattr(tfa, "_launch", lambda q, k, v, causal, scale:
+                        tfa.flash_attention_plain(q, k, v, causal=causal,
+                                                  scale=scale))
+    monkeypatch.setattr(tss, "_launch", tss.ssd_chunk_plain)
+    q, k, v = (torch.from_numpy(t) for t in _attn_inputs(3, 2, 4, 2, 40,
+                                                          16))
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(1))
+    for needs in ((True, True, True), (False, True, False)):
+        xs = [t.clone().requires_grad_(n) for t, n in zip((q, k, v), needs)]
+        out = tfa._FlashAttention.apply(*xs, False, 0.25)
+        got = torch.autograd.grad(out, [x for x in xs if x.requires_grad], g)
+        ys = [t.clone().requires_grad_(n) for t, n in zip((q, k, v), needs)]
+        want = torch.autograd.grad(
+            tfa.flash_attention_plain(*ys, causal=False, scale=0.25),
+            [y for y in ys if y.requires_grad], g)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+    x, dt, a, bm, cm = (torch.from_numpy(t) for t in _ssd_inputs(
+        4, 2, 32, 4, 16, 2, 8, dt="mamba2"))
+    chunked = (x.reshape(2, 2, 16, 4, 16), dt.reshape(2, 2, 16, 4), a,
+               bm.reshape(2, 2, 16, 2, 8), cm.reshape(2, 2, 16, 2, 8))
+    gen = torch.Generator().manual_seed(2)
+    outs_g = [torch.randn(o.shape, generator=gen)
+              for o in tss.ssd_chunk_plain(*chunked)]
+    xs = [t.clone().requires_grad_(True) for t in chunked]
+    got = torch.autograd.grad(tss._SSDChunk.apply(*xs), xs, outs_g)
+    ys = [t.clone().requires_grad_(True) for t in chunked]
+    want = torch.autograd.grad(tss.ssd_chunk_plain(*ys), ys, outs_g)
+    for a_, b_ in zip(got, want):
+        assert torch.equal(a_, b_)
+    # an output that gets no gradient (only y's)
+    xs = [t.clone().requires_grad_(True) for t in chunked]
+    y = tss._SSDChunk.apply(*xs)[0]
+    got = torch.autograd.grad(y, xs, outs_g[0])
+    ys = [t.clone().requires_grad_(True) for t in chunked]
+    want = torch.autograd.grad(tss.ssd_chunk_plain(*ys)[0], ys, outs_g[0])
+    for a_, b_ in zip(got, want):
+        assert torch.equal(a_, b_)

@@ -1,11 +1,12 @@
 """The port's model stack (``repro_torch.models``, ``train.serve``,
 ``launch.serve``) against the JAX package's ``repro.models``.
 
-Each architecture of the ported families — dense (stablelm), ssm
-(mamba2), hybrid (zamba2) and vlm (pixtral) — at ``reduced()`` runs on the
-JAX package's parameters (``Model.init`` from a fixed key, carried across
-by ``convert.model_params_from_jax``), on the same tokens (and patch
-embeddings) made with NumPy from a seed.  On the CPU the port's kernels
+Each architecture of every family — dense (stablelm), ssm (mamba2),
+hybrid (zamba2), vlm (pixtral), moe (qwen3-moe, llama4-scout) and encdec
+(whisper) — at ``reduced()`` runs on the JAX package's parameters
+(``Model.init`` from a fixed key, carried across by
+``convert.model_params_from_jax``), on the same tokens (and patch
+embeddings or frames) made with NumPy from a seed.  On the CPU the port's kernels
 run their plain versions; JAX runs its jnp paths.
 
 Tolerances, per output, against max |want| of that output:
@@ -36,10 +37,8 @@ from repro_torch.models import Model
 from repro_torch.models import layers as L
 from repro_torch.train import serve as tserve
 
-ARCHS = ["stablelm-1.6b", "mamba2-1.3b", "zamba2-2.7b", "pixtral-12b"]
-PORTED = [a for a in ARCH_NAMES
-          if get_config(a).family not in ("moe", "encdec")]
-NOT_PORTED = [a for a in ARCH_NAMES if a not in PORTED]
+ARCHS = ["stablelm-1.6b", "mamba2-1.3b", "zamba2-2.7b", "pixtral-12b",
+         "qwen3-moe-235b-a22b", "llama4-scout-17b-a16e", "whisper-base"]
 DTYPES = ["float32", "bfloat16"]
 B, S, PROMPT = 2, 16, 12
 F32_TOL, BF16_TOL = 1e-5, 2.0 ** -5
@@ -61,11 +60,20 @@ def _models(arch, dtype):
         rng = np.random.default_rng(1)
         tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
         batch = {"tokens": tokens, "labels": np.roll(tokens, -1, axis=1)}
-        if cfg.family == "vlm":
-            batch["patch_embeds"] = (0.05 * rng.standard_normal(
-                (B, cfg.num_patches, cfg.d_model))).astype(np.float32)
+        batch.update(_extra(cfg, rng, B))
         _cache[key] = (jm, params, tm, batch)
     return _cache[key]
+
+
+def _extra(cfg, rng, b):
+    """The stub frontends' inputs: patch embeddings (vlm), frames
+    (encdec)."""
+    shape = {"vlm": ("patch_embeds", cfg.num_patches),
+             "encdec": ("frames", cfg.encoder_seq)}.get(cfg.family)
+    if shape is None:
+        return {}
+    return {shape[0]: (0.05 * rng.standard_normal(
+        (b, shape[1], cfg.d_model))).astype(np.float32)}
 
 
 def _jb(batch, **cut):
@@ -110,7 +118,12 @@ def test_forward_and_train_loss_match_jax(arch, dtype):
     assert tl.dtype == getattr(torch, dtype) and tl.shape == jl.shape
     _close(_real_vocab(tl, tm.cfg), _real_vocab(jl, tm.cfg), dtype,
            "logits")
-    assert float(taux) == float(jaux) == 0.0
+    if tm.cfg.family == "moe":  # the load loss, summed over layers
+        assert float(jaux) > 0
+        tol = 1e-5 if dtype == "float32" else 2.0 ** -6
+        assert abs(float(taux) - float(jaux)) <= tol * float(jaux)
+    else:
+        assert float(taux) == float(jaux) == 0.0
     jloss = float(jm.train_loss(params, _jb(batch)))
     tloss = float(tm.train_loss(_tb(batch)))
     tol = 1e-5 if dtype == "float32" else 2.0 ** -6
@@ -145,20 +158,20 @@ def test_prefill_and_decode_steps_match_jax(arch, dtype):
         _close(tc[k], jc[k], dtype, f"decoded cache {k}")
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_arch_decode_consistency(arch):
     """The port's twin of tests/test_models.py::test_arch_decode_consistency:
     prefill(t0..tn) + decode(t_n+1, t_n+2) logits match the teacher-forced
-    forward pass, in float32 (atol = rtol = 2e-2, as there)."""
-    cfg = get_reduced(arch).replace(dtype="float32")
+    forward pass, in float32 (atol = rtol = 2e-2, as there) and with
+    no-drop MoE capacity, as there."""
+    cfg = get_reduced(arch).replace(dtype="float32", capacity_factor=8.0)
     model = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     b, s = 2, 12
     gen = torch.Generator().manual_seed(2)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
                                      generator=gen, dtype=torch.int32)}
-    if cfg.family == "vlm":
-        batch["patch_embeds"] = 0.05 * torch.randn(
-            (b, cfg.num_patches, cfg.d_model), generator=gen)
+    batch.update({k: torch.from_numpy(v) for k, v in _extra(
+        cfg, np.random.default_rng(2), b).items()})
     with torch.no_grad():
         full, _ = model.forward(batch)
         n_prompt = s - 2
@@ -173,7 +186,7 @@ def test_arch_decode_consistency(arch):
                                        atol=2e-2, rtol=2e-2)
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_full_config_parameter_count_on_meta(arch):
     """At the published config, built on ``device="meta"`` (nothing
     allocated): the port's parameter count is JAX's ``init_abstract``'s,
@@ -200,10 +213,61 @@ def test_axes_and_abstract_trees_match_jax(arch):
     assert cache_axes == jcache_axes
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_moe_and_encdec_raise_naming_item_14(arch):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Model(get_reduced(arch), device="meta")
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "zamba2-2.7b"])
+@pytest.mark.parametrize("s", [192, 200])
+def test_any_sequence_length_matches_jax(arch, s):
+    """S not a multiple of 128 (the Pallas kernel's block): the port's
+    model attends through the kernel wrapper, which takes any S, where it
+    once inherited the block check.  forward, train_loss and prefill
+    against JAX in float32 (1e-5·max(1, max |want|))."""
+    jm, params, tm, _ = _models(arch, "float32")
+    rng = np.random.default_rng(s)
+    tokens = rng.integers(0, tm.cfg.vocab_size, (1, s)).astype(np.int32)
+    batch = {"tokens": tokens, "labels": np.roll(tokens, -1, axis=1)}
+    jl, _ = jm.forward(params, _jb(batch))
+    with torch.no_grad():
+        tl, _ = tm.forward(_tb(batch))
+        tloss = float(tm.train_loss(_tb(batch)))
+        tp, tc = tm.prefill(_tb(batch, labels=False), cache_len=s + 8)
+    _close(_real_vocab(tl, tm.cfg), _real_vocab(jl, tm.cfg), "float32",
+           "logits")
+    jloss = float(jm.train_loss(params, _jb(batch)))
+    assert abs(tloss - jloss) <= 1e-5 * abs(jloss), (tloss, jloss)
+    jp, jc = jm.prefill(params, _jb(batch, labels=False), cache_len=s + 8)
+    _close(_real_vocab(tp, tm.cfg), _real_vocab(jp, tm.cfg), "float32",
+           "prefill logits")
+    for k in jc:
+        _close(tc[k], jc[k], "float32", f"prefill cache {k}")
+
+
+def test_moe_capacity_drops_are_bounded():
+    """The twin of tests/test_models.py::test_moe_capacity_drops_are_bounded:
+    with capacity_factor ≥ 1 few assignments drop; the output stays finite
+    and the load-balance loss is present.  The port also counts the drops
+    (``moe_ffn(stats=...)``) and holds them against a NumPy recount of the
+    same routing."""
+    from repro_torch.models import moe as M
+
+    cfg = get_reduced("qwen3-moe-235b-a22b")
+    model = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (4, 32)).astype(np.int32))}
+    with torch.no_grad():
+        logits, aux = model.forward(batch)
+        assert bool(torch.isfinite(logits.float()).all())
+        assert float(aux) > 0
+        x = torch.from_numpy(rng.standard_normal(
+            (4, 32, cfg.d_model)).astype(np.float32))
+        stats = {}
+        M.moe_ffn(model.layers[0]["moe"], x, cfg, stats=stats)
+        _, ids, _ = M._route(model.layers[0]["moe"], x.reshape(-1, cfg.d_model),
+                             cfg)
+    cap = M.capacity_for(4 * 32, cfg)
+    counts = np.bincount(ids.numpy().ravel(), minlength=cfg.num_experts)
+    assert int(stats["dropped"]) == int(np.maximum(counts - cap, 0).sum())
+    assert stats["assignments"] == ids.numel()
+    assert int(stats["dropped"]) <= 0.25 * ids.numel()
 
 
 @pytest.mark.parametrize("impl", ["cuda", "reference"])
