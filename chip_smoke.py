@@ -144,8 +144,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               active Graph500's R-MAT skips few or no bodies, so
               ``holding`` also runs as
               ``benchmarks/bench_accel.py``'s async table runs it: its
-              skewed R-MAT (a=0.7, b=0.15, c=0.1, no dedup) at the same
-              scale and edge factor, sources 0-3 the only active
+              skewed R-MAT (a=0.7, b=0.15, c=0.1, no dedup) at 5g's
+              scale 18 and the same edge factor, sources 0-3 the only active
               vertices, beside the barriered ``mesh=4`` run (GAS) of the
               same, checked the same way; there ``holding`` must skip a
               device body at least once.
@@ -221,9 +221,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
               hit rate, the kill's and re-plans' seconds, and for (a)
               and (c) phase 5b's ``profile``.
 
-5i. serve  — online graph-query serving (``repro_torch.serve``) on phase
-              3's graph and shards at ``mesh=4`` with ``CSRConfig()``
-              pinned, ``GraphServeSession(kernel="cuda", max_batch=8)``:
+5i. serve  — online graph-query serving (``repro_torch.serve``) on 5g's
+              R-MAT graph of scale 18 (for the smoke's time) at ``mesh=4``
+              with ``CSRConfig()`` pinned,
+              ``GraphServeSession(kernel="cuda", max_batch=8)``:
               (a) a batch of 8 queries of each kind (``khop`` at hops 3,
               ``sssp``, ``ppr``; six vertices with out-edges drawn from
               ``--seed``, a duplicate and a 3-seed query), khop and sssp
@@ -391,6 +392,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
               restored state bit-equal to the saved one, the resumed
               losses within its ``LOSS_RTOL`` of an uninterrupted run).
 
+10. analysis — the dry-run accounting (``launch/op_analysis.py``)
+              against the card.  (a) Five steps that phases 8 and 9 ran
+              and measured — zamba2-2.7b's second kernel prefill (B=2,
+              S=4096) and one decode step, its last AdamW step (B=1,
+              S=4096), qwen3-moe's and whisper-base's second prefill — are
+              built again by ``launch/dryrun.py``'s ``build_step``, the
+              code that writes the dry run's records, and traced on the
+              meta device (the model kernels' launches planned, not
+              made).  Each line holds
+              the predicted peak allocation above the step's start against
+              ``max_memory_allocated`` − ``memory_allocated``-before
+              (within ``PEAK_TOL``), the planned launches against the
+              counted ones (equal), the dot FLOPs, their share of the
+              measured seconds at 989 TFLOP/s (``flops_share``) and the
+              roofline's terms; a miss fails the phase.  (b) The
+              deprecated ``GXEngine`` shim (``core/engine.py``) on an R-MAT
+              of scale 16: sssp_bf through ``execution="vectorized"`` and
+              ``"blocked"`` with ``use_pallas=True``, bit-equal to
+              ``run_reference``, with its ``csr_tile`` and ``edge_block``
+              launches.
+
 Float32 matrix products run in full float32 (TF32 off) throughout.  Then the
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
@@ -484,6 +506,10 @@ MOE_ARCH, MOE_LAYERS, MOE_S, MOE_GEN = "qwen3-moe-235b-a22b", 2, 4096, 16
 # phase 9 (c): whisper-base, a 448-token prompt (no multiple of 128)
 WHISPER_ARCH, WHISPER_B, WHISPER_PROMPT, WHISPER_GEN = (
     "whisper-base", 2, 448, 32)
+# phase 10: a predicted peak allocation above a step's start within
+# PEAK_TOL of the card's; the graph the GXEngine shim runs on
+PEAK_TOL = 0.05
+ENGINE_SCALE = 16
 # the bf16 attention kernel (csrc/flash_attention_sm90.cu) and the SASS
 # instructions that show it runs on wgmma and TMA loads
 SASS_KERNEL = "attn_sm90_kernel"
@@ -509,6 +535,25 @@ def emit(obj) -> None:
     if "phase" in obj:
         obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
+
+
+def measured_step(fn) -> tuple:
+    """Runs ``fn()`` once between synchronizations; returns its result and
+    ``{"s", "peak_delta_bytes", "peak_bytes"}``: the seconds, and the peak
+    allocation during the call above what was allocated before it (and
+    absolute)."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    return out, {"s": s, "peak_delta_bytes": peak - before,
+                 "peak_bytes": peak}
 
 
 def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -2244,9 +2289,9 @@ def phase_async(g, parts, pr, sp, refs, mesh4, seed) -> tuple:
     each against ``run_reference``, beside phase 5e's run of the same
     program (``mesh4``: a program's name → (label, s an iteration)); then
     sssp_bf ``holding`` as the JAX package's async benchmark runs it — its
-    skewed R-MAT (here at the same scale and edge factor), the four sources
-    the only active vertices — beside the barriered run of the same.  Returns the phase's line and its csr_tile
-    launches."""
+    skewed R-MAT (here at 5g's ``ELASTIC_SCALE``, the same edge factor),
+    the four sources the only active vertices — beside the barriered run
+    of the same.  Returns the phase's line and its csr_tile launches."""
     import numpy as np
     import torch
 
@@ -2265,10 +2310,15 @@ def phase_async(g, parts, pr, sp, refs, mesh4, seed) -> tuple:
                   "holding and buckets also run as "
                   "benchmarks/bench_accel.py's async table does: its "
                   "skewed R-MAT (a=0.7, b=0.15, c=0.1, no dedup) at the "
-                  "same scale and edge factor, sources 0-3 the only active "
+                  "same edge factor, sources 0-3 the only active "
                   "vertices; there holding must skip a body.  Only holding "
                   "runs there: buckets' checks are those it passes on "
-                  "Graph500's R-MAT"}}
+                  "Graph500's R-MAT",
+        "skewed_scale": f"the skewed R-MAT at 5g's scale {ELASTIC_SCALE}, "
+                        f"not {g.num_vertices.bit_length() - 1}: its "
+                        "generation and two constructions took ~45 s at "
+                        "scale 20, and the smoke's last line came at 960 s "
+                        "on a slow machine"}}
     launches_tile = 0
 
     def keep(label, rec, launches, mw, profile=False, frontier=None):
@@ -2298,6 +2348,7 @@ def phase_async(g, parts, pr, sp, refs, mesh4, seed) -> tuple:
 
     # -- the skewed R-MAT: where devices hold
     t0 = time.perf_counter()
+    n = 1 << ELASTIC_SCALE
     gs = generate.rmat_stream(n, EDGE_FACTOR * n, seed=seed, **SKEWED_RMAT)
     parts_s = plug.HostUpperSystem().partition(gs, SHARDS)
     sps = sssp_bf(gs, sources=[0, 1, 2, 3])
@@ -2306,7 +2357,8 @@ def phase_async(g, parts, pr, sp, refs, mesh4, seed) -> tuple:
     frontier = np.zeros(n, dtype=bool)
     frontier[:4] = True
     ref_s, ref_s_it = plug.run_reference(gs, sps, device="cuda")
-    out["skewed_graph"] = {"rmat": SKEWED_RMAT, "edges": gs.num_edges,
+    out["skewed_graph"] = {"rmat": SKEWED_RMAT, "scale": ELASTIC_SCALE,
+                           "edges": gs.num_edges,
                            "reference_iterations": ref_s_it,
                            "data_s": time.perf_counter() - t0}
     bsp_label = "sssp_bf/skewed/sharded-cuda/mesh4/gas"
@@ -2995,8 +3047,9 @@ def later_schedule():
 
 
 def phase_serve(g, seed) -> tuple:
-    """Phase 5i: ``repro_torch.serve`` on phase 3's graph and shards at
-    ``mesh=SHARDS`` with ``CSRConfig()`` pinned: (a) a batch of 8 of each
+    """Phase 5i: ``repro_torch.serve`` on 5g's graph (scale
+    ``ELASTIC_SCALE``) at ``mesh=SHARDS`` with ``CSRConfig()`` pinned: (a)
+    a batch of 8 of each
     kind (and sssp's first query alone), (b) a pagerank lookup, (c) a
     seeded replay through ``GraphServeRouter``, (d) a kill and a join under
     live traffic, then the CSR tile at the serve triples' stacked shape.
@@ -3015,7 +3068,9 @@ def phase_serve(g, seed) -> tuple:
     sweeps = autotune.CACHE.sweeps
     dev = torch.device("cuda")
     out = {"phase": "serve", "m": SHARDS, "max_batch": SERVE_B,
-           "reduced": {}}
+           "vertices": n, "edges": g.num_edges,
+           "reduced": {"scale": f"5g's R-MAT graph of scale {ELASTIC_SCALE} "
+                       "(phase 3's is 20), for the smoke's time"}}
     launches_tile = 0
     # one monitor for every family; (d) arms the schedule's kill and join
     failures = later_schedule()
@@ -3410,7 +3465,8 @@ def phase_model(seed) -> tuple:
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models import Model
     from repro_torch.models import attention as A
-    from repro_torch.train.serve import decode_from, make_prefill_step
+    from repro_torch.train.serve import (decode_from, make_decode_step,
+                                         make_prefill_step)
 
     dev = torch.device("cuda")
     cfg = get_config(MODEL_ARCH)
@@ -3474,16 +3530,22 @@ def phase_model(seed) -> tuple:
     del first, first_ssd
     out["layer"] = {"attention": attn["check"], "ssd": ssd_rec["checks"]}
 
-    # (c) greedy generation from the kernel prefill, twice
+    # (c) greedy generation from the kernel prefill, twice; the second
+    # prefill measured for phase 10
     runs = []
-    for _ in range(2):
+    peak = torch.cuda.max_memory_allocated(dev)  # measured_step resets it
+    for i in range(2):
         del cache
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache = prefill(batch)
+        fa.flash_attention.launches = 0
+        ssd.ssd_chunk.launches = 0
+        peak = max(peak, torch.cuda.max_memory_allocated(dev))
+        (logits, cache), meas = measured_step(lambda: prefill(batch))
+        if i == 1:
+            out["measured_prefill"] = {**meas, "launches": {
+                "flash_attention": fa.flash_attention.launches,
+                "ssd_chunk": ssd.ssd_chunk.launches}}
         tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
-        torch.cuda.synchronize()
-        t_prefill = time.perf_counter() - t0
+        t_prefill = meas["s"]
         fa.flash_attention.launches = 0
         ssd.ssd_chunk.launches = 0
         t0 = time.perf_counter()
@@ -3515,7 +3577,22 @@ def phase_model(seed) -> tuple:
         "agree_with_reference_prefill": int(
             (runs[0]["tokens"] == plain_toks).sum()),
         "of": plain_toks.numel()}
-    out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["peak_allocated_bytes"] = max(peak,
+                                      torch.cuda.max_memory_allocated(dev))
+    # one more decode step, at the last free position of the second run's
+    # cache, measured for phase 10
+    decode = make_decode_step(model)
+    tok = toks[:, -1:]
+    fa.flash_attention.launches = 0
+    ssd.ssd_chunk.launches = 0
+    with torch.no_grad():
+        _, meas = measured_step(
+            lambda: decode(cache, tok, MODEL_S + MODEL_GEN - 1))
+    out["measured_decode"] = {**meas, "pos": MODEL_S + MODEL_GEN - 1,
+                              "launches": {
+                                  "flash_attention":
+                                      fa.flash_attention.launches,
+                                  "ssd_chunk": ssd.ssd_chunk.launches}}
     del reference, cache, ref_cache
     torch.cuda.empty_cache()
     return out, attn, ssd_rec, model
@@ -3922,17 +3999,15 @@ def train_zamba2(model, seed) -> tuple:
     opt = AdamW(AdamWConfig(peak_lr=1e-4, warmup_steps=1, total_steps=10))
     state = opt.init(model)
     step = make_train_step(model, opt)
-    torch.cuda.reset_peak_memory_stats(dev)
     steps = []
     for i in range(TRAIN_STEPS):
         b_i = as_batch(data.next_batch(), dev)
         fa.flash_attention.launches = ssd.ssd_chunk.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = step(state, b_i)
-        torch.cuda.synchronize()
-        dt_s = time.perf_counter() - t0
+        (state, metrics), meas = measured_step(lambda: step(state, b_i))
+        dt_s = meas["s"]
         rec = {"loss": float(metrics["loss"]), "s": dt_s,
+               "peak_delta_bytes": meas["peak_delta_bytes"],
+               "peak_bytes": meas["peak_bytes"],
                "tokens_per_s": TRAIN_B * TRAIN_S / dt_s,
                "grad_norm": float(metrics["grad_norm"]),
                "lr": float(metrics["lr"]),
@@ -3944,7 +4019,10 @@ def train_zamba2(model, seed) -> tuple:
     out["steps"] = steps
     out["step_s_warm"] = min(r["s"] for r in steps[1:])
     out["tokens_per_s_warm"] = TRAIN_B * TRAIN_S / out["step_s_warm"]
-    out["peak_allocated_bytes_steps"] = torch.cuda.max_memory_allocated(dev)
+    out["peak_allocated_bytes_steps"] = max(r["peak_bytes"] for r in steps)
+    out["measured_step"] = {"step_index": TRAIN_STEPS - 1, **{
+        k: steps[-1][k] for k in ("s", "peak_delta_bytes", "peak_bytes",
+                                  "launches")}}
     out["opt_state_bytes"] = sum(
         t.numel() * t.element_size() for part in ("m", "v")
         for t in state[part].values())
@@ -4054,20 +4132,25 @@ def serve_case(label, model, batch, cache_len, gen_steps, prompt_len):
     out["end_to_end"] = model_checks(logits, cache, ref_logits, ref_cache)
     del ref_logits, ref_cache
     runs = []
-    for _ in range(2):
+    peak = torch.cuda.max_memory_allocated()  # measured_step resets it
+    for i in range(2):
         del cache
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache = prefill(batch)
+        fa.flash_attention.launches = 0
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        (logits, cache), meas = measured_step(lambda: prefill(batch))
+        if i == 1:  # measured for phase 10
+            out["measured_prefill"] = {
+                **meas, "launches": {
+                    "flash_attention": fa.flash_attention.launches}}
         tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
-        torch.cuda.synchronize()
-        t_prefill = time.perf_counter() - t0
+        t_prefill = meas["s"]
         t0 = time.perf_counter()
         toks = decode_from(model, cache, tok, prompt_len, gen_steps)
         torch.cuda.synchronize()
         runs.append({"prefill_s": t_prefill,
                      "decode_ms_per_step": 1e3 * (time.perf_counter() - t0)
                      / (gen_steps - 1), "tokens": toks.cpu()})
+    out["peak_allocated_bytes"] = max(peak, torch.cuda.max_memory_allocated())
     if not torch.equal(runs[0]["tokens"], runs[1]["tokens"]):
         raise AssertionError(f"{label}: two greedy generations differ")
     out["generation"] = {"tokens": gen_steps, "identical": True,
@@ -4123,7 +4206,8 @@ def train_moe(seed) -> tuple:
     out.update(rec)
     out["dropped_share"] = float(stats["dropped"]) / float(
         stats["assignments"])
-    out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["peak_allocated_bytes"] = max(rec["peak_allocated_bytes"],
+                                      torch.cuda.max_memory_allocated(dev))
     q, k, v, causal = calls[0]
     case = attention_case(f"{cfg.name}/prefill/B1", q, k, v, causal)
     del calls, q, k, v, model
@@ -4194,7 +4278,8 @@ def train_whisper(seed) -> tuple:
     if not math.isfinite(float(metrics["loss"])):
         raise AssertionError("train/whisper: the step's loss is not finite")
     out["step_loss"] = float(metrics["loss"])
-    out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["peak_allocated_bytes"] = max(rec["peak_allocated_bytes"],
+                                      torch.cuda.max_memory_allocated(dev))
     del model, state, batch, serve_batch, frames
     torch.cuda.empty_cache()
     return out, cases
@@ -4275,6 +4360,142 @@ def phase_train(box: list, seed) -> tuple:
     out["launchers"]["seconds"] = time.perf_counter() - t0
     out["seconds"] = time.perf_counter() - t_phase
     return out, [z_case, m_case, *w_cases]
+
+
+def analysis_steps() -> dict:
+    """Phase 10 (a): each step phases 8 and 9 measured, as the dry run's
+    ``build_step`` builds it on the meta device: name → its arguments."""
+    return {
+        f"{MODEL_ARCH}/prefill/B{MODEL_B}/S{MODEL_S}": dict(
+            arch=MODEL_ARCH, shape_name="prefill_32k", batch=MODEL_B,
+            seq=MODEL_S, cache_len=MODEL_S + MODEL_GEN),
+        f"{MODEL_ARCH}/decode/B{MODEL_B}": dict(
+            arch=MODEL_ARCH, shape_name="decode_32k", batch=MODEL_B,
+            seq=MODEL_S, cache_len=MODEL_S + MODEL_GEN),
+        f"{MODEL_ARCH}/train/B{TRAIN_B}/S{TRAIN_S}": dict(
+            arch=MODEL_ARCH, shape_name="train_4k", batch=TRAIN_B,
+            seq=TRAIN_S, microbatches=1),
+        f"{MOE_ARCH}/{MOE_LAYERS}L/prefill/B1/S{MOE_S}": dict(
+            arch=MOE_ARCH, shape_name="prefill_32k", batch=1, seq=MOE_S,
+            num_layers=MOE_LAYERS, cache_len=MOE_S + MOE_GEN),
+        f"{WHISPER_ARCH}/prefill/B{WHISPER_B}": dict(
+            arch=WHISPER_ARCH, shape_name="prefill_32k", batch=WHISPER_B,
+            seq=WHISPER_PROMPT, cache_len=WHISPER_PROMPT + WHISPER_GEN)}
+
+
+def phase_analysis(measured: dict, smi: str) -> dict:
+    """Phase 10 (a): each measured step built by ``dryrun.build_step`` —
+    the code that writes the dry run's records — and traced on the meta
+    device under ``op_analysis.OpCounter``; the prediction against the
+    card's measurement.  ``measured`` maps analysis_steps()'s names to the
+    phase records' ``{"s", "peak_delta_bytes", "launches"}``."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch import dryrun, op_analysis
+
+    out = {"phase": "analysis", "peak_tol": PEAK_TOL, "card": smi,
+           "steps": {}}
+    lib_launches = (fa.flash_attention.launches, ssd.ssd_chunk.launches)
+    for name, kwargs in analysis_steps().items():
+        t0 = time.perf_counter()
+        step = dryrun.build_step(**kwargs)
+        with op_analysis.OpCounter() as counter:
+            result = step.run()
+        st = counter.stats()
+        del result
+        trace_s = time.perf_counter() - t0
+        meas = measured[name]
+        planned = {k: st.kernel_launches.get(k, 0)
+                   for k in ("flash_attention", "ssd_chunk")}
+        counted = {k: meas["launches"].get(k, 0) for k in planned}
+        ratio = st.peak_bytes / meas["peak_delta_bytes"]
+        record = {"compute_dtype": step.meta["compute_dtype"],
+                  "device": dryrun.card(),
+                  "memory": {"argument_bytes": dryrun.tensor_bytes(step.args)}}
+        dryrun.apply_stats(record, st)
+        del step
+        rec = {"predicted_peak_delta_bytes": st.peak_bytes,
+               "measured_peak_delta_bytes": meas["peak_delta_bytes"],
+               "peak_ratio": ratio, "planned_launches": planned,
+               "counted_launches": counted,
+               "dot_flops": st.dot_flops,
+               "kernel_dot_flops": st.kernel_dot_flops,
+               "kernel_recompute_dot_flops": st.kernel_recompute_dot_flops,
+               "dot_bytes": st.dot_bytes,
+               "bytes_accessed": st.bytes_accessed, "op_count": st.op_count,
+               "measured_s": meas["s"],
+               "flops_share": st.dot_flops / (meas["s"] * BF16_OPS_PER_S),
+               "roofline": record["roofline"],
+               "argument_bytes": record["memory"]["argument_bytes"],
+               "trace_s": trace_s, "card": smi}
+        emit({"phase": "analysis", "step": name, **rec})
+        out["steps"][name] = rec
+        if planned != counted:
+            raise AssertionError(f"analysis/{name}: planned launches "
+                                 f"{planned}, the card counted {counted}")
+        if abs(ratio - 1.0) > PEAK_TOL:
+            raise AssertionError(
+                f"analysis/{name}: predicted peak {st.peak_bytes} B is "
+                f"{ratio:.4f} of the card's {meas['peak_delta_bytes']} B")
+    if (fa.flash_attention.launches, ssd.ssd_chunk.launches) != lib_launches:
+        raise AssertionError("analysis: a meta trace launched a kernel")
+    out["planned"] = {k: sum(r["planned_launches"][k]
+                             for r in out["steps"].values())
+                      for k in ("flash_attention", "ssd_chunk")}
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_engine(seed) -> dict:
+    """Phase 10 (b): the deprecated ``GXEngine`` shim on an R-MAT of scale
+    ``ENGINE_SCALE``: sssp_bf through the vectorized and blocked daemons
+    with ``use_pallas=True``, bit-equal to run_reference, its kernels'
+    launches counted."""
+    import warnings
+
+    import numpy as np
+
+    from repro_torch.core.engine import EngineOptions, GXEngine
+    from repro_torch.graph import generate
+    from repro_torch.graph.algorithms import sssp_bf
+    from repro_torch.kernels import edge_block as ebk
+    from repro_torch.plug import run_reference
+
+    n = 1 << ENGINE_SCALE
+    g = generate.rmat_stream(n, EDGE_FACTOR * n, seed=seed)
+    prog = sssp_bf(g, sources=[0, 1, 2, 3])
+    ref, ref_it = run_reference(g, prog, device="cuda")
+    out = {"phase": "analysis", "step": "engine", "scale": ENGINE_SCALE,
+           "edges": g.num_edges, "reference_iterations": ref_it, "runs": {},
+           "launches": {"csr_tile": 0, "edge_block": 0}}
+    for execution, kernel in (("vectorized", "csr_tile"),
+                              ("blocked", "edge_block")):
+        before = (ebk.csr_tile.launches, ebk.edge_block.launches)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            eng = GXEngine(g, prog, num_shards=SHARDS, options=EngineOptions(
+                execution=execution, use_pallas=True))
+        t0 = time.perf_counter()
+        res = eng.run()
+        wall = time.perf_counter() - t0
+        launches = {"csr_tile": ebk.csr_tile.launches - before[0],
+                    "edge_block": ebk.edge_block.launches - before[1]}
+        if not np.array_equal(res.state, ref):
+            raise AssertionError(f"engine/{execution}: the state differs "
+                                 "from run_reference")
+        if launches[kernel] == 0:
+            raise AssertionError(f"engine/{execution}: {kernel} was never "
+                                 "launched")
+        out["runs"][execution] = {
+            "daemon": type(eng._mw.daemon).__name__,
+            "iterations": res.iterations, "wall_s": wall,
+            "bit_equal": True, "launches": launches}
+        for k, v in launches.items():
+            out["launches"][k] += v
+    emit(out)
+    return out
 
 
 def main(argv=None) -> int:
@@ -4527,7 +4748,7 @@ def main(argv=None) -> int:
         g_e, plug.HostUpperSystem().partition(g_e, SHARDS), pr_e, sp_e,
         refs_e, mesh4, args.seed, host_sp, sp_ref)
     elastic_rec["graph_and_references_s"] = setup_e
-    del g_e, pr_e, sp_e, refs_e
+    del pr_e, sp_e, refs_e  # 5i serves on g_e too
     emit(elastic_rec)
     e2e_launches["csr_tile"] += elastic_launches
     torch.cuda.empty_cache()
@@ -4542,7 +4763,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # -- 5i. online graph-query serving -------------------------------------
-    serve_rec, serve_launches, serve_cases = phase_serve(g, args.seed)
+    serve_rec, serve_launches, serve_cases = phase_serve(g_e, args.seed)
+    del g_e
     emit(serve_rec)
     e2e_launches["csr_tile"] += serve_launches
     cases.extend(serve_cases)
@@ -4576,6 +4798,24 @@ def main(argv=None) -> int:
     train_rec, train_cases = phase_train(box, args.seed)
     emit({**train_rec, "attention_cases": train_cases})
 
+    # -- 10. the dry-run accounting against the card; the GXEngine shim ----
+    t_phase = time.perf_counter()
+    measured = {
+        f"{MODEL_ARCH}/prefill/B{MODEL_B}/S{MODEL_S}":
+            model_rec["measured_prefill"],
+        f"{MODEL_ARCH}/decode/B{MODEL_B}": model_rec["measured_decode"],
+        f"{MODEL_ARCH}/train/B{TRAIN_B}/S{TRAIN_S}":
+            train_rec["zamba2"]["measured_step"],
+        f"{MOE_ARCH}/{MOE_LAYERS}L/prefill/B1/S{MOE_S}":
+            train_rec["moe"]["measured_prefill"],
+        f"{WHISPER_ARCH}/prefill/B{WHISPER_B}":
+            train_rec["whisper"]["measured_prefill"]}
+    analysis = phase_analysis(measured, smi)
+    engine = phase_engine(args.seed)
+    emit({"phase": "analysis", "seconds": time.perf_counter() - t_phase,
+          "planned_launches": analysis["planned"],
+          "engine_launches": engine["launches"]})
+
     # -- the kernels line --------------------------------------------------
     sources_of = {
         "csr_tile": ("src/repro_torch/kernels/csrc/csr_tile.cu",
@@ -4596,6 +4836,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": e2e_launches[name],
             "launches_fused": fused_launches[name],
+            "launches_engine": engine["launches"][name],
             **({"launches_pipelined": pipe_launches}
                if name == "edge_block" else
                {"launches_autotuned": tune_launches,
@@ -4619,6 +4860,7 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:69",
         "launches": model_rec["launches"]["flash_attention"],
+        "launches_dryrun": analysis["planned"]["flash_attention"],
         "launches_entry_point": attn[0]["launches"],
         "max_abs_err": max([model_attn["max_abs_err"]]
                            + [c["max_abs_err"] for c in attn]),
@@ -4664,6 +4906,7 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:61",
         "launches": model_rec["launches"]["ssd_chunk"],
+        "launches_dryrun": analysis["planned"]["ssd_chunk"],
         "launches_entry_point": ssd_rec["launches"],
         "max_abs_err": max(ssd_rec["max_abs_err"],
                            model_ssd_rec["max_abs_err"]),

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import accounting, build
 
 #: Head dims both CUDA kernels take: multiples of 8 up to 128, as the JAX
 #: kernel's (8, 128) tiling allows.  Each runs an instantiation at a head dim
@@ -82,11 +82,18 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
 
 
 def _launch(q, k, v, causal: bool, scale: float):
-    """One launch of the CUDA kernel for ``d`` = q's head dim; counts it."""
+    """One launch of the CUDA kernel for ``d`` = q's head dim; counts it.
+    On meta tensors (a dry run) the launch is planned, not made: the output
+    is allocated and the launch reported to the active op counters
+    (``accounting.launch``), without the library or the count."""
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     out = torch.empty_like(q)
     if b * hq * s == 0:
+        return out
+    accounting.launch("flash_attention", (out,), flash_attention_plain,
+                      q, k, v, causal=causal, scale=scale)
+    if q.device.type == "meta":
         return out
     lib = build.library()
     with torch.cuda.device(q.device):
@@ -123,10 +130,13 @@ class _FlashAttention(torch.autograd.Function):
 def plain_grads(fn, inputs, needs, grads):
     """A kernel Function's backward: the gradients of the plain version
     ``fn(*inputs)`` against ``grads`` (one per output), for the inputs
-    flagged in ``needs`` (``None`` for the others)."""
+    flagged in ``needs`` (``None`` for the others).  The plain forward it
+    recomputes is work the JAX package's backward does not do; an op
+    counter counts it apart (``kernel_recompute_dot_flops``)."""
     with torch.enable_grad():
         xs = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
-        outs = fn(*xs)
+        with accounting.recompute():
+            outs = fn(*xs)
         outs = outs if isinstance(outs, tuple) else (outs,)
         pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
         wanted = [x for x, n in zip(xs, needs) if n]
@@ -149,16 +159,18 @@ def flash_attention(q, k, v, *, causal: bool = True,
     input that requires grad, the launch goes through an
     ``autograd.Function`` whose backward is plain PyTorch (the JAX package
     has no backward kernel either); on CPU tensors the plain version
-    differentiates as it is.
+    differentiates as it is.  Meta tensors take the CUDA branch, checks
+    and ``autograd.Function`` included, with a planned launch (a dry run
+    saves what the card saves).
     """
     b, hq, hkv, s, d = _check(q, k, v)
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, got "
-                         f"{q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cuda or cpu (meta for a "
+                         f"dry run), got {q.device}")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention's CUDA kernels take head dims "
                          f"{HEAD_DIMS}, got D={d}")

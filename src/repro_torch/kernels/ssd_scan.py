@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import accounting, build, ref
 from repro_torch.kernels.flash_attention import plain_grads
 
 #: Head dims P the CUDA kernel is compiled for (``csrc/ssd_scan.cu``).
@@ -83,13 +83,15 @@ def ssd_chunk(x, dt, a, b_mat, c_mat):
     with an input that requires grad, the launch goes through an
     ``autograd.Function`` whose backward differentiates
     :func:`ssd_chunk_plain` on the saved inputs; on CPU tensors the plain
-    version differentiates as it is.
+    version differentiates as it is.  Meta tensors take the CUDA branch,
+    checks and ``autograd.Function`` included, with a planned launch.
     """
     bsz, nc, l, h, p, g, n = _check(x, dt, a, b_mat, c_mat)
     if x.device.type == "cpu":
         return ssd_chunk_plain(x, dt, a, b_mat, c_mat)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_chunk runs on cuda or cpu, got {x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"ssd_chunk runs on cuda or cpu (meta for a dry "
+                         f"run), got {x.device}")
     if p not in HEAD_DIMS:
         raise ValueError(f"ssd_chunk's CUDA kernel takes head dims "
                          f"P in {HEAD_DIMS}, got P={p}")
@@ -103,7 +105,10 @@ def ssd_chunk(x, dt, a, b_mat, c_mat):
 
 
 def _launch(x, dt, a, b_mat, c_mat):
-    """One launch of the CUDA kernel; counts it."""
+    """One launch of the CUDA kernel; counts it.  On meta tensors (a dry
+    run) the launch is planned, not made: the outputs are allocated and
+    the launch reported to the active op counters (``accounting.launch``),
+    without the library or the count."""
     bsz, nc, l, h, p = x.shape
     g, n = b_mat.shape[3], b_mat.shape[4]
     dev = x.device
@@ -112,6 +117,10 @@ def _launch(x, dt, a, b_mat, c_mat):
     decay = torch.empty((bsz, nc, h), dtype=torch.float32, device=dev)
     gate = torch.empty((bsz, nc, l, h), dtype=torch.float32, device=dev)
     if bsz * nc * h == 0:
+        return y, state, decay, gate
+    accounting.launch("ssd_chunk", (y, state, decay, gate), ssd_chunk_plain,
+                      x, dt, a, b_mat, c_mat)
+    if dev.type == "meta":
         return y, state, decay, gate
     lib = build.library()
     with torch.cuda.device(dev):

@@ -64,8 +64,12 @@ def _route(p, xf, cfg):
     gate_vals = gate_vals / torch.clamp(
         gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
     me = probs.mean(dim=0)
-    ce = torch.bincount(expert_ids.reshape(-1), minlength=e).to(
-        torch.float32) / (t * k)
+    # assignments per expert: float32 ones added by index, exact below 2^24
+    # and on every device, the meta device included (where bincount is not)
+    flat = expert_ids.reshape(-1)
+    ce = torch.zeros(e, dtype=torch.float32, device=xf.device).index_add_(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32,
+                            device=xf.device)) / (t * k)
     aux = e * torch.sum(me * ce)
     return gate_vals, expert_ids, aux
 

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core import pipeline as pl
 from repro_torch.dist import collectives as coll
+from repro_torch.kernels import accounting
 from repro_torch.models.model import Model
 from repro_torch.train.optimizer import AdamW
 
@@ -104,7 +105,10 @@ def make_train_step(model: Model, optimizer: AdamW, *, microbatches: int = 1,
             p.dtype if p.dtype == torch.bfloat16 else torch.float32))
             for k, p in model.named_parameters()}
         loss_acc = torch.zeros((), dtype=torch.float32, device=device)
-        for i in range(microbatches):
+        # a dry run's counter on meta samples this loop
+        # (accounting.trips), as hlo_analysis multiplies the JAX package's
+        # scan by its trips
+        for i in accounting.trips(microbatches):
             mb = {k: v.reshape(microbatches, b // microbatches,
                                *v.shape[1:])[i] for k, v in batch.items()}
             loss, grads = loss_and_grads(model, mb)

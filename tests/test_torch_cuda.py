@@ -1498,3 +1498,106 @@ def test_model_gradients_through_the_kernels(cuda, arch):
     for k, w in want.items():
         scale = float(w.abs().max())
         assert float((grads[k] - w).abs().max()) <= 1e-3 * scale + 1e-30, k
+
+
+def _card_peak(fn):
+    """``fn()`` once on the card: its result and the peak allocation
+    during the call above what was allocated before it."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_meta_trace_predicts_the_cards_peak_and_launches(cuda, kind):
+    """One zamba2-2.7b (reduced, B=2, S=512) prefill and one AdamW step,
+    traced on the meta device under ``op_analysis.OpCounter`` and run on
+    the card from the same state: the predicted peak allocation above the
+    step's start within 5% of ``max_memory_allocated``'s, and the planned
+    launches equal to the wrappers' counts (after a warm-up step, so that
+    the card's cuBLAS workspaces exist before either)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import op_analysis
+    from repro_torch.models import Model
+    from repro_torch.train.optimizer import AdamW, AdamWConfig
+    from repro_torch.train.serve import make_prefill_step
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_reduced("zamba2-2.7b")
+    b, s = 2, 512
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    model = Model(cfg, device=cuda).init(gen)
+    twin = Model(cfg, device="meta")
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    if kind == "prefill":
+        model.served()
+        twin.served()
+        card = make_prefill_step(model, cache_len=s)
+        meta = make_prefill_step(twin, cache_len=s)
+        batch = {"tokens": tokens}
+
+        def run_card():
+            return card(batch)
+
+        def run_meta():
+            return meta({"tokens": tokens.to("meta")})
+    else:
+        opt = AdamW(AdamWConfig(peak_lr=1e-4, warmup_steps=1))
+        state = [opt.init(model)]
+        twin_state = opt.init(twin)
+        card = make_train_step(model, opt)
+        meta = make_train_step(twin, opt)
+        batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+        meta_batch = {k: v.to("meta") for k, v in batch.items()}
+
+        def run_card():
+            state[0], metrics = card(state[0], batch)
+            return metrics
+
+        def run_meta():
+            return meta(twin_state, meta_batch)
+
+    run_card()
+    fa.flash_attention.launches = ssd.ssd_chunk.launches = 0
+    _, measured = _card_peak(run_card)
+    counted = {"flash_attention": fa.flash_attention.launches,
+               "ssd_chunk": ssd.ssd_chunk.launches}
+    with op_analysis.OpCounter() as counter:
+        run_meta()
+    st = counter.stats()
+    assert (fa.flash_attention.launches, ssd.ssd_chunk.launches) == tuple(
+        counted.values())
+    assert {k: st.kernel_launches.get(k, 0) for k in counted} == counted
+    assert counted["flash_attention"] > 0 and counted["ssd_chunk"] > 0
+    assert abs(st.peak_bytes / measured - 1.0) <= 0.05, (st.peak_bytes,
+                                                         measured)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("execution, kernel", [("vectorized", "csr_tile"),
+                                               ("blocked", "edge_block")])
+def test_gxengine_shim_runs_the_kernels(cuda, execution, kernel):
+    """``GXEngine(use_pallas=True)`` on the card launches the CSR-tile
+    kernel (vectorized) or the edge-block kernel (blocked), bit-equal to
+    run_reference on sssp_bf."""
+    import warnings
+
+    from repro_torch.core.engine import EngineOptions, GXEngine
+
+    g = generate.rmat(2048, 16384, seed=3)
+    prog = algorithms.sssp_bf(g)
+    counter = getattr(ebk, kernel)
+    before = counter.launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        eng = GXEngine(g, prog, num_shards=2, options=EngineOptions(
+            execution=execution, use_pallas=True, block_size=4096))
+    res = eng.run()
+    ref_state, _ = plug.run_reference(g, prog)
+    np.testing.assert_array_equal(res.state, ref_state)
+    assert counter.launches > before

@@ -59,6 +59,21 @@ def test_no_jax_or_repro_import(path):
     assert not _IMPORT.findall(text), path
 
 
+_LAUNCH_IMPORT = re.compile(
+    r"^\s*(?:import|from)\s+repro_torch\.launch\b"
+    r"|^\s*from\s+repro_torch\s+import\s+[^\n]*\blaunch\b", re.M)
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for layer in ("kernels", "models", "train")
+    for p in (PORT / layer).rglob("*.py")))
+def test_lower_layers_import_no_launcher(path):
+    """The kernels, the models and the train step know nothing of the
+    command-line layer: a dry run's counter reaches them only through
+    ``kernels/accounting.py``."""
+    assert not _LAUNCH_IMPORT.findall((ROOT / path).read_text()), path
+
+
 def _graph():
     return generate.rmat(64, 400, seed=3)
 
@@ -75,6 +90,14 @@ def test_cuda_device_raises_without_a_gpu():
             kernel="cuda", csr_config=ops.CSRConfig()), device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         plug.run_reference(g, prog)
+    # the engine shim and the graph examples' twins default to the card too
+    from repro_torch.core.engine import GXEngine
+    from repro_torch.examples import graph_analytics, quickstart
+    with pytest.raises(RuntimeError, match="cuda"):
+        GXEngine(g, prog)
+    for example in (quickstart, graph_analytics):
+        with pytest.raises(RuntimeError, match="cuda"):
+            example.main(["--num-vertices", "64", "--num-edges", "400"])
 
 
 def test_wrappers_take_the_plain_path_on_cpu_tensors_only():
@@ -187,8 +210,14 @@ def test_model_kernel_wrappers_check_dtype_device_and_contiguity():
                            k, v)
     with pytest.raises(ValueError, match="meta"):
         fa.flash_attention(q, k.to("meta"), v)
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        fa.flash_attention(*(t.to("meta") for t in (q, k, v)))
+    # meta tensors (a dry run) take the card's branch with a planned launch:
+    # an output of q's shape, no library, no count
+    launches = (fa.flash_attention.launches, ssd.ssd_chunk.launches)
+    out = fa.flash_attention(*(t.to("meta") for t in (q, k, v)))
+    assert out.device.type == "meta" and out.shape == q.shape
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention(*(t[..., :12].contiguous().to("meta")
+                             for t in (q, k, v)))
     args = _ssd_args()
     for i, name in enumerate(("x", "dt", "a", "b_mat", "c_mat")):
         mixed = list(args)
@@ -199,8 +228,13 @@ def test_model_kernel_wrappers_check_dtype_device_and_contiguity():
     strided[0] = args[0].transpose(3, 4).contiguous().transpose(3, 4)
     with pytest.raises(ValueError, match="contiguous"):
         ssd.ssd_chunk(*strided)
-    with pytest.raises(ValueError, match="cuda or cpu"):
+    with pytest.raises(ValueError, match="head dims"):  # P=4
         ssd.ssd_chunk(*(t.to("meta") for t in args))
+    p16 = [torch.zeros((*args[0].shape[:4], 16)), *args[1:]]
+    outs = ssd.ssd_chunk(*(t.to("meta") for t in p16))
+    assert [tuple(t.shape) for t in outs] == [
+        tuple(t.shape) for t in ssd.ssd_chunk_plain(*p16)]
+    assert (fa.flash_attention.launches, ssd.ssd_chunk.launches) == launches
 
 
 @pytest.mark.parametrize("kwargs", [
