@@ -122,6 +122,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
               ``merge_partials`` must receive (4, N, K) every iteration;
               s an iteration beside ``mesh=1``, and phase 5b's
               ``profile`` (beside phase 5h's).
+5e'. ranks  — the graph loop across ``torch.distributed`` ranks: the
+              smoke spawns 4 gloo ranks (its own world, ``file://``
+              rendezvous) that share the one card, CUDA tensors on each.
+              The graph's arrays are written once as ``.npy`` and
+              memory-mapped by each rank; each runs the same partitioner
+              (4 shards) and binds only its own shard
+              (``dist.sharding.RankMesh``, ``ShardedDaemon(mesh=rm)``,
+              ``MeshUpperSystem(mesh=rm)``).  sssp_bf (GAS, to its fixed
+              point) and pagerank (BSP, 10 iterations) through the fused
+              ``DriveLoop``: each rank's state bit-identical to rank 0's,
+              sssp_bf bit-equal to phase 5e's ``mesh=4`` state and
+              pagerank within rtol/atol below, in as many iterations;
+              ``csr_tile`` launched once an iteration and one small fetch
+              an iteration (plus the final state) on each rank.  Then
+              sssp_bf through the host loop over ``MeshUpperSystem(mesh=
+              rm)`` (bit-equal to ``run_reference``) and pagerank's host
+              loop on the int8 wire (``wire="compressed"``): every merge
+              bit-equal to phase 8's NumPy oracle of the wire, fed every
+              rank's recorded per-shard aggregates.  Prints s an iteration
+              on each rank, the bytes of each all_reduce and the backend:
+              four ranks share one card's SMs and gloo stages its wire
+              through host memory, so none of it is a scale-out figure.
+              A failing or hung rank fails the phase.
 5f. async   — the fused async loop (``model=AsyncModel(...)``, so
               ``AsyncDriveLoop``) at ``mesh=4`` with ``CSRConfig()`` pinned:
               sssp_bf to its fixed point under README's three arms
@@ -423,6 +446,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2182,6 +2206,234 @@ def phase_mesh(g, parts, pr, sp, refs, mesh1) -> tuple:
         del mw
         torch.cuda.empty_cache()
     return out, launches_tile, resident
+
+
+# phase 5e': the graph loop across ranks
+RANKS = 4                  # gloo ranks sharing the one card
+RANKS_TIMEOUT_S = 300.0    # the spawned world's limit (a collective's: 60 s)
+RANKS_CAVEAT = ("4 ranks share one card's SMs and gloo stages each "
+                "all_reduce through host memory: not a scale-out figure")
+RANK_RUNS = (  # label, program, model, loop, upper options
+    ("sssp_bf/ranks4/fused/gas", "sssp_bf", "gas", "fused", {}),
+    ("pagerank/ranks4/fused/bsp", "pagerank", "bsp", "fused", {}),
+    ("sssp_bf/ranks4/host/bsp", "sssp_bf", "bsp", "host", {}),
+    ("pagerank/ranks4/host-int8/bsp", "pagerank", "bsp", "host",
+     {"wire": "compressed", "bits": 8}))
+
+
+def _rank_file(tmp, label, rank, what="state") -> Path:
+    return Path(tmp) / f"{label.replace('/', '_')}.{what}.rank{rank}.npy"
+
+
+def ranks_world(rank, world, tmp, n) -> dict:
+    """One rank of phase 5e': the graph memory-mapped from ``tmp``, its own
+    shard bound, every run of ``RANK_RUNS`` (one warm-up iteration first,
+    then the timed run with the launches and fetches counted).  Writes each
+    final state (and the int8 wire's per-merge aggregates) under ``tmp``
+    for the parent's checks; returns the rank's records."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch import plug
+    from repro_torch.dist.sharding import RankMesh
+    from repro_torch.graph.algorithms import pagerank, sssp_bf
+    from repro_torch.graph.structure import Graph
+    from repro_torch.kernels import edge_block as ebk
+    from repro_torch.kernels.ops import CSRConfig
+
+    # the ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    t0 = time.perf_counter()
+    arrays = {k: np.load(Path(tmp) / f"{k}.npy", mmap_mode="r")
+              for k in ("src", "dst", "weights")}
+    g = Graph(num_vertices=n, **arrays)
+    programs = {"pagerank": pagerank(g, max_iterations=PR_ITERATIONS),
+                "sssp_bf": sssp_bf(g, sources=[0, 1, 2, 3])}
+    mesh = RankMesh()  # cuda:{rank % device_count}
+    out = {"rank": rank, "device": str(mesh.device), "backend": mesh.backend,
+           "shards": list(mesh.shard_range(SHARDS)),
+           "load_s": time.perf_counter() - t0, "runs": {}}
+
+    class Recording(plug.MeshUpperSystem):
+        """Keeps each merge's per-shard aggregates (this rank's) and a
+        digest of its result."""
+
+        def reset(self):
+            super().reset()
+            self.rounds = []
+
+        def merge(self, states, aggs, cnts):
+            base, agg, cnt = super().merge(states, aggs, cnts)
+            self.rounds.append((np.stack([np.asarray(a, np.float32)
+                                          for a in aggs]),
+                                np.array(agg, np.float32)))
+            return base, agg, cnt
+
+    for label, name, model, loop, upper_kw in RANK_RUNS:
+        prog = programs[name]
+        upper = (Recording if upper_kw else plug.MeshUpperSystem)(
+            mesh=mesh, **upper_kw)
+        daemon = (plug.ShardedDaemon(kernel="cuda", mesh=mesh,
+                                     csr_config=CSRConfig())
+                  if loop == "fused" else pinned_csr_daemon())
+        t0 = time.perf_counter()
+        mw = plug.Middleware(g, prog, daemon=daemon, upper=upper,
+                             model=model, num_shards=SHARDS)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        mw.run(max_iterations=1)  # warm-up: the host daemon compacts here
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        fetches: list = []
+        ebk.csr_tile.launches = 0
+        with counting_fetches(fetches):
+            res = mw.run()
+        torch.cuda.synchronize()
+        its = max(res.iterations, 1)
+        big = [c for c in fetches if c[1] >= n]
+        rec = dict(loop=type(mw._loop).__name__, init_s=init_s,
+                   setup_s=setup_s, iterations=res.iterations,
+                   converged=res.converged, wall_s=res.wall_time,
+                   per_iteration_s=res.wall_time / its,
+                   csr_tile_launches=ebk.csr_tile.launches,
+                   fetches_per_iteration=(len(fetches) - len(big)) / its,
+                   vertex_sized_fetches=len(big),
+                   rounds_skipped=res.stats.rounds_skipped,
+                   wire_stats=dict(upper.wire_stats))
+        np.save(_rank_file(tmp, label, rank), np.asarray(res.state))
+        if upper_kw:
+            np.save(_rank_file(tmp, label, rank, "aggs"),
+                    np.stack([a for a, _ in upper.rounds]))
+            rec["merge_digests"] = [hashlib.sha1(r.tobytes()).hexdigest()
+                                    for _, r in upper.rounds]
+            if rank == 0:
+                np.save(_rank_file(tmp, label, rank, "merged"),
+                        np.stack([r for _, r in upper.rounds]))
+        out["runs"][label] = rec
+        del mw, daemon, upper
+        torch.cuda.empty_cache()
+    # one iteration's collectives alone, as the fused sssp_bf step makes
+    # them: the (N, K) aggregate's MIN and the (N,) counts' SUM
+    k = programs["sssp_bf"].state_width
+    agg = torch.rand((n, k), device=mesh.device)
+    cnt = torch.ones(n, dtype=torch.int32, device=mesh.device)
+    out["all_reduce_ms"] = {
+        "aggregate_min": _collective_ms(lambda: mesh.all_reduce(agg, "min")),
+        "counts_sum": _collective_ms(lambda: mesh.all_reduce(cnt, "sum"))}
+    return out
+
+
+def _collective_ms(fn, reps: int = 5) -> float:
+    """Host-clock ms of one call that ends on the card (a warm-up first)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_ranks(g, refs, resident4, mesh_its) -> tuple:
+    """Phase 5e' (see the module docstring).  ``resident4``: phase 5e's
+    runs (name → (label, state, ...)); ``mesh_its``: their iterations by
+    name.  Returns the phase's line and the ranks' csr_tile launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch.mesh import spawn_ranks
+
+    n = g.num_vertices
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        for k in ("src", "dst", "weights"):
+            np.save(Path(tmp) / f"{k}.npy", getattr(g, k))
+        write_s = time.perf_counter() - t0
+        ranks = spawn_ranks(ranks_world, RANKS, (tmp, n), backend="gloo",
+                            init_method=f"file://{tmp}/init",
+                            timeout_s=RANKS_TIMEOUT_S)
+        world_s = time.perf_counter() - t0 - write_s
+        out = {"phase": "ranks", "world": RANKS, "shards": SHARDS,
+               "backend": sorted({r["backend"] for r in ranks}),
+               "devices": [r["device"] for r in ranks],
+               "shards_by_rank": [r["shards"] for r in ranks],
+               "caveat": RANKS_CAVEAT, "write_npy_s": write_s,
+               "world_s": world_s, "load_s": [r["load_s"] for r in ranks],
+               "all_reduce_ms": [r["all_reduce_ms"] for r in ranks],
+               "runs": {}}
+        launches = 0
+        for label, name, model, loop, upper_kw in RANK_RUNS:
+            recs = [r["runs"][label] for r in ranks]
+            states = [np.load(_rank_file(tmp, label, r)) for r in range(RANKS)]
+            if any(st.tobytes() != states[0].tobytes() for st in states[1:]):
+                raise AssertionError(f"{label}: the ranks' states differ")
+            if len({(r["iterations"], r["converged"]) for r in recs}) != 1:
+                raise AssertionError(f"{label}: the ranks' runs differ")
+            its = recs[0]["iterations"]
+            k = states[0].shape[1]
+            run = {"iterations": its, "loop": recs[0]["loop"],
+                   "per_iteration_s": [r["per_iteration_s"] for r in recs],
+                   "init_s": [r["init_s"] for r in recs],
+                   "setup_s": [r["setup_s"] for r in recs],
+                   "csr_tile_launches": [r["csr_tile_launches"]
+                                         for r in recs],
+                   "fetches_per_iteration": [r["fetches_per_iteration"]
+                                             for r in recs],
+                   "wire_stats": recs[0]["wire_stats"]}
+            launches += sum(run["csr_tile_launches"])
+            if loop == "fused":
+                want_label, want = resident4[name][:2]
+                tol = None if name == "sssp_bf" else (PR_RTOL, PR_ATOL)
+                run["max_abs_err_vs_mesh4"] = check_state(
+                    f"{label} vs {want_label}", states[0], want, tol)
+                if its != mesh_its[name]:
+                    raise AssertionError(f"{label}: {its} iterations, "
+                                         f"{want_label} ran {mesh_its[name]}")
+                if run["csr_tile_launches"] != [its] * RANKS:
+                    raise AssertionError(f"{label}: csr_tile launches "
+                                         f"{run['csr_tile_launches']}, "
+                                         f"expected {its} on each rank")
+                if any(r["fetches_per_iteration"] != 1
+                       or r["vertex_sized_fetches"] != 1 for r in recs):
+                    raise AssertionError(f"{label}: fetches {recs}")
+                run["mesh4_run"] = want_label
+                run["all_reduce_bytes"] = {
+                    "aggregate": n * k * 4, "counts": n * 4,
+                    "blocks_run": SHARDS * 4}
+            elif not upper_kw:
+                run["max_abs_err_vs_reference"] = check_state(
+                    label, states[0], refs[name][0], None)
+                if min(run["csr_tile_launches"]) == 0:
+                    raise AssertionError(f"{label}: no csr_tile launch")
+                run["all_reduce_bytes"] = {"aggregate": n * k * 4,
+                                           "counts": n * 4}
+            else:
+                digests = {tuple(r["merge_digests"]) for r in recs}
+                if len(digests) != 1:
+                    raise AssertionError(f"{label}: the ranks' merges differ")
+                aggs = np.concatenate([np.load(_rank_file(tmp, label, r,
+                                                          "aggs"))
+                                       for r in range(RANKS)], axis=1)
+                merged = np.load(_rank_file(tmp, label, 0, "merged"))
+                run.update(host_wire(list(zip(aggs, merged)), RANKS,
+                                     upper_kw["bits"]))
+                if not np.isfinite(states[0]).all():
+                    raise AssertionError(f"{label}: non-finite state")
+                run["all_reduce_bytes"] = {"scale": 4,
+                                           "int32_codes": n * k * 4,
+                                           "counts": n * 4}
+            out["runs"][label] = run
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out, launches
 
 
 # benchmarks/bench_accel.py's skewed R-MAT (_async_skew_table; no dedup)
@@ -4726,6 +4978,13 @@ def main(argv=None) -> int:
     e2e_launches["csr_tile"] += tune_launches + mesh_launches
     torch.cuda.empty_cache()
 
+    # -- 5e'. the graph loop across four gloo ranks on the card -----------
+    mesh_its = {r["run"].split("/")[0]: r["iterations"]
+                for r in mesh_rec.values() if isinstance(r, dict)}
+    ranks_rec, ranks_launches = phase_ranks(g, refs, resident4, mesh_its)
+    emit(ranks_rec)
+    e2e_launches["csr_tile"] += ranks_launches
+
     # -- 5f. the async priority model at four logical devices --------------
     mesh4 = {r["run"].split("/")[0]: (r["run"], r["per_iteration_s"])
              for r in mesh_rec.values() if isinstance(r, dict)}
@@ -4841,6 +5100,7 @@ def main(argv=None) -> int:
                if name == "edge_block" else
                {"launches_autotuned": tune_launches,
                 "launches_mesh4": mesh_launches,
+                "launches_ranks": ranks_launches,
                 "launches_async": async_launches,
                 "launches_elastic": elastic_launches,
                 "launches_oocore": oocore_launches,

@@ -4,23 +4,27 @@ by the paper's three optimization horizons:
 * ``sharding``    — intra-iteration: logical-axis partitioning rules that
                     place every tensor dimension on a mesh axis, as specs
                     and ``torch.distributed.tensor`` placements (on one
-                    card every tensor lies whole on the device);
+                    card every tensor lies whole on the device); and
+                    ``RankMesh``, the graph path's shard axis across
+                    ``torch.distributed`` ranks;
 * ``collectives`` — inter-iteration: compressed synchronization (int8/int4
                     quantization with error feedback) over the port's m
-                    logical devices, which ``MeshUpperSystem(wire=
-                    "compressed")`` runs;
+                    logical devices or a RankMesh, which
+                    ``MeshUpperSystem(wire="compressed")`` runs;
 * ``fault``       — beyond-iteration: fleet monitoring, straggler
                     detection and Lemma-2 rebalancing, elastic re-mesh
                     planning after a device loss, and the deterministic
                     fault-injection seam.
 
-A reduction across cards or ranks (``torch.distributed``) is ROADMAP Queue
-A item 13c's."""
+The graph merge across ranks runs over a RankMesh; the model-side layouts
+across cards are ROADMAP Queue A item 13d's."""
 from repro_torch.dist import collectives, fault, sharding
 from repro_torch.dist.fault import (FailureSchedule, FleetMonitor, MeshPlan,
                                     detect_stragglers, elastic_plan,
                                     reassign_shards)
+from repro_torch.dist.sharding import RankMesh
 
-__all__ = ["FailureSchedule", "FleetMonitor", "MeshPlan", "collectives",
+__all__ = ["FailureSchedule", "FleetMonitor", "MeshPlan", "RankMesh",
+           "collectives",
            "detect_stragglers", "elastic_plan", "fault", "reassign_shards",
            "sharding"]

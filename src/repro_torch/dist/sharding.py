@@ -25,12 +25,25 @@ on one card, where every tensor lies whole on the one device: ``constrain``
 returns the very same tensor, outside and inside an
 ``activation_sharding`` context (which only records the active mesh and
 rules, thread-locally, for code that asks ``active_context``).
+
+:class:`RankMesh` is the graph path's shard axis across
+``torch.distributed`` ranks, the counterpart of the JAX package's device
+mesh on the ``shard`` axis: W ranks, each holding ``local`` logical
+devices, and the collectives the upper system merges with.
+:class:`LocalMesh` (``LOCAL_MESH``) is the same interface for one process,
+with identity collectives.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
 from typing import Any, Mapping, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.device import resolve_device
 
 # --------------------------------------------------------------------------
 # logical axis names
@@ -226,3 +239,135 @@ def constrain(x, axes):
     whole tensor lies on the one device, so this returns the very same
     object, with or without an ``activation_sharding`` context."""
     return x
+
+
+# --------------------------------------------------------------------------
+# the shard axis across ranks
+# --------------------------------------------------------------------------
+_REDUCE_OPS = ("sum", "min", "max")
+
+
+class RankMesh:
+    """The shard axis across ``torch.distributed`` ranks.
+
+    The W ranks of the default group (the world) each hold ``local``
+    logical devices on the rank's own device, so the axis spans
+    m = W·local devices, as the JAX package's m devices do.  Rank r owns
+    the contiguous shards [r·S/W, (r+1)·S/W) (:meth:`shard_range`), each of
+    its logical devices S/m of them.
+
+    ``device`` is where the rank computes: ``cuda:{r % device_count}`` when
+    None (which raises without a GPU), or what the caller passes ("cpu" in
+    the tests).  Collectives:
+
+    * :meth:`all_reduce` — a tensor on the rank's device, over the world.
+      Every device collective is an ``all_reduce``: gloo documents only
+      ``broadcast`` and ``all_reduce`` for CUDA tensors, and several ranks
+      on one card must use gloo (NCCL refuses two ranks on one GPU).
+    * :meth:`all_reduce_host` — a host array, over ``cpu_group``: the world
+      itself when its backend is gloo, else a gloo group of the same
+      ranks, made here (every rank must construct the mesh, as
+      ``torch.distributed.new_group`` requires).
+
+    The mesh never picks the world's backend: the caller's
+    ``init_process_group`` did.
+    """
+
+    def __init__(self, *, local: int = 1, device=None):
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError("RankMesh needs an initialized process group "
+                               "(torch.distributed.init_process_group)")
+        if isinstance(local, bool) or not isinstance(local, (int, np.integer)) \
+                or local < 1:
+            raise ValueError(f"local must be an int >= 1 logical devices a "
+                             f"rank, got {local!r}")
+        self.group = dist.group.WORLD
+        self.world = dist.get_world_size(self.group)
+        self.rank = dist.get_rank(self.group)
+        self.local = int(local)
+        if device is None:
+            device = (f"cuda:{self.rank % torch.cuda.device_count()}"
+                      if torch.cuda.is_available() else "cuda")
+        self.device = resolve_device(device)
+        self.backend = str(dist.get_backend(self.group))
+        if self.backend == "gloo":
+            self.cpu_group = self.group
+        else:
+            self.cpu_group = dist.new_group(
+                dist.get_process_group_ranks(self.group), backend="gloo")
+
+    @property
+    def size(self) -> int:
+        """m, the logical devices of the axis over every rank."""
+        return self.world * self.local
+
+    def shard_range(self, num_shards: int) -> range:
+        """The shards this rank owns: the contiguous [r·S/W, (r+1)·S/W)."""
+        if num_shards < 1 or num_shards % self.size:
+            raise ValueError(f"{self.world} ranks x {self.local} logical "
+                             f"devices (m={self.size}) must divide the "
+                             f"{num_shards} shards")
+        per = num_shards // self.world
+        return range(self.rank * per, (self.rank + 1) * per)
+
+    @staticmethod
+    def _op(op: str):
+        if op not in _REDUCE_OPS:
+            raise ValueError(f"op must be one of {_REDUCE_OPS}, got {op!r}")
+        return {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
+                "max": dist.ReduceOp.MAX}[op]
+
+    def all_reduce(self, tensor: torch.Tensor, op: str = "sum"):
+        """Reduces ``tensor`` in place over ``group`` with ``op`` ("sum",
+        "min", "max") and returns it: every rank holds the same bytes."""
+        dist.all_reduce(tensor, op=self._op(op), group=self.group)
+        return tensor
+
+    def all_reduce_host(self, array, op: str = "sum") -> np.ndarray:
+        """Reduces a host array over ``cpu_group`` → a new numpy array."""
+        t = torch.from_numpy(np.array(array, copy=True))
+        dist.all_reduce(t, op=self._op(op), group=self.cpu_group)
+        return t.numpy()
+
+    def all_gather_host(self, obj) -> list:
+        """Every rank's ``obj`` (picklable host data), in rank order, over
+        ``cpu_group``."""
+        out = [None] * self.world
+        dist.all_gather_object(out, obj, group=self.cpu_group)
+        return out
+
+    def __repr__(self) -> str:
+        return (f"RankMesh(rank={self.rank}, world={self.world}, "
+                f"local={self.local}, device={self.device}, "
+                f"backend={self.backend})")
+
+
+class LocalMesh:
+    """The shard axis held whole by one process: world 1, rank 0, every
+    shard its own, and collectives that return their input.  The merge
+    code runs over it where no :class:`RankMesh` is given, so one path
+    serves one process and many ranks."""
+
+    world = 1
+    rank = 0
+
+    def shard_range(self, num_shards: int) -> range:
+        """Every shard."""
+        if num_shards < 1:
+            raise ValueError(f"need at least one shard, got {num_shards}")
+        return range(num_shards)
+
+    def all_reduce(self, tensor: torch.Tensor, op: str = "sum"):
+        return tensor
+
+    def all_reduce_host(self, array, op: str = "sum") -> np.ndarray:
+        return np.asarray(array)
+
+    def all_gather_host(self, obj) -> list:
+        return [obj]
+
+    def __repr__(self) -> str:
+        return "LocalMesh()"
+
+
+LOCAL_MESH = LocalMesh()

@@ -34,7 +34,7 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all   # 32 cells
 
 A mesh across cards (``--multi-pod``, ``--strategy fsdp|serve``) is ROADMAP
-Queue A item 13c's and raises.
+Queue A item 13d's and raises.
 """
 from __future__ import annotations
 
@@ -288,7 +288,7 @@ def main(argv=None):
     ap.add_argument("--tag", default="")
     ap.add_argument("--out-dir", default=None)
     ap.add_argument("--multi-pod", action="store_true",
-                    help="a mesh across cards: not ported (item 13c)")
+                    help="a mesh across cards: not ported (item 13d)")
     ap.add_argument("--strategy", default="2d",
                     choices=("2d", "fsdp", "serve"))
     args = ap.parse_args(argv)

@@ -14,7 +14,8 @@ checkpoint-free elasticity: at step K the mesh loses its last device and
 :func:`remesh_live_state` re-plans it from the survivors with
 ``dist.fault.elastic_plan``.  The host mesh is one card (data=1,
 model=1), so no device survives and the plan raises ``ValueError``; a kill
-with survivors needs a mesh across cards (ROADMAP Queue A item 13c).
+with survivors needs a mesh across cards (ROADMAP Queue A item 13d): under
+``torchrun`` (``WORLD_SIZE`` > 1) ``--kill-device-at`` raises.
 ``--device cpu`` runs the kernels' plain versions.  Each logged line ends
 with the card's name and power limit as ``nvidia-smi`` gives them.
 """
@@ -31,8 +32,9 @@ from repro_torch.device import resolve_device
 from repro_torch.dist import fault
 from repro_torch.dist import sharding as shd
 from repro_torch.launch.graph_serve import card_line
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import make_host_mesh, world_size
 from repro_torch.models.model import Model
+from repro_torch.plug.protocols import not_ported_error
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.data import SyntheticLM
 from repro_torch.train.optimizer import AdamW, AdamWConfig
@@ -88,6 +90,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.kill_device_at is not None and world_size() > 1:
+        raise not_ported_error("launch.train --kill-device-at with survivors "
+                               "across ranks", 13)
 
     dev = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)

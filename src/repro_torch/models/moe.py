@@ -15,7 +15,9 @@ Dispatch is gather-based (sort → group → gather), never a scatter:
 On one card ``moe_ffn`` takes this local path always.  The JAX package's
 ``_moe_shardmap`` — the expert-data-transposed layout over a (data, model)
 mesh, experts on the model axis and a psum in the combine — is the layout
-across cards, ROADMAP Queue A item 13c's.
+across cards, ROADMAP Queue A item 13d's: under an
+``activation_sharding`` context over a ``dist.sharding.RankMesh``
+``moe_ffn`` raises.
 """
 from __future__ import annotations
 
@@ -118,6 +120,11 @@ def moe_ffn(p, x, cfg, *, return_aux: bool = False, stats=None):
     """x (B, S, D) → (B, S, D) [, the aux-loss scalar].  ``stats``, a dict
     if given, receives the assignments made and those dropped for want of
     capacity (as 0-d tensors)."""
+    ctx = shd.active_context()
+    if ctx is not None and isinstance(ctx[0], shd.RankMesh):
+        raise NotImplementedError(
+            "the MoE's expert layout across ranks is not ported to "
+            "repro_torch yet (ROADMAP Queue A item 13)")
     bsz, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     t = bsz * s

@@ -9,9 +9,12 @@ calling ``device_put``; here the copy engine does it with no thread:
 * the daemon pins each cold group's host fields once at bind time, so an
   upload is a set of ``non_blocking`` host→device copies;
 * the copies land in one of two **slots**, device buffers shaped like a
-  group that the first upload into each allocates and every later upload
-  overwrites, so the device holds at most two cold groups whatever the
-  host queues (the groups are padded to one shape);
+  group, allocated (with no copy) when the uploader is made and
+  overwritten by every upload, so the device holds at most two cold
+  groups whatever the host queues (the groups are padded to one shape).
+  No allocation happens while a span is timed: an allocation on the card
+  can block the host until queued work ends, which would make a stall
+  read as no wait;
 * ``request`` starts a copy on one side ``torch.cuda.Stream`` into the
   slot that is not being read, after the side stream waits
   (``wait_event``) on the event ``release`` recorded on the compute stream
@@ -78,17 +81,19 @@ def _event():
 
 
 class AsyncUploader:
-    """Double-buffered prefetcher over ``upload_fn(index, out=None) ->
-    device dict``.
+    """Double-buffered prefetcher over ``upload_fn(index, out=None,
+    copy=True) -> device dict``.
 
     ``upload_fn`` makes its copies on the current stream (``non_blocking``
     from pinned memory on the card): into fresh device tensors when ``out``
     is None, else into ``out`` — a dict it returned before — which it
-    returns.  On the card every upload goes into one of two slots; with
-    ``prefetch``, :meth:`request` runs it on the side stream (``stream``,
-    or one of its own), otherwise :meth:`take` runs it on the compute
-    stream into one slot.  On the CPU ``upload_fn(index)`` is called with
-    no ``out``.
+    returns; with ``copy=False`` it only allocates fresh device tensors
+    shaped like group ``index``.  On the card every upload goes into one
+    of two slots (one without ``prefetch``), allocated here; with
+    ``prefetch``,
+    :meth:`request` runs it on the side stream (``stream``, or one of its
+    own), otherwise :meth:`take` runs it on the compute stream into the
+    slot.  On the CPU ``upload_fn(index)`` is called with no ``out``.
 
     At most two cold groups are live: the one being computed (taken, until
     :meth:`release`) and the next one in flight.  A pending upload that
@@ -116,6 +121,21 @@ class AsyncUploader:
         self.max_live_groups = 0
         self.slot_allocations = 0
         self.slot_bytes = 0
+        if self._cuda:
+            self._bind_slots()
+
+    def _bind_slots(self) -> None:
+        """Allocates the slots, copying nothing, before any span is timed,
+        on the stream whose copies fill them."""
+        stream = (self._side if self._side is not None
+                  else torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            slots = [self._upload(0, copy=False)
+                     for _ in range(2 if self._side is not None else 1)]
+        self._slots[:len(slots)] = slots
+        self.slot_allocations = len(slots)
+        self.slot_bytes = sum(t.numel() * t.element_size()
+                              for tree in slots for t in _leaves(tree))
 
     def _count_live(self) -> None:
         self.max_live_groups = max(self.max_live_groups,
@@ -132,14 +152,7 @@ class AsyncUploader:
 
     def _fill(self, k: int, index: int):
         """Uploads group ``index`` into slot ``k`` on the current stream."""
-        if self._slots[k] is not None:
-            return self._upload(index, out=self._slots[k])
-        tree = self._upload(index)
-        self._slots[k] = tree
-        self.slot_allocations += 1
-        self.slot_bytes += sum(t.numel() * t.element_size()
-                               for t in _leaves(tree))
-        return tree
+        return self._upload(index, out=self._slots[k])
 
     def request(self, index: int) -> None:
         """Starts uploading super-shard ``index`` on the side stream, if it

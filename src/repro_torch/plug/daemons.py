@@ -49,7 +49,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.edge_block import bucket_partials
-from repro_torch.plug.protocols import divisor_mesh
+from repro_torch.dist.sharding import RankMesh
+from repro_torch.plug.protocols import divisor_mesh, not_ported_error
 
 KERNELS = ("reference", "cuda")
 
@@ -491,7 +492,12 @@ class ShardedDaemon(VectorizedDaemon):
     The shard axis spans ``m`` logical devices on the one card
     (:func:`~repro_torch.plug.protocols.divisor_mesh`): device g owns the
     contiguous shards g·S/m … (g+1)·S/m − 1, as ``shard_map`` splits the
-    JAX package's stacked axis, and its partial folds only those.
+    JAX package's stacked axis, and its partial folds only those.  Over a
+    :class:`~repro_torch.dist.sharding.RankMesh` ``bind_shards`` takes this
+    rank's S/W shards only (no rank compacts another's tiles) and stacks
+    them for its ``local`` logical devices: ``m`` is then ``local``, and
+    ``run_all_shards`` returns (local, N, K) partials, (local, N) counts
+    and the rank's own (S/W,) ``blocks_run``.
 
     ``kernel="cuda"`` runs the CSR aggregation instead of the block
     program: ``bind_shards`` autotunes its config once, on the shard with
@@ -629,8 +635,12 @@ class ShardedDaemon(VectorizedDaemon):
             raise ValueError(
                 "bind_shards needs one (block, vblock) shape across shards; "
                 f"got B={sorted(bbs)} VB={sorted(vbs)}")
-        self.m = divisor_mesh(s, self.mesh)
-        self.mesh = self.m
+        if isinstance(self.mesh, RankMesh):
+            # this rank's shards, split among its own logical devices
+            self.m = divisor_mesh(s, self.mesh.local)
+        else:
+            self.m = divisor_mesh(s, self.mesh)
+            self.mesh = self.m
         self.num_shards = s
         self._blocksets = list(blocksets)
 
@@ -702,6 +712,8 @@ class ShardedDaemon(VectorizedDaemon):
         from repro_torch.graph.compaction import tile_access_scores
         from repro_torch.oocore.supershard import build_super_shards
 
+        if isinstance(self.mesh if mesh is None else mesh, RankMesh):
+            raise not_ported_error("out-of-core execution across ranks", 13)
         if config is None:
             config = self._oocore_config
         if config is None:
@@ -746,16 +758,22 @@ class ShardedDaemon(VectorizedDaemon):
                             torch.from_numpy(group).to(dev))
         return self
 
-    def upload_super_shard(self, index: int, out=None):
+    def upload_super_shard(self, index: int, out=None, copy: bool = True):
         """Copies cold super-shard ``index`` to the device on the current
         stream (``non_blocking`` from pinned memory on the card; the host
         arrays themselves on the CPU) → a dict ``run_all_shards(stacked=)``
         takes.  ``out``, a dict this returned before, is overwritten and
-        returned instead of allocating (the groups share one shape)."""
+        returned instead of allocating (the groups share one shape).
+        ``copy=False`` returns fresh device tensors of the group's shapes,
+        uninitialized: a slot to upload into."""
         if self.oocore_plan is None:
             raise RuntimeError(
                 "upload_super_shard before bind_super_shards")
         host = self._cold[index]
+        if not copy:
+            return self._wrap_oocore(
+                {k: torch.empty_like(t, device=self.device)
+                 for k, t in host.items()})
         if out is None:
             return self._wrap_oocore(
                 {k: t.to(self.device, non_blocking=True)

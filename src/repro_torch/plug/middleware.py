@@ -65,6 +65,7 @@ from repro_torch.core.sync import LRUVertexCache, SyncStats, can_skip_sync
 from repro_torch.core.template import VertexProgram
 from repro_torch.device import resolve_device
 from repro_torch.dist import fault as dist_fault
+from repro_torch.dist.sharding import LOCAL_MESH, LocalMesh, RankMesh
 from repro_torch.graph import mutation as graph_mutation
 from repro_torch.graph.structure import EdgePartition, Graph
 from repro_torch.oocore.prefetch import AsyncUploader
@@ -75,7 +76,7 @@ from repro_torch.plug.protocols import (DevicePartialUpper, ElasticUpper,
                                         MaskCapableDaemon, OutOfCoreCapable,
                                         PlugOptions, PriorityAsyncModel,
                                         Result, ShardCapableDaemon,
-                                        divisor_mesh)
+                                        divisor_mesh, not_ported_error)
 from repro_torch.plug.uppers import get_upper_system
 
 # Computation-model orders the barriered fused loop realizes.  BSP and GAS
@@ -153,6 +154,24 @@ def make_apply_fn(program: VertexProgram, device="cuda"):
     return apply_fn
 
 
+def _rank_mesh_of(upper, daemon) -> RankMesh | LocalMesh:
+    """The RankMesh a composition runs over, or ``LOCAL_MESH`` on one
+    process.  The upper system holds it (only an upper that merges across
+    ranks may); a daemon's mesh must then be None or the same mesh."""
+    um = getattr(upper, "mesh", None)
+    dm = getattr(daemon, "mesh", None)
+    if not isinstance(um, RankMesh):
+        if isinstance(dm, RankMesh):
+            raise ValueError("a daemon over a RankMesh needs an upper system "
+                             "that merges across ranks: "
+                             "MeshUpperSystem(mesh=<the same RankMesh>)")
+        return LOCAL_MESH
+    if dm is not None and dm is not um:
+        raise ValueError(f"the daemon's mesh {dm!r} is not the upper "
+                         f"system's {um!r}")
+    return um
+
+
 class Middleware:
     """Drives a VertexProgram through pluggable components.
 
@@ -194,7 +213,25 @@ class Middleware:
         raises rather than running resident.
       options: :class:`~repro_torch.plug.protocols.PlugOptions`.
       device: where the daemon and MSGApply run; ``"cuda"`` (the
-        default) raises on a machine without a GPU.
+        default) raises on a machine without a GPU.  Over a
+        :class:`~repro_torch.dist.sharding.RankMesh` it is the mesh's
+        device (a ``device`` that differs raises).
+
+    Across ranks: with ``upper=MeshUpperSystem(mesh=rm)`` for a RankMesh
+    ``rm`` (and ``daemon=ShardedDaemon(mesh=rm)`` or no mesh on the daemon
+    for the fused loop), every rank builds this middleware with the same
+    arguments.  Each runs the same deterministic partitioner, then builds
+    blocks for, and binds, only the shards it owns
+    (:meth:`~repro_torch.dist.sharding.RankMesh.shard_range`); the merges
+    are collectives, so state and frontier stay replicated, bit-identical
+    on every rank, and every rank's ``Result`` and records are the same
+    (but a daemon's own record entries, which list the rank's blocks).
+    One process runs the same code over ``LOCAL_MESH``, whose collectives
+    return their input.
+    Structure epochs (``monitor=``, ``failures=``, ``mutations=``,
+    ``migrate``, ``rebalance``, ``apply_mutations``), out of core and the
+    fused async loop across ranks raise ``NotImplementedError`` (ROADMAP
+    Queue A item 13d).
 
     With a shard-capable daemon (``daemon="sharded"``) and a device-partial
     upper system (``upper="mesh"``), ``run`` drives the fused
@@ -227,9 +264,8 @@ class Middleware:
         mutations: "graph_mutation.MutationSchedule | None" = None,
         oocore=None,
         options: PlugOptions | None = None,
-        device="cuda",
+        device=None,
     ):
-        self.device = resolve_device(device)
         self.graph = graph
         self.program = program
         self.options = options or PlugOptions()
@@ -238,6 +274,22 @@ class Middleware:
         self.upper = (get_upper_system(upper) if isinstance(upper, str)
                       else upper)
         self.model = get_model(model) if isinstance(model, str) else model
+        self.ranks = _rank_mesh_of(self.upper, self.daemon)
+        if not isinstance(self.ranks, RankMesh):
+            self.device = resolve_device("cuda" if device is None else device)
+        else:
+            want = None if device is None else resolve_device(device)
+            if want is not None and (want.type != self.ranks.device.type or (
+                    want.index is not None and want != self.ranks.device)):
+                raise ValueError(f"device={device!r} differs from the "
+                                 f"RankMesh's {self.ranks.device}")
+            self.device = self.ranks.device
+            for name, value in (("monitor", monitor), ("failures", failures),
+                                ("mutations", mutations), ("oocore", oocore)):
+                if value is not None:
+                    self._refuse_ranks(f"{name}=")
+            if self._detect_fused() == "async":
+                self._refuse_ranks("the fused async loop")
 
         self._owns_partitions = partitions is None
         if partitions is None:
@@ -253,6 +305,8 @@ class Middleware:
                 partitions = self.upper.partition(graph, num_shards)
         self.partitions = list(partitions)
         self.num_shards = len(self.partitions)
+        # the shards this process owns: all of them, or the rank's
+        self.shards = self.ranks.shard_range(self.num_shards)
         self.n = graph.num_vertices
         self.k = program.state_width
         self._setup_blocks()
@@ -385,14 +439,26 @@ class Middleware:
         return int(o.block_size)
 
     def _setup_blocks(self) -> None:
+        """Blocks for the shards this process owns (``self.blocksets[i]``
+        is shard ``self.shards[i]``'s), at one vertex-block width for all
+        shards — the widest, agreed across the ranks — so one launch shape
+        serves them."""
         b = self._resolve_block_size()
         self.block_size = b
-        self.blocksets = [build_blocks(p, b) for p in self.partitions]
-        # One vertex-block width for all shards → one launch shape.
-        vb = max(bs.vblock_size for bs in self.blocksets)
-        self.blocksets = [build_blocks(p, b, vblock_size=vb)
-                          for p in self.partitions]
+        blocksets = [build_blocks(self.partitions[j], b) for j in self.shards]
+        vb = max(bs.vblock_size for bs in blocksets)
+        vb = int(self.ranks.all_reduce_host(np.array([vb]), "max")[0])
+        self.blocksets = [widen_vblocks(bs, vb) for bs in blocksets]
         self.vblock_size = vb
+
+    def _blocks_total(self) -> int:
+        """Every shard's block count, summed over the ranks."""
+        total = sum(bs.num_blocks for bs in self.blocksets)
+        return int(self.ranks.all_reduce_host(np.array([total]), "sum")[0])
+
+    def _refuse_ranks(self, what: str) -> None:
+        if isinstance(self.ranks, RankMesh):
+            raise not_ported_error(f"{what} across ranks", 13)
 
     def _detect_fused(self) -> str | None:
         """Which fused device-resident loop this composition gets, if any.
@@ -602,6 +668,7 @@ class Middleware:
         ``devices_after``, ``device_ids``, ``assignment``,
         ``repartitioned``, ``dirty_vertices`` and ``seconds``.
         """
+        self._refuse_ranks("migrate()")
         t0 = time.perf_counter()
         mon = self.monitor
         if mon is None:
@@ -688,6 +755,7 @@ class Middleware:
         caller-supplied ``partitions`` refuses: re-partitioning would
         replace the caller's partitioning with the upper system's default.
         """
+        self._refuse_ranks("rebalance()")
         if not self._owns_partitions:
             raise ValueError(
                 "rebalance() would replace the explicit partitions this "
@@ -820,6 +888,7 @@ class Middleware:
         removals — which :meth:`run_dynamic` consumes.  An empty batch
         publishes nothing and returns the current epoch.
         """
+        self._refuse_ranks("apply_mutations()")
         if isinstance(batch, graph_mutation.MutationLog):
             batch = batch.freeze()
         batch.validate(self.n)
@@ -924,6 +993,16 @@ class HostDriveLoop:
     boundary caches, lazy-upload byte accounting, candidate apply +
     synchronization skipping — plus per-shard busy-time records feeding
     the Lemma-2 capacity estimator.
+
+    Over a :class:`~repro_torch.dist.sharding.RankMesh` a rank runs its own
+    shards: their aggregates, candidate applies and LRU caches.  The ranks
+    agree on the skip verdict (the one-process verdict, through one
+    ``all_reduce``), gather every shard's updated boundary and query lists
+    for the exchange (so the query queue, the uploads and the caches'
+    invalidations are the one-process ones), merge through the upper
+    system's collectives, and sum each record's per-shard counters and, at
+    the end, ``SyncStats``' per-shard counters: every rank returns the
+    records and stats one process would.
     """
 
     def __init__(self, mw: Middleware):
@@ -940,7 +1019,7 @@ class HostDriveLoop:
         boundary read ids of the blocks that ran (the exchange's query
         set)."""
         mw = self.mw
-        bs = mw.blocksets[j]
+        bs = mw.blocksets[j - mw.shards.start]
         o = mw.options
         if (mw.program.frontier_driven and o.frontier_block_skipping
                 and active_j is not None):
@@ -982,19 +1061,49 @@ class HostDriveLoop:
             mw._estimator.update(j, entities, busy)
         return agg, cnt, boundary_reads.astype(np.int64)
 
+    _SUMMED = ("blocks_total", "blocks_run", "shard_busy_s",
+               "shard_entities")
+
+    def _sum_record(self, part: dict, rec: dict) -> None:
+        """Adds a gather's record ``part`` to ``rec``: its per-shard
+        counters summed over the ranks — ``blocks_total``, ``blocks_run``,
+        and the S-long ``shard_busy_s`` / ``shard_entities`` (each rank
+        fills its slots; present when some shard ran) — and the daemon's
+        own entries (lists of this process's blocks) as they are."""
+        s = self.mw.num_shards
+        vec = np.zeros(2 + 2 * s)
+        vec[0] = part.get("blocks_total", 0)
+        vec[1] = part.get("blocks_run", 0)
+        vec[2:2 + s] = part.get("shard_busy_s", 0.0)
+        vec[2 + s:] = part.get("shard_entities", 0)
+        vec = self.mw.ranks.all_reduce_host(vec, "sum")
+        for i, key in enumerate(("blocks_total", "blocks_run")):
+            rec[key] = rec.get(key, 0) + int(vec[i])
+        if vec[2 + s:].any():
+            busy = rec.setdefault("shard_busy_s", [0.0] * s)
+            ents = rec.setdefault("shard_entities", [0] * s)
+            for j in range(s):
+                busy[j] += float(vec[2 + j])
+                ents[j] += int(vec[2 + s + j])
+        for key, value in part.items():
+            if key not in self._SUMMED:
+                rec.setdefault(key, []).extend(value)
+
     def run(self, max_iterations: int | None = None, *,
             init=None, frontier=None) -> Result:
         mw = self.mw
         prog = mw.program
         o = mw.options
+        own = list(mw.shards)
         mw.upper.reset()
         max_it = max_iterations or prog.max_iterations
         state0, aux = (init or prog.init)(mw.graph)
-        states = [state0.copy() for _ in range(mw.num_shards)]
+        states = [state0.copy() for _ in own]
         active0 = (np.ones(mw.n, dtype=bool) if frontier is None
                    else np.asarray(frontier, dtype=bool))
-        actives = [active0.copy() for _ in range(mw.num_shards)]
+        actives = [active0.copy() for _ in own]
         skip_ok = o.sync_skipping and prog.supports_sync_skipping()
+        boundary_masks = [mw.partitions[j].boundary_mask for j in own]
         per_iter: list[dict] = []
         rowbytes = 4 * mw.k + 8
         t0 = time.perf_counter()
@@ -1002,10 +1111,11 @@ class HostDriveLoop:
         converged = False
 
         def gather(rec: dict):
-            return [
-                self._shard_aggregate(j, states[j], aux, actives[j], rec)
-                for j in range(mw.num_shards)
-            ]
+            part: dict = {}
+            out = [self._shard_aggregate(j, states[i], aux, actives[i], part)
+                   for i, j in enumerate(own)]
+            self._sum_record(part, rec)
+            return out
 
         pending = mw.model.prologue(gather)
 
@@ -1022,15 +1132,14 @@ class HostDriveLoop:
 
             # Local candidate apply (needed for skip detection).
             new_states, new_actives, updated_ids = [], [], []
-            for j in range(mw.num_shards):
-                ns, act = mw._apply_fn(states[j], aggs[j], cnts[j] > 0, aux,
+            for i in range(len(own)):
+                ns, act = mw._apply_fn(states[i], aggs[i], cnts[i] > 0, aux,
                                        it)
                 new_states.append(ns)
                 new_actives.append(act)
                 updated_ids.append(np.nonzero(act)[0])
 
-            boundary_masks = [p.boundary_mask for p in mw.partitions]
-            skipped = skip_ok and mw.num_shards > 1 and can_skip_sync(
+            skipped = skip_ok and mw.num_shards > 1 and self._can_skip(
                 updated_ids, boundary_masks)
             mw.stats.rounds_total += 1
             rec["skipped"] = bool(skipped)
@@ -1045,14 +1154,19 @@ class HostDriveLoop:
                     states, aggs, cnts, aux, it,
                     updated_ids, boundary_masks, reads, rowbytes, rec)
 
-            rec["active"] = int(np.max([a.sum() for a in actives]))
+            # every shard's count, in one all_reduce
+            active = np.zeros(mw.num_shards, np.int64)
+            active[mw.shards.start:mw.shards.stop] = [a.sum() for a in actives]
+            active = mw.ranks.all_reduce_host(active, "sum")
+            rec["active"] = int(active.max())
             per_iter.append(rec)
-            if all(a.sum() == 0 for a in actives):
+            if not active.any():
                 converged = True
                 break
             pending = mw.model.epilogue(gather, rec)
 
         final = mw.upper.resolve(states)
+        self._sum_shard_stats()
         return Result(
             state=final,
             iterations=it,
@@ -1061,6 +1175,27 @@ class HostDriveLoop:
             wall_time=time.perf_counter() - t0,
             per_iteration=per_iter,
         )
+
+    def _can_skip(self, updated_ids, boundary_masks) -> bool:
+        """The skip verdict: every updated vertex of every shard (over a
+        RankMesh, of every rank's shards) is interior."""
+        ok = can_skip_sync(updated_ids, boundary_masks)
+        return bool(self.mw.ranks.all_reduce_host(np.array([int(ok)]),
+                                                  "min")[0])
+
+    _SHARD_STATS = ("cache_hits", "cache_misses", "download_bytes_cache",
+                    "download_bytes_nocache")
+
+    def _sum_shard_stats(self) -> None:
+        """``SyncStats``' per-shard counters summed over the ranks (the
+        round and byte counters of the exchange are the same on every
+        rank)."""
+        stats = self.mw.stats
+        vec = np.array([getattr(stats, f) for f in self._SHARD_STATS],
+                       np.int64)
+        vec = self.mw.ranks.all_reduce_host(vec, "sum")
+        for f, v in zip(self._SHARD_STATS, vec):
+            setattr(stats, f, int(v))
 
     def _global_sync(self, states, aggs, cnts, aux, it,
                      updated_ids, boundary_masks, reads, rowbytes, rec):
@@ -1071,9 +1206,13 @@ class HostDriveLoop:
         # The query set is the boundary reads of the blocks that ran.
         queried = list(reads)
         upd_boundary = [
-            u[boundary_masks[j][u]].astype(np.int64)
-            for j, u in enumerate(updated_ids)
+            u[boundary_masks[i][u]].astype(np.int64)
+            for i, u in enumerate(updated_ids)
         ]
+        # every shard's lists, in shard order, on every rank
+        lists = mw.ranks.all_gather_host((upd_boundary, queried))
+        upd_boundary = [u for ul, _ in lists for u in ul]
+        queried = [q for _, ql in lists for q in ql]
         gqq, uploads = mw.upper.exchange(upd_boundary, queried)
         mw.stats.lazy_bytes += int(sum(u.size for u in uploads)) * rowbytes
         mw.stats.lazy_bytes += int(gqq.size) * 8  # query-queue broadcast
@@ -1087,9 +1226,7 @@ class HostDriveLoop:
 
         base, agg, cnt = mw.upper.merge(states, aggs, cnts)
         ns, act = mw._apply_fn(base, agg, cnt > 0, aux, it)
-        return [ns.copy() for _ in range(mw.num_shards)], [
-            act.copy() for _ in range(mw.num_shards)
-        ]
+        return [ns.copy() for _ in states], [act.copy() for _ in states]
 
 
 def _device_source_masks(partitions, m: int, n: int) -> np.ndarray:
@@ -1199,7 +1336,7 @@ class _FusedLoopBase:
         self._epoch_seen = mw.epochs.version
         # captured after _init_carry, which may arm the priority buckets
         stacked = mw.daemon.stacked
-        blocks_total = int(sum(bs.num_blocks for bs in mw.blocksets))
+        blocks_total = mw._blocks_total()
         s = mw.num_shards
         per_iter: list[dict] = []
         t0 = time.perf_counter()
@@ -1218,8 +1355,7 @@ class _FusedLoopBase:
                 # after the adoption, which may re-arm the buckets
                 stacked = mw.daemon.stacked
                 self._epoch_seen = mw.epochs.version
-                blocks_total = int(sum(bs.num_blocks
-                                       for bs in mw.blocksets))
+                blocks_total = mw._blocks_total()
                 reb_s = time.perf_counter() - t_reb
                 for r in ev.values():  # charge the rebuild to its trigger
                     if "seconds" in r:
@@ -1289,6 +1425,10 @@ class DriveLoop(_FusedLoopBase):
         new_state, new_active = apply_step(mw.program, state, agg, cnt > 0,
                                            aux, it)
         n_active = new_active.sum()
+        # every shard's count: this process's slots, one all_reduce
+        every = blocks_run.new_zeros(mw.num_shards)
+        every[mw.shards.start:mw.shards.stop] = blocks_run
+        blocks_run = mw.ranks.all_reduce(every, "sum")
         flags = torch.cat([torch.stack([(n_active == 0).long(), n_active]),
                            blocks_run.long()])
         return (new_state, new_active), flags

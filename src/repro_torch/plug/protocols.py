@@ -30,6 +30,7 @@ import numpy as np
 from repro_torch.core.blocks import BlockSet
 from repro_torch.core.sync import SyncStats
 from repro_torch.core.template import VertexProgram
+from repro_torch.dist.sharding import RankMesh
 from repro_torch.graph.structure import EdgePartition, Graph
 
 
@@ -227,9 +228,10 @@ class OutOfCoreCapable(Protocol):
         super-shards."""
         ...
 
-    def upload_super_shard(self, index: int):
+    def upload_super_shard(self, index: int, out=None, copy: bool = True):
         """Copies cold super-shard ``index`` to the device on the current
-        stream; returns a stacked dict ``run_all_shards(stacked=...)``
+        stream (into ``out`` when given; only allocates when ``copy`` is
+        False); returns a stacked dict ``run_all_shards(stacked=...)``
         takes."""
         ...
 
@@ -263,25 +265,39 @@ def divisor_mesh(num_items: int, mesh=None) -> int:
     contiguous shards.  The sharded daemon and the mesh upper system both
     take their axis from here.
 
-    ``mesh=None`` is 1: the port runs in one process on one device, where
-    the JAX package sizes m to its devices.  An int m ≥ 1 that divides
-    ``num_items`` gives m logical devices on the one card; an int that
-    does not divide it, or is under 1, raises ``ValueError``.  Any other
-    mesh (a device mesh across cards or ranks, ``torch.distributed``) is
-    ROADMAP Queue A item 13c's and raises :func:`not_ported_error`."""
+    ``mesh=None`` is 1.  An int m ≥ 1 that divides ``num_items`` gives m
+    logical devices on the one card.  A
+    :class:`~repro_torch.dist.sharding.RankMesh` gives m = W·local: W ranks,
+    each holding ``local`` logical devices (:func:`shard_range` says which
+    shards).  An int that does not divide ``num_items`` or is under 1, or a
+    RankMesh whose m does not divide it, raises ``ValueError``.  Any other
+    mesh raises :func:`not_ported_error`."""
     if num_items < 1:
         raise ValueError(f"need at least one shard, got {num_items}")
     if mesh is None:
         return 1
+    if isinstance(mesh, RankMesh):
+        mesh.shard_range(num_items)  # m must divide the shards
+        return mesh.size
     if isinstance(mesh, bool) or not isinstance(mesh, (int, np.integer)):
-        raise not_ported_error(f"mesh={mesh!r} (a shard axis across cards "
-                               "or ranks; an int m gives m logical devices "
-                               "on one card)", 13)
+        raise not_ported_error(f"mesh={mesh!r} (a shard axis is an int m of "
+                               "logical devices on one card or a RankMesh "
+                               "across ranks)", 13)
     m = int(mesh)
     if m < 1 or num_items % m:
         raise ValueError(f"mesh={m} logical devices must be >= 1 and divide "
                          f"the {num_items} shards")
     return m
+
+
+def shard_range(num_items: int, mesh=None) -> range:
+    """The shards this process owns on the axis :func:`divisor_mesh`
+    validates: all of them on one process, the rank's contiguous
+    [r·S/W, (r+1)·S/W) on a :class:`~repro_torch.dist.sharding.RankMesh`."""
+    divisor_mesh(num_items, mesh)
+    if isinstance(mesh, RankMesh):
+        return mesh.shard_range(num_items)
+    return range(num_items)
 
 
 @runtime_checkable

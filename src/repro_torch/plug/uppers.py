@@ -15,8 +15,11 @@ in the JAX package's ``plug/uppers.py``.
   and ``remesh`` / ``migrate`` (``protocols.ElasticUpper``) move a live
   run onto another m.  ``wire="compressed"`` sends the host loop's summed
   aggregate through ``dist.collectives``' int8 error-feedback all-reduce
-  over the m logical devices; the reduction across cards or ranks is
-  ROADMAP Queue A item 13c's.
+  over the m logical devices.  Over a
+  :class:`~repro_torch.dist.sharding.RankMesh` the axis spans W ranks of
+  ``local`` logical devices each: a rank folds its own devices, then one
+  ``all_reduce`` (MIN or MAX for an idempotent monoid, SUM otherwise)
+  merges the ranks, and the compressed wire is a real collective.
 """
 from __future__ import annotations
 
@@ -28,9 +31,20 @@ import torch
 from repro_torch.core.sync import lazy_exchange_plan
 from repro_torch.core.template import VertexProgram
 from repro_torch.dist.collectives import make_compressed_allreduce
+from repro_torch.dist.sharding import LOCAL_MESH, RankMesh
 from repro_torch.graph.partition import partition_contiguous
 from repro_torch.graph.structure import Graph
-from repro_torch.plug.protocols import divisor_mesh
+from repro_torch.plug.protocols import divisor_mesh, not_ported_error
+
+
+def _rank_op(monoid) -> str:
+    """The ``all_reduce`` op that merges ``monoid`` across ranks."""
+    if not monoid.idempotent:
+        return "sum"
+    op = {torch.minimum: "min", torch.maximum: "max"}.get(monoid.combine)
+    if op is None:
+        raise ValueError(f"monoid {monoid.name!r} has no all_reduce op")
+    return op
 
 
 class HostUpperSystem:
@@ -90,10 +104,17 @@ class MeshUpperSystem(HostUpperSystem):
     contiguous shards, then the m results fold in group order.  Every fold
     happens on the device the partials lie on.
 
+    Over a :class:`~repro_torch.dist.sharding.RankMesh` (m = W·local) a rank
+    holds only its own shards' arrays: its ``local`` devices fold in group
+    order, and the ranks' results merge with one ``all_reduce`` of the
+    aggregate (MIN / MAX / SUM) and one SUM of the counts,
+    so every rank holds the same bytes.  ``wire_stats`` count what the
+    JAX package counts at the same m.
+
     ``wire="exact"`` (the default) keeps the merge lossless.
     ``wire="compressed"`` carries a sum monoid's aggregate over the int8
     (``bits``-bit) error-feedback all-reduce of ``dist.collectives``: the
-    S per-shard aggregates fold into m per-device partials on the device
+    per-shard aggregates fold into per-device partials on the device
     ``bind`` was given (the middleware's), the wire returns their mean, and
     the sum is the mean times m.  The error-feedback residual is per-run
     state, cleared by ``reset``; the compressed wire runs on the host loop
@@ -113,6 +134,9 @@ class MeshUpperSystem(HostUpperSystem):
         self.wire = wire
         self.bits = bits
         self.m = 0
+        self.local = 0  # logical devices this process folds
+        self.ranks = mesh if isinstance(mesh, RankMesh) else LOCAL_MESH
+        self._op = None  # the all_reduce op of the monoid across ranks
         self.device = torch.device("cpu")
         self._allreduce = None
         self._residual = None
@@ -132,10 +156,14 @@ class MeshUpperSystem(HostUpperSystem):
                 "wire='compressed' quantizes a summed aggregate; idempotent "
                 "(min/max) merges must use wire='exact'")
         self.m = divisor_mesh(num_shards, self.mesh)
-        self.mesh = self.m
+        if isinstance(self.mesh, RankMesh):
+            self.ranks, self.local = self.mesh, self.mesh.local
+            self._op = _rank_op(program.monoid)
+        else:
+            self.ranks, self.mesh, self.local = LOCAL_MESH, self.m, self.m
         if self.wire == "compressed":
             self._allreduce = make_compressed_allreduce(
-                self.m, self.axis, bits=self.bits)
+                self.mesh, self.axis, bits=self.bits)
         return self
 
     def remesh(self, mesh):
@@ -145,7 +173,10 @@ class MeshUpperSystem(HostUpperSystem):
         publish an epoch, the hooks rebuild, and the drive loops adopt the
         result when they see the version move.  The new axis is validated
         (an int that divides the bound shard count) before anything
-        changes; then the rebind re-derives m."""
+        changes; then the rebind re-derives m.  An axis across ranks is not
+        re-meshed (ROADMAP Queue A item 13d)."""
+        if isinstance(self.ranks, RankMesh) or isinstance(mesh, RankMesh):
+            raise not_ported_error("a re-mesh across ranks", 13)
         divisor_mesh(self.num_shards, mesh)
         self.mesh = mesh
         return self.bind(self.program, self.num_shards)
@@ -169,56 +200,68 @@ class MeshUpperSystem(HostUpperSystem):
         return functools.reduce(op, stack.unbind(0))
 
     def _fold_groups(self, stack: torch.Tensor) -> torch.Tensor:
-        """Folds a stacked (S, ...) tensor as the m devices do: each
-        device's S/m contiguous shards, then the m results in order."""
-        groups = stack.reshape(self.m, -1, *stack.shape[1:])
+        """Folds a stacked (S, ...) tensor as this process's devices do:
+        each device's contiguous shards, then the results in order."""
+        groups = stack.reshape(self.local, -1, *stack.shape[1:])
         return self._fold_axis(torch.stack([self._fold_axis(g)
                                             for g in groups.unbind(0)]))
 
     def merge(self, states, aggs, cnts):
-        """The classic path's merge of per-shard host arrays →
-        ``(base, agg, cnt)`` host arrays.  Idempotent monoids fold the
-        replicas' states and the aggregates with ``combine``; a sum takes
-        state 0 as the base (its replicas never diverge) and adds the
-        aggregates; counts add."""
+        """The classic path's merge of per-shard host arrays (over a
+        RankMesh, this rank's shards') → ``(base, agg, cnt)`` host arrays.
+        Idempotent monoids fold the replicas' states and the aggregates
+        with ``combine``; a sum takes state 0 as the base (its replicas
+        never diverge) and adds the aggregates; counts add."""
         st, ag, cn = (torch.from_numpy(np.stack([np.asarray(a) for a in x]))
                       for x in (states, aggs, cnts))
-        base = self._fold_groups(st) if self.monoid.idempotent else st[0]
-        cnt = cn.sum(0, dtype=torch.int32)
+        reduce = self.ranks.all_reduce_host
+        base = (reduce(self._fold_groups(st).numpy(), self._op)
+                if self.monoid.idempotent else st[0].numpy())
+        cnt = reduce(cn.sum(0, dtype=torch.int32).numpy(), "sum")
         nbytes = st[0].numel() * 4
         if self.wire == "compressed":
             agg = self._compressed_sum(ag)
             self.wire_stats["compressed_bytes"] += (
                 (nbytes * self.bits) // 32 + 4) * self.m
         else:
-            agg = self._fold_groups(ag).numpy()
+            agg = reduce(self._fold_groups(ag).numpy(), self._op)
             self.wire_stats["exact_bytes"] += nbytes * self.m
-        return base.numpy(), agg, cnt.numpy()
+        return base, agg, cnt
+
+    def resolve(self, states):
+        # a sum's replicas never diverge; an idempotent fold spans the ranks
+        final = super().resolve(states)
+        return (self.ranks.all_reduce_host(final, self._op)
+                if self.monoid.idempotent else final)
 
     def _compressed_sum(self, aggs: torch.Tensor) -> np.ndarray:
         """A sum monoid's aggregate over the int8 error-feedback wire: the
-        (S, N, K) per-shard aggregates fold, on the bound device, into the m
-        devices' partials (each its S/m contiguous shards in order); the
-        all-reduce hands every device the mean of the m partials, and the
-        sum is that mean times m."""
+        (S, N, K) per-shard aggregates (this rank's, over a RankMesh) fold,
+        on the bound device, into this process's device partials (each its
+        contiguous shards in order); the all-reduce hands every device the
+        mean of the m partials, and the sum is that mean times m."""
         stack = aggs.to(self.device, torch.float32)
         parts = torch.stack([self._fold_axis(g) for g in stack.reshape(
-            self.m, -1, *stack.shape[1:]).unbind(0)])
+            self.local, -1, *stack.shape[1:]).unbind(0)])
         if self._residual is None:
             self._residual = torch.zeros_like(parts)
         means, self._residual = self._allreduce(parts, self._residual)
         return (means[0] * self.m).cpu().numpy()
 
     def merge_partials(self, partials: torch.Tensor, counts: torch.Tensor):
-        """Reduces the per-device partials (m, N, K) / counts (m, N) over
-        axis 0 in group order → ``(agg (N, K), cnt (N,) int32)`` on their
-        device: min or max for an idempotent monoid, a sum otherwise.  The
-        compressed wire's residual is per-run host-loop state, so it is
-        refused here."""
+        """Reduces this process's per-device partials (local, N, K) /
+        counts (local, N) over axis 0 in group order → ``(agg (N, K), cnt
+        (N,) int32)`` on their device: min or max for an idempotent monoid,
+        a sum otherwise; then one ``all_reduce`` of each across the ranks
+        (none on one process).  The compressed wire's residual is per-run
+        host-loop state, so it is refused here."""
         if self.wire != "exact":
             raise ValueError("merge_partials supports wire='exact' only; "
                              "compressed merges take the classic path")
-        return self._fold_axis(partials), counts.sum(0, dtype=torch.int32)
+        agg = self.ranks.all_reduce(self._fold_axis(partials).contiguous(),
+                                    self._op)
+        cnt = self.ranks.all_reduce(counts.sum(0, dtype=torch.int32), "sum")
+        return agg, cnt
 
     def merge_partials_async(self, fresh_p, fresh_c, held_p, held_c,
                              theta, floor, run_mask=None):

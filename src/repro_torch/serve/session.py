@@ -39,6 +39,7 @@ import numpy as np
 
 from repro_torch.core.pow2 import pow2_bucket
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import RankMesh
 from repro_torch.graph import mutation as graph_mutation
 from repro_torch.graph.algorithms import (BATCHED_QUERIES, INF, pagerank,
                                           wcc)
@@ -46,7 +47,7 @@ from repro_torch.graph.structure import Graph
 from repro_torch.kernels.edge_block import _MAX_K
 from repro_torch.plug.daemons import ShardedDaemon
 from repro_torch.plug.middleware import Middleware
-from repro_torch.plug.protocols import PlugOptions
+from repro_torch.plug.protocols import PlugOptions, not_ported_error
 from repro_torch.plug.uppers import MeshUpperSystem
 
 #: kinds answered by a batched multi-source program
@@ -92,6 +93,8 @@ class GraphServeSession:
                  monitor=None, failures=None,
                  analytics_iterations: int = 60,
                  device="cuda", mesh=None, csr_config=None):
+        if isinstance(mesh, RankMesh):
+            raise not_ported_error("GraphServeSession across ranks", 13)
         if max_batch < 1 or max_batch & (max_batch - 1):
             raise ValueError(f"max_batch must be a power of two, got "
                              f"{max_batch}")

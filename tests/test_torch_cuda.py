@@ -1093,9 +1093,9 @@ def test_uploader_on_the_card(cuda, prefetch):
     assert all(t.is_pinned() for grp in d._cold for t in grp.values())
     streams = []
 
-    def upload(i, out=None):
+    def upload(i, out=None, copy=True):
         streams.append(torch.cuda.current_stream(cuda))
-        return d.upload_super_shard(i, out=out)
+        return d.upload_super_shard(i, out=out, copy=copy)
 
     up = oocore.AsyncUploader(upload, cuda, prefetch=prefetch)
     spans, ptrs, allocated = [], set(), []
@@ -1159,31 +1159,121 @@ def test_uploader_slot_waits_for_its_reader(cuda):
     up.close()
 
 
-@pytest.mark.cuda
-def test_uploader_wait_reads_the_stall(cuda):
+def _stall_trial(d, cuda):
     """With the copy stream held by a sleep, the compute stream stalls on
     the copy: the wait span reads it (above 0, at most the copy's start
     to end plus the sleep), and with nothing held it reads 0."""
     from repro_torch import oocore
 
-    g = generate.rmat(4096, 65536, seed=2)
-    mw = _oocore_mw(g, algorithms.sssp_bf(g), cuda, num_super_shards=4,
-                    hot_fraction=0.25)
-    d = mw.daemon
     side = torch.cuda.Stream(device=cuda)
     up = oocore.AsyncUploader(d.upload_super_shard, cuda, stream=side)
-    with torch.cuda.stream(side):
-        torch.cuda._sleep(20_000_000)  # ~10 ms before the copy starts
-    _, transfer, wait = up.take(0)
-    up.release(0)
-    up.request(1)
-    torch.cuda._sleep(20_000_000)  # the compute stream arrives late
-    _, transfer1, wait1 = up.take(1)
-    up.release(1)
-    torch.cuda.synchronize()
-    assert wait.seconds() > 1e-3 > transfer.seconds() > 0.0
-    assert wait1.seconds() == 0.0 and transfer1.seconds() > 0.0
-    up.close()
+    try:
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(20_000_000)  # ~10 ms before the copy starts
+        _, transfer, wait = up.take(0)
+        up.release(0)
+        up.request(1)
+        torch.cuda._sleep(20_000_000)  # the compute stream arrives late
+        _, transfer1, wait1 = up.take(1)
+        up.release(1)
+        torch.cuda.synchronize()
+        assert wait.seconds() > 1e-3 > transfer.seconds() > 0.0
+        assert wait1.seconds() == 0.0 and transfer1.seconds() > 0.0
+    finally:
+        up.close()
+
+
+def _stall_daemon(cuda):
+    g = generate.rmat(4096, 65536, seed=2)
+    return _oocore_mw(g, algorithms.sssp_bf(g), cuda, num_super_shards=4,
+                      hot_fraction=0.25).daemon
+
+
+@pytest.mark.cuda
+def test_uploader_wait_reads_the_stall(cuda):
+    """The stall trial once (:func:`_stall_trial`)."""
+    _stall_trial(_stall_daemon(cuda), cuda)
+
+
+STALL_TRIALS = 50
+
+
+@pytest.mark.cuda
+def test_uploader_wait_reads_the_stall_in_a_loop(cuda):
+    """The stall trial ``STALL_TRIALS`` times, each on a fresh uploader
+    after the allocator's cache is emptied, so that every trial's slots
+    are allocated anew: every trial must hold."""
+    d = _stall_daemon(cuda)
+    failed = []
+    for trial in range(STALL_TRIALS):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        try:
+            _stall_trial(d, cuda)
+        except AssertionError as e:
+            failed.append((trial, str(e)))
+    assert not failed, f"{len(failed)} of {STALL_TRIALS} trials: {failed}"
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
+    """Two gloo ranks with CUDA tensors on the one card (a RankMesh's
+    default device, cuda:{rank % device_count}): the fused and the host
+    loop for sssp_bf and pagerank are replicated bit for bit on both ranks,
+    equal the single-process ``mesh=2`` run (sssp_bf bit for bit, pagerank
+    within rtol 1e-5 / atol 1e-6, iterations and records equal), and the
+    fused loop launches ``csr_tile`` once an iteration on each rank."""
+    ranks = _cuda_world(tmp_path, "gloo", 2)
+    count = torch.cuda.device_count()
+    assert [r["device"] for r in ranks] == [f"cuda:{r % count}"
+                                            for r in range(2)]
+    assert all(r["host_backend"] == "gloo" for r in ranks)
+
+
+@pytest.mark.cuda
+def test_one_nccl_rank_keeps_host_collectives_on_gloo(cuda, tmp_path):
+    """A one-rank NCCL world on the card: the RankMesh merges device
+    tensors over NCCL and the host loop's arrays over the gloo group it
+    makes of the same ranks; both loops equal the single-process ``mesh=1``
+    run, with one ``csr_tile`` launch an iteration in the fused loop."""
+    (rank,) = _cuda_world(tmp_path, "nccl", 1)
+    assert (rank["backend"], rank["host_backend"]) == ("nccl", "gloo")
+
+
+def _cuda_world(tmp_path, backend, world):
+    """Runs ``torch_ranks_worker.cuda_world`` in ``world`` ranks of
+    ``backend`` on the card and holds every rank's runs against rank 0's
+    and the single-process ``mesh=world`` ones → the ranks' outputs."""
+    import torch_ranks_worker as worker
+
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import spawn_ranks
+
+    build.library()  # built once here; the ranks load it
+    g = generate.rmat(4096, 65536, seed=2)
+    ranks = spawn_ranks(worker.cuda_world, world, (g, 4), backend=backend,
+                        init_method=f"file://{tmp_path}/init",
+                        timeout_s=300.0)
+    assert all(r["backend"] == backend for r in ranks)
+    for key, want in ranks[0]["single"].items():
+        runs = [r["ranks"][key] for r in ranks]
+        assert all(run["state"].tobytes() == runs[0]["state"].tobytes()
+                   for run in runs)
+        got = runs[0]
+        assert (got["iterations"], got["records"], got["stats"]) == \
+            (want["iterations"], want["records"], want["stats"])
+        if key[1] == "pagerank":
+            np.testing.assert_allclose(got["state"], want["state"],
+                                       rtol=SUM_RTOL, atol=SUM_ATOL)
+        else:
+            np.testing.assert_array_equal(got["state"], want["state"])
+        for r in ranks:
+            launches = r["launches"][key]
+            if key[0] == "fused":
+                assert launches == got["iterations"], key
+            else:
+                assert launches > 0, key
+    return ranks
 
 
 @pytest.mark.cuda

@@ -53,7 +53,8 @@ _IMPORT = re.compile(
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in [*PORT.rglob("*.py"),
-                                        ROOT / "chip_smoke.py"]))
+                                        ROOT / "chip_smoke.py",
+                                        ROOT / "tests" / "torch_ranks_worker.py"]))
 def test_no_jax_or_repro_import(path):
     text = (ROOT / path).read_text()
     assert not _IMPORT.findall(text), path
@@ -65,13 +66,35 @@ _LAUNCH_IMPORT = re.compile(
 
 
 @pytest.mark.parametrize("path", sorted(
-    str(p.relative_to(ROOT)) for layer in ("kernels", "models", "train")
+    str(p.relative_to(ROOT))
+    for layer in ("kernels", "models", "train", "dist", "plug")
     for p in (PORT / layer).rglob("*.py")))
 def test_lower_layers_import_no_launcher(path):
-    """The kernels, the models and the train step know nothing of the
-    command-line layer: a dry run's counter reaches them only through
-    ``kernels/accounting.py``."""
+    """The kernels, the models, the train step, the distributed layer and
+    the middleware know nothing of the command-line layer: a dry run's
+    counter reaches the first three only through ``kernels/accounting.py``,
+    and a ``RankMesh`` lives in ``dist``, not in ``launch``."""
     assert not _LAUNCH_IMPORT.findall((ROOT / path).read_text()), path
+
+
+def test_spawned_rank_entries_leave_jax_out():
+    """In a fresh interpreter, as a spawned rank starts: the rank entries
+    of the tests and the spawn helper import nothing of JAX or the JAX
+    package."""
+    code = (
+        "import sys\n"
+        "import torch_ranks_worker\n"
+        "from repro_torch.launch import mesh\n"
+        "assert callable(mesh.spawn_ranks)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"),
+                                         str(ROOT / "tests")])
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def _graph():
