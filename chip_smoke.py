@@ -144,7 +144,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
               on each rank, the bytes of each all_reduce and the backend:
               four ranks share one card's SMs and gloo stages its wire
               through host memory, so none of it is a scale-out figure.
-              A failing or hung rank fails the phase.
+              (a) sssp_bf under ``AsyncModel``'s ``holding`` arm across
+              the ranks: each rank's state bit-identical to rank 0's and,
+              once phase 5f has run, bit-equal to its ``mesh=4`` holding
+              state with equal iterations, skipped bodies and held
+              device-iterations (so the line prints after 5f's); on each
+              rank ``csr_tile`` launched once per run of its executing
+              devices and one small fetch an iteration.  The R-MATs hold
+              no device at m = 4, so the same arm also runs on 5h's road
+              network (``grid_road(1024, seed=1)``, 60 iterations), held
+              bit-equal to a one-process ``mesh=4`` run of it (itself at
+              or above ``run_reference`` cut there) with held
+              device-iterations > 0 and some rank whose device held.
+              (b) structure epochs on 5g's scale-18 R-MAT: one GAS
+              sssp_bf middleware over the ranks takes a
+              kill of rank 3's device before iteration 2 and its join
+              before iteration 4 (4 → 2 → 4 devices; ranks 2 and 3 sit
+              out in between, in the world), a ``rebalance`` with rank 0's
+              shard at half capacity, and ``run_dynamic`` of 5g's
+              65,536-edge shard-0 add batch; each run bit-identical over
+              the ranks and bit-equal to ``run_reference`` (the mutated
+              graph's for the third), the migrations as the one-process
+              planner plans the same schedule at m = 4 (a plan only), no
+              fetch inside a rebuild.  Prints each rank's rebuild seconds,
+              s an iteration around each epoch and the async step's flags
+              all_reduce ms.  A failing or hung rank fails the phase.
 5f. async   — the fused async loop (``model=AsyncModel(...)``, so
               ``AsyncDriveLoop``) at ``mesh=4`` with ``CSRConfig()`` pinned:
               sssp_bf to its fixed point under README's three arms
@@ -2210,7 +2234,8 @@ def phase_mesh(g, parts, pr, sp, refs, mesh1) -> tuple:
 
 # phase 5e': the graph loop across ranks
 RANKS = 4                  # gloo ranks sharing the one card
-RANKS_TIMEOUT_S = 300.0    # the spawned world's limit (a collective's: 60 s)
+RANKS_TIMEOUT_S = 200.0    # the spawned world's limit: 2.6x its 76 s on an
+                           # H100 (a collective's limit: 60 s)
 RANKS_CAVEAT = ("4 ranks share one card's SMs and gloo stages each "
                 "all_reduce through host memory: not a scale-out figure")
 RANK_RUNS = (  # label, program, model, loop, upper options
@@ -2221,16 +2246,35 @@ RANK_RUNS = (  # label, program, model, loop, upper options
      {"wire": "compressed", "bits": 8}))
 
 
+# 5e' (a): the async loop across the ranks, at 5f's holding arm: on phase
+# 3's R-MAT, and on 5h's road network for ROAD_ITERATIONS iterations, where
+# the run mask holds devices (the R-MATs hold none at m = 4)
+RANK_ASYNC_ARM = "holding"
+RANK_ASYNC_RUNS = (  # label, graph, iteration cap
+    (f"sssp_bf/ranks4/async-{RANK_ASYNC_ARM}", "rmat", None),
+    (f"sssp_bf/ranks4/road/async-{RANK_ASYNC_ARM}", "road", ROAD_ITERATIONS))
+# 5e' (b): structure epochs across the ranks, on one GAS sssp_bf middleware
+# over 5g's graph: rank 3's device dies before iteration 2 and is back
+# before iteration 4 (m 4 → 2 → 4: ranks 2 and 3 sit out in between), then
+# a rebalance with shard 0 (rank 0's) at half the others' capacity, then
+# 5g's 65,536-edge shard-0 add batch through run_dynamic
+RANK_EPOCH_SCHEDULE = {"kills": [(2, 3)], "recoveries": [(4, 3)]}
+RANK_REBALANCE_COSTS = (2.0, 1.0, 1.0, 1.0)
+
+
 def _rank_file(tmp, label, rank, what="state") -> Path:
     return Path(tmp) / f"{label.replace('/', '_')}.{what}.rank{rank}.npy"
 
 
-def ranks_world(rank, world, tmp, n) -> dict:
-    """One rank of phase 5e': the graph memory-mapped from ``tmp``, its own
-    shard bound, every run of ``RANK_RUNS`` (one warm-up iteration first,
-    then the timed run with the launches and fetches counted).  Writes each
-    final state (and the int8 wire's per-merge aggregates) under ``tmp``
-    for the parent's checks; returns the rank's records."""
+def ranks_world(rank, world, tmp, sizes, seed) -> dict:
+    """One rank of phase 5e': the graphs memory-mapped from ``tmp``
+    (``sizes``: name → vertices; :func:`_rank_graph`), its own shard
+    bound, every run of ``RANK_RUNS`` on phase 3's (one warm-up iteration
+    first, then the timed run with the launches and fetches counted), then
+    the async arm's runs (:func:`rank_async`) and the epoch arm on 5g's
+    (:func:`rank_epochs`).  Writes each final state (and the int8 wire's
+    per-merge aggregates) under ``tmp`` for the parent's checks; returns
+    the rank's records."""
     import hashlib
 
     import numpy as np
@@ -2239,16 +2283,14 @@ def ranks_world(rank, world, tmp, n) -> dict:
     from repro_torch import plug
     from repro_torch.dist.sharding import RankMesh
     from repro_torch.graph.algorithms import pagerank, sssp_bf
-    from repro_torch.graph.structure import Graph
     from repro_torch.kernels import edge_block as ebk
     from repro_torch.kernels.ops import CSRConfig
 
     # the ranks share the host's cores
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     t0 = time.perf_counter()
-    arrays = {k: np.load(Path(tmp) / f"{k}.npy", mmap_mode="r")
-              for k in ("src", "dst", "weights")}
-    g = Graph(num_vertices=n, **arrays)
+    graphs = {name: _rank_graph(tmp, name, n) for name, n in sizes.items()}
+    g, n = graphs["rmat"], sizes["rmat"]
     programs = {"pagerank": pagerank(g, max_iterations=PR_ITERATIONS),
                 "sssp_bf": sssp_bf(g, sources=[0, 1, 2, 3])}
     mesh = RankMesh()  # cuda:{rank % device_count}
@@ -2314,14 +2356,208 @@ def ranks_world(rank, world, tmp, n) -> dict:
         out["runs"][label] = rec
         del mw, daemon, upper
         torch.cuda.empty_cache()
+    out["async"] = {
+        label: rank_async(mesh, label, graphs[name],
+                          programs["sssp_bf"] if name == "rmat" else
+                          sssp_bf(graphs[name], sources=[0, 1, 2, 3]),
+                          cap, tmp, rank)
+        for label, name, cap in RANK_ASYNC_RUNS}
+    g_e = graphs["elastic"]
+    out["epochs"] = rank_epochs(mesh, g_e, sssp_bf(g_e, sources=[0, 1, 2, 3]),
+                                tmp, rank, g_e.num_vertices, seed)
     # one iteration's collectives alone, as the fused sssp_bf step makes
-    # them: the (N, K) aggregate's MIN and the (N,) counts' SUM
+    # them: the (N, K) aggregate's MIN and the (N,) counts' SUM; and the
+    # async step's flags (S blocks, 3m device flags, the backlog's)
     k = programs["sssp_bf"].state_width
     agg = torch.rand((n, k), device=mesh.device)
     cnt = torch.ones(n, dtype=torch.int32, device=mesh.device)
+    flags = torch.ones(SHARDS + 3 * mesh.size + 1, dtype=torch.int32,
+                       device=mesh.device)
     out["all_reduce_ms"] = {
         "aggregate_min": _collective_ms(lambda: mesh.all_reduce(agg, "min")),
-        "counts_sum": _collective_ms(lambda: mesh.all_reduce(cnt, "sum"))}
+        "counts_sum": _collective_ms(lambda: mesh.all_reduce(cnt, "sum")),
+        "async_flags_sum": _collective_ms(
+            lambda: mesh.all_reduce(flags, "sum"))}
+    return out
+
+
+def _rank_graph(tmp, name, n):
+    """Graph ``name`` of ``n`` vertices, its arrays memory-mapped from the
+    ``.npy`` files :func:`phase_ranks` wrote under ``tmp``."""
+    import numpy as np
+
+    from repro_torch.graph.structure import Graph
+
+    return Graph(num_vertices=n, **{
+        k: np.load(Path(tmp) / f"{name}.{k}.npy", mmap_mode="r")
+        for k in ("src", "dst", "weights")})
+
+
+def own_runs(rec, mesh) -> int:
+    """The maximal runs of consecutive executing devices among this rank's
+    own devices in one async record (:func:`executed_runs`' slice)."""
+    ran, _ = executed_runs(rec)
+    mine = ran[mesh.offset:mesh.offset + mesh.local]
+    return sum(1 for g, r in enumerate(mine) if r and (g == 0 or
+                                                        not mine[g - 1]))
+
+
+def rank_async(mesh, label, g, prog, cap, tmp, rank) -> dict:
+    """One run of 5e' (a) on one rank: ``prog`` under ``AsyncModel``'s
+    ``holding`` arm over the RankMesh (a warm-up iteration, then the timed
+    run of at most ``cap`` iterations), with csr_tile's launches counted
+    per ``run_all_shards`` call against the runs of this rank's executing
+    devices, the iterations in which every device of this rank held, and
+    the fetches counted."""
+    import numpy as np
+    import torch
+
+    from repro_torch import plug
+    from repro_torch.kernels import edge_block as ebk
+    from repro_torch.kernels.ops import CSRConfig
+
+    n = g.num_vertices
+    daemon = plug.ShardedDaemon(kernel="cuda", mesh=mesh,
+                                csr_config=CSRConfig())
+    per_call, run_all = [], daemon.run_all_shards
+
+    def counted(*args, **kwargs):
+        before = ebk.csr_tile.launches
+        result = run_all(*args, **kwargs)
+        per_call.append(ebk.csr_tile.launches - before)
+        return result
+
+    daemon.run_all_shards = counted
+    t0 = time.perf_counter()
+    mw = plug.Middleware(
+        g, prog, daemon=daemon, upper=plug.MeshUpperSystem(mesh=mesh),
+        model=plug.AsyncModel(**dict(ASYNC_ARMS)[RANK_ASYNC_ARM]),
+        num_shards=SHARDS)
+    if not isinstance(mw._loop, plug.AsyncDriveLoop):
+        raise AssertionError(f"{label}: ran {type(mw._loop).__name__}")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    mw.run(max_iterations=1)
+    torch.cuda.synchronize()
+    per_call.clear()
+    fetches: list = []
+    with counting_fetches(fetches):
+        res = mw.run(cap)
+    torch.cuda.synchronize()
+    recs = res.per_iteration
+    want = [own_runs(r, mesh) for r in recs]
+    if per_call != want:
+        raise AssertionError(f"{label}: rank {rank}: csr_tile launches "
+                             f"{per_call} per iteration, its runs of "
+                             f"executing devices {want}")
+    its = max(res.iterations, 1)
+    big = [c for c in fetches if c[1] >= n]
+    np.save(_rank_file(tmp, label, rank), np.asarray(res.state))
+    out = {"run": label, "init_s": init_s, "iterations": res.iterations,
+           "converged": res.converged, "wall_s": res.wall_time,
+           "per_iteration_s": res.wall_time / its,
+           "csr_tile_launches": sum(per_call),
+           "csr_tile_per_iteration": per_call,
+           "fetches_per_iteration": (len(fetches) - len(big)) / its,
+           "vertex_sized_fetches": len(big),
+           "gen_run": sum(r["gen_run"] for r in recs),
+           "gen_skipped": sum(r["gen_skipped"] for r in recs),
+           "held_device_iterations": sum(r["run_mask"].count(False)
+                                         for r in recs),
+           "rank_held_iterations": sum(
+               1 for r in recs
+               if not any(r["run_mask"][mesh.offset:mesh.offset
+                                        + mesh.local])),
+           "refreshed": [r["refreshed"] for r in recs]}
+    del mw, daemon
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_epochs(mesh, g, prog, tmp, rank, n, seed) -> dict:
+    """5e' (b) on one rank: one GAS sssp_bf middleware over the RankMesh
+    (a warm-up iteration first) takes three runs — under
+    ``RANK_EPOCH_SCHEDULE`` (a kill and a join), after
+    ``rebalance(RANK_REBALANCE_COSTS)``, and ``run_dynamic`` of phase 5g's
+    shard-0 add batch — each probed (:func:`probe_loop`): the seconds and
+    fetches of every rebuild on this rank (none may fetch), the steps'
+    seconds between rebuilds, csr_tile once a step."""
+    import numpy as np
+    import torch
+
+    from repro_torch import plug
+    from repro_torch.kernels import edge_block as ebk
+    from repro_torch.kernels.ops import CSRConfig
+
+    daemon = plug.ShardedDaemon(kernel="cuda", mesh=mesh,
+                                csr_config=CSRConfig())
+    t0 = time.perf_counter()
+    mw = plug.Middleware(
+        g, prog, daemon=daemon, upper=plug.MeshUpperSystem(mesh=mesh),
+        model="gas", num_shards=SHARDS,
+        failures=plug.FailureSchedule(**RANK_EPOCH_SCHEDULE))
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0, "runs": []}
+    mw.run(max_iterations=1)  # every event is due at iteration 2 or later
+    calls: list = []
+    its: list = []
+    probe_loop(mw, calls, its)
+
+    def probed_run(label, trigger):
+        calls.clear()
+        its.clear()
+        before = ebk.csr_tile.launches
+        t0 = time.perf_counter()
+        with counting_fetches(calls):
+            res = trigger()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = [i for i in its if "step_s" in i]
+        bad = [(i["iteration"], i["rebuild_fetches"]) for i in its
+               if i["rebuild_fetches"] and i["rebound"]]
+        if bad:
+            raise AssertionError(f"{label}: rank {rank}: fetches inside the "
+                                 f"rebuilds (iteration, fetches) {bad}")
+        if any(i["csr_tile"] != 1 or len(i["step_fetches"]) != 1
+               for i in steps):
+            raise AssertionError(f"{label}: rank {rank}: a step's csr_tile "
+                                 "launches or fetches are not 1")
+        np.save(_rank_file(tmp, label, rank), np.asarray(res.state))
+        # the epochs' records, but the dirty vertex lists and the seconds
+        # each rank measures for itself
+        events = [{"iteration": r["iteration"], "kind": kind,
+                   **{k: v for k, v in r[kind].items()
+                      if k not in ("dirty_vertices", "seconds")}}
+                  for r in res.per_iteration
+                  for kind in ("migration", "mutation") if kind in r]
+        return {"run": label, "iterations": res.iterations,
+                "converged": res.converged, "wall_s": wall,
+                "stepped": [i["iteration"] for i in steps],
+                "step_s": [i["step_s"] for i in steps],
+                "rebuild_s": {i["iteration"]: i["rebuild_s"]
+                              for i in its if i["rebound"]},
+                "rebuild_fetches": sum(len(i["rebuild_fetches"])
+                                       for i in its if i["rebound"]),
+                "csr_tile_launches": ebk.csr_tile.launches - before,
+                "events": events, "members": list(mw.ranks.members)}
+
+    out["runs"].append(probed_run("sssp_bf/ranks4/kill-join", mw.run))
+    t0 = time.perf_counter()
+    fractions = mw.rebalance(np.array(RANK_REBALANCE_COSTS))
+    out["rebalance_s"] = time.perf_counter() - t0
+    out["fractions"] = [float(f) for f in fractions]
+    out["runs"].append(probed_run("sssp_bf/ranks4/rebalanced", mw.run))
+    batch = shard0_batches(mw.partitions, n, seed)
+    out["runs"].append(probed_run("sssp_bf/ranks4/run_dynamic",
+                                  lambda: mw.run_dynamic(batch)))
+    ep = mw.epochs.epoch
+    out["mutation"] = {"seconds": ep.meta["seconds"],
+                       "shards_recut": ep.meta["shards_recut"],
+                       "edges_added": ep.meta["edges_added"],
+                       "incremental": ep.meta["incremental"],
+                       "mode": mw.last_restart["mode"]}
+    del mw, daemon
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2338,34 +2574,277 @@ def _collective_ms(fn, reps: int = 5) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def phase_ranks(g, refs, resident4, mesh_its) -> tuple:
+def planned_migrations(m, schedule, iterations) -> list:
+    """What the one-process planner (``Middleware._poll_faults`` /
+    ``_feasible_mesh_size`` / ``migrate`` with ``dist.fault``'s monitor and
+    ``reassign_shards``) plans for ``schedule`` at m devices over SHARDS
+    shards, poll by poll for ``iterations`` polls — a plan only: no graph,
+    no build."""
+    import numpy as np
+
+    from repro_torch.dist import fault
+
+    mon = fault.FleetMonitor(num_hosts=m, model_parallel=1)
+    sched = fault.FailureSchedule(**schedule)
+    axis, plans = list(range(m)), []
+    for it in range(1, iterations + 1):
+        joined = [d for d in sched.recoveries_at(it) if mon.failed[d]]
+        for d in joined:
+            mon.mark_recovered(d)
+        killed = [d for d in sched.kills_at(it) if not mon.failed[d]]
+        for d in killed:
+            mon.mark_failed(d)
+        alive = [int(d) for d in mon.alive_indices()]
+        m_new = max(d for d in range(1, min(SHARDS, len(alive)) + 1)
+                    if SHARDS % d == 0)
+        if not (any(mon.failed[d] for d in axis) or m_new > len(axis)):
+            continue
+        frac_fleet = mon.batch_fractions()
+        chosen = sorted(sorted(alive, key=lambda d: (-frac_fleet[d], d))
+                        [:m_new])
+        frac = np.asarray(frac_fleet[chosen], dtype=np.float64)
+        frac = (np.full(m_new, 1.0 / m_new) if frac.sum() <= 0
+                else frac / frac.sum())
+        assign = fault.reassign_shards(SHARDS, frac, cap=SHARDS // m_new)
+        plans.append({"iteration": it, "killed": killed, "joined": joined,
+                      "devices_after": m_new, "device_ids": chosen,
+                      "assignment": [int(a) for a in assign],
+                      "repartitioned": bool(mon.observed)})
+        axis = chosen
+    return plans
+
+
+def _segments(stepped, step_s, cuts) -> list:
+    """A rank's step seconds cut at the rebuild iterations ``cuts``: the
+    iterations each stretch ran and their mean (None where the rank sat
+    out)."""
+    bounds = [1] + sorted(cuts) + [10 ** 9]
+    out = []
+    for lo, hi in zip(bounds, bounds[1:]):
+        s = [t for i, t in zip(stepped, step_s) if lo <= i < hi]
+        out.append({"from_iteration": lo, "iterations": len(s),
+                    "s_per_iteration": sum(s) / len(s) if s else None})
+    return out
+
+
+def ranks_async_check(tmp, ranks, label) -> tuple:
+    """One run of 5e' (a) in the parent: every rank's state bit-identical
+    to rank 0's, equal records' sums, one small fetch an iteration and the
+    final state on each rank.  Returns the line's entry and rank 0's state
+    (held to a ``mesh=4`` run of the same by :func:`ranks_async_vs_mesh4`)."""
+    import numpy as np
+
+    recs = [r["async"][label] for r in ranks]
+    states = [np.load(_rank_file(tmp, label, r)) for r in range(RANKS)]
+    if any(st.tobytes() != states[0].tobytes() for st in states[1:]):
+        raise AssertionError(f"{label}: the ranks' states differ")
+    keys = ("iterations", "converged", "gen_run", "gen_skipped",
+            "held_device_iterations", "refreshed")
+    if len({tuple(str(r[k]) for k in keys) for r in recs}) != 1:
+        raise AssertionError(f"{label}: the ranks' runs differ")
+    if any(r["fetches_per_iteration"] != 1 or r["vertex_sized_fetches"] != 1
+           for r in recs):
+        raise AssertionError(f"{label}: fetches {recs}")
+    line = {k: recs[0][k] for k in keys if k != "refreshed"}
+    line.update(run=label, per_iteration_s=[r["per_iteration_s"]
+                                            for r in recs],
+                init_s=[r["init_s"] for r in recs],
+                rank_held_iterations=[r["rank_held_iterations"]
+                                      for r in recs],
+                csr_tile_launches=[r["csr_tile_launches"] for r in recs],
+                csr_tile_per_iteration=[r["csr_tile_per_iteration"]
+                                        for r in recs])
+    return line, states[0]
+
+
+def ranks_async_vs_mesh4(line, state, want, mesh4_state) -> None:
+    """One run of 5e' (a) against the ``mesh=4`` run of the same arm on
+    one process (``want``: its record): the state bit-equal, and equal
+    iterations, skipped device bodies and held device-iterations."""
+    label = want["run"]
+    check_state(f"{line['run']} vs {label}", state, mesh4_state, None)
+    for key in ("iterations", "gen_skipped", "held_device_iterations"):
+        if line[key] != want[key]:
+            raise AssertionError(f"{line['run']}: {key} {line[key]}, {label} "
+                                 f"{want[key]}")
+    line["mesh4_run"] = label
+    line["mesh4_per_iteration_s"] = want["per_iteration_s"]
+
+
+def road_async_mesh4(gr, prog) -> tuple:
+    """The one-process ``mesh=4`` run that 5e' (a)'s road run is held to:
+    the holding arm on ``gr`` for ROAD_ITERATIONS iterations after a
+    warm-up one, held to an upper bound of ``run_reference`` cut there
+    (a held device delays its messages: every distance is that of a path
+    of at most as many hops, so at least the barriered run's).  Returns
+    its record and state."""
+    import numpy as np
+    import torch
+
+    from repro_torch import plug
+    from repro_torch.kernels.ops import CSRConfig
+
+    label = f"sssp_bf/road/async-{RANK_ASYNC_ARM}/mesh4"
+    t0 = time.perf_counter()
+    ref, ref_it = plug.run_reference(gr, prog, max_iterations=ROAD_ITERATIONS,
+                                     device="cuda")
+    ref = np.asarray(ref)
+    mw = plug.Middleware(
+        gr, prog, daemon=plug.ShardedDaemon(kernel="cuda",
+                                            csr_config=CSRConfig()),
+        upper=plug.MeshUpperSystem(mesh=SHARDS),
+        model=plug.AsyncModel(**dict(ASYNC_ARMS)[RANK_ASYNC_ARM]),
+        num_shards=SHARDS, device="cuda")
+    mw.run(max_iterations=1)
+    res = mw.run(ROAD_ITERATIONS)
+    torch.cuda.synchronize()
+    state = np.asarray(res.state)
+    recs = res.per_iteration
+    if res.iterations != ref_it or not np.isfinite(state).all() or \
+            (state < ref).any():
+        raise AssertionError(f"{label}: {res.iterations} iterations (the "
+                             f"reference's {ref_it}), not at or above "
+                             "run_reference's state")
+    rec = {"run": label, "iterations": res.iterations,
+           "per_iteration_s": res.wall_time / max(res.iterations, 1),
+           "gen_skipped": sum(r["gen_skipped"] for r in recs),
+           "held_device_iterations": sum(r["run_mask"].count(False)
+                                         for r in recs),
+           "equal_to_reference_share": float((state == ref).mean()),
+           "seconds": time.perf_counter() - t0}
+    del mw
+    torch.cuda.empty_cache()
+    return rec, state
+
+
+def ranks_epochs_check(tmp, ranks, g, refs, seed) -> dict:
+    """5e' (b) in the parent: each run's states bit-identical over the
+    ranks and bit-equal to ``run_reference`` (the third on the mutated
+    graph), the kill and the join as the one-process planner plans them,
+    the rebalance's fractions Lemma 2's, the batch recutting shard 0
+    alone; with each rank's rebuild seconds and s an iteration around each
+    epoch."""
+    import numpy as np
+
+    from repro_torch import plug
+    from repro_torch.core.balance import lemma2_fractions
+    from repro_torch.graph import mutation as graph_mutation
+    from repro_torch.graph.algorithms import sssp_bf
+
+    eps = [r["epochs"] for r in ranks]
+    runs = list(zip(*[e["runs"] for e in eps]))
+    # the references: phase 5's, and the mutated graph's, whose batch the
+    # ranks drew from the rebalanced partitions
+    t0 = time.perf_counter()
+    fractions = lemma2_fractions(np.array(RANK_REBALANCE_COSTS))
+    parts = plug.HostUpperSystem().partition(g, SHARDS, fractions=fractions)
+    g_mut, _ = graph_mutation.apply_to_graph(
+        g, shard0_batches(parts, g.num_vertices, seed))
+    ref_mut = plug.run_reference(g_mut, sssp_bf(g_mut, sources=[0, 1, 2, 3]),
+                                 device="cuda")[0]
+    out = {"reference_mutated_s": time.perf_counter() - t0, "runs": {}}
+    for rank_runs, ref in zip(runs, (refs["sssp_bf"][0], refs["sssp_bf"][0],
+                                     ref_mut)):
+        label = rank_runs[0]["run"]
+        states = [np.load(_rank_file(tmp, label, r)) for r in range(RANKS)]
+        if any(st.tobytes() != states[0].tobytes() for st in states[1:]):
+            raise AssertionError(f"{label}: the ranks' states differ")
+        check_state(label, states[0], ref, None)
+        keys = ("iterations", "converged", "events", "members")
+        if len({tuple(str(r[k]) for k in keys) for r in rank_runs}) != 1:
+            raise AssertionError(f"{label}: the ranks' runs differ")
+        if any(r["rebuild_fetches"] for r in rank_runs):
+            raise AssertionError(f"{label}: fetches inside a rebuild")
+        cuts = sorted({int(i) for r in rank_runs for i in r["rebuild_s"]})
+        out["runs"][label] = {
+            "iterations": rank_runs[0]["iterations"],
+            "members_end": rank_runs[0]["members"],
+            "events": rank_runs[0]["events"],
+            "rebuild_s": [r["rebuild_s"] for r in rank_runs],
+            "segments": [_segments(r["stepped"], r["step_s"], cuts)
+                         for r in rank_runs],
+            "csr_tile_launches": [r["csr_tile_launches"] for r in rank_runs],
+            "wall_s": [r["wall_s"] for r in rank_runs]}
+    kill_join = runs[0][0]
+    got = [{k: e[k] for k in ("iteration", "killed", "joined",
+                              "devices_after", "device_ids", "assignment",
+                              "repartitioned")}
+           for e in kill_join["events"] if e["kind"] == "migration"]
+    want = planned_migrations(SHARDS, RANK_EPOCH_SCHEDULE,
+                              kill_join["iterations"])
+    if got != want or len(got) != 2:
+        raise AssertionError(f"{kill_join['run']}: migrations {got}, the "
+                             f"one-process planner's {want}")
+    if any(e["fractions"] != [float(f) for f in fractions] for e in eps):
+        raise AssertionError(f"rebalance fractions {eps[0]['fractions']}, "
+                             f"Lemma 2's {list(fractions)}")
+    mut = [e["mutation"] for e in eps]
+    if any(x["shards_recut"] != 1 or x["mode"] != "dirty"
+           or not x["incremental"] for x in mut):
+        raise AssertionError(f"run_dynamic: {mut}")
+    out.update(plan=want, fractions=eps[0]["fractions"],
+               rebalance_s=[e["rebalance_s"] for e in eps],
+               mutation_s=[x["seconds"] for x in mut],
+               mutation=mut[0], init_s=[e["init_s"] for e in eps])
+    # a rank rebuilding longer than the others makes them wait in the next
+    # collective, which gives up at 60 s
+    waits = [max(r["rebuild_s"].values(), default=0.0)
+             for run in runs for r in run] + out["rebalance_s"] + \
+        out["mutation_s"]
+    out["longest_rebuild_s"] = max(waits)
+    out["near_collective_limit"] = max(waits) > 30.0
+    return out
+
+
+def phase_ranks(g, refs, resident4, mesh_its, seed, g_e, refs_e) -> tuple:
     """Phase 5e' (see the module docstring).  ``resident4``: phase 5e's
     runs (name → (label, state, ...)); ``mesh_its``: their iterations by
-    name.  Returns the phase's line and the ranks' csr_tile launches."""
+    name; ``g_e`` / ``refs_e``: 5g's graph and its references, which the
+    epoch arm runs on.  Returns the phase's line, the ranks' csr_tile
+    launches and the async arm's state on phase 3's graph (held to phase
+    5f's afterwards)."""
     import shutil
     import tempfile
 
     import numpy as np
 
+    from repro_torch.graph import generate
+    from repro_torch.graph.algorithms import sssp_bf
     from repro_torch.launch.mesh import spawn_ranks
 
     n = g.num_vertices
     t0 = time.perf_counter()
+    gr = generate.grid_road(ROAD_SIDE, seed=ROAD_SEED)
+    road_rec, road_state = road_async_mesh4(
+        gr, sssp_bf(gr, sources=[0, 1, 2, 3]))
+    graphs = {"rmat": g, "road": gr, "elastic": g_e}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
     try:
-        for k in ("src", "dst", "weights"):
-            np.save(Path(tmp) / f"{k}.npy", getattr(g, k))
-        write_s = time.perf_counter() - t0
-        ranks = spawn_ranks(ranks_world, RANKS, (tmp, n), backend="gloo",
+        t1 = time.perf_counter()
+        for name, graph in graphs.items():
+            for k in ("src", "dst", "weights"):
+                np.save(Path(tmp) / f"{name}.{k}.npy", getattr(graph, k))
+        write_s = time.perf_counter() - t1
+        sizes = {name: graph.num_vertices for name, graph in graphs.items()}
+        ranks = spawn_ranks(ranks_world, RANKS, (tmp, sizes, seed),
+                            backend="gloo",
                             init_method=f"file://{tmp}/init",
                             timeout_s=RANKS_TIMEOUT_S)
-        world_s = time.perf_counter() - t0 - write_s
+        world_s = time.perf_counter() - t1 - write_s
         out = {"phase": "ranks", "world": RANKS, "shards": SHARDS,
+               "reduced": {
+                   "epochs": f"(b) runs on 5g's R-MAT of scale "
+                             f"{ELASTIC_SCALE}, not {n.bit_length() - 1}, "
+                             "to keep the smoke well inside its time limit",
+                   "road": f"(a) on grid_road({ROAD_SIDE}) runs "
+                           f"{ROAD_ITERATIONS} iterations, as 5h's road "
+                           "runs do"},
                "backend": sorted({r["backend"] for r in ranks}),
                "devices": [r["device"] for r in ranks],
                "shards_by_rank": [r["shards"] for r in ranks],
                "caveat": RANKS_CAVEAT, "write_npy_s": write_s,
-               "world_s": world_s, "load_s": [r["load_s"] for r in ranks],
+               "road_mesh4": road_rec, "world_s": world_s,
+               "load_s": [r["load_s"] for r in ranks],
                "all_reduce_ms": [r["all_reduce_ms"] for r in ranks],
                "runs": {}}
         launches = 0
@@ -2430,10 +2909,25 @@ def phase_ranks(g, refs, resident4, mesh_its) -> tuple:
                                            "int32_codes": n * k * 4,
                                            "counts": n * 4}
             out["runs"][label] = run
+        out["async"] = {}
+        for label, name, _ in RANK_ASYNC_RUNS:
+            line, state = ranks_async_check(tmp, ranks, label)
+            out["async"][label] = line
+            launches += sum(line["csr_tile_launches"])
+            if name == "rmat":
+                async_state = state
+                continue
+            ranks_async_vs_mesh4(line, state, road_rec, road_state)
+            if line["held_device_iterations"] == 0 or \
+                    sum(line["rank_held_iterations"]) == 0:
+                raise AssertionError(f"{label}: no device held")
+        out["epochs"] = ranks_epochs_check(tmp, ranks, g_e, refs_e, seed)
+        launches += sum(sum(r["csr_tile_launches"])
+                        for r in out["epochs"]["runs"].values())
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t0
-    return out, launches
+    return out, launches, async_state
 
 
 # benchmarks/bench_accel.py's skewed R-MAT (_async_skew_table; no dedup)
@@ -2589,6 +3083,7 @@ def phase_async(g, parts, pr, sp, refs, mesh4, seed) -> tuple:
             for arm, kw in ASYNC_ARMS]
     runs.append(("pagerank/async-eager/mesh4", pr, ASYNC_ARMS[0][1],
                  (PR_RTOL, PR_ATOL), PR_ITERATIONS))
+    states = {}  # each sssp_bf arm's state, for phase 5e''s (a)
     for label, prog, kw, tol, max_it in runs:
         ref, ref_it = refs[prog.name]
         rec, launches, mw = async_run(label, g, parts, prog, kw, ref, tol,
@@ -2596,6 +3091,8 @@ def phase_async(g, parts, pr, sp, refs, mesh4, seed) -> tuple:
         if prog is pr and rec["iterations"] != ref_it:
             raise AssertionError(f"{label}: {rec['iterations']} iterations, "
                                  f"reference ran {ref_it}")
+        if prog is sp:
+            states[label] = np.asarray(mw._last_state)
         keep(label, rec, launches, mw, profile="holding" in label)
 
     # -- the skewed R-MAT: where devices hold
@@ -2630,7 +3127,7 @@ def phase_async(g, parts, pr, sp, refs, mesh4, seed) -> tuple:
             raise AssertionError(f"{label}: no device body was skipped")
         keep(label, rec, launches, mw, profile="holding" in label,
              frontier=frontier)
-    return out, launches_tile
+    return out, launches_tile, states
 
 
 # phase 5g: the structure-epoch layer.  Events fire before their iteration
@@ -4978,23 +5475,7 @@ def main(argv=None) -> int:
     e2e_launches["csr_tile"] += tune_launches + mesh_launches
     torch.cuda.empty_cache()
 
-    # -- 5e'. the graph loop across four gloo ranks on the card -----------
-    mesh_its = {r["run"].split("/")[0]: r["iterations"]
-                for r in mesh_rec.values() if isinstance(r, dict)}
-    ranks_rec, ranks_launches = phase_ranks(g, refs, resident4, mesh_its)
-    emit(ranks_rec)
-    e2e_launches["csr_tile"] += ranks_launches
-
-    # -- 5f. the async priority model at four logical devices --------------
-    mesh4 = {r["run"].split("/")[0]: (r["run"], r["per_iteration_s"])
-             for r in mesh_rec.values() if isinstance(r, dict)}
-    async_rec, async_launches = phase_async(g, parts, pr, sp, refs, mesh4,
-                                            args.seed)
-    emit(async_rec)
-    e2e_launches["csr_tile"] += async_launches
-    torch.cuda.empty_cache()
-
-    # -- 5g. the structure-epoch layer: kills, joins, mutations ------------
+    # 5g's graph and references (5e''s epoch arm runs on it too)
     t0 = time.perf_counter()
     n_e = 1 << ELASTIC_SCALE
     g_e = generate.rmat_stream(n_e, EDGE_FACTOR * n_e, seed=args.seed)
@@ -5003,6 +5484,31 @@ def main(argv=None) -> int:
     refs_e = {p.name: plug.run_reference(g_e, p, device="cuda")
               for p in (pr_e, sp_e)}
     setup_e = time.perf_counter() - t0
+
+    # -- 5e'. the graph loop across four gloo ranks on the card -----------
+    mesh_its = {r["run"].split("/")[0]: r["iterations"]
+                for r in mesh_rec.values() if isinstance(r, dict)}
+    ranks_rec, ranks_launches, ranks_async_state = phase_ranks(
+        g, refs, resident4, mesh_its, args.seed, g_e, refs_e)
+    e2e_launches["csr_tile"] += ranks_launches
+
+    # -- 5f. the async priority model at four logical devices --------------
+    mesh4 = {r["run"].split("/")[0]: (r["run"], r["per_iteration_s"])
+             for r in mesh_rec.values() if isinstance(r, dict)}
+    async_rec, async_launches, async_states = phase_async(
+        g, parts, pr, sp, refs, mesh4, args.seed)
+    emit(async_rec)
+    # 5e''s async arm against this phase's mesh=4 run of its arm
+    mesh4_label = f"sssp_bf/async-{RANK_ASYNC_ARM}/mesh4"
+    ranks_async_vs_mesh4(ranks_rec["async"][RANK_ASYNC_RUNS[0][0]],
+                         ranks_async_state, async_rec[mesh4_label],
+                         async_states[mesh4_label])
+    del ranks_async_state, async_states
+    emit(ranks_rec)
+    e2e_launches["csr_tile"] += async_launches
+    torch.cuda.empty_cache()
+
+    # -- 5g. the structure-epoch layer: kills, joins, mutations ------------
     elastic_rec, elastic_launches = phase_elastic(
         g_e, plug.HostUpperSystem().partition(g_e, SHARDS), pr_e, sp_e,
         refs_e, mesh4, args.seed, host_sp, sp_ref)

@@ -23,7 +23,10 @@ runs the same math continuously against a live fleet:
 Everything here is host-side numpy — no device state — so monitors can
 run in the launcher process of every host.  On one card the "devices" a
 monitor tracks are the logical devices of the shard axis
-(``plug.protocols.divisor_mesh``).
+(``plug.protocols.divisor_mesh``); across ranks they are the world's m,
+rank r hosting r·local … (r+1)·local − 1.  Every rank holds the same
+schedule, so every rank's monitor records every device's reports and
+makes the same plan.
 """
 from __future__ import annotations
 

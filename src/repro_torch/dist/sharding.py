@@ -36,6 +36,9 @@ with identity collectives.
 from __future__ import annotations
 
 import contextlib
+import copy
+import datetime
+import pickle
 import threading
 from typing import Any, Mapping, Sequence
 
@@ -245,6 +248,9 @@ def constrain(x, axes):
 # the shard axis across ranks
 # --------------------------------------------------------------------------
 _REDUCE_OPS = ("sum", "min", "max")
+#: how long an idle rank waits for the group's next post (the survivors may
+#: run for that long without it)
+IDLE_WAIT_S = 3600.0
 
 
 class RankMesh:
@@ -252,22 +258,38 @@ class RankMesh:
 
     The W ranks of the default group (the world) each hold ``local``
     logical devices on the rank's own device, so the axis spans
-    m = W·local devices, as the JAX package's m devices do.  Rank r owns
-    the contiguous shards [r·S/W, (r+1)·S/W) (:meth:`shard_range`), each of
-    its logical devices S/m of them.
+    m = W·local devices, as the JAX package's m devices do.  The world's
+    devices are numbered as the fleet monitor numbers them: rank r hosts
+    devices r·local … (r+1)·local − 1.  Rank r owns the contiguous shards
+    [r·S/W, (r+1)·S/W) (:meth:`shard_range`), each of its logical devices
+    S/m of them.
+
+    A survivor mesh (:meth:`survivors`) keeps m′ of the world's devices,
+    in ascending order: device i of the axis owns the shards
+    [i·S/m′, (i+1)·S/m′), and the ranks hosting at least one of them form
+    the mesh's process group.  A rank's ``local`` is then how many of
+    them it hosts (1 or 2 of a 2 × 2 world's, say) and its shards are
+    those of its devices, still contiguous since the devices are sorted.
+    A world rank hosting none is *idle*: it is outside the group and
+    calls none of the mesh's collectives.
 
     ``device`` is where the rank computes: ``cuda:{r % device_count}`` when
     None (which raises without a GPU), or what the caller passes ("cpu" in
-    the tests).  Collectives:
+    the tests).  Collectives, over the mesh's group:
 
-    * :meth:`all_reduce` — a tensor on the rank's device, over the world.
-      Every device collective is an ``all_reduce``: gloo documents only
-      ``broadcast`` and ``all_reduce`` for CUDA tensors, and several ranks
-      on one card must use gloo (NCCL refuses two ranks on one GPU).
-    * :meth:`all_reduce_host` — a host array, over ``cpu_group``: the world
+    * :meth:`all_reduce` — a tensor on the rank's device.  Every device
+      collective is an ``all_reduce`` or a ``broadcast``: gloo documents
+      only those two for CUDA tensors, and several ranks on one card must
+      use gloo (NCCL refuses two ranks on one GPU).
+    * :meth:`all_reduce_host`, :meth:`all_gather_host` and
+      :meth:`broadcast_host` — host data, over ``cpu_group``: the group
       itself when its backend is gloo, else a gloo group of the same
-      ranks, made here (every rank must construct the mesh, as
+      ranks, made here (every world rank must construct the mesh, as
       ``torch.distributed.new_group`` requires).
+    * :meth:`post` / :meth:`wait_post` — a message from the group's
+      leader to the idle ranks through the world's rendezvous store: an
+      idle rank waits there, for as long as the survivors run, without
+      holding a collective open.
 
     The mesh never picks the world's backend: the caller's
     ``init_process_group`` did.
@@ -282,9 +304,10 @@ class RankMesh:
             raise ValueError(f"local must be an int >= 1 logical devices a "
                              f"rank, got {local!r}")
         self.group = dist.group.WORLD
-        self.world = dist.get_world_size(self.group)
+        self.world_size = dist.get_world_size(self.group)
+        self.world = self.world_size
         self.rank = dist.get_rank(self.group)
-        self.local = int(local)
+        self.local = self.world_local = int(local)
         if device is None:
             device = (f"cuda:{self.rank % torch.cuda.device_count()}"
                       if torch.cuda.is_available() else "cuda")
@@ -295,20 +318,69 @@ class RankMesh:
         else:
             self.cpu_group = dist.new_group(
                 dist.get_process_group_ranks(self.group), backend="gloo")
+        self.device_ids = tuple(range(self.world_size * self.local))
+        self.members = tuple(range(self.world_size))
+        self.offset = self.rank * self.local
+        # every mesh made from this one shares the groups already made, by
+        # member ranks: the ranks make the same calls in the same order, so
+        # a hit on one rank is a hit on every rank
+        self._groups = {self.members: (self.group, self.cpu_group)}
+        self._store = None
 
     @property
     def size(self) -> int:
         """m, the logical devices of the axis over every rank."""
-        return self.world * self.local
+        return len(self.device_ids)
+
+    @property
+    def idle(self) -> bool:
+        """True on a world rank that hosts none of the axis' devices."""
+        return self.local == 0
+
+    @property
+    def leader(self) -> int:
+        """The group's lowest rank: it posts to the idle ranks."""
+        return self.members[0]
+
+    def survivors(self, device_ids) -> "RankMesh":
+        """The mesh of the world devices ``device_ids`` — a kill's, a
+        straggler's or a join's survivor axis.  Every world rank must call
+        it, idle ones included, with the same ids: a group of new member
+        ranks is made with ``torch.distributed.new_group``, which is
+        collective over the world."""
+        ids = tuple(sorted(int(d) for d in device_ids))
+        total = self.world_size * self.world_local
+        if not ids or len(set(ids)) != len(ids) or ids[0] < 0 \
+                or ids[-1] >= total:
+            raise ValueError(f"survivor devices {list(ids)} must be distinct "
+                             f"ids of the world's {total}")
+        members = tuple(sorted({d // self.world_local for d in ids}))
+        if members not in self._groups:
+            group = dist.new_group(list(members), backend=self.backend)
+            cpu = (group if self.backend == "gloo" else
+                   dist.new_group(list(members), backend="gloo"))
+            self._groups[members] = (group, cpu)
+        new = copy.copy(self)
+        new.device_ids, new.members = ids, members
+        new.world = len(members)
+        mine = [i for i, d in enumerate(ids)
+                if d // self.world_local == self.rank]
+        new.local = len(mine)
+        new.offset = mine[0] if mine else 0
+        new.group, new.cpu_group = (self._groups[members] if mine
+                                    else (None, None))
+        return new
 
     def shard_range(self, num_shards: int) -> range:
-        """The shards this rank owns: the contiguous [r·S/W, (r+1)·S/W)."""
+        """The shards this rank's devices own: [o·S/m, (o+local)·S/m) for
+        its first device o of the axis (the world mesh: [r·S/W,
+        (r+1)·S/W)); empty on an idle rank."""
         if num_shards < 1 or num_shards % self.size:
             raise ValueError(f"{self.world} ranks x {self.local} logical "
                              f"devices (m={self.size}) must divide the "
                              f"{num_shards} shards")
-        per = num_shards // self.world
-        return range(self.rank * per, (self.rank + 1) * per)
+        per = num_shards // self.size
+        return range(self.offset * per, (self.offset + self.local) * per)
 
     @staticmethod
     def _op(op: str):
@@ -317,29 +389,72 @@ class RankMesh:
         return {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
                 "max": dist.ReduceOp.MAX}[op]
 
+    def _member(self):
+        if self.idle:
+            raise RuntimeError(f"rank {self.rank} is idle: it is outside the "
+                               f"group of {list(self.members)}")
+
     def all_reduce(self, tensor: torch.Tensor, op: str = "sum"):
         """Reduces ``tensor`` in place over ``group`` with ``op`` ("sum",
         "min", "max") and returns it: every rank holds the same bytes."""
+        self._member()
         dist.all_reduce(tensor, op=self._op(op), group=self.group)
+        return tensor
+
+    def broadcast(self, tensor: torch.Tensor, src: int):
+        """``tensor`` of world rank ``src`` (a member) on every member, in
+        place."""
+        self._member()
+        dist.broadcast(tensor, src=src, group=self.group)
         return tensor
 
     def all_reduce_host(self, array, op: str = "sum") -> np.ndarray:
         """Reduces a host array over ``cpu_group`` → a new numpy array."""
+        self._member()
         t = torch.from_numpy(np.array(array, copy=True))
         dist.all_reduce(t, op=self._op(op), group=self.cpu_group)
         return t.numpy()
 
     def all_gather_host(self, obj) -> list:
-        """Every rank's ``obj`` (picklable host data), in rank order, over
-        ``cpu_group``."""
+        """Every member's ``obj`` (picklable host data), in rank order,
+        over ``cpu_group``."""
+        self._member()
         out = [None] * self.world
         dist.all_gather_object(out, obj, group=self.cpu_group)
         return out
 
+    def broadcast_host(self, obj, src: int):
+        """World rank ``src``'s ``obj`` (picklable host data) on every
+        member, over ``cpu_group``."""
+        self._member()
+        box = [obj]
+        dist.broadcast_object_list(box, src=src, group=self.cpu_group)
+        return box[0]
+
+    def post(self, key: str, obj) -> None:
+        """Leaves ``obj`` under ``key`` in the world's store for
+        :meth:`wait_post` (the leader's message to the idle ranks)."""
+        self._world_store().set(f"repro_torch/{key}", pickle.dumps(obj))
+
+    def wait_post(self, key: str):
+        """The object posted under ``key``, once it is there (at most
+        ``IDLE_WAIT_S``)."""
+        store = self._world_store()
+        key = f"repro_torch/{key}"
+        store.wait([key], datetime.timedelta(seconds=IDLE_WAIT_S))
+        return pickle.loads(store.get(key))
+
+    def _world_store(self):
+        if self._store is None:
+            from torch.distributed import distributed_c10d
+
+            self._store = distributed_c10d._get_default_store()
+        return self._store
+
     def __repr__(self) -> str:
         return (f"RankMesh(rank={self.rank}, world={self.world}, "
-                f"local={self.local}, device={self.device}, "
-                f"backend={self.backend})")
+                f"local={self.local}, devices={list(self.device_ids)}, "
+                f"device={self.device}, backend={self.backend})")
 
 
 class LocalMesh:
@@ -349,7 +464,8 @@ class LocalMesh:
     serves one process and many ranks."""
 
     world = 1
-    rank = 0
+    rank = offset = 0
+    idle = False
 
     def shard_range(self, num_shards: int) -> range:
         """Every shard."""

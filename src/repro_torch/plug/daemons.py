@@ -494,10 +494,12 @@ class ShardedDaemon(VectorizedDaemon):
     contiguous shards g·S/m … (g+1)·S/m − 1, as ``shard_map`` splits the
     JAX package's stacked axis, and its partial folds only those.  Over a
     :class:`~repro_torch.dist.sharding.RankMesh` ``bind_shards`` takes this
-    rank's S/W shards only (no rank compacts another's tiles) and stacks
-    them for its ``local`` logical devices: ``m`` is then ``local``, and
+    rank's shards only (no rank compacts another's tiles) and stacks them
+    for its ``local`` logical devices: ``m`` is then ``local``, and
     ``run_all_shards`` returns (local, N, K) partials, (local, N) counts
-    and the rank's own (S/W,) ``blocks_run``.
+    and the rank's own ``blocks_run``.  On a survivor mesh ``local`` may
+    differ from rank to rank, and an idle rank binds no shard (``m`` 0,
+    nothing stacked).
 
     ``kernel="cuda"`` runs the CSR aggregation instead of the block
     program: ``bind_shards`` autotunes its config once, on the shard with
@@ -592,6 +594,9 @@ class ShardedDaemon(VectorizedDaemon):
         so one rectangular layout serves all shards.  Returns self."""
         self._setup_shard_axis(blocksets, mesh, axis)
         self._clear_oocore()
+        if not blocksets:  # an idle rank of a survivor RankMesh
+            self._stacked = None
+            return self
 
         # Digest-verified adoption (see share_from).  Digests are recorded
         # whether or not there is a donor, so this daemon can be one.
@@ -629,6 +634,12 @@ class ShardedDaemon(VectorizedDaemon):
         if mesh is not None:
             self.mesh = mesh
         s = len(blocksets)
+        if isinstance(self.mesh, RankMesh) and self.mesh.idle:
+            if s:
+                raise ValueError("an idle rank binds no shards")
+            self.m = self.num_shards = 0
+            self._blocksets = []
+            return
         vbs = {bs.vblock_size for bs in blocksets}
         bbs = {bs.block_size for bs in blocksets}
         if len(vbs) != 1 or len(bbs) != 1:

@@ -19,7 +19,9 @@ windows, serving caches).  Triggers *publish* a new epoch; subscribers
 rebuild in registration order; drive loops notice the version change at
 their next between-iteration poll and re-place their carry — they never
 call ``remesh``/``replan`` themselves (test-enforced).  On one card the
-epoch's ``mesh`` is the int m of logical devices of the shard axis.
+epoch's ``mesh`` is the int m of logical devices of the shard axis;
+across ranks it is the :class:`~repro_torch.dist.sharding.RankMesh` of
+the survivor devices, and every rank publishes the same versions.
 """
 from __future__ import annotations
 

@@ -52,6 +52,7 @@ without a checkpoint.
 from __future__ import annotations
 
 import inspect
+import itertools
 import time
 
 import numpy as np
@@ -78,6 +79,10 @@ from repro_torch.plug.protocols import (DevicePartialUpper, ElasticUpper,
                                         Result, ShardCapableDaemon,
                                         divisor_mesh, not_ported_error)
 from repro_torch.plug.uppers import get_upper_system
+
+# names the channels on which a survivor group's leader posts to the idle
+# ranks: every rank builds its middlewares over a RankMesh in the same order
+_CHANNELS = itertools.count()
 
 # Computation-model orders the barriered fused loop realizes.  BSP and GAS
 # produce identical state trajectories on the same template
@@ -227,11 +232,24 @@ class Middleware:
     on every rank, and every rank's ``Result`` and records are the same
     (but a daemon's own record entries, which list the rank's blocks).
     One process runs the same code over ``LOCAL_MESH``, whose collectives
-    return their input.
-    Structure epochs (``monitor=``, ``failures=``, ``mutations=``,
-    ``migrate``, ``rebalance``, ``apply_mutations``), out of core and the
-    fused async loop across ranks raise ``NotImplementedError`` (ROADMAP
-    Queue A item 13d).
+    return their input.  The fused async loop runs across ranks too: a rank
+    carries the scheduling state of its own logical devices, and the hold
+    verdict rides one small ``all_reduce`` an iteration.
+
+    Structure epochs across ranks: every rank holds the graph and the same
+    monitor, schedules and partitions, so every rank makes the same plan —
+    m′, the survivor devices, the Lemma-2 assignment or re-partition, the
+    mutated partitions — and builds blocks only for the shards its devices
+    own under it; no graph data moves.  A kill, straggler or join re-meshes
+    onto a survivor :meth:`~repro_torch.dist.sharding.RankMesh.survivors`
+    mesh, whose group is the ranks that host its devices.  A rank that
+    hosts none is *idle*: it stays in the run until it ends, takes part in
+    every ``new_group`` the survivors make, replays the survivors' polls
+    when their leader posts one (a membership change) and rejoins on a
+    join, getting the carry by a broadcast; at the end it takes the
+    leader's ``Result``, so every world rank returns the same one.  Out of
+    core across ranks raises ``NotImplementedError`` (ROADMAP Queue A item
+    13d).
 
     With a shard-capable daemon (``daemon="sharded"``) and a device-partial
     upper system (``upper="mesh"``), ``run`` drives the fused
@@ -284,12 +302,16 @@ class Middleware:
                 raise ValueError(f"device={device!r} differs from the "
                                  f"RankMesh's {self.ranks.device}")
             self.device = self.ranks.device
-            for name, value in (("monitor", monitor), ("failures", failures),
-                                ("mutations", mutations), ("oocore", oocore)):
-                if value is not None:
-                    self._refuse_ranks(f"{name}=")
-            if self._detect_fused() == "async":
-                self._refuse_ranks("the fused async loop")
+            if oocore is not None:
+                self._refuse_ranks("oocore=")
+        # the leader's posts to idle ranks: their channel, how many were
+        # made, and the polls they replay (see _poll_structure)
+        self._channel = (f"mw{next(_CHANNELS)}"
+                         if isinstance(self.ranks, RankMesh) else None)
+        self._posts = 0
+        self._polled = 0  # the last iteration polled in this run
+        self._poll_it = None  # the iteration whose poll is running
+        self._replaying = False
 
         self._owns_partitions = partitions is None
         if partitions is None:
@@ -345,8 +367,14 @@ class Middleware:
                 raise ValueError(
                     f"upper system {type(self.upper).__name__} cannot "
                     "remesh/migrate (see plug.protocols.ElasticUpper)")
-            # the fleet is the shard axis' logical devices, ids 0 … m0 − 1
+            # the fleet is the shard axis' logical devices, ids 0 … m0 − 1;
+            # across ranks the world's, rank r hosting r·local … (r+1)·local
+            # − 1
             m0 = divisor_mesh(self.num_shards, self.upper.mesh)
+            axis = list(range(m0))
+            if isinstance(self.ranks, RankMesh):
+                m0 = self.ranks.world_size * self.ranks.world_local
+                axis = list(self.ranks.device_ids)
             self.fleet_devices = list(range(m0))
             if self.monitor is None:
                 self.monitor = dist_fault.FleetMonitor(num_hosts=m0,
@@ -356,7 +384,7 @@ class Middleware:
                     f"monitor tracks {self.monitor.num_hosts} hosts but the "
                     f"fused shard axis has {m0} devices — one monitor slot "
                     "per logical device")
-            self._mesh_device_ids = list(range(m0))
+            self._mesh_device_ids = axis
             # the initial placement acknowledges what the monitor already
             # knows; straggler migrations key off drift from this baseline
             self.monitor.ack_capacity()
@@ -446,10 +474,17 @@ class Middleware:
         b = self._resolve_block_size()
         self.block_size = b
         blocksets = [build_blocks(self.partitions[j], b) for j in self.shards]
-        vb = max(bs.vblock_size for bs in blocksets)
-        vb = int(self.ranks.all_reduce_host(np.array([vb]), "max")[0])
+        vb = self._agree(max((bs.vblock_size for bs in blocksets), default=0))
         self.blocksets = [widen_vblocks(bs, vb) for bs in blocksets]
         self.vblock_size = vb
+
+    def _agree(self, value: int) -> int:
+        """The largest ``value`` over the ranks of the mesh (this one's on
+        one process or on an idle rank, whose value the group never
+        reads)."""
+        if self.ranks.idle:
+            return int(value)
+        return int(self.ranks.all_reduce_host(np.array([value]), "max")[0])
 
     def _blocks_total(self) -> int:
         """Every shard's block count, summed over the ranks."""
@@ -534,14 +569,73 @@ class Middleware:
         bus *version*, never to this dict, so externally triggered
         publishes are adopted the same way."""
         out: dict = {}
-        if self.monitor is not None:
-            mig = self._poll_faults(it)
-            if mig is not None:
-                out["migration"] = mig
-        mut = self._poll_mutations(it)
-        if mut is not None:
-            out["mutation"] = mut
+        self._poll_it = it
+        try:
+            if self.monitor is not None:
+                mig = self._poll_faults(it)
+                if mig is not None:
+                    out["migration"] = mig
+            mut = self._poll_mutations(it)
+            if mut is not None:
+                out["mutation"] = mut
+        finally:
+            self._poll_it = None
+        self._polled = it
         return out
+
+    # -- idle ranks ---------------------------------------------------------
+    def _idle_ranks(self) -> bool:
+        """True when some world rank sits outside the mesh's group."""
+        rm = self.ranks
+        return isinstance(rm, RankMesh) and len(rm.members) < rm.world_size
+
+    def _rank_joined(self) -> bool:
+        """True on a rank the last re-mesh brought back from idle."""
+        return self.ranks.rank in getattr(self.upper, "joined", ())
+
+    def _post(self, message) -> None:
+        """The group's leader posts ``message`` to the idle ranks; every
+        member counts it, so the next post's key is the same everywhere."""
+        if self.ranks.rank == self.ranks.leader:
+            self.ranks.post(f"{self._channel}/{self._posts}", message)
+        self._posts += 1
+
+    def _wake_idle(self, device_ids) -> None:
+        """Before a mid-run membership change: the idle ranks must make the
+        same ``new_group`` calls, so the leader posts the poll's iteration
+        and they replay the polls up to it (:meth:`_sit_out`).  Between
+        runs every rank calls the trigger itself, and a replaying rank is
+        the one woken."""
+        if self._replaying or self._poll_it is None or not self._idle_ranks():
+            return
+        rm = self.ranks
+        members = tuple(sorted({int(d) // rm.world_local
+                                for d in device_ids}))
+        if members != rm.members:
+            self._post(("poll", self._poll_it, None))
+
+    def _sit_out(self):
+        """An idle rank's part of a run: waits for the leader's posts and
+        replays the survivors' polls up to each (the same plans, epochs and
+        ``new_group`` calls, with no blocks to build).  Returns the
+        leader's ``Result`` at the end of the run, or ``(iteration,
+        record entries)`` when a join brought this rank back."""
+        while True:
+            kind, it, result = self.ranks.wait_post(
+                f"{self._channel}/{self._posts}")
+            self._posts += 1
+            self._replaying = True
+            try:
+                ev: dict = {}
+                for t in range(self._polled + 1, it + 1):
+                    ev = self._poll_structure(t)
+            finally:
+                self._replaying = False
+            if kind == "done":
+                self.stats = result.stats
+                return result
+            if not self.ranks.idle:
+                return it, ev
 
     def _poll_mutations(self, it: int) -> dict | None:
         """Applies the mutation batches due at iteration ``it``.  Each batch
@@ -663,12 +757,18 @@ class Middleware:
 
         The fused drive loop sees the version change at its next poll and
         re-places its carry; the vertex state stays on the card.  Also
-        callable directly after ``monitor.mark_failed(...)``.  Returns the
-        record: ``killed``, ``stragglers``, ``joined``, ``devices_before``,
-        ``devices_after``, ``device_ids``, ``assignment``,
-        ``repartitioned``, ``dirty_vertices`` and ``seconds``.
+        callable directly after ``monitor.mark_failed(...)`` (across ranks,
+        on every rank).  Returns the record: ``killed``, ``stragglers``,
+        ``joined``, ``devices_before``, ``devices_after``, ``device_ids``,
+        ``assignment``, ``repartitioned``, ``dirty_vertices`` and
+        ``seconds``.
+
+        Across ranks every rank makes this plan, and the epoch's ``mesh`` is
+        the survivor :class:`~repro_torch.dist.sharding.RankMesh` of the m′
+        devices (made on every world rank, idle ones included).  A rank then
+        builds blocks for the shards its devices own: a re-partition's, or
+        after a re-placement only those it did not hold already.
         """
-        self._refuse_ranks("migrate()")
         t0 = time.perf_counter()
         mon = self.monitor
         if mon is None:
@@ -689,6 +789,12 @@ class Middleware:
         m_old = len(self._mesh_device_ids)
         cap_old = self.num_shards // max(1, m_old)
         repartitioned = self._owns_partitions and mon.observed
+        before = self.ranks
+        if isinstance(before, RankMesh):
+            self._wake_idle(chosen)
+            self.ranks = before.survivors(chosen)
+        held = dict(zip(self.shards, self.blocksets))
+        self.shards = self.ranks.shard_range(self.num_shards)
         if repartitioned:
             # capacity-aware re-partition: device chosen[i] holds `cap`
             # slots, each sized frac[i]/cap of the edges (Lemma 2)
@@ -715,13 +821,16 @@ class Middleware:
             self.partitions = [self.partitions[int(i)] for i in perm]
             # reorder, don't rebuild: the BlockSet objects keep their
             # identity, so the daemon's per-blockset tiles stay cached
-            self.blocksets = [self.blocksets[int(i)] for i in perm]
-        before, self._mesh_device_ids = self._mesh_device_ids, list(chosen)
+            self.blocksets = self._place_blocksets(
+                [int(perm[s]) for s in self.shards], held,
+                stale=before.idle)
+        ids_before, self._mesh_device_ids = (self._mesh_device_ids,
+                                             list(chosen))
         record = {
             "killed": [int(d) for d in killed],
             "stragglers": [int(d) for d in stragglers],
             "joined": [int(d) for d in joined],
-            "devices_before": len(before),
+            "devices_before": len(ids_before),
             "devices_after": m_new,
             "device_ids": [int(d) for d in chosen],
             "assignment": [int(a) for a in assign],
@@ -731,11 +840,31 @@ class Middleware:
         }
         cause = ("kill" if killed
                  else "join" if (joined or m_new > m_old) else "rebalance")
-        self.epochs.publish(cause, mesh=m_new, partitions=self.partitions,
-                            blocksets=self.blocksets, dirty_vertices=dirty,
-                            meta=record)
+        self.epochs.publish(
+            cause, mesh=(self.ranks if isinstance(self.ranks, RankMesh)
+                         else m_new),
+            partitions=self.partitions, blocksets=self.blocksets,
+            dirty_vertices=dirty, meta=record)
         record["seconds"] = time.perf_counter() - t0
         return record
+
+    def _place_blocksets(self, sources, held, *, stale=False) -> list:
+        """The blocksets of this process's shards after a re-placement:
+        shard ``i`` takes what was shard ``sources[i]``.  Those this
+        process held are kept (their tiles stay cached); across ranks the
+        others are built from their unchanged partitions, and the width is
+        agreed again over the new group (a rank back from idle, ``stale``,
+        offers none of its own)."""
+        sets = [held.get(j) for j in sources]
+        if not isinstance(self.ranks, RankMesh):
+            return sets
+        sets = [bs if bs is not None else
+                build_blocks(self.partitions[j], self.block_size)
+                for j, bs in zip(self.shards, sets)]
+        self.vblock_size = self._agree(max(
+            [0 if stale else self.vblock_size]
+            + [bs.vblock_size for bs in sets]))
+        return [widen_vblocks(bs, self.vblock_size) for bs in sets]
 
     # -- Lemma-2 rebalancing ----------------------------------------------
     def rebalance(self, capacities=None) -> np.ndarray:
@@ -755,7 +884,6 @@ class Middleware:
         caller-supplied ``partitions`` refuses: re-partitioning would
         replace the caller's partitioning with the upper system's default.
         """
-        self._refuse_ranks("rebalance()")
         if not self._owns_partitions:
             raise ValueError(
                 "rebalance() would replace the explicit partitions this "
@@ -845,28 +973,34 @@ class Middleware:
         rebuild gives, :func:`~repro_torch.core.blocks.widen_vblocks`),
         with their edge arrays — and so their compacted tiles — kept.  Only
         when the auto block size moved too is every shard rebuilt.
-        Returns the shards whose blocks were rebuilt."""
+        Across ranks each dirty shard is rebuilt by its owner alone, and the
+        ranks agree on whether any grew and on the new width.  Returns the
+        shards whose blocks were rebuilt, over every rank."""
         dirty_shards = [int(j) for j in dirty_shards]
+        first = self.shards.start
         new_sets = list(self.blocksets)
         grown = []
         for j in dirty_shards:
+            if j not in self.shards:
+                continue
             try:
-                new_sets[j] = build_blocks(self.partitions[j],
-                                           self.block_size,
-                                           vblock_size=self.vblock_size)
+                new_sets[j - first] = build_blocks(
+                    self.partitions[j], self.block_size,
+                    vblock_size=self.vblock_size)
             except ValueError:
                 grown.append(j)
-        if grown:
+        if self._agree(len(grown)):
             if self._resolve_block_size() != self.block_size:
                 self._setup_blocks()
                 return list(range(self.num_shards))
             for j in grown:
-                new_sets[j] = build_blocks(self.partitions[j],
-                                           self.block_size)
+                new_sets[j - first] = build_blocks(self.partitions[j],
+                                                   self.block_size)
             # the widest grown shard sets the width every shard pads to,
             # as _setup_blocks would pick it: no unchanged shard exceeds
             # the old width
-            self.vblock_size = max(bs.vblock_size for bs in new_sets)
+            self.vblock_size = self._agree(
+                max((bs.vblock_size for bs in new_sets), default=0))
             new_sets = [widen_vblocks(bs, self.vblock_size)
                         for bs in new_sets]
         self.blocksets = new_sets
@@ -888,7 +1022,6 @@ class Middleware:
         removals — which :meth:`run_dynamic` consumes.  An empty batch
         publishes nothing and returns the current epoch.
         """
-        self._refuse_ranks("apply_mutations()")
         if isinstance(batch, graph_mutation.MutationLog):
             batch = batch.freeze()
         batch.validate(self.n)
@@ -1058,28 +1191,35 @@ class HostDriveLoop:
         record.setdefault("shard_busy_s", [0.0] * shards)[j] += busy
         record.setdefault("shard_entities", [0] * shards)[j] += entities
         if not first_seen:
-            mw._estimator.update(j, entities, busy)
+            record.setdefault("shard_timed", [0] * shards)[j] = 1
         return agg, cnt, boundary_reads.astype(np.int64)
 
     _SUMMED = ("blocks_total", "blocks_run", "shard_busy_s",
-               "shard_entities")
+               "shard_entities", "shard_timed")
 
     def _sum_record(self, part: dict, rec: dict) -> None:
         """Adds a gather's record ``part`` to ``rec``: its per-shard
         counters summed over the ranks — ``blocks_total``, ``blocks_run``,
         and the S-long ``shard_busy_s`` / ``shard_entities`` (each rank
         fills its slots; present when some shard ran) — and the daemon's
-        own entries (lists of this process's blocks) as they are."""
+        own entries (lists of this process's blocks) as they are.  The
+        shards' busy times then reach the capacity estimator on every rank
+        (those timed outside a first call of their size, ``shard_timed``),
+        so every rank's ``rebalance()`` sees every shard's."""
         s = self.mw.num_shards
-        vec = np.zeros(2 + 2 * s)
+        vec = np.zeros(2 + 3 * s)
         vec[0] = part.get("blocks_total", 0)
         vec[1] = part.get("blocks_run", 0)
         vec[2:2 + s] = part.get("shard_busy_s", 0.0)
-        vec[2 + s:] = part.get("shard_entities", 0)
+        vec[2 + s:2 + 2 * s] = part.get("shard_entities", 0)
+        vec[2 + 2 * s:] = part.get("shard_timed", 0)
         vec = self.mw.ranks.all_reduce_host(vec, "sum")
+        for j in np.nonzero(vec[2 + 2 * s:])[0]:
+            self.mw._estimator.update(int(j), int(vec[2 + s + j]),
+                                      float(vec[2 + j]))
         for i, key in enumerate(("blocks_total", "blocks_run")):
             rec[key] = rec.get(key, 0) + int(vec[i])
-        if vec[2 + s:].any():
+        if vec[2 + s:2 + 2 * s].any():
             busy = rec.setdefault("shard_busy_s", [0.0] * s)
             ents = rec.setdefault("shard_entities", [0] * s)
             for j in range(s):
@@ -1267,6 +1407,8 @@ class _FusedLoopBase:
         self._use_frontier = (mw.program.frontier_driven
                               and mw.options.frontier_block_skipping)
         self._epoch_seen = -1  # the bus version the carry is placed for
+        self._placed = None  # the rank mesh the carry is placed for
+        self._records: list = []  # the run's per-iteration records
 
     def _init_carry(self, state, active, active0):
         """The first carry from the placed state and frontier (``active0``
@@ -1302,25 +1444,63 @@ class _FusedLoopBase:
         return (torch.as_tensor(state0, device=dev),
                 torch.ones(self.mw.n, dtype=torch.bool, device=dev))
 
+    def _joiner_carry(self, state, active):
+        """A rank back from idle: the carry's tensors that
+        :meth:`_migrate_carry` overwrites by broadcast, at the current
+        graph's shapes."""
+        return (state, active)
+
+    def _host_state(self):
+        """Host values of the loop a rank back from idle takes over."""
+        return None
+
+    def _set_host_state(self, value) -> None:
+        pass
+
     def _adopt_epoch(self, carry, aux, init_fn):
         """Re-places the carry for the epoch the middleware just published
         → ``(carry', aux')``.  A migration keeps the state where it lies
         (``upper.migrate``); a mutation epoch recomputes aux from the
         mutated graph (degrees changed) and goes through
-        :meth:`_mutate_carry`."""
+        :meth:`_mutate_carry`.
+
+        Across ranks a migration is a new mesh: a rank back from idle takes
+        the records so far and the loop's host values from the upper's
+        ``source`` rank, then the carry and aux by broadcast; a rank whose
+        devices left the axis takes part in the old group's last
+        collectives and goes idle."""
         mw = self.mw
         ep = mw.epochs.epoch
-        if ep.cause == "mutation":
+        moved = mw.ranks is not self._placed
+        if moved and mw._rank_joined():
             state0, aux0 = init_fn(mw.graph)
-            return (self._mutate_carry(carry, state0, ep),
-                    torch.as_tensor(aux0, device=mw.device))
-        return self._migrate_carry(carry), mw.upper.migrate(aux)
+            dev = mw.device
+            carry = self._joiner_carry(
+                torch.as_tensor(state0, device=dev),
+                torch.ones(mw.n, dtype=torch.bool, device=dev))
+            aux = torch.as_tensor(aux0, device=dev)
+        if moved and mw.upper.joined and not mw.ranks.idle:
+            records, rounds, host = mw.ranks.broadcast_host(
+                (self._records, mw.stats.rounds_total, self._host_state()),
+                mw.upper.source)
+            self._records[:] = records
+            mw.stats.rounds_total = rounds
+            self._set_host_state(host)
+        if ep.cause != "mutation" or moved:
+            carry, aux = self._migrate_carry(carry), mw.upper.migrate(aux)
+        if ep.cause == "mutation" and not mw.ranks.idle:
+            state0, aux0 = init_fn(mw.graph)
+            carry, aux = (self._mutate_carry(carry, state0, ep),
+                          torch.as_tensor(aux0, device=mw.device))
+        self._placed = mw.ranks
+        return carry, aux
 
     def run(self, max_iterations: int | None = None, *,
             init=None, frontier=None) -> Result:
         mw = self.mw
         prog = mw.program
         mw.upper.reset()
+        mw._polled = 0
         max_it = max_iterations or prog.max_iterations
         init_fn = init or prog.init
         state0, aux = init_fn(mw.graph)
@@ -1332,29 +1512,42 @@ class _FusedLoopBase:
         dev = mw.device
         state, aux, active = (torch.as_tensor(a, device=dev)
                               for a in (state0, aux, active0))
+        self._placed = mw.ranks
         carry = self._init_carry(state, active, active0)
         self._epoch_seen = mw.epochs.version
         # captured after _init_carry, which may arm the priority buckets
         stacked = mw.daemon.stacked
-        blocks_total = mw._blocks_total()
+        blocks_total = 0 if mw.ranks.idle else mw._blocks_total()
         s = mw.num_shards
-        per_iter: list[dict] = []
+        self._records = per_iter = []
         t0 = time.perf_counter()
         it = 0
         converged = False
 
-        for it in range(1, max_it + 1):
-            # The structure check between fused iterations: a device killed
-            # (or a batch due) "at iteration k" lands before iteration k
-            # runs.  The poll publishes epochs; the loop reacts to the bus
-            # VERSION and resumes from the carry — no checkpoint.
-            ev = mw._poll_structure(it)
+        while it < max_it or mw.ranks.idle:
+            if mw.ranks.idle:
+                # outside the survivors' group: sit the run out until its
+                # end, or until a join brings this rank back
+                got = mw._sit_out()
+                if isinstance(got, Result):
+                    return got
+                it, ev = got
+            else:
+                it += 1
+                # The structure check between fused iterations: a device
+                # killed (or a batch due) "at iteration k" lands before
+                # iteration k runs.  The poll publishes epochs; the loop
+                # reacts to the bus VERSION and resumes from the carry — no
+                # checkpoint.
+                ev = mw._poll_structure(it)
             if mw.epochs.version != self._epoch_seen:
                 t_reb = time.perf_counter()
                 carry, aux = self._adopt_epoch(carry, aux, init_fn)
+                self._epoch_seen = mw.epochs.version
+                if mw.ranks.idle:  # this rank's devices left the axis
+                    continue
                 # after the adoption, which may re-arm the buckets
                 stacked = mw.daemon.stacked
-                self._epoch_seen = mw.epochs.version
                 blocks_total = mw._blocks_total()
                 reb_s = time.perf_counter() - t_reb
                 for r in ev.values():  # charge the rebuild to its trigger
@@ -1380,7 +1573,7 @@ class _FusedLoopBase:
                 break
 
         final = carry[0].cpu().numpy()  # the run's one transfer of the state
-        return Result(
+        res = Result(
             state=final,
             iterations=it,
             converged=converged,
@@ -1388,6 +1581,10 @@ class _FusedLoopBase:
             wall_time=time.perf_counter() - t0,
             per_iteration=per_iter,
         )
+        if mw._idle_ranks():
+            # the idle ranks replay the polls up to here and return this
+            mw._post(("done", mw._polled, res))
+        return res
 
 
 class DriveLoop(_FusedLoopBase):
@@ -1694,7 +1891,8 @@ class AsyncDriveLoop(_FusedLoopBase):
 
     def __init__(self, mw: Middleware):
         super().__init__(mw)
-        self.m = mw.daemon.m
+        self.m = mw.upper.m
+        self.local, self.lo = mw.daemon.m, mw.ranks.offset
         self._maskable = (
             isinstance(mw.daemon, MaskCapableDaemon)
             and "run_mask" in inspect.signature(
@@ -1707,31 +1905,53 @@ class AsyncDriveLoop(_FusedLoopBase):
         self._theta_host = float(np.float32(mw.model.theta0))
 
     def _arm(self):
-        """Derives the loop's view of the structure: m, the priority
-        buckets (``bind_shards`` re-stacks without them) and the
-        per-device source masks.  Called when a run starts and when an
-        epoch is adopted.  Returns the masks' host copy, or None."""
+        """Derives the loop's view of the structure: m (the world's axis),
+        this process's ``local`` devices from the ``lo``-th, the priority
+        buckets (``bind_shards`` re-stacks without them) and the source
+        masks of this process's devices.  Called when a run starts and when
+        an epoch is adopted.  Returns the masks' host copy, or None."""
         mw = self.mw
         model = mw.model
-        self.m = mw.daemon.m
+        self.m = mw.upper.m
+        self.local, self.lo = mw.daemon.m, mw.ranks.offset
         self._src_masks = masks = None
         if self._maskable:
             mw.daemon.configure_buckets(
                 int(getattr(model, "bucket_k", 0) or 0),
                 int(getattr(model, "bucket_cap", 32) or 32))
             if self._use_frontier:
-                masks = _device_source_masks(mw.partitions, self.m, mw.n)
+                masks = self._own_masks()
                 self._src_masks = torch.as_tensor(masks, device=mw.device)
         return masks
 
+    def _own_masks(self) -> np.ndarray:
+        """(local, N) bool: the sources each of this process's devices owns
+        edges of."""
+        mw = self.mw
+        return _device_source_masks([mw.partitions[j] for j in mw.shards],
+                                    self.local, mw.n)
+
     def _owner_masks(self):
-        """(m, N) bool on the device: the sources each logical device owns
-        edges of (built here when the free hold did not build them)."""
+        """(local, N) bool on the device: the sources each of this
+        process's devices owns edges of (built here when the free hold did
+        not build them)."""
         if self._src_masks is not None:
             return self._src_masks
-        mw = self.mw
-        return torch.as_tensor(_device_source_masks(mw.partitions, self.m,
-                                                    mw.n), device=mw.device)
+        return torch.as_tensor(self._own_masks(), device=self.mw.device)
+
+    def _world(self, flags):
+        """(local,) bools of this process's devices, a host list or a
+        device tensor → the (m,) list of every device's, in axis order:
+        one host ``all_reduce``, or one device ``all_reduce`` and its fetch
+        (on one process only the fetch)."""
+        m, lo, ranks = self.m, self.lo, self.mw.ranks
+        if isinstance(flags, torch.Tensor):
+            vec = torch.zeros(m, dtype=torch.int32, device=flags.device)
+            vec[lo:lo + self.local] = flags
+            return [bool(x) for x in ranks.all_reduce(vec, "sum").tolist()]
+        vec = np.zeros(m, dtype=np.int64)
+        vec[lo:lo + self.local] = flags
+        return [bool(x) for x in ranks.all_reduce_host(vec, "sum")]
 
     def _schedule(self, state, backlog, theta, theta_host, rows):
         """A carry with the scheduling state restarted: held partials at
@@ -1740,20 +1960,21 @@ class AsyncDriveLoop(_FusedLoopBase):
         (no committed priority: every device may run) and a zero residual
         (nothing has moved).  The first iteration's predict half is formed
         on the host from θ's host value; ``rows`` says which backlog rows
-        hold a source."""
+        hold a source, over the world's m devices, as the run mask does."""
         mw = self.mw
-        m, n, dev = self.m, mw.n, mw.device
-        held_p = torch.full((m, n, mw.k), mw.program.monoid.identity,
+        local, n, dev = self.local, mw.n, mw.device
+        held_p = torch.full((local, n, mw.k), mw.program.monoid.identity,
                             dtype=torch.float32, device=dev)
-        held_c = torch.zeros((m, n), dtype=torch.int32, device=dev)
+        held_c = torch.zeros((local, n), dtype=torch.int32, device=dev)
         fmax = np.finfo(np.float32).max
-        prev_pri = torch.full((m,), float(fmax), dtype=torch.float32,
+        prev_pri = torch.full((local,), float(fmax), dtype=torch.float32,
                               device=dev)
         residual = torch.zeros(n, dtype=torch.float32, device=dev)
         th = np.float32(theta_host)
         run = [bool((fmax >= th) | (th <= np.float32(self._floor)))
-               if self._maskable else True] * m
-        run_dev = torch.as_tensor(np.array(run), device=dev)
+               if self._maskable else True] * self.m
+        run_dev = torch.as_tensor(np.array(run[self.lo:self.lo + local],
+                                           dtype=bool), device=dev)
         return (state, backlog, held_p, held_c, theta, prev_pri, residual,
                 run_dev, run, rows)
 
@@ -1766,25 +1987,51 @@ class AsyncDriveLoop(_FusedLoopBase):
         self._theta_host = float(theta0)
         backlog, rows = None, [True] * self.m
         if self._use_frontier:
-            host = np.broadcast_to(active0[None, :], (self.m, mw.n))
+            host = np.broadcast_to(active0[None, :], (self.local, mw.n))
             if masks is not None:
                 host = host & masks
             backlog = torch.as_tensor(np.ascontiguousarray(host),
                                       device=mw.device)
-            rows = host.any(axis=1).tolist()
+            rows = self._world(host.any(axis=1))
         return self._schedule(state, backlog, theta, self._theta_host, rows)
 
-    def _redeliver(self, backlog, extra=None):
-        """The union of every backlog row (a dead device's included), with
-        ``extra`` sources, delivered only to the devices owning their edges
-        after the rebuild — formed on the card.  Re-delivery may recompute
-        work but never loses an update.  Returns it and its non-empty rows
-        (one (m,) fetch, which only the free hold reads)."""
-        merged = backlog.any(dim=0)
+    def _joiner_carry(self, state, active):
+        # _migrate_carry reads the state, the backlog (a rank back from
+        # idle holds no row) and θ
+        mw = self.mw
+        backlog = (torch.zeros((0, mw.n), dtype=torch.bool, device=mw.device)
+                   if self._use_frontier else None)
+        theta = torch.zeros((), dtype=torch.float32, device=mw.device)
+        return (state, backlog, None, None, theta)
+
+    def _host_state(self):
+        return self._theta_host
+
+    def _set_host_state(self, value) -> None:
+        self._theta_host = value
+
+    def _union(self, backlog, mesh):
+        """Every backlog row of ``mesh``'s devices (a dead device's
+        included) folded into one (N,) int32, formed on the card: this
+        process's rows, then a MAX over ``mesh``'s group (a rank outside
+        it adds nothing)."""
+        merged = backlog.any(dim=0).to(torch.int32)
+        if not mesh.idle:
+            mesh.all_reduce(merged, "max")
+        return merged
+
+    def _redeliver(self, merged, extra=None):
+        """``merged`` sources (:meth:`_union`), with ``extra`` ones,
+        delivered only to the devices owning their edges after the rebuild
+        — this process's rows, formed on the card.  Re-delivery may
+        recompute work but never loses an update.  Returns them and the
+        world's non-empty rows (one (m,) fetch, which only the free hold
+        reads)."""
+        merged = merged.bool()
         if extra is not None:
             merged = merged | extra
         backlog = merged[None, :] & self._owner_masks()
-        rows = (backlog.any(dim=1).tolist() if self._maskable
+        rows = (self._world(backlog.any(dim=1)) if self._maskable
                 else [True] * self.m)
         return backlog, rows
 
@@ -1795,14 +2042,21 @@ class AsyncDriveLoop(_FusedLoopBase):
         identity make the next merge consume every device's fresh partial,
         so nothing a device was holding is lost, and ``prev_pri`` at float
         max makes every survivor run before it may hold again.  The union
-        of the old backlogs goes to each source's new owner; θ carries
-        over."""
+        of the old backlogs, over the old group, goes to each source's new
+        owner; θ carries over (to a rank back from idle, by broadcast with
+        the state and the union)."""
+        mw = self.mw
         state, backlog, theta = carry[0], carry[1], carry[4]
-        (state,) = self.mw.upper.migrate((state,))
+        merged = None
+        if backlog is not None:
+            merged = self._union(backlog, self._placed)
+        state, merged, theta = mw.upper.migrate((state, merged, theta))
+        if mw.ranks.idle:
+            return carry
         self._arm()
         rows = [True] * self.m
-        if backlog is not None:
-            backlog, rows = self._redeliver(backlog)
+        if merged is not None:
+            backlog, rows = self._redeliver(merged)
         return self._schedule(state, backlog, theta, self._theta_host, rows)
 
     def _mutate_carry(self, carry, state0, ep):
@@ -1823,8 +2077,9 @@ class AsyncDriveLoop(_FusedLoopBase):
         self._arm()
         rows = [True] * self.m
         if backlog is not None:
-            backlog, rows = self._redeliver(backlog, torch.as_tensor(
-                ep.meta["frontier"], device=mw.device))
+            backlog, rows = self._redeliver(
+                self._union(backlog, mw.ranks),
+                torch.as_tensor(ep.meta["frontier"], device=mw.device))
         return self._schedule(state, backlog, theta, self._theta_host, rows)
 
     def _advance(self, carry, aux, it, stacked):
@@ -1832,11 +2087,12 @@ class AsyncDriveLoop(_FusedLoopBase):
         daemon, upper, prog = mw.daemon, mw.upper, mw.program
         (state, backlog, held_p, held_c, theta, prev_pri, residual, run_dev,
          run, rows) = carry
+        lo, hi = self.lo, self.lo + self.local
         act = backlog if self._use_frontier else None
         if self._maskable:
             fresh_p, fresh_c, blocks_run = daemon.run_all_shards(
-                state, aux, act, run_mask=run, residual=residual,
-                stacked=stacked, live_rows=rows)
+                state, aux, act, run_mask=run[lo:hi], residual=residual,
+                stacked=stacked, live_rows=rows[lo:hi])
             (agg, cnt, held_p, held_c, refreshed,
              pri) = upper.merge_partials_async(
                 fresh_p, fresh_c, held_p, held_c, theta, self._floor,
@@ -1861,9 +2117,6 @@ class AsyncDriveLoop(_FusedLoopBase):
         residual = torch.nan_to_num((new_state - state).abs().amax(dim=1),
                                     nan=0.0)
         n_active = new_active.sum()
-        done = (n_active == 0) & refreshed.all()
-        if self._use_frontier:
-            done = done & ~backlog.any()
         # the threshold decays every iteration and drops to 0 the moment
         # the frontier drains: convergence is certified on fresh data
         theta = torch.where(n_active == 0, torch.zeros_like(theta),
@@ -1883,10 +2136,25 @@ class AsyncDriveLoop(_FusedLoopBase):
                 rows_next = backlog.any(dim=1)
             run_next = (est >= theta) | (theta <= self._floor)
             run_dev = run_next
+        # the world's view in one small all_reduce: every shard's blocks
+        # run, every device's refresh, verdict and backlog flag, and
+        # whether any backlog is left — each process fills its own slots
+        s, m = mw.num_shards, self.m
+        every = torch.zeros(s + 3 * m + 1, dtype=torch.int32,
+                            device=state.device)
+        every[mw.shards.start:mw.shards.stop] = blocks_run
+        every[s + lo:s + hi] = refreshed
+        every[s + m + lo:s + m + hi] = run_next
+        every[s + 2 * m + lo:s + 2 * m + hi] = rows_next
+        if self._use_frontier:
+            every[-1] = backlog.any()
+        every = mw.ranks.all_reduce(every, "sum").long()
+        n_refreshed = every[s:s + m].sum()
+        done = (n_active == 0) & (n_refreshed == m) & (every[-1] == 0)
         flags = torch.cat([
-            torch.stack([done.long(), n_active]), blocks_run.long(),
-            torch.stack([refreshed.sum(), theta.view(torch.int32).long()]),
-            run_next.long(), rows_next.long()])
+            torch.stack([done.long(), n_active]), every[:s],
+            torch.stack([n_refreshed, theta.view(torch.int32).long()]),
+            every[s + m:s + 3 * m]])
         return (new_state, backlog, held_p, held_c, theta, prev_pri,
                 residual, run_dev, run, rows), flags
 

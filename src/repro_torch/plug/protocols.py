@@ -269,7 +269,7 @@ def divisor_mesh(num_items: int, mesh=None) -> int:
     logical devices on the one card.  A
     :class:`~repro_torch.dist.sharding.RankMesh` gives m = W·local: W ranks,
     each holding ``local`` logical devices (:func:`shard_range` says which
-    shards).  An int that does not divide ``num_items`` or is under 1, or a
+    shards), or a survivor mesh's m′ devices.  An int that does not divide ``num_items`` or is under 1, or a
     RankMesh whose m does not divide it, raises ``ValueError``.  Any other
     mesh raises :func:`not_ported_error`."""
     if num_items < 1:
@@ -292,8 +292,9 @@ def divisor_mesh(num_items: int, mesh=None) -> int:
 
 def shard_range(num_items: int, mesh=None) -> range:
     """The shards this process owns on the axis :func:`divisor_mesh`
-    validates: all of them on one process, the rank's contiguous
-    [r·S/W, (r+1)·S/W) on a :class:`~repro_torch.dist.sharding.RankMesh`."""
+    validates: all of them on one process, those of the rank's devices on
+    a :class:`~repro_torch.dist.sharding.RankMesh` ([r·S/W, (r+1)·S/W) on
+    the world's)."""
     divisor_mesh(num_items, mesh)
     if isinstance(mesh, RankMesh):
         return mesh.shard_range(num_items)

@@ -19,7 +19,9 @@ in the JAX package's ``plug/uppers.py``.
   :class:`~repro_torch.dist.sharding.RankMesh` the axis spans W ranks of
   ``local`` logical devices each: a rank folds its own devices, then one
   ``all_reduce`` (MIN or MAX for an idempotent monoid, SUM otherwise)
-  merges the ranks, and the compressed wire is a real collective.
+  merges the ranks, and the compressed wire is a real collective.  A
+  survivor RankMesh re-targets the merge at its group (``remesh``), and a
+  rank that joins gets the run's tensors by ``broadcast`` (``migrate``).
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from repro_torch.dist.collectives import make_compressed_allreduce
 from repro_torch.dist.sharding import LOCAL_MESH, RankMesh
 from repro_torch.graph.partition import partition_contiguous
 from repro_torch.graph.structure import Graph
-from repro_torch.plug.protocols import divisor_mesh, not_ported_error
+from repro_torch.plug.protocols import divisor_mesh
 
 
 def _rank_op(monoid) -> str:
@@ -136,6 +138,8 @@ class MeshUpperSystem(HostUpperSystem):
         self.m = 0
         self.local = 0  # logical devices this process folds
         self.ranks = mesh if isinstance(mesh, RankMesh) else LOCAL_MESH
+        self.joined = ()  # ranks the last re-mesh added (migrate's)
+        self.source = 0  # the rank that broadcasts to them
         self._op = None  # the all_reduce op of the monoid across ranks
         self.device = torch.device("cpu")
         self._allreduce = None
@@ -172,25 +176,50 @@ class MeshUpperSystem(HostUpperSystem):
         is the middleware's structure-epoch ``"upper"`` hook: triggers
         publish an epoch, the hooks rebuild, and the drive loops adopt the
         result when they see the version move.  The new axis is validated
-        (an int that divides the bound shard count) before anything
-        changes; then the rebind re-derives m.  An axis across ranks is not
-        re-meshed (ROADMAP Queue A item 13d)."""
-        if isinstance(self.ranks, RankMesh) or isinstance(mesh, RankMesh):
-            raise not_ported_error("a re-mesh across ranks", 13)
+        (an int that divides the bound shard count, or over ranks a
+        survivor :class:`~repro_torch.dist.sharding.RankMesh` whose m
+        divides it) before anything changes; then the rebind re-derives m.
+        A new RankMesh re-targets the merge at its group; the ranks it adds
+        are noted for :meth:`migrate`."""
+        if isinstance(self.ranks, RankMesh) != isinstance(mesh, RankMesh):
+            raise ValueError(f"a merge across ranks re-meshes onto a "
+                             f"RankMesh, one process onto an int; got "
+                             f"{mesh!r}")
         divisor_mesh(self.num_shards, mesh)
+        if isinstance(mesh, RankMesh) and mesh is not self.ranks:
+            kept = [r for r in self.ranks.members if r in mesh.members]
+            if not kept:
+                raise ValueError(f"no rank of {list(self.ranks.members)} "
+                                 f"survives into {list(mesh.members)}")
+            self.joined = tuple(r for r in mesh.members
+                                if r not in self.ranks.members)
+            self.source = kept[0]
         self.mesh = mesh
         return self.bind(self.program, self.num_shards)
 
     def migrate(self, tree):
-        """Places ``tree`` on the re-meshed device set.  Every logical
-        device of the one card already reads the same tensors, so they
-        are returned unchanged: no copy and no host round trip."""
+        """Places ``tree`` (a tuple or list of tensors, or one tensor) on
+        the re-meshed device set.  Every logical device of the one card
+        already reads the same tensors, and so does every survivor rank:
+        they are returned unchanged, with no copy and no host round trip.
+        A rank that joined at the last re-mesh gets them by a
+        ``broadcast`` from ``source``, the lowest rank kept from the
+        previous group; it passes tensors of the same shapes to be
+        overwritten.  An idle rank gets its tensors back untouched."""
+        if not self.joined or self.ranks.idle:
+            return tree
+        for t in ([tree] if isinstance(tree, torch.Tensor) else tree):
+            if t is not None:  # a bool tensor travels as its bytes
+                self.ranks.broadcast(t.view(torch.uint8)
+                                     if t.dtype == torch.bool else t,
+                                     self.source)
         return tree
 
     def reset(self):
         # per-run state: the error-feedback residual and the wire counters
-        # restart with every run
+        # restart with every run; a run places its carry on every rank
         self._residual = None
+        self.joined = ()
         self.wire_stats = {"exact_bytes": 0, "compressed_bytes": 0}
 
     def _fold_axis(self, stack: torch.Tensor) -> torch.Tensor:
@@ -258,8 +287,14 @@ class MeshUpperSystem(HostUpperSystem):
         if self.wire != "exact":
             raise ValueError("merge_partials supports wire='exact' only; "
                              "compressed merges take the classic path")
-        agg = self.ranks.all_reduce(self._fold_axis(partials).contiguous(),
-                                    self._op)
+        agg = self._fold_axis(partials).contiguous()
+        if agg.untyped_storage().data_ptr() == \
+                partials.untyped_storage().data_ptr():
+            # one device's partial is a view of the caller's tensor, which
+            # the in-place all_reduce must not overwrite (the async loop
+            # keeps it as its held copy)
+            agg = agg.clone()
+        agg = self.ranks.all_reduce(agg, self._op)
         cnt = self.ranks.all_reduce(counts.sum(0, dtype=torch.int32), "sum")
         return agg, cnt
 

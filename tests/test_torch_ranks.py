@@ -21,7 +21,8 @@ not reach yet; its share of the same cases at the single-process
   the rank wire (bits 8 and 4, both formats) equals the stacked wire at m
   and its oracle bit for bit;
 * bad meshes raise ``ValueError``; what is left for ROADMAP item 13d raises
-  ``NotImplementedError`` naming item 13.
+  ``NotImplementedError`` naming item 13; a bad monitor or mutation
+  schedule fails as on one process.
 """
 import concurrent.futures
 import datetime
@@ -255,15 +256,15 @@ def test_rank_wire_equals_the_stacked_wire_and_its_oracle(worlds, bits, fmt,
         np.testing.assert_array_equal(want[0][0][j], oracle)
 
 
+# the async loop and structure epochs across ranks run
+# (tests/test_torch_ranks_async.py, tests/test_torch_ranks_epoch.py); a bad
+# monitor or mutation schedule, and migrate() without a monitor, fail as on
+# one process (test_bad_epoch_wiring_fails_as_on_one_process)
 REFUSALS = {
-    "async": (NotImplementedError, "item 13"),
     "oocore": (NotImplementedError, "item 13"),
-    "failures": (NotImplementedError, "item 13"),
-    "monitor": (NotImplementedError, "item 13"),
-    "mutations": (NotImplementedError, "item 13"),
-    "rebalance": (NotImplementedError, "item 13"),
-    "apply_mutations": (NotImplementedError, "item 13"),
-    "migrate": (NotImplementedError, "item 13"),
+    "bad_monitor": (AttributeError, "num_hosts"),
+    "bad_mutations": (AttributeError, "due_at"),
+    "migrate_without_monitor": (ValueError, "monitor"),
     "serve": (NotImplementedError, "item 13"),
     "moe": (NotImplementedError, "item 13"),
     "super_shards": (NotImplementedError, "item 13"),
@@ -282,6 +283,40 @@ def test_rank_mesh_refusals(worlds, case):
             got = r["refusals"][case]
             assert got is not None, (name, r["rank"], case)
             assert got[0] == error.__name__ and match in got[1], got
+
+
+def _one_process_error(case, shards=4):
+    """The exception of a refusal case on one process at ``mesh=shards``,
+    as ``(type name, message)``."""
+    g = _graph("sssp_bf")[1]
+
+    def mw(**kw):
+        return tplug.Middleware(
+            g, talg.sssp_bf(g), daemon=tplug.ShardedDaemon(
+                kernel="cuda", mesh=shards, csr_config=worker.CSRConfig()),
+            upper=tplug.MeshUpperSystem(mesh=shards), num_shards=shards,
+            options=tplug.PlugOptions(block_size=worker.BLOCK),
+            device="cpu", **kw)
+
+    calls = {"bad_monitor": lambda: mw(monitor=object()),
+             "bad_mutations": lambda: mw(mutations=object()).run(),
+             "migrate_without_monitor": lambda: mw().migrate()}
+    try:
+        calls[case]()
+    except Exception as e:
+        return type(e).__name__, str(e)
+    return None
+
+
+@pytest.mark.parametrize("case", ["bad_monitor", "bad_mutations",
+                                  "migrate_without_monitor"])
+def test_bad_epoch_wiring_fails_as_on_one_process(worlds, case):
+    ranks, _ = worlds
+    want = _one_process_error(case)
+    assert want is not None
+    for name in WORLDS:
+        for r in ranks[name]:
+            assert r["refusals"][case] == want, (name, r["rank"])
 
 
 def test_graph_analytics_example_across_ranks(worlds):

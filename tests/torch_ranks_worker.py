@@ -112,7 +112,8 @@ def _wire(mesh, rank, local, m):
 
 def _refusals(graphs, shards, mesh) -> dict:
     """What a RankMesh does not reach yet, and bad compositions: each
-    case's exception as ``(type name, message)``, or None if it ran."""
+    case's exception as ``(type name, message)``, or None if it ran.
+    ``mesh`` may be an int m: the one-process errors of the same cases."""
     g = graphs["directed"]
     prog = talg.sssp_bf(g)
     opts = plug.PlugOptions(block_size=BLOCK)
@@ -128,15 +129,10 @@ def _refusals(graphs, shards, mesh) -> dict:
         return lambda: getattr(mw(), method)(*args)
 
     cases = {
-        "async": lambda: mw(model=plug.AsyncModel(theta0=0.0)),
         "oocore": lambda: mw(oocore=plug.OocoreConfig(num_super_shards=2)),
-        "failures": lambda: mw(failures=plug.FailureSchedule(kills=[(3, 0)])),
-        "monitor": lambda: mw(monitor=object()),
-        "mutations": lambda: mw(mutations=object()),
-        "rebalance": run_built("rebalance", np.ones(shards)),
-        "apply_mutations": run_built("apply_mutations",
-                                     plug.MutationLog().add_edge(0, 1, 1.0)),
-        "migrate": run_built("migrate"),
+        "bad_monitor": lambda: mw(monitor=object()),
+        "bad_mutations": lambda: mw(mutations=object()).run(),
+        "migrate_without_monitor": run_built("migrate"),
         "serve": lambda: _serve_session(g, shards, mesh),
         "moe": lambda: _moe_under(mesh),
         "super_shards": lambda: plug.ShardedDaemon(mesh=mesh).bind(
@@ -247,4 +243,180 @@ def cuda_world(rank, world, graph, shards):
                                 mesh.size, mesh.device)
                 out["single"][key] = _run_record(
                     mw.run(max_iterations=max_it(prog_name)))
+    return out
+
+
+# --------------------------------------------------------------------------
+# the async loop and structure epochs across ranks
+# (tests/test_torch_ranks_async.py, tests/test_torch_ranks_epoch.py)
+# --------------------------------------------------------------------------
+ASYNC_ARMS = {"eager": dict(theta0=0.0, decay=0.5),
+              "holding": dict(theta0=10.0, decay=0.9),
+              "buckets": dict(theta0=10.0, decay=0.9, bucket_k=8)}
+ASYNC_PROGRAMS = ("sssp_bf", "bfs", "wcc", "pagerank")
+
+
+def _stripped(value):
+    """A record without its wall-clock entries (``seconds``), which each
+    rank measures for itself."""
+    if isinstance(value, dict):
+        return {k: _stripped(v) for k, v in value.items() if k != "seconds"}
+    if isinstance(value, list):
+        return [_stripped(v) for v in value]
+    return value
+
+
+def _epoch_record(res, mw) -> dict:
+    out = _run_record(res)
+    out["records"] = _stripped(out["records"])
+    out["m"] = mw.upper.m
+    out["epoch"] = (mw.epochs.version, mw.epochs.epoch.cause)
+    out["last_restart"] = mw.last_restart
+    out["loop"] = type(mw._loop).__name__
+    # the survivor mesh the run ended on (one process: the whole axis)
+    out["members"] = list(getattr(mw.ranks, "members", [0]))
+    out["local"] = getattr(mw.ranks, "local", mw.upper.m)
+    return out
+
+
+def _model(name):
+    return plug.AsyncModel(**ASYNC_ARMS[name]) if name in ASYNC_ARMS \
+        else name
+
+
+def fused_middleware(graph, prog_name, model, shards, mesh, device, **kw):
+    """The fused composition of the async and epoch cases (``model`` a
+    BSP/GAS name or an async arm), over a RankMesh or at an int m."""
+    prog = talg.ALGORITHMS[prog_name](graph)
+    daemon = plug.ShardedDaemon(kernel="cuda", mesh=mesh,
+                                csr_config=CSRConfig())
+    if not isinstance(mesh, RankMesh):
+        kw["device"] = device
+    return plug.Middleware(graph, prog, daemon=daemon,
+                           upper=plug.MeshUpperSystem(mesh=mesh),
+                           model=_model(model), num_shards=shards,
+                           options=plug.PlugOptions(block_size=BLOCK), **kw)
+
+
+def _async_case(graphs, key, shards, mesh):
+    prog_name, arm = key
+    mw = fused_middleware(_graph_for(graphs, prog_name), prog_name, arm,
+                          shards, mesh, "cpu")
+    if not isinstance(mw._loop, plug.AsyncDriveLoop):
+        raise AssertionError(f"{key}: ran {type(mw._loop).__name__}")
+    out = _run_record(mw.run(max_iterations=max_it(prog_name)))
+    out["m"] = mw.upper.m
+    return out
+
+
+def async_world(rank, world, graphs, shards, local):
+    """One rank of an async world: every program x arm over a RankMesh of
+    ``world`` ranks × ``local`` devices, then this rank's share of the
+    same cases at the single-process ``mesh=m``."""
+    torch.set_num_threads(1)
+    mesh = RankMesh(local=local, device="cpu")
+    cases = [(p, a) for p in ASYNC_PROGRAMS for a in ASYNC_ARMS]
+    out = {"rank": rank, "ranks": {}, "single": {}}
+    for key in cases:
+        out["ranks"][key] = _async_case(graphs, key, shards, mesh)
+    for i, key in enumerate(cases):
+        if i % world == rank:
+            out["single"][key] = _async_case(graphs, key, shards, mesh.size)
+    out["imports"] = sorted(
+        name for name in sys.modules
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"))
+    return out
+
+
+def _log(adds=(), removes=()):
+    log = plug.MutationLog()
+    for u, v in adds:
+        log.add_edge(int(u), int(v), 1.0)
+    for u, v in removes:
+        log.remove_edge(int(u), int(v))
+    return log
+
+
+def epoch_cases(m: int) -> list:
+    """``(name, program, model, schedule keywords)`` of the scheduled
+    epoch cases at m devices: a kill of the last device, of device 1 (in a
+    2 × 2 world the survivors are not one a rank), a kill and a join, a
+    straggler's re-partition, each under GAS (a kill under BSP pagerank,
+    a kill and a join under async holding too)."""
+    slow = [(2, d, 8.0 if d == m - 2 else 1.0) for d in range(m)]
+    return [("kill_last", "sssp_bf", "gas", dict(kills=[(2, m - 1)])),
+            ("kill_last", "pagerank", "bsp", dict(kills=[(2, m - 1)])),
+            ("kill_1", "sssp_bf", "gas", dict(kills=[(2, 1)])),
+            ("kill_join", "sssp_bf", "gas",
+             dict(kills=[(2, 1)], recoveries=[(4, 1)])),
+            ("kill_join", "sssp_bf", "holding",
+             dict(kills=[(2, 1)], recoveries=[(4, 1)])),
+            ("straggler", "sssp_bf", "gas", dict(slow=slow))]
+
+
+def _epoch_case(graphs, case, shards, mesh, mutations):
+    """One epoch case on ``mesh`` → its runs' records (a case may run
+    twice: once with the trigger, once after it)."""
+    name, prog_name, model, sched = case
+    g = _graph_for(graphs, prog_name)
+    adds, removes = mutations
+    runs = []
+    if name == "host_dynamic":
+        mw = middleware(g, prog_name, "host", model, shards, mesh, "cpu")
+        runs.append(_epoch_record(mw.run(), mw))
+        runs.append(_epoch_record(mw.run_dynamic(_log(adds)), mw))
+        return runs
+    kw = {}
+    if sched:
+        kw["failures"] = plug.FailureSchedule(**sched)
+    if name.startswith("midrun"):
+        kw["mutations"] = plug.MutationSchedule(events=[(2, _log(adds))])
+    mw = fused_middleware(g, prog_name, model, shards, mesh, "cpu", **kw)
+    runs.append(_epoch_record(mw.run(max_iterations=max_it(prog_name)), mw))
+    if name == "rebalance":
+        caps = np.ones(shards)
+        caps[0] = 2.0  # shard 0 at half the others' capacity
+        runs[-1]["fractions"] = [float(f) for f in mw.rebalance(caps)]
+    elif name == "dynamic_add":
+        runs.append(_epoch_record(mw.run_dynamic(_log(adds)), mw))
+        return runs
+    elif name == "dynamic_remove":
+        runs.append(_epoch_record(mw.run_dynamic(_log(removes=removes)),
+                                  mw))
+        return runs
+    # a second run on the structure the first one left (idle ranks sit it
+    # out from its start)
+    runs.append(_epoch_record(mw.run(max_iterations=max_it(prog_name)), mw))
+    return runs
+
+
+def all_epoch_cases(m: int) -> list:
+    return epoch_cases(m) + [
+        ("rebalance", "sssp_bf", "gas", None),
+        ("dynamic_add", "sssp_bf", "gas", None),
+        ("dynamic_remove", "sssp_bf", "gas", None),
+        ("midrun_add", "sssp_bf", "gas", None),
+        ("midrun_add", "sssp_bf", "holding", None),
+        ("host_dynamic", "sssp_bf", "bsp", None)]
+
+
+def epoch_world(rank, world, graphs, shards, local, mutations):
+    """One rank of an epoch world: every case of :func:`all_epoch_cases`
+    over a RankMesh of ``world`` ranks × ``local`` devices, then this
+    rank's share of the same cases at the single-process ``mesh=m``, and
+    the refusals' bad monitor and mutation schedule."""
+    torch.set_num_threads(1)
+    mesh = RankMesh(local=local, device="cpu")
+    cases = all_epoch_cases(mesh.size)
+    out = {"rank": rank, "ranks": {}, "single": {}}
+    for case in cases:
+        out["ranks"][case[:3]] = _epoch_case(graphs, case, shards, mesh,
+                                             mutations)
+    for i, case in enumerate(cases):
+        if i % world == rank:
+            out["single"][case[:3]] = _epoch_case(graphs, case, shards,
+                                                  mesh.size, mutations)
+    out["imports"] = sorted(
+        name for name in sys.modules
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"))
     return out
