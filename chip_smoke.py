@@ -168,7 +168,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
               planner plans the same schedule at m = 4 (a plan only), no
               fetch inside a rebuild.  Prints each rank's rebuild seconds,
               s an iteration around each epoch and the async step's flags
-              all_reduce ms.  A failing or hung rank fails the phase.
+              all_reduce ms.  (c) 5h (d) across the ranks on phase 3's
+              graph at 5h's budget: sssp_bf GAS out of core with prefetch,
+              device 3 killed before iteration 3 (ranks 2 and 3 idle
+              after), ``oocore_replan`` at half the budget and a second
+              run; each bit-equal to ``run_reference`` and identical on
+              every rank, its per-iteration super-shards, hot columns and
+              the world's hot hits and cold misses 5h (d)'s (so the line
+              prints after 5h's); on each rank ``csr_tile`` (hot > 0) +
+              uploads a step, at most two groups live, one fetch a step
+              and none in a rebuild.  Prints each rank's s an iteration
+              before and after the kill, rebuild s, transfer, wait,
+              overlap and copy GB/s, and the ranks' summed GB/s.  (d) 5i
+              across the ranks on 5g's graph:
+              ``GraphServeSession(kernel="cuda", max_batch=8, mesh=<the
+              RankMesh>)`` answers 5i's batch of 8 of each kind, a
+              pagerank lookup and 5i's seeded replay (cut to the families
+              the batches built); every rank's answers and batches
+              identical, khop and sssp bit-equal to 5i's, ppr and the
+              lookup held to 5i's float64 references (so the line prints
+              after 5i's); ``csr_tile`` once an iteration and one small
+              fetch an iteration on each rank.  Prints ``init_s`` per
+              family per rank, service s a batch, rank 0's qps, p50 and
+              p99.  A failing or hung rank fails the phase.
 5f. async   — the fused async loop (``model=AsyncModel(...)``, so
               ``AsyncDriveLoop``) at ``mesh=4`` with ``CSRConfig()`` pinned:
               sssp_bf to its fixed point under README's three arms
@@ -1463,6 +1485,9 @@ ROAD_SIDE = 1024        # grid_road(1024): 1,048,576 vertices, a metro road net
 ROAD_SEED = 1
 ROAD_ITERATIONS = 60
 OOCORE_EPS_S = 2e-6     # a copy's two events' grain (0.5 µs each, twice)
+# (d)'s two runs, whose per-iteration counters 5e' (c) is held to
+OOCORE_D_RUNS = ("sssp_bf/oocore/kill/gas",
+                 "sssp_bf/oocore/kill/replan-half/gas")
 _OOCORE_SUMS = ("iterations", "transfer_s", "wait_s", "hidden_s", "hot_hits",
                 "cold_misses", "uploads", "upload_bytes", "skipped")
 
@@ -1621,7 +1646,11 @@ def oocore_run(label, mw, ref, tol, ref_it, resident, *,
            "csr_tile": launched,
            "csr_tile_per_iteration": [i["csr_tile"] for i in its],
            "max_abs_err_vs_reference": max_abs,
-           "max_abs_err_vs_resident": max_abs_res}
+           "max_abs_err_vs_resident": max_abs_res,
+           "counters": [{k: oc[k] for k in ("super_shards", "hot_cols",
+                                             "skipped", "hot_hits",
+                                             "cold_misses")}
+                        for oc in recs]}
     if migs:
         rec["migration"] = {k: migs[0][k] for k in (
             "killed", "devices_before", "devices_after", "seconds")}
@@ -1689,6 +1718,9 @@ def phase_oocore(g, parts, pr, sp, refs, resident4, autotuned) -> tuple:
     def keep(rec, launches, **extra):
         nonlocal launches_tile
         rec.update(extra)
+        counters = rec.pop("counters", None)
+        if rec["run"] in OOCORE_D_RUNS:  # 5e' (c) is held to them
+            out.setdefault("counters", {})[rec["run"]] = counters
         emit({**rec, "phase": "oocore"})
         out["runs"].append(rec["run"])
         launches_tile += launches
@@ -2234,8 +2266,8 @@ def phase_mesh(g, parts, pr, sp, refs, mesh1) -> tuple:
 
 # phase 5e': the graph loop across ranks
 RANKS = 4                  # gloo ranks sharing the one card
-RANKS_TIMEOUT_S = 200.0    # the spawned world's limit: 2.6x its 76 s on an
-                           # H100 (a collective's limit: 60 s)
+RANKS_TIMEOUT_S = 240.0    # the spawned world's limit: 1.9x the slowest
+                           # world on an H100 (127 s; a collective's: 60 s)
 RANKS_CAVEAT = ("4 ranks share one card's SMs and gloo stages each "
                 "all_reduce through host memory: not a scale-out figure")
 RANK_RUNS = (  # label, program, model, loop, upper options
@@ -2266,7 +2298,7 @@ def _rank_file(tmp, label, rank, what="state") -> Path:
     return Path(tmp) / f"{label.replace('/', '_')}.{what}.rank{rank}.npy"
 
 
-def ranks_world(rank, world, tmp, sizes, seed) -> dict:
+def ranks_world(rank, world, tmp, sizes, seed, oocore_budget) -> dict:
     """One rank of phase 5e': the graphs memory-mapped from ``tmp``
     (``sizes``: name → vertices; :func:`_rank_graph`), its own shard
     bound, every run of ``RANK_RUNS`` on phase 3's (one warm-up iteration
@@ -2297,6 +2329,11 @@ def ranks_world(rank, world, tmp, sizes, seed) -> dict:
     out = {"rank": rank, "device": str(mesh.device), "backend": mesh.backend,
            "shards": list(mesh.shard_range(SHARDS)),
            "load_s": time.perf_counter() - t0, "runs": {}}
+    # phase 3's partitions, cut once for every middleware on that graph but
+    # the epoch arm's (which re-partitions); phase 5's are the same cut
+    t0 = time.perf_counter()
+    parts = plug.HostUpperSystem().partition(g, SHARDS)
+    out["partition_s"] = time.perf_counter() - t0
 
     class Recording(plug.MeshUpperSystem):
         """Keeps each merge's per-shard aggregates (this rank's) and a
@@ -2322,7 +2359,7 @@ def ranks_world(rank, world, tmp, sizes, seed) -> dict:
                   if loop == "fused" else pinned_csr_daemon())
         t0 = time.perf_counter()
         mw = plug.Middleware(g, prog, daemon=daemon, upper=upper,
-                             model=model, num_shards=SHARDS)
+                             model=model, partitions=parts)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         mw.run(max_iterations=1)  # warm-up: the host daemon compacts here
@@ -2360,11 +2397,15 @@ def ranks_world(rank, world, tmp, sizes, seed) -> dict:
         label: rank_async(mesh, label, graphs[name],
                           programs["sssp_bf"] if name == "rmat" else
                           sssp_bf(graphs[name], sources=[0, 1, 2, 3]),
-                          cap, tmp, rank)
+                          cap, tmp, rank,
+                          parts if name == "rmat" else None)
         for label, name, cap in RANK_ASYNC_RUNS}
     g_e = graphs["elastic"]
     out["epochs"] = rank_epochs(mesh, g_e, sssp_bf(g_e, sources=[0, 1, 2, 3]),
                                 tmp, rank, g_e.num_vertices, seed)
+    out["oocore"] = rank_oocore(mesh, g, programs["sssp_bf"], parts, tmp,
+                                rank, oocore_budget)
+    out["serve"] = rank_serve(mesh, g_e, tmp, rank, seed)
     # one iteration's collectives alone, as the fused sssp_bf step makes
     # them: the (N, K) aggregate's MIN and the (N,) counts' SUM; and the
     # async step's flags (S blocks, 3m device flags, the backlog's)
@@ -2402,9 +2443,10 @@ def own_runs(rec, mesh) -> int:
                                                         not mine[g - 1]))
 
 
-def rank_async(mesh, label, g, prog, cap, tmp, rank) -> dict:
+def rank_async(mesh, label, g, prog, cap, tmp, rank, parts) -> dict:
     """One run of 5e' (a) on one rank: ``prog`` under ``AsyncModel``'s
-    ``holding`` arm over the RankMesh (a warm-up iteration, then the timed
+    ``holding`` arm over the RankMesh on ``parts`` (None: the middleware
+    cuts its own) (a warm-up iteration, then the timed
     run of at most ``cap`` iterations), with csr_tile's launches counted
     per ``run_all_shards`` call against the runs of this rank's executing
     devices, the iterations in which every device of this rank held, and
@@ -2432,7 +2474,7 @@ def rank_async(mesh, label, g, prog, cap, tmp, rank) -> dict:
     mw = plug.Middleware(
         g, prog, daemon=daemon, upper=plug.MeshUpperSystem(mesh=mesh),
         model=plug.AsyncModel(**dict(ASYNC_ARMS)[RANK_ASYNC_ARM]),
-        num_shards=SHARDS)
+        num_shards=SHARDS, partitions=parts)
     if not isinstance(mw._loop, plug.AsyncDriveLoop):
         raise AssertionError(f"{label}: ran {type(mw._loop).__name__}")
     torch.cuda.synchronize()
@@ -2557,6 +2599,222 @@ def rank_epochs(mesh, g, prog, tmp, rank, n, seed) -> dict:
                        "incremental": ep.meta["incremental"],
                        "mode": mw.last_restart["mode"]}
     del mw, daemon
+    torch.cuda.empty_cache()
+    return out
+
+
+# 5e' (c): 5h (d) across the ranks — its kill run, then the re-plan at half
+# the budget and a second run
+RANK_OOCORE_RUNS = ("sssp_bf/ranks4/oocore/kill/gas",
+                    "sssp_bf/ranks4/oocore/kill/replan-half/gas")
+# an out-of-core record's counters every rank and one process agree on (the
+# hit counts are the world's); the rest are a rank's own
+OOCORE_WORLD = ("super_shards", "hot_cols", "hot_hits", "cold_misses")
+
+
+def rank_oocore(mesh, g, prog, parts, tmp, rank, budget) -> dict:
+    """5e' (c) on one rank: sssp_bf GAS out of core over the RankMesh on
+    phase 3's partitions ``parts`` at ``budget`` bytes a logical device
+    (5h's, whose (d) runs on the same partitions), ``OOCORE_KILL`` due at
+    iteration 3, a warm-up iteration, the kill run, ``oocore_replan`` at
+    half the budget, a warm-up and the second run — each probed: on every
+    step this rank ran, ``csr_tile`` (hot > 0) + uploads and one small
+    fetch; no fetch in a rebuild; at most two groups live in two slots.
+    Writes each final state under ``tmp``; returns the runs' world
+    counters and this rank's seconds, copies and spans."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import plug
+    from repro_torch.kernels import edge_block as ebk
+    from repro_torch.kernels.ops import CSRConfig
+
+    def config(b):
+        return plug.OocoreConfig(hbm_budget=b, hot_fraction=OOCORE_HOT)
+
+    n = g.num_vertices
+    t0 = time.perf_counter()
+    mw = plug.Middleware(
+        g, prog, daemon=plug.ShardedDaemon(kernel="cuda", mesh=mesh,
+                                           csr_config=CSRConfig()),
+        upper=plug.MeshUpperSystem(mesh=mesh), model="gas",
+        partitions=parts, oocore=config(budget),
+        failures=plug.FailureSchedule(kills=OOCORE_KILL))
+    torch.cuda.synchronize()
+    if mw._fused_kind != "oocore":
+        raise AssertionError(f"rank {rank}: fused kind {mw._fused_kind}")
+    out = {"init_s": time.perf_counter() - t0,
+           "plan": dataclasses.asdict(mw.daemon.oocore_plan), "runs": []}
+    calls: list = []
+    its: list = []
+
+    def probed(label):
+        mw.run(max_iterations=1)  # warm-up: every event is due later
+        probe_loop(mw, calls, its)
+        read = mw._loop._read_extra
+
+        def read_own(carry, extra):
+            carry, rec = read(carry, extra)
+            oc = rec["oocore"]
+            its[-1].update(oocore=oc, uploads=oc["super_shards"]
+                           - oc["skipped"], group_bytes=(
+                               mw.daemon.super_shard_nbytes))
+            return carry, rec
+
+        mw._loop._read_extra = read_own
+        calls.clear()
+        its.clear()
+        before = ebk.csr_tile.launches
+        t0 = time.perf_counter()
+        try:
+            with counting_fetches(calls):
+                res = mw.run()
+            torch.cuda.synchronize()
+        finally:  # the probe's wrappers go: the next run probes afresh
+            for obj, name in ((mw, "_poll_structure"),
+                              (mw._loop, "_adopt_epoch"),
+                              (mw._loop, "_advance"),
+                              (mw._loop, "_read_extra")):
+                vars(obj).pop(name, None)
+        wall = time.perf_counter() - t0
+        steps = [i for i in its if "step_s" in i]
+        for i in steps:
+            oc = i["oocore"]
+            want = int(oc["hot_cols"] > 0) + i["uploads"]
+            if i["csr_tile"] != want or len(i["step_fetches"]) != 1 \
+                    or i["step_fetches"][0][1] >= n:
+                raise AssertionError(
+                    f"{label}: rank {rank}: iteration {i['iteration']}: "
+                    f"csr_tile {i['csr_tile']} (expected {want}), step "
+                    f"fetches {i['step_fetches']}")
+        bad = [(i["iteration"], i["rebuild_fetches"]) for i in its
+               if i["rebuild_fetches"]]
+        if bad:
+            raise AssertionError(f"{label}: rank {rank}: fetches in a "
+                                 f"rebuild {bad}")
+        up = mw._loop._uploader
+        live = 0 if up is None else up.max_live_groups
+        slots = 0 if up is None else up.slot_allocations
+        if live > 2 or slots > 2:
+            raise AssertionError(f"{label}: rank {rank}: {live} groups live "
+                                 f"in {slots} slots")
+        np.save(_rank_file(tmp, label, rank), np.asarray(res.state))
+        transfer = sum(i["oocore"]["transfer_s"] for i in steps)
+        wait = sum(i["oocore"]["wait_s"] for i in steps)
+        moved = sum(i["uploads"] * i["group_bytes"] for i in steps)
+        # the kill run's steps split at the kill; the second run's whole
+        kill_at = (OOCORE_KILL[0][0] if any("migration" in r for r in
+                                              res.per_iteration) else 0)
+        before_kill = [i["step_s"] for i in steps if i["iteration"] < kill_at]
+        after_kill = [i["step_s"] for i in steps
+                      if i["iteration"] >= kill_at]
+        return {
+            "run": label, "iterations": res.iterations,
+            "converged": res.converged, "wall_s": wall,
+            "members": list(mw.ranks.members),
+            "world": [{k: r["oocore"][k] for k in OOCORE_WORLD}
+                      for r in res.per_iteration],
+            "migrations": [{k: r["migration"][k] for k in (
+                "killed", "devices_after", "device_ids")}
+                for r in res.per_iteration if "migration" in r],
+            "stepped": [i["iteration"] for i in steps],
+            "skipped": [i["oocore"]["skipped"] for i in steps],
+            "s_per_iteration_before_kill": (
+                sum(before_kill) / len(before_kill) if before_kill
+                else None),
+            "s_per_iteration_after_kill": (
+                sum(after_kill) / len(after_kill) if after_kill else None),
+            "rebuild_s": {i["iteration"]: i["rebuild_s"] for i in its
+                          if i["rebound"]},
+            "first_step_s": steps[0]["step_s"] if steps else None,
+            "csr_tile_launches": ebk.csr_tile.launches - before,
+            "transfer_s": transfer, "wait_s": wait,
+            "overlap_efficiency": (1.0 - wait / transfer if transfer > 0
+                                   else None),
+            "upload_bytes": moved,
+            "copy_gb_per_s": moved / transfer / 1e9 if transfer > 0 else None,
+            "max_live_groups": live, "slots": slots}
+
+    out["runs"].append(probed(RANK_OOCORE_RUNS[0]))
+    t0 = time.perf_counter()
+    ep = mw.oocore_replan(config(budget // 2))
+    torch.cuda.synchronize()
+    out["replan_s"] = time.perf_counter() - t0
+    out["replan"] = {k: ep.meta[k] for k in (
+        "super_shards_before", "super_shards_after", "hot_cols_before",
+        "hot_cols_after")}
+    out["runs"].append(probed(RANK_OOCORE_RUNS[1]))
+    del mw
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_serve(mesh, g, tmp, rank, seed) -> dict:
+    """5e' (d) on one rank: ``GraphServeSession(kernel="cuda",
+    max_batch=SERVE_B, mesh=<the RankMesh>)`` on 5g's graph answers 5i's
+    batch of 8 of each kind, a pagerank lookup and 5i's replay cut to the
+    families the batches built (:func:`serve_plan`), each step checked as
+    5i checks it on this rank (:func:`serve_step`).  Writes the answers
+    under ``tmp``; returns the steps' records."""
+    import numpy as np
+    import torch
+
+    from repro_torch import serve
+    from repro_torch.kernels.ops import CSRConfig
+
+    n = g.num_vertices
+    session = serve.GraphServeSession(
+        g, num_shards=SHARDS, kernel="cuda", max_batch=SERVE_B, mesh=mesh,
+        csr_config=CSRConfig())
+    seeds = serve_seeds(g, seed)
+    params = {"khop": (("hops", SERVE_HOPS),), "sssp": (), "ppr": ()}
+    out = {"batches": {}, "launches": 0}
+    for kind in params:
+        (answers, rec), _, checks = serve_step(
+            f"ranks4/{kind}/B{SERVE_B}",
+            lambda: session.execute_batch(kind, params[kind], seeds), n)
+        out["launches"] += checks["csr_tile"]
+        np.save(_rank_file(tmp, f"serve/{kind}", rank), np.stack(answers, 1))
+        out["batches"][kind] = {"iterations": rec["iterations"],
+                                "service_s": rec["service_s"], **checks}
+    field = (("field", "pagerank"),)
+    look_seeds = [(seeds[0], seeds[2], seeds[4]), (seeds[1],)]
+    (looked, recl), _, checks = serve_step(
+        "ranks4/lookup/pagerank",
+        lambda: session.execute_batch("lookup", field, look_seeds), n)
+    out["launches"] += checks["csr_tile"]
+    np.save(_rank_file(tmp, "serve/lookup", rank),
+            session._analytics["pagerank"])
+    out["lookup"] = {"service_s": recl["service_s"],
+                     "answers": [np.asarray(a).tolist() for a in looked],
+                     **checks}
+    wl = serve.generate_workload(
+        num_requests=SERVE_REQUESTS, num_vertices=n, rate=SERVE_RATE,
+        seed=seed, hops=SERVE_HOPS, repeat_fraction=SERVE_REPEAT)
+    count = serve_plan(serve, wl, session.compiled_families)
+    fams = len(session.compiled_families)
+    router = serve.GraphServeRouter(session, max_batch=SERVE_B)
+    (answers, stats), runs, checks = serve_step(
+        "ranks4/replay", lambda: serve.replay(router, wl[:count]), n)
+    out["launches"] += checks["csr_tile"]
+    # one flat array: a lookup's answer is as long as its seed set
+    np.save(_rank_file(tmp, "serve/replay", rank), np.concatenate(
+        [np.asarray(a.value, np.float32) for a in answers]))
+    out["replay"] = {
+        "requests": count, "completed": stats["completed"],
+        "cached": stats["cached"], "qps": stats["throughput_qps"],
+        "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+        "wall_s": stats["wall_s"],
+        "queries": [(a.query.kind, list(a.query.seeds), a.query.params,
+                     a.cached, int(np.asarray(a.value).size))
+                    for a in answers],
+        "batch_sizes": [res.state.shape[1] for _, res in runs],
+        "families_built": len(session.compiled_families) - fams, **checks}
+    out["init_s"] = {"/".join(str(x) for x in k): v
+                     for k, v in session.init_s.items()}
+    del session, router
     torch.cuda.empty_cache()
     return out
 
@@ -2796,13 +3054,173 @@ def ranks_epochs_check(tmp, ranks, g, refs, seed) -> dict:
     return out
 
 
+def ranks_oocore_check(tmp, ranks, refs) -> tuple:
+    """5e' (c) in the parent: each run's states bit-identical over the
+    ranks and bit-equal to ``run_reference``, the ranks' world counters,
+    migrations and members the same.  Returns the line's entry (each
+    rank's seconds, copies and spans; the summed GB/s) and the world
+    counters by run, held to 5h (d)'s by :func:`ranks_oocore_vs_5h`."""
+    import numpy as np
+
+    recs = [r["oocore"] for r in ranks]
+    out = {"plan": recs[0]["plan"], "init_s": [r["init_s"] for r in recs],
+           "replan_s": [r["replan_s"] for r in recs],
+           "replan": recs[0]["replan"], "runs": {}}
+    world = {}
+    for i, label in enumerate(RANK_OOCORE_RUNS):
+        runs = [r["runs"][i] for r in recs]
+        states = [np.load(_rank_file(tmp, label, r)) for r in range(RANKS)]
+        if any(st.tobytes() != states[0].tobytes() for st in states[1:]):
+            raise AssertionError(f"{label}: the ranks' states differ")
+        check_state(label, states[0], refs["sssp_bf"][0], None)
+        keys = ("iterations", "converged", "world", "migrations", "members")
+        if len({tuple(str(r[k]) for k in keys) for r in runs}) != 1:
+            raise AssertionError(f"{label}: the ranks' runs differ")
+        if runs[0]["iterations"] != refs["sssp_bf"][1]:
+            raise AssertionError(f"{label}: {runs[0]['iterations']} "
+                                 "iterations, the reference's "
+                                 f"{refs['sssp_bf'][1]}")
+        world[label] = runs[0]["world"]
+        per = {k: [r[k] for r in runs] for k in (
+            "s_per_iteration_before_kill", "s_per_iteration_after_kill",
+            "first_step_s", "rebuild_s", "transfer_s", "wait_s",
+            "overlap_efficiency",
+            "copy_gb_per_s", "skipped", "csr_tile_launches",
+            "max_live_groups", "wall_s")}
+        rates = [r["copy_gb_per_s"] for r in runs if r["copy_gb_per_s"]]
+        # the ranks' copies need not overlap in time: their bytes over the
+        # run's wall time too
+        out["runs"][label] = {
+            "iterations": runs[0]["iterations"],
+            "members_end": runs[0]["members"],
+            "migrations": runs[0]["migrations"], **per,
+            "summed_copy_gb_per_s": sum(rates),
+            "copy_gb_per_wall_s": sum(r["upload_bytes"] for r in runs)
+            / max(r["wall_s"] for r in runs) / 1e9}
+    return out, world
+
+
+def ranks_oocore_vs_5h(line, world, counters) -> None:
+    """5e' (c)'s world counters against 5h (d)'s one-process records of
+    the same runs (``counters``: 5h label → per-iteration counters), iteration
+    for iteration."""
+    for label, want_label in zip(RANK_OOCORE_RUNS, OOCORE_D_RUNS):
+        want = [{k: c[k] for k in OOCORE_WORLD}
+                for c in counters[want_label]]
+        if world[label] != want:
+            raise AssertionError(f"{label}: counters {world[label]}, "
+                                 f"{want_label}'s {want}")
+        line["runs"][label]["one_process_run"] = want_label
+
+
+def ranks_serve_check(tmp, ranks) -> tuple:
+    """5e' (d) in the parent: every rank's batch, lookup and replay
+    answers bit-identical, and their replay's queries and batch sizes the
+    same.  Returns the line's entry and rank 0's answers, held to 5i's by
+    :func:`ranks_serve_vs_5i`."""
+    import numpy as np
+
+    recs = [r["serve"] for r in ranks]
+    answers = {}
+    for what in ("khop", "sssp", "ppr", "lookup", "replay"):
+        got = [np.load(_rank_file(tmp, f"serve/{what}", r))
+               for r in range(RANKS)]
+        if any(a.tobytes() != got[0].tobytes() for a in got[1:]):
+            raise AssertionError(f"serve/{what}: the ranks' answers differ")
+        answers[what] = got[0]
+    for key in ("queries", "batch_sizes", "completed", "cached"):
+        if len({str(r["replay"][key]) for r in recs}) != 1:
+            raise AssertionError(f"serve replay: the ranks' {key} differ")
+    if len({str(r["lookup"]["answers"]) for r in recs}) != 1:
+        raise AssertionError("serve lookup: the ranks' answers differ")
+    rep = recs[0]["replay"]
+    if rep["completed"] != rep["requests"]:
+        raise AssertionError(f"serve replay: {rep['completed']} of "
+                             f"{rep['requests']} completed")
+    out = {
+        "init_s": [r["init_s"] for r in recs],
+        "batches": {k: {"iterations": v["iterations"],
+                        "service_s": [r["batches"][k]["service_s"]
+                                      for r in recs]}
+                    for k, v in recs[0]["batches"].items()},
+        "lookup_service_s": [r["lookup"]["service_s"] for r in recs],
+        "replay": {k: rep[k] for k in ("requests", "completed", "cached",
+                                       "qps", "p50_ms", "p99_ms", "wall_s",
+                                       "batch_sizes", "families_built")},
+        "replay_wall_s": [r["replay"]["wall_s"] for r in recs]}
+    answers["lookup_answers"] = recs[0]["lookup"]["answers"]
+    answers["queries"] = rep["queries"]
+    return out, answers
+
+
+def ranks_serve_vs_5i(line, answers, refs) -> None:
+    """5e' (d)'s answers against 5i's (``refs``: :func:`phase_serve`'s):
+    the batch of 8's khop and sssp columns bit-equal to 5i's, its ppr
+    columns held to 5i's float64 solo runs (:func:`check_ppr`); the
+    lookup's field and answers to 5i's pagerank reference; each replay
+    answer as 5i holds its own (min kinds bit-equal to the solo reference,
+    ppr by :func:`check_ppr`, lookups within their tolerance)."""
+    import numpy as np
+
+    from repro_torch.graph.algorithms import BATCHED_QUERIES
+
+    g = refs["graph"]
+    for kind in ("khop", "sssp"):
+        for q in range(SERVE_B):
+            got, want = answers[kind][:, q], refs["batch8"][kind][q]
+            if not np.array_equal(got, want):
+                raise AssertionError(f"ranks4/{kind}/q{q}: not 5i's answer")
+    ppr = [check_ppr(f"ranks4/ppr/q{q}", answers["ppr"][:, q],
+                     refs["tails"][q]) for q in range(SERVE_B)]
+    pr_ref = refs["pr_ref"]
+    look = check_answers("ranks4/lookup", "lookup", answers["lookup"],
+                         pr_ref[:, 0])
+    seeds = refs["seeds"]
+    for s, got in zip([(seeds[0], seeds[2], seeds[4]), (seeds[1],)],
+                      answers["lookup_answers"]):
+        check_answers("ranks4/lookup/answer", "lookup", np.asarray(got),
+                      pr_ref[list(s), 0])
+    solo = refs["solo"]
+    rep_abs, offsets = 0.0, []
+    sizes = [q[4] for q in answers["queries"]]
+    values = np.split(answers["replay"], np.cumsum(sizes)[:-1])
+    for (kind, qseeds, params, _, _), value in zip(answers["queries"],
+                                                   values):
+        key = (kind, tuple(qseeds), tuple(tuple(p) for p in params))
+        if kind == "ppr":
+            if key not in solo:
+                solo[key] = ppr_tail(g, tuple(qseeds))
+            max_abs, _, off = check_ppr("ranks4/replay/ppr", value,
+                                        solo[key])
+            rep_abs = max(rep_abs, max_abs)
+            offsets.append(off)
+            continue
+        if kind == "lookup":
+            want = pr_ref[np.asarray(qseeds), 0]
+        else:
+            if key not in solo:
+                prog = BATCHED_QUERIES[kind](g, [tuple(qseeds)],
+                                             **dict(params))
+                solo[key] = serve_reference(g, prog)[0][:, 0]
+            want = solo[key]
+        rep_abs = max(rep_abs, check_answers(f"ranks4/replay/{kind}", kind,
+                                             value, want))
+    line.update(ppr_max_abs_err_vs_reference=max(x[0] for x in ppr),
+                ppr_l1_share_vs_reference=max(x[1] for x in ppr),
+                ppr_stop_offsets=[x[2] for x in ppr],
+                lookup_max_abs_err_vs_reference=look,
+                replay_max_abs_err_vs_reference=rep_abs,
+                replay_ppr_stop_offsets=offsets)
+
+
 def phase_ranks(g, refs, resident4, mesh_its, seed, g_e, refs_e) -> tuple:
     """Phase 5e' (see the module docstring).  ``resident4``: phase 5e's
     runs (name → (label, state, ...)); ``mesh_its``: their iterations by
     name; ``g_e`` / ``refs_e``: 5g's graph and its references, which the
-    epoch arm runs on.  Returns the phase's line, the ranks' csr_tile
-    launches and the async arm's state on phase 3's graph (held to phase
-    5f's afterwards)."""
+    epoch and serving arms run on.  Returns the phase's line, the ranks'
+    csr_tile launches, the async arm's state on phase 3's graph (held to
+    phase 5f's afterwards) and what (c) and (d) are held to 5h's and 5i's
+    by afterwards."""
     import shutil
     import tempfile
 
@@ -2826,7 +3244,8 @@ def phase_ranks(g, refs, resident4, mesh_its, seed, g_e, refs_e) -> tuple:
                 np.save(Path(tmp) / f"{name}.{k}.npy", getattr(graph, k))
         write_s = time.perf_counter() - t1
         sizes = {name: graph.num_vertices for name, graph in graphs.items()}
-        ranks = spawn_ranks(ranks_world, RANKS, (tmp, sizes, seed),
+        budget = resident4["sssp_bf"][3] // OOCORE_DIV  # 5h's
+        ranks = spawn_ranks(ranks_world, RANKS, (tmp, sizes, seed, budget),
                             backend="gloo",
                             init_method=f"file://{tmp}/init",
                             timeout_s=RANKS_TIMEOUT_S)
@@ -2845,6 +3264,7 @@ def phase_ranks(g, refs, resident4, mesh_its, seed, g_e, refs_e) -> tuple:
                "caveat": RANKS_CAVEAT, "write_npy_s": write_s,
                "road_mesh4": road_rec, "world_s": world_s,
                "load_s": [r["load_s"] for r in ranks],
+               "partition_s": [r["partition_s"] for r in ranks],
                "all_reduce_ms": [r["all_reduce_ms"] for r in ranks],
                "runs": {}}
         launches = 0
@@ -2924,10 +3344,16 @@ def phase_ranks(g, refs, resident4, mesh_its, seed, g_e, refs_e) -> tuple:
         out["epochs"] = ranks_epochs_check(tmp, ranks, g_e, refs_e, seed)
         launches += sum(sum(r["csr_tile_launches"])
                         for r in out["epochs"]["runs"].values())
+        out["oocore"], oocore_world = ranks_oocore_check(tmp, ranks, refs)
+        out["oocore"]["hbm_budget"] = budget
+        launches += sum(sum(r["csr_tile_launches"])
+                        for r in out["oocore"]["runs"].values())
+        out["serve"], serve_answers = ranks_serve_check(tmp, ranks)
+        launches += sum(r["serve"]["launches"] for r in ranks)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t0
-    return out, launches, async_state
+    return out, launches, async_state, (oocore_world, serve_answers)
 
 
 # benchmarks/bench_accel.py's skewed R-MAT (_async_skew_table; no dedup)
@@ -4081,7 +4507,10 @@ def phase_serve(g, seed) -> tuple:
         raise AssertionError(f"phase 5i swept {autotune.CACHE.sweeps - sweeps}"
                              " times with CSRConfig() pinned")
     out["seconds"] = time.perf_counter() - t_phase
-    return out, launches_tile, cases
+    refs = {"graph": g, "seeds": seeds, "tails": tails, "solo": solo,
+            "pr_ref": pr_ref,
+            "batch8": {k: answers for k, (answers, _) in batch8.items()}}
+    return out, launches_tile, cases, refs
 
 
 @contextlib.contextmanager
@@ -5488,7 +5917,7 @@ def main(argv=None) -> int:
     # -- 5e'. the graph loop across four gloo ranks on the card -----------
     mesh_its = {r["run"].split("/")[0]: r["iterations"]
                 for r in mesh_rec.values() if isinstance(r, dict)}
-    ranks_rec, ranks_launches, ranks_async_state = phase_ranks(
+    ranks_rec, ranks_launches, ranks_async_state, ranks_later = phase_ranks(
         g, refs, resident4, mesh_its, args.seed, g_e, refs_e)
     e2e_launches["csr_tile"] += ranks_launches
 
@@ -5504,7 +5933,6 @@ def main(argv=None) -> int:
                          ranks_async_state, async_rec[mesh4_label],
                          async_states[mesh4_label])
     del ranks_async_state, async_states
-    emit(ranks_rec)
     e2e_launches["csr_tile"] += async_launches
     torch.cuda.empty_cache()
 
@@ -5523,14 +5951,22 @@ def main(argv=None) -> int:
     oocore_rec, oocore_launches = phase_oocore(
         g, parts, pr, sp, refs, resident4,
         (tuned, tune_rec[tuned]["per_iteration_s"]))
+    oocore_counters = oocore_rec.pop("counters")
     emit(oocore_rec)
     e2e_launches["csr_tile"] += oocore_launches
+    # 5e' (c) against (d)'s one-process runs
+    ranks_oocore_vs_5h(ranks_rec["oocore"], ranks_later[0], oocore_counters)
     torch.cuda.empty_cache()
 
     # -- 5i. online graph-query serving -------------------------------------
-    serve_rec, serve_launches, serve_cases = phase_serve(g_e, args.seed)
+    serve_rec, serve_launches, serve_cases, serve_refs = phase_serve(
+        g_e, args.seed)
     del g_e
     emit(serve_rec)
+    # 5e' (d) against 5i's answers and references; the ranks line last
+    ranks_serve_vs_5i(ranks_rec["serve"], ranks_later[1], serve_refs)
+    del ranks_later, serve_refs
+    emit(ranks_rec)
     e2e_launches["csr_tile"] += serve_launches
     cases.extend(serve_cases)
     torch.cuda.empty_cache()

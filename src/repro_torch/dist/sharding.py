@@ -337,6 +337,17 @@ class RankMesh:
         """True on a world rank that hosts none of the axis' devices."""
         return self.local == 0
 
+    def device_for(self, device=None) -> torch.device:
+        """The rank's device, for a caller that was also handed
+        ``device``: None, or a device of the same type (and index, if it
+        names one), else ``ValueError``."""
+        want = None if device is None else resolve_device(device)
+        if want is not None and (want.type != self.device.type or (
+                want.index is not None and want != self.device)):
+            raise ValueError(f"device={device!r} differs from the "
+                             f"RankMesh's {self.device}")
+        return self.device
+
     @property
     def leader(self) -> int:
         """The group's lowest rank: it posts to the idle ranks."""

@@ -21,6 +21,16 @@ shrink(+grow) path under live traffic:
 ``--device cpu`` runs the plain PyTorch path; ``--device cuda`` (the
 default) raises on a machine without a GPU.  On the card it prints the
 card's name and power limit beside the throughput and latencies.
+
+Under ``torchrun`` (when ``WORLD_SIZE`` is set) the shard axis spans the
+ranks: a ``RankMesh`` of one logical device a rank
+(``launch.mesh.make_rank_mesh``), the session's families over it.  Every
+rank replays the same workload — admission reads only the virtual clock,
+so every rank forms the same batches — and rank 0 prints:
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 \\
+      -m repro_torch.launch.graph_serve --num-shards 8     # gloo, one card
+  (--backend nccl: a card a rank; --kill-device names a world device)
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ import subprocess
 from repro_torch.dist.fault import FailureSchedule, FleetMonitor
 from repro_torch.graph import generate
 from repro_torch.kernels.ops import CSRConfig
+from repro_torch.launch.mesh import make_rank_mesh, world_size
 from repro_torch.plug.protocols import divisor_mesh
 from repro_torch.serve import (GraphServeRouter, GraphServeSession,
                                generate_workload, replay)
@@ -79,8 +90,30 @@ def main(argv=None):
     ap.add_argument("--recover-at", type=int, default=None,
                     help="bring the killed device back at this iteration "
                          "— the shard axis grows again")
+    ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"),
+                    help="under torchrun: gloo (ranks may share a card) or "
+                         "nccl (one card a rank)")
     args = ap.parse_args(argv)
 
+    import torch.distributed as dist
+
+    ranks = None
+    owns_group = False
+    if world_size() > 1:
+        owns_group = not dist.is_initialized()
+        ranks = make_rank_mesh(
+            args.backend, device=None if args.device == "cuda"
+            else args.device)
+    try:
+        return _serve(args, ranks)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
+
+
+def _serve(args, ranks) -> dict:
+    say = print if ranks is None or ranks.rank == 0 else (lambda *a: None)
+    mesh = args.mesh if ranks is None else ranks
     g = generate.rmat(args.num_vertices, args.num_edges,
                       seed=args.graph_seed)
     failures = None
@@ -90,12 +123,12 @@ def main(argv=None):
                  if args.recover_at is not None else ())
         failures = FailureSchedule(
             kills=[(args.kill_at, args.kill_device)], recoveries=recov)
-        monitor = FleetMonitor(
-            num_hosts=divisor_mesh(args.num_shards, args.mesh))
+        monitor = FleetMonitor(num_hosts=divisor_mesh(args.num_shards,
+                                                      mesh))
     session = GraphServeSession(
         g, num_shards=args.num_shards, kernel=args.kernel,
         max_batch=args.max_batch, monitor=monitor, failures=failures,
-        device=args.device, mesh=args.mesh,
+        device=args.device if ranks is None else None, mesh=mesh,
         # pinned: an autotuned family may pick the flat merge, which runs
         # no CSR-tile kernel
         csr_config=CSRConfig())
@@ -107,22 +140,24 @@ def main(argv=None):
         repeat_fraction=args.repeat_fraction)
     answers, stats = replay(router, wl)
 
-    print(f"graph |V|={g.num_vertices} |E|={g.num_edges}, "
-          f"{args.num_shards} shards, mesh={args.mesh}, "
-          f"kernel={args.kernel}, device={args.device}")
-    print(f"{stats['completed']} completed ({stats['cached']} cache hits) "
-          f"in {stats['wall_s']:.2f}s wall — "
-          f"{stats['throughput_qps']:.1f} qps, "
-          f"p50 {stats['p50_ms']:.2f}ms p99 {stats['p99_ms']:.2f}ms "
-          f"on {card_line(args.device)}")
+    where = (f"mesh={args.mesh}" if ranks is None else
+             f"{ranks.world} ranks ({ranks.backend}) on {ranks.device}")
+    say(f"graph |V|={g.num_vertices} |E|={g.num_edges}, "
+        f"{args.num_shards} shards, {where}, "
+        f"kernel={args.kernel}, device={args.device}")
+    say(f"{stats['completed']} completed ({stats['cached']} cache hits) "
+        f"in {stats['wall_s']:.2f}s wall — "
+        f"{stats['throughput_qps']:.1f} qps, "
+        f"p50 {stats['p50_ms']:.2f}ms p99 {stats['p99_ms']:.2f}ms "
+        f"on {card_line(args.device)}")
     for kind, row in stats["kinds"].items():
-        print(f"  {kind:8s} n={row['count']:4d} cached={row['cached']:3d} "
-              f"p50={row['p50_ms']:8.2f}ms p99={row['p99_ms']:8.2f}ms "
-              f"mean_batch={row['mean_batch']:.1f}")
-    print(f"families built: {len(session.compiled_families)} "
-          f"(init_s {', '.join(f'{v:.2f}' for v in session.init_s.values())}"
-          f"), mesh epoch: {session.mesh_epoch}, "
-          f"cache: {router.cache.stats.as_dict()}")
+        say(f"  {kind:8s} n={row['count']:4d} cached={row['cached']:3d} "
+            f"p50={row['p50_ms']:8.2f}ms p99={row['p99_ms']:8.2f}ms "
+            f"mean_batch={row['mean_batch']:.1f}")
+    say(f"families built: {len(session.compiled_families)} "
+        f"(init_s {', '.join(f'{v:.2f}' for v in session.init_s.values())}"
+        f"), mesh epoch: {session.mesh_epoch}, "
+        f"cache: {router.cache.stats.as_dict()}")
     return stats
 
 

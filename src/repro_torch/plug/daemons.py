@@ -50,7 +50,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.edge_block import bucket_partials
 from repro_torch.dist.sharding import RankMesh
-from repro_torch.plug.protocols import divisor_mesh, not_ported_error
+from repro_torch.plug.protocols import divisor_mesh
 
 KERNELS = ("reference", "cuda")
 
@@ -503,8 +503,9 @@ class ShardedDaemon(VectorizedDaemon):
 
     ``kernel="cuda"`` runs the CSR aggregation instead of the block
     program: ``bind_shards`` autotunes its config once, on the shard with
-    the most live edges, and pins it on the daemon (unless ``csr_config``
-    pinned it), compacts every shard's blockset into dst-grouped tiles,
+    the most live edges (across ranks the world's, swept by its rank and
+    broadcast), and pins it on the daemon (unless ``csr_config`` pinned
+    it), compacts every shard's blockset into dst-grouped tiles,
     pads the tile sets to a common (nt, RT, ST) envelope and stacks them,
     so an iteration is ONE ``csr_tile`` launch over all S·nt tiles (none
     when the flat merge was chosen).  Frontier skipping becomes a per-edge mask
@@ -530,7 +531,9 @@ class ShardedDaemon(VectorizedDaemon):
     :meth:`bind_super_shards` keeps a hot set of columns on the device and
     the rest as pinned host super-shards that :meth:`upload_super_shard`
     copies on the current stream; ``run_all_shards(stacked=)`` runs on
-    either, one ``csr_tile`` launch each.
+    either, one ``csr_tile`` launch each.  Over a RankMesh each rank
+    streams its own shards' columns of every super-shard, and every rank
+    makes the one-process plan.
     """
 
     name = "sharded"
@@ -655,16 +658,17 @@ class ShardedDaemon(VectorizedDaemon):
         self.num_shards = s
         self._blocksets = list(blocksets)
 
-    def _stack_csr_tiles(self, blocksets, place):
+    def _stack_csr_tiles(self, blocksets, place, world_envelope=False):
         """Compacts every shard's blockset into CSR tiles (cached per
         BlockSet edge arrays, :func:`_edges_key`: ``tiles_recut`` /
-        ``tilesets_reused`` count the split), pads them to a common (nt, RT, ST) envelope and places the
-        stacked fields the tile body reads."""
+        ``tilesets_reused`` count the split), pads them to a common (nt,
+        RT, ST) envelope — with ``world_envelope``, the largest over the
+        ranks (:meth:`_world_max`) — and places the stacked fields the
+        tile body reads."""
         from repro_torch.graph.compaction import (pad_tileset,
                                                   tiles_from_blockset)
 
-        big = max(blocksets, key=lambda bs: int(bs.emask.sum()))
-        cfg = self._resolve_csr_config(*_live_edges(big))
+        cfg = self._binding_csr_config(blocksets)
         tiles = []
         for bs in blocksets:
             hit = self._tile_cache.get(_edges_key(bs))
@@ -681,14 +685,50 @@ class ShardedDaemon(VectorizedDaemon):
         live = {_edges_key(bs) for bs in blocksets}
         self._tile_cache = {k: v for k, v in self._tile_cache.items()
                             if k in live}
-        nt = max(t.num_tiles for t in tiles)
-        rt = max(t.row_tile for t in tiles)
-        st = max(t.src_tile for t in tiles)
+        envelope = [max(t.num_tiles for t in tiles),
+                    max(t.row_tile for t in tiles),
+                    max(t.src_tile for t in tiles)]
+        nt, rt, st = (self._world_max(envelope) if world_envelope
+                      else envelope)
         arrays = [pad_tileset(t, num_tiles=nt, row_tile=rt,
                               src_tile=st).arrays() for t in tiles]
         fields = _CSR_FIELDS + (("gdst",) if cfg.merge == "flat" else ())
         return {k: place("csr/" + k, np.stack([a[k] for a in arrays]))
                 for k in fields}
+
+    def _binding_csr_config(self, blocksets):
+        """The CSR config this binding compacts with: the pinned one, the
+        one resolved already, or the winner of one sweep on the shard with
+        the most live edges (the first such shard).  Across ranks that is
+        the world's largest shard: the rank holding it sweeps and
+        broadcasts the winner, so the world sweeps once and every rank
+        binds one config, as the JAX package's one sweep does.  A rank
+        back from idle takes the config its group holds."""
+        live = [int(bs.emask.sum()) for bs in blocksets]
+        big = blocksets[int(np.argmax(live))]
+        rm = self.mesh
+        if not isinstance(rm, RankMesh) or self.csr_config is not None:
+            return self._resolve_csr_config(*_live_edges(big))
+        views = rm.all_gather_host((self._csr_config, max(live)))
+        held = [c for c, _ in views if c is not None]
+        if held:
+            self._csr_config = held[0]
+            return self._csr_config
+        src = rm.members[int(np.argmax([e for _, e in views]))]
+        if rm.rank == src:
+            self._resolve_csr_config(*_live_edges(big))
+        self._csr_config = rm.broadcast_host(self._csr_config, src)
+        return self._csr_config
+
+    def _world_max(self, sizes) -> list:
+        """``sizes`` (ints), over a RankMesh their largest over the ranks:
+        an out-of-core binding pads every rank's columns to the
+        one-process stack's shape, so its plan and column bytes are the
+        same on every rank."""
+        if isinstance(self.mesh, RankMesh):
+            sizes = self.mesh.all_reduce_host(np.array(sizes, np.int64),
+                                              "max")
+        return [int(x) for x in sizes]
 
     # -- out-of-core (OutOfCoreCapable) ----------------------------------
     def _clear_oocore(self):
@@ -718,24 +758,44 @@ class ShardedDaemon(VectorizedDaemon):
         :meth:`remesh` re-plans for the survivors' larger per-device column
         cost.  The CSR stack holds the fields the shard body reads (``gdst``
         only for the flat merge), so a column weighs less than the JAX
-        package's, which streams every tile field.  Returns self."""
+        package's, which streams every tile field.
+
+        Over a :class:`~repro_torch.dist.sharding.RankMesh` a rank stacks
+        only its own shards, and the plan's inputs are the world's, so
+        every rank makes the plan one process makes for the whole axis:
+        the columns are padded to the ranks' largest (nt, RT, ST) envelope
+        (block count for the block body), the access scores read the sum
+        of every rank's out-degree counts, and the CSR config is the one
+        of :meth:`_binding_csr_config`.  The budget stays per logical
+        device.  An idle rank binds nothing and frees what it held; it
+        keeps ``config`` for a join.  Returns self."""
         from repro_torch.dist import fault as dist_fault
         from repro_torch.graph.compaction import tile_access_scores
         from repro_torch.oocore.supershard import build_super_shards
 
-        if isinstance(self.mesh if mesh is None else mesh, RankMesh):
-            raise not_ported_error("out-of-core execution across ranks", 13)
         if config is None:
             config = self._oocore_config
         if config is None:
             raise ValueError("bind_super_shards needs an OocoreConfig")
         self._setup_shard_axis(blocksets, mesh, axis)
+        self._stacked = None
+        if not blocksets:  # an idle rank of a survivor RankMesh
+            self._clear_oocore()
+            self._oocore_config = config  # a join re-binds under it
+            return self
         if self.kernel == "cuda":
-            fields = self._stack_csr_tiles(blocksets, lambda name, a: a)
+            fields = self._stack_csr_tiles(blocksets, lambda name, a: a,
+                                           world_envelope=True)
         else:
-            fields = _host_block_stacks(blocksets)
+            (nb,) = self._world_max([max(bs.num_blocks
+                                         for bs in blocksets)])
+            fields = _host_block_stacks(blocksets, nb)
         gsrc, emask = fields["gsrc"], fields["emask"]
+        # the access scores read every shard's live out-degree: across
+        # ranks the sum of each rank's counts
         deg = np.bincount(gsrc[emask].ravel(), minlength=self.n)
+        if isinstance(self.mesh, RankMesh):
+            deg = self.mesh.all_reduce_host(deg, "sum")
         scores = tile_access_scores(gsrc, emask, deg)
         col_bytes_shard = sum(
             int(a.itemsize) * int(np.prod(a.shape[2:], dtype=np.int64))
@@ -746,7 +806,6 @@ class ShardedDaemon(VectorizedDaemon):
         del fields
         dev = self.device
         pin = dev.type == "cuda"
-        self._stacked = None
         self._stacked_digests = {}
         self.adopted_fields = 0
         self._oocore_config = config
@@ -1088,10 +1147,12 @@ def _frontier_at(act, gsrc):
 _CSR_FIELDS = ("rows", "seg", "lsrc", "svids", "w", "emask", "gsrc")
 
 
-def _host_block_stacks(blocksets) -> dict:
+def _host_block_stacks(blocksets, nb_max=None) -> dict:
     """Every shard's block arrays stacked on a leading shard axis, padded
-    to a common block count with dead blocks — host numpy."""
-    nb_max = max(bs.num_blocks for bs in blocksets)
+    to a common block count (``nb_max``, by default the largest) with
+    dead blocks — host numpy."""
+    if nb_max is None:
+        nb_max = max(bs.num_blocks for bs in blocksets)
 
     def stack(field, fill=0):
         arrs = []

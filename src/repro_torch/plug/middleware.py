@@ -77,7 +77,7 @@ from repro_torch.plug.protocols import (DevicePartialUpper, ElasticUpper,
                                         MaskCapableDaemon, OutOfCoreCapable,
                                         PlugOptions, PriorityAsyncModel,
                                         Result, ShardCapableDaemon,
-                                        divisor_mesh, not_ported_error)
+                                        divisor_mesh)
 from repro_torch.plug.uppers import get_upper_system
 
 # names the channels on which a survivor group's leader posts to the idle
@@ -248,8 +248,10 @@ class Middleware:
     when their leader posts one (a membership change) and rejoins on a
     join, getting the carry by a broadcast; at the end it takes the
     leader's ``Result``, so every world rank returns the same one.  Out of
-    core across ranks raises ``NotImplementedError`` (ROADMAP Queue A item
-    13d).
+    core across ranks, each rank streams its own shards' columns of every
+    super-shard under the plan one process would make (see
+    :class:`OocoreDriveLoop`); ``oocore_replan``, like ``rebalance``, is
+    called on every world rank.
 
     With a shard-capable daemon (``daemon="sharded"``) and a device-partial
     upper system (``upper="mesh"``), ``run`` drives the fused
@@ -296,14 +298,7 @@ class Middleware:
         if not isinstance(self.ranks, RankMesh):
             self.device = resolve_device("cuda" if device is None else device)
         else:
-            want = None if device is None else resolve_device(device)
-            if want is not None and (want.type != self.ranks.device.type or (
-                    want.index is not None and want != self.ranks.device)):
-                raise ValueError(f"device={device!r} differs from the "
-                                 f"RankMesh's {self.ranks.device}")
-            self.device = self.ranks.device
-            if oocore is not None:
-                self._refuse_ranks("oocore=")
+            self.device = self.ranks.device_for(device)
         # the leader's posts to idle ranks: their channel, how many were
         # made, and the polls they replay (see _poll_structure)
         self._channel = (f"mw{next(_CHANNELS)}"
@@ -490,10 +485,6 @@ class Middleware:
         """Every shard's block count, summed over the ranks."""
         total = sum(bs.num_blocks for bs in self.blocksets)
         return int(self.ranks.all_reduce_host(np.array([total]), "sum")[0])
-
-    def _refuse_ranks(self, what: str) -> None:
-        if isinstance(self.ranks, RankMesh):
-            raise not_ported_error(f"{what} across ranks", 13)
 
     def _detect_fused(self) -> str | None:
         """Which fused device-resident loop this composition gets, if any.
@@ -938,6 +929,11 @@ class Middleware:
         published with ``dirty_vertices=None``.  The meta carries
         ``super_shards_before`` / ``_after``, ``hot_cols_before`` /
         ``_after`` and the rebuild's ``seconds``.
+
+        Across ranks every world rank calls it, as it calls
+        :meth:`rebalance`: the survivors re-plan together, and an idle
+        rank, which holds no plan, publishes the epoch with no plan and
+        its counts as None.
         """
         if self._fused_kind != "oocore":
             raise ValueError(
@@ -952,10 +948,8 @@ class Middleware:
             partitions=self.partitions, blocksets=self.blocksets,
             dirty_vertices=None,
             meta={"oocore_config": self.oocore,
-                  "super_shards_before": int(before.num_super_shards),
-                  "hot_cols_before": int(before.hot_cols)})
-        ep.meta["super_shards_after"] = int(ep.oocore_plan.num_super_shards)
-        ep.meta["hot_cols_after"] = int(ep.oocore_plan.hot_cols)
+                  **_plan_counts(before, "before")})
+        ep.meta.update(_plan_counts(ep.oocore_plan, "after"))
         ep.meta["seconds"] = time.perf_counter() - t0
         return ep
 
@@ -1116,6 +1110,14 @@ class Middleware:
             "iterations": int(res.iterations),
         }
         return res
+
+
+def _plan_counts(plan, when: str) -> dict:
+    """A plan's group count and hot columns for an epoch's meta (None on
+    an idle rank, which holds no plan)."""
+    return {f"super_shards_{when}": (None if plan is None
+                                     else int(plan.num_super_shards)),
+            f"hot_cols_{when}": None if plan is None else int(plan.hot_cols)}
 
 
 class HostDriveLoop:
@@ -1660,8 +1662,20 @@ class OocoreDriveLoop(_FusedLoopBase):
     skipped.
 
     The fetch also carries the hot hits and cold misses (active tiles or
-    blocks served from the hot set and from streamed groups).  Each record
-    gets ``oocore``: ``super_shards``, ``hot_cols``, ``prefetch``,
+    blocks served from the hot set and from streamed groups).
+
+    Over a :class:`~repro_torch.dist.sharding.RankMesh` a rank runs its own
+    hot set and its own columns of each group into (local, N, K)
+    accumulators, and ``merge_partials``' collectives run once an
+    iteration, after the group loop.  A rank skips a group none of whose
+    columns *it* holds has an active source, so a group one process skips
+    is skipped on every rank, and a rank may skip more.  The blocks run
+    and the hit counts ride one SUM ``all_reduce`` an iteration: a record's
+    ``hot_hits`` and ``cold_misses`` are the world's, its ``skipped``,
+    copies and spans the rank's own.  Each rank has its own uploader (a
+    side stream and two slots) and pins only its own cold columns.
+
+    Each record gets ``oocore``: ``super_shards``, ``hot_cols``, ``prefetch``,
     ``seconds``, ``transfer_s`` (the copies, event-timed, a dropped
     wrap-around guess's included), ``wait_s`` (how long the compute stream
     stalled on them), ``hidden_s``,
@@ -1766,17 +1780,25 @@ class OocoreDriveLoop(_FusedLoopBase):
         agg, cnt = upper.merge_partials(acc_p, acc_c)
         new_state, new_active = apply_step(prog, state, agg, cnt > 0, aux, it)
         n_active = new_active.sum()
-        zero = torch.zeros(mw.num_shards, dtype=torch.int32,
+        zero = torch.zeros(daemon.num_shards, dtype=torch.int32,
                            device=mw.device)
         hot_br = zero if hot_br is None else hot_br
         cold_br = zero if cold_br is None else cold_br
         nxt = (daemon.super_shard_activity(new_active)
                if self._prefetching and self._use_frontier
                else zero[:0].bool())
+        # every shard's blocks run (this process's slots) and the hot hits
+        # and cold misses, in one SUM all_reduce; the group verdicts are
+        # this rank's own
+        s = mw.num_shards
+        world = torch.zeros(s + 2, dtype=torch.long, device=mw.device)
+        world[mw.shards.start:mw.shards.stop] = hot_br + cold_br
+        world[s] = hot_br.sum()
+        world[s + 1] = cold_br.sum()
+        world = mw.ranks.all_reduce(world, "sum")
         flags = torch.cat([
-            torch.stack([(n_active == 0).long(), n_active]),
-            (hot_br + cold_br).long(),
-            torch.stack([hot_br.sum(), cold_br.sum()]).long(), nxt.long()])
+            torch.stack([(n_active == 0).long(), n_active]), world,
+            nxt.long()])
         self._step_info = (t_iter, num_ss, len(todo), spans, stale)
         return (new_state, new_active), flags
 

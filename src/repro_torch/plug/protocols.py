@@ -442,12 +442,3 @@ def not_ported_error(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP Queue A item "
         f"{item})")
-
-
-def not_ported(what: str, item: int):
-    """A registry factory that raises :func:`not_ported_error`."""
-
-    def factory(**kwargs):
-        raise not_ported_error(what, item)
-
-    return factory

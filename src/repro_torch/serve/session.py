@@ -25,11 +25,24 @@ answers query batches against it:
   the batch record so the owner of the result cache can flush the
   affected (non-durable) entries — and ONLY those.
 
-Four keywords place the session: ``device`` (``"cuda"`` by default; it
-raises without a GPU unless ``"cpu"`` is asked for), ``mesh`` (the shard
-axis' logical devices on the one card, ``None`` = 1), ``csr_config`` (pins
-the CSR aggregation's config; ``None`` autotunes once per family) and
+Four keywords place the session: ``device`` (``"cuda"`` by default, a
+RankMesh's own device over one; it raises without a GPU unless ``"cpu"``
+is asked for), ``mesh`` (the shard
+axis' logical devices on the one card, ``None`` = 1, or a
+:class:`~repro_torch.dist.sharding.RankMesh`), ``csr_config`` (pins the
+CSR aggregation's config; ``None`` autotunes once per family) and
 ``kernel`` (``"reference"`` block body or the ``"cuda"`` CSR-tile kernel).
+
+Across ``torch.distributed`` ranks (``mesh=RankMesh``) the session's device
+is the mesh's, and every family middleware and lookup runs over the mesh:
+each rank builds its own shards' tiles and merges through the mesh's
+collectives.  Everything that builds or runs a middleware is collective —
+every rank calls ``execute_batch``, the lookups and ``apply_mutations``
+with the same arguments in the same order, as the serving front end does
+on its own: admission reads only the virtual clock, so every rank's
+router forms the same batches from the same workload.  Answers are the
+replicated state, the same on every rank (an idle rank of a survivor mesh
+takes the leader's); ``service_s`` and ``init_s`` are each rank's own.
 """
 from __future__ import annotations
 
@@ -47,7 +60,7 @@ from repro_torch.graph.structure import Graph
 from repro_torch.kernels.edge_block import _MAX_K
 from repro_torch.plug.daemons import ShardedDaemon
 from repro_torch.plug.middleware import Middleware
-from repro_torch.plug.protocols import PlugOptions, not_ported_error
+from repro_torch.plug.protocols import PlugOptions
 from repro_torch.plug.uppers import MeshUpperSystem
 
 #: kinds answered by a batched multi-source program
@@ -92,9 +105,7 @@ class GraphServeSession:
                  block_size: int | str = "auto",
                  monitor=None, failures=None,
                  analytics_iterations: int = 60,
-                 device="cuda", mesh=None, csr_config=None):
-        if isinstance(mesh, RankMesh):
-            raise not_ported_error("GraphServeSession across ranks", 13)
+                 device=None, mesh=None, csr_config=None):
         if max_batch < 1 or max_batch & (max_batch - 1):
             raise ValueError(f"max_batch must be a power of two, got "
                              f"{max_batch}")
@@ -106,7 +117,9 @@ class GraphServeSession:
                 f"kernel='cuda' serves batches up to the CSR-tile kernel's "
                 f"K <= {_MAX_K} (kernels/csrc/common.cuh kMaxK), got "
                 f"max_batch={max_batch}")
-        self.device = resolve_device(device)
+        self.device = (mesh.device_for(device) if isinstance(mesh, RankMesh)
+                       else resolve_device("cuda" if device is None
+                                           else device))
         self.graph = graph
         self.num_shards = num_shards
         self.daemon_name = daemon

@@ -1240,6 +1240,42 @@ def test_one_nccl_rank_keeps_host_collectives_on_gloo(cuda, tmp_path):
     assert (rank["backend"], rank["host_backend"]) == ("nccl", "gloo")
 
 
+@pytest.mark.cuda
+def test_two_gloo_ranks_stream_out_of_core_on_the_card(cuda, tmp_path):
+    """Two gloo ranks on the one card stream a graph out of core, each its
+    own shards' columns: the state bit-identical on both ranks and equal
+    to the single-process ``mesh=2`` run and ``run_reference``, the
+    per-iteration super-shards, hot columns and the world's hits and
+    misses the single process's; each rank with its own side stream, at
+    most two slots and two groups live, and ``csr_tile`` launched (hot >
+    0) + uploads times a step."""
+    import torch_ranks_worker as worker
+
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import spawn_ranks
+
+    build.library()  # built once here; the ranks load it
+    g = generate.rmat(4096, 65536, seed=2)
+    oocore = dict(num_super_shards=3, hot_fraction=0.25, prefetch=True)
+    ranks = spawn_ranks(worker.cuda_oocore_world, 2, (g, 4, oocore),
+                        backend="gloo",
+                        init_method=f"file://{tmp_path}/init",
+                        timeout_s=300.0)
+    want = ranks[0]["single"]
+    ref, _ = plug.run_reference(g, algorithms.sssp_bf(g), device="cuda")
+    np.testing.assert_array_equal(want["state"], np.asarray(ref))
+    world = ("super_shards", "hot_cols", "hot_hits", "cold_misses")
+    for r in ranks:
+        got = r["ranks"]
+        assert got["state"].tobytes() == want["state"].tobytes()
+        assert got["iterations"] == want["iterations"]
+        assert [{k: c[k] for k in world} for c in got["counters"]] == \
+            [{k: c[k] for k in world} for c in want["counters"]]
+        assert got["side_stream"] and got["slots"] == 2
+        assert 1 <= got["max_live_groups"] <= 2 and got["uploads"] > 0
+        assert got["launches"] == got["want_launches"]
+
+
 def _cuda_world(tmp_path, backend, world):
     """Runs ``torch_ranks_worker.cuda_world`` in ``world`` ranks of
     ``backend`` on the card and holds every rank's runs against rank 0's

@@ -256,18 +256,16 @@ def test_rank_wire_equals_the_stacked_wire_and_its_oracle(worlds, bits, fmt,
         np.testing.assert_array_equal(want[0][0][j], oracle)
 
 
-# the async loop and structure epochs across ranks run
-# (tests/test_torch_ranks_async.py, tests/test_torch_ranks_epoch.py); a bad
+# the async loop, structure epochs, out of core and serving across ranks
+# run (tests/test_torch_ranks_async.py, tests/test_torch_ranks_epoch.py,
+# tests/test_torch_ranks_oocore.py, tests/test_torch_ranks_serve.py); a bad
 # monitor or mutation schedule, and migrate() without a monitor, fail as on
 # one process (test_bad_epoch_wiring_fails_as_on_one_process)
 REFUSALS = {
-    "oocore": (NotImplementedError, "item 13"),
     "bad_monitor": (AttributeError, "num_hosts"),
     "bad_mutations": (AttributeError, "due_at"),
     "migrate_without_monitor": (ValueError, "monitor"),
-    "serve": (NotImplementedError, "item 13"),
     "moe": (NotImplementedError, "item 13"),
-    "super_shards": (NotImplementedError, "item 13"),
     "shards_not_divisible": (ValueError, "must divide"),
     "host_upper": (ValueError, "MeshUpperSystem"),
     "int_daemon_mesh": (ValueError, "is not the upper"),

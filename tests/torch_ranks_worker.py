@@ -129,16 +129,10 @@ def _refusals(graphs, shards, mesh) -> dict:
         return lambda: getattr(mw(), method)(*args)
 
     cases = {
-        "oocore": lambda: mw(oocore=plug.OocoreConfig(num_super_shards=2)),
         "bad_monitor": lambda: mw(monitor=object()),
         "bad_mutations": lambda: mw(mutations=object()).run(),
         "migrate_without_monitor": run_built("migrate"),
-        "serve": lambda: _serve_session(g, shards, mesh),
         "moe": lambda: _moe_under(mesh),
-        "super_shards": lambda: plug.ShardedDaemon(mesh=mesh).bind(
-            prog, g.num_vertices, device="cpu").bind_super_shards(
-                mw(daemon="reference").blocksets,
-                config=plug.OocoreConfig(num_super_shards=2)),
         "shards_not_divisible": lambda: mw(num_shards=mesh.size * 2 + 1),
         "host_upper": lambda: mw(upper="host"),
         "int_daemon_mesh": lambda: mw(daemon=plug.ShardedDaemon(
@@ -152,12 +146,6 @@ def _refusals(graphs, shards, mesh) -> dict:
         except Exception as e:  # reported to the parent, which asserts
             out[name] = (type(e).__name__, str(e))
     return out
-
-
-def _serve_session(g, shards, mesh):
-    from repro_torch.serve import GraphServeSession
-
-    return GraphServeSession(g, num_shards=shards, mesh=mesh, device="cpu")
 
 
 def _moe_under(mesh):
@@ -419,4 +407,427 @@ def epoch_world(rank, world, graphs, shards, local, mutations):
     out["imports"] = sorted(
         name for name in sys.modules
         if name.split(".")[0] in ("jax", "jaxlib", "repro"))
+    return out
+
+
+# --------------------------------------------------------------------------
+# out of core and graph serving across ranks
+# (tests/test_torch_ranks_oocore.py, tests/test_torch_ranks_serve.py)
+# --------------------------------------------------------------------------
+# the bit-identity matrix: hot fraction x groups x prefetch
+OOCORE_MATRIX = [(hot, groups, prefetch) for hot in (0.0, 0.25)
+                 for groups in (2, 3) for prefetch in (True, False)]
+OOCORE_KERNELS = ("reference", "cuda")
+# a graph with several columns a shard for each body: blocks of BLOCK
+# edges for the block body, tiles of 512 for the CSR body
+OOCORE_GRAPH = {"reference": "directed", "cuda": "dense"}
+# the per-iteration counters of an out-of-core record, but the rank's own
+# copies and spans (``skipped`` is the rank's too: a rank may skip more)
+OOCORE_COUNTERS = ("super_shards", "hot_cols", "prefetch", "skipped",
+                   "hot_hits", "cold_misses")
+ROAD_ITERATIONS = 10
+FETCHES = ("cpu", "tolist", "item", "__bool__", "__int__")
+
+
+def oocore_cases() -> list:
+    """``(name, kernel, program, oocore keywords)``: the matrix for both
+    bodies (sssp_bf GAS), a byte budget, a kill of the last device then a
+    re-plan at half the budget, pagerank, the road network's skips, and an
+    unpinned CSR config out of core and resident.  ``"budget"`` in the
+    keywords is a share of the resident column bytes the parent hands the
+    world (``budgets``)."""
+    cases = [(("matrix", hot, groups, prefetch), kernel, "sssp_bf",
+              dict(num_super_shards=groups, hot_fraction=hot,
+                   prefetch=prefetch))
+             for kernel in OOCORE_KERNELS
+             for hot, groups, prefetch in OOCORE_MATRIX]
+    for kernel in OOCORE_KERNELS:
+        cases += [(("budget",), kernel, "sssp_bf",
+                   dict(budget=3, hot_fraction=0.25)),
+                  (("kill",), kernel, "sssp_bf",
+                   dict(budget=3, hot_fraction=0.3)),
+                  (("pagerank",), kernel, "pagerank",
+                   dict(num_super_shards=3, hot_fraction=0.25))]
+    return cases + [
+        (("road",), "reference", "sssp_bf",
+         dict(num_super_shards=6, hot_fraction=0.0)),
+        (("autotune",), "cuda", "sssp_bf",
+         dict(num_super_shards=2, hot_fraction=0.25)),
+        (("autotune", "resident"), "cuda", "sssp_bf", None)]
+
+
+def oocore_graph(name, kernel) -> str:
+    """The graph a case runs on."""
+    return "road" if name[0] == "road" else OOCORE_GRAPH[kernel]
+
+
+def oocore_config(oc, budget):
+    """The case's ``OocoreConfig``: ``budget=d`` is the resident column
+    bytes per logical device over d."""
+    if oc is None:
+        return None
+    oc = dict(oc)
+    if "budget" in oc:
+        oc["hbm_budget"] = budget // oc.pop("budget")
+    return plug.OocoreConfig(**oc)
+
+
+def oocore_middleware(graph, prog_name, kernel, shards, mesh, oocore,
+                      csr_config=CSRConfig(), **kw):
+    """``prog_name`` under GAS (a sum program under BSP) out of core (or
+    resident with ``oocore=None``), over a RankMesh or at an int m."""
+    prog = talg.ALGORITHMS[prog_name](graph)
+    if not isinstance(mesh, RankMesh):
+        kw["device"] = "cpu"
+    return plug.Middleware(
+        graph, prog, daemon=plug.ShardedDaemon(kernel=kernel, mesh=mesh,
+                                               csr_config=csr_config),
+        upper=plug.MeshUpperSystem(mesh=mesh),
+        model="bsp" if prog_name in SUM_PROGRAMS else "gas",
+        num_shards=shards, oocore=oocore,
+        options=plug.PlugOptions(block_size=BLOCK), **kw)
+
+
+class counting_fetches:
+    """Records ``(method, numel)`` of every device→host read a block makes
+    through the tensor methods in FETCHES."""
+
+    def __init__(self):
+        self.calls = []
+        self._saved = {}
+
+    def __enter__(self):
+        for name in FETCHES:
+            orig = self._saved[name] = getattr(torch.Tensor, name)
+
+            def wrapper(t, *a, _n=name, _o=orig, **kw):
+                self.calls.append((_n, t.numel()))
+                return _o(t, *a, **kw)
+
+            setattr(torch.Tensor, name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        for name, orig in self._saved.items():
+            setattr(torch.Tensor, name, orig)
+
+
+def recording_verdicts(mw) -> list:
+    """Appends, before each out-of-core step, the groups the step skips
+    (None when it takes every group)."""
+    verdicts = []
+    loop = mw._loop
+    advance = loop._advance
+
+    def recorded(carry, aux, it, stacked):
+        act = loop._activity
+        verdicts.append(None if act is None else
+                        [g for g, a in enumerate(act) if not a])
+        return advance(carry, aux, it, stacked)
+
+    loop._advance = recorded
+    return verdicts
+
+
+def _oocore_record(res, mw, verdicts, fetches) -> dict:
+    import dataclasses
+
+    out = _epoch_record(res, mw)
+    recs = res.per_iteration
+    out["records"] = _stripped([
+        {k: v for k, v in r.items() if k != "oocore"} for r in recs])
+    out["counters"] = [{k: r["oocore"][k] for k in OOCORE_COUNTERS}
+                       for r in recs if "oocore" in r]
+    plan = mw.daemon.oocore_plan
+    out["plan"] = None if plan is None else dataclasses.asdict(plan)
+    out["verdicts"] = list(verdicts)
+    out["groups_held"] = len(mw.daemon._cold)
+    out["hot_held"] = mw.daemon.hot_stacked is not None
+    up = getattr(mw._loop, "_uploader", None)
+    out["max_live_groups"] = 0 if up is None else up.max_live_groups
+    out["slots"] = 0 if up is None else up.slot_allocations
+    out["fetches"] = fetches
+    return out
+
+
+def _oocore_case(graphs, case, shards, mesh, budgets) -> list:
+    """One out-of-core case on ``mesh`` → its runs' records (the kill
+    case runs twice: under the kill, then after a re-plan at half the
+    budget)."""
+    from repro_torch.kernels import autotune
+
+    name, kernel, prog_name, oc = case
+    g = graphs[oocore_graph(name, kernel)]
+    budget = budgets[kernel]
+    kw = {}
+    if name == ("kill",):
+        m = mesh.size if isinstance(mesh, RankMesh) else mesh
+        kw["failures"] = plug.FailureSchedule(kills=[(3, m - 1)])
+    autotune.CACHE.clear()
+    mw = oocore_middleware(
+        g, prog_name, kernel, shards, mesh, oocore_config(oc, budget),
+        csr_config=None if name[0] == "autotune" else CSRConfig(), **kw)
+    if oc is not None and not isinstance(mw._loop, plug.OocoreDriveLoop):
+        raise AssertionError(f"{name}: ran {type(mw._loop).__name__}")
+    cap = ROAD_ITERATIONS if name == ("road",) else max_it(prog_name)
+
+    def run():
+        verdicts = (recording_verdicts(mw) if oc is not None
+                    else [])
+        with counting_fetches() as f:
+            res = mw.run(max_iterations=cap)
+        vars(mw._loop).pop("_advance", None)
+        return _oocore_record(res, mw, verdicts, f.calls)
+
+    runs = [run()]
+    runs[0]["sweeps"] = autotune.CACHE.sweeps
+    runs[0]["config"] = mw.daemon._csr_config
+    if name == ("kill",):
+        ep = mw.oocore_replan(oocore_config(dict(oc, budget=6), budget))
+        runs.append(run())
+        runs[-1]["replan"] = {k: v for k, v in ep.meta.items()
+                              if k not in ("seconds", "oocore_config")}
+    return runs
+
+
+def oocore_world(rank, world, graphs, shards, local, budgets):
+    """One rank of an out-of-core world: every case of
+    :func:`oocore_cases` over a RankMesh of ``world`` ranks × ``local``
+    devices, then this rank's share of the same cases at ``mesh=m``."""
+    torch.set_num_threads(1)
+    mesh = RankMesh(local=local, device="cpu")
+    cases = oocore_cases()
+    out = {"rank": rank, "ranks": {}, "single": {}}
+    for case in cases:
+        out["ranks"][case[:2]] = _oocore_case(graphs, case, shards, mesh,
+                                              budgets)
+    for i, case in enumerate(cases):
+        if i % world == rank:
+            out["single"][case[:2]] = _oocore_case(graphs, case, shards,
+                                                   mesh.size, budgets)
+    out["imports"] = sorted(
+        name for name in sys.modules
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"))
+    return out
+
+
+SERVE_SEEDS = [3, 17, 17, (5, 9)]
+SERVE_PARAMS = {"khop": (("hops", 2),), "sssp": (), "ppr": ()}
+SERVE_LOOKUPS = [(3,), (5, 9)]
+SERVE_REQUESTS = 40
+SERVE_RATE = 400.0
+SERVE_KILL = dict(kills=[(5, 1)], recoveries=[(8, 1)])
+SERVE_MUTATION = [(3, 200, 0.5), (200, 41, 0.5)]
+SERVE_AFTER = [("sssp", 5, {}), ("lookup", 3, {"field": "pagerank"})]
+
+
+def _values(xs) -> list:
+    return [np.asarray(x) for x in xs]
+
+
+def _recording(session) -> list:
+    """Appends each ``execute_batch`` call's (kind, params, seeds) to the
+    returned list."""
+    calls = []
+    run = session.execute_batch
+
+    def recorded(kind, params, seeds_list):
+        calls.append((kind, params, [tuple(int(v) for v in np.atleast_1d(s))
+                                     for s in seeds_list]))
+        return run(kind, params, seeds_list)
+
+    session.execute_batch = recorded
+    return calls
+
+
+def _answered(router, query):
+    ticket, ans = router.submit(query)
+    if ans is None:
+        router.drain()
+        ans = router.result(ticket)
+    return ans
+
+
+def serve_script(serve, make_session, make_log, make_failures) -> dict:
+    """One package's serving run, answers and records but service times:
+    a batch of each kind, both lookup fields, a seeded replay through the
+    router (its batches recorded) and a mutation through
+    ``GraphServeRouter.mutate`` on that session; then on a session with a
+    monitor (``make_failures()`` → (monitor, schedule)) a kill and a join
+    mid-serve.  ``serve`` is ``repro_torch.serve`` or the JAX package's;
+    ``make_session(**kw)`` builds a session, ``make_log(edges)`` a
+    mutation log.  Imports nothing itself."""
+    session = make_session()
+    out = {"batches": {}, "lookups": {}}
+    for kind, params in SERVE_PARAMS.items():
+        answers, rec = session.execute_batch(kind, params, SERVE_SEEDS)
+        out["batches"][kind] = (_values(answers), {
+            k: rec[k] for k in ("batch", "bucket", "iterations", "converged",
+                                "durable", "mesh_epoch")})
+    for field in ("pagerank", "wcc"):
+        answers, _ = session.execute_batch("lookup", (("field", field),),
+                                           SERVE_LOOKUPS)
+        out["lookups"][field] = _values(answers)
+    wl = serve.generate_workload(
+        num_requests=SERVE_REQUESTS, num_vertices=session.graph.num_vertices,
+        rate=SERVE_RATE, seed=0, hops=2, repeat_fraction=0.2)
+    calls = _recording(session)
+    router = serve.GraphServeRouter(session, max_batch=session.max_batch)
+    answers, stats = serve.replay(router, wl)
+    out["replay"] = {
+        "calls": list(calls),
+        "answers": [(a.query.cache_key, a.cached, a.batch, a.iterations,
+                     np.asarray(a.value)) for a in answers],
+        "completed": stats["completed"], "cached": stats["cached"]}
+    rec = router.mutate(make_log(SERVE_MUTATION))
+    out["mutate"] = {"record": rec, "after": [
+        (kind, bool(ans.cached), np.asarray(ans.value))
+        for kind, seed, kw in SERVE_AFTER
+        for ans in [_answered(router, serve.Query.make(kind, seed, **kw))]]}
+    out["families"] = sorted(session.compiled_families)
+    # the port's construction seconds, by family (JAX's session keeps none)
+    out["init_keys"] = sorted(getattr(session, "init_s", {}), key=repr)
+
+    # a kill and a join mid-serve (tests/test_serve.py's scenario)
+    monitor, failures = make_failures()
+    session = make_session(monitor=monitor, failures=failures)
+    router = serve.GraphServeRouter(session, max_wait=0.0)
+    khop = serve.Query.make("khop", 3, hops=2)
+    t_warm, _ = router.submit(khop)
+    router.clock.advance(0.01)
+    router.pump()
+    warm = router.result(t_warm)
+    router.cache.insert(("sentinel",), 0, durable=False)
+    t_ppr, _ = router.submit(serve.Query.make("ppr", 7))
+    router.clock.advance(0.01)
+    router.pump()
+    hit = router.submit(khop)[1]
+    answers, rec = session.execute_batch("sssp", (), [3, (5, 9)])
+    out["kill"] = {
+        "epoch": session.mesh_epoch,
+        "ppr_m": session._family("ppr", (), 1)["mw"].daemon.m,
+        "sentinel": ("sentinel",) in router.cache,
+        "flushed": router.cache.stats.flushed,
+        "khop_kept": khop.cache_key in router.cache,
+        "hit": hit is not None and hit.cached,
+        "warm": np.asarray(warm.value),
+        "ppr": np.asarray(router.result(t_ppr).value),
+        "sssp": _values(answers), "after_epoch": rec["mesh_epoch"],
+        "after_migrations": len(rec["migrations"])}
+    return out
+
+
+def serve_world(rank, world, graph, shards, local):
+    """One rank of a serving world: :func:`serve_script` over a RankMesh
+    of ``world`` ranks × ``local`` devices (kernel="cuda", its plain twin
+    at ``CSRConfig()``), then on rank 0 the same at ``mesh=m``."""
+    from repro_torch import serve
+
+    torch.set_num_threads(1)
+    mesh = RankMesh(local=local, device="cpu")
+    m = mesh.size
+
+    def script(at):
+        kw = {} if isinstance(at, RankMesh) else {"device": "cpu"}
+
+        def make_session(**extra):
+            return serve.GraphServeSession(
+                graph, num_shards=shards, kernel="cuda", max_batch=8,
+                block_size=BLOCK, csr_config=CSRConfig(), mesh=at,
+                **kw, **extra)
+
+        def failures():
+            return (plug.FleetMonitor(num_hosts=m),
+                    plug.FailureSchedule(**SERVE_KILL))
+
+        return serve_script(serve, make_session, _serve_log, failures)
+
+    out = {"rank": rank, "ranks": script(mesh)}
+    if rank == 0:
+        out["single"] = script(m)
+    out["imports"] = sorted(
+        name for name in sys.modules
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"))
+    return out
+
+
+def _serve_log(edges):
+    log = plug.MutationLog()
+    for u, v, w in edges:
+        log.add_edge(u, v, w)
+    return log
+
+
+def graph_serve_world(rank, world, argv):
+    """One rank of ``launch.graph_serve`` as ``torchrun`` would start it
+    (``WORLD_SIZE`` set; the group is the spawner's) → its replay's counts
+    and every answer."""
+    import os
+
+    from repro_torch.launch import graph_serve
+
+    torch.set_num_threads(1)
+    os.environ["WORLD_SIZE"] = str(world)
+    return launcher_answers(graph_serve, argv)
+
+
+def launcher_answers(graph_serve, argv):
+    """``graph_serve.main(argv)`` with its replay's answers recorded →
+    ((completed, cached), [(cache key, cached, value)])."""
+    got = []
+    replay = graph_serve.replay
+
+    def recorded(router, wl):
+        answers, stats = replay(router, wl)
+        got.extend((a.query.cache_key, a.cached, np.asarray(a.value))
+                   for a in answers)
+        return answers, stats
+
+    graph_serve.replay = recorded
+    try:
+        stats = graph_serve.main(argv)
+    finally:
+        graph_serve.replay = replay
+    return (stats["completed"], stats["cached"]), got
+
+
+def cuda_oocore_world(rank, world, graph, shards, oocore):
+    """One rank of an out-of-core world on the card: sssp_bf GAS over a
+    RankMesh (``cuda:{rank % device_count}``) with ``oocore`` (keywords of
+    ``OocoreConfig``), then (rank 0) the same at ``mesh=world``.  Reports
+    each run, the rank's side stream and slots, and csr_tile's launches
+    against (hot > 0) + uploads a step."""
+    from repro_torch.kernels import edge_block as ebk
+
+    mesh = RankMesh()
+
+    def run(at):
+        kw = {} if isinstance(at, RankMesh) else {"device": mesh.device}
+        mw = plug.Middleware(
+            graph, talg.sssp_bf(graph), daemon=plug.ShardedDaemon(
+                kernel="cuda", mesh=at, csr_config=CSRConfig()),
+            upper=plug.MeshUpperSystem(mesh=at), model="gas",
+            num_shards=shards, oocore=plug.OocoreConfig(**oocore),
+            options=plug.PlugOptions(block_size=BLOCK), **kw)
+        before = ebk.csr_tile.launches
+        res = mw.run()
+        recs = [r["oocore"] for r in res.per_iteration]
+        up = mw._loop._uploader
+        return {"state": np.asarray(res.state),
+                "iterations": res.iterations,
+                "counters": [{k: r[k] for k in OOCORE_COUNTERS}
+                             for r in recs],
+                "launches": ebk.csr_tile.launches - before,
+                "want_launches": sum(int(r["hot_cols"] > 0)
+                                     + r["super_shards"] - r["skipped"]
+                                     for r in recs),
+                "side_stream": mw._loop._side is not None,
+                "slots": up.slot_allocations,
+                "max_live_groups": up.max_live_groups,
+                "uploads": sum(r["super_shards"] - r["skipped"]
+                               for r in recs)}
+
+    out = {"device": str(mesh.device), "ranks": run(mesh)}
+    if rank == 0:
+        out["single"] = run(mesh.size)
     return out
