@@ -168,14 +168,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
               planner plans the same schedule at m = 4 (a plan only), no
               fetch inside a rebuild.  Prints each rank's rebuild seconds,
               s an iteration around each epoch and the async step's flags
-              all_reduce ms.  (c) 5h (d) across the ranks on phase 3's
-              graph at 5h's budget: sssp_bf GAS out of core with prefetch,
-              device 3 killed before iteration 3 (ranks 2 and 3 idle
-              after), ``oocore_replan`` at half the budget and a second
-              run; each bit-equal to ``run_reference`` and identical on
-              every rank, its per-iteration super-shards, hot columns and
-              the world's hot hits and cold misses 5h (d)'s (so the line
-              prints after 5h's); on each rank ``csr_tile`` (hot > 0) +
+              all_reduce ms.  (c) 5h (d) across the ranks on 5g's
+              scale-18 graph (cut from scale 20, in ``reduced``) at 5h's
+              budget rule (a quarter of the resident CSR bytes a logical
+              device): sssp_bf GAS out of core with prefetch, device 3
+              killed before iteration 3 (ranks 2 and 3 idle after),
+              ``oocore_replan`` at half the budget and a second run; each
+              bit-equal to ``run_reference`` and identical on every rank,
+              its per-iteration super-shards, hot columns and the world's
+              hot hits and cold misses those of the same two runs on one
+              process at ``mesh=4``; on each rank ``csr_tile`` (hot > 0) +
               uploads a step, at most two groups live, one fetch a step
               and none in a rebuild.  Prints each rank's s an iteration
               before and after the kill, rebuild s, transfer, wait,
@@ -460,6 +462,37 @@ Phases, each printing one JSON line; any failure exits non-zero:
               rest; then ``examples.elastic_restart`` on the card (its
               restored state bit-equal to the saved one, the resumed
               losses within its ``LOSS_RTOL`` of an uninterrupted run).
+
+9'. model_ranks — the model path across ``torch.distributed`` ranks:
+              4 gloo ranks share the card as a (2, 2) ``RankGrid`` (data,
+              model), spawned once.  (a) qwen3-moe-235b-a22b at its
+              published width, 2 of its 94 layers with bf16 parameters
+              (both in ``reduced``), from ``--seed`` (each rank draws the
+              one-process init and keeps its block: 64 of the 128 experts
+              of each layer on each model rank): a prefill of B=2 × 4096
+              (row d on data row d) through the kernels, then 16 greedy
+              tokens, twice.  Before the world is spawned the script runs
+              each row's one-process B=1 prefill and decode on the same
+              parameters (the capacity is ``capacity_for(4096)`` on both
+              sides).  Each rank's prefill logits within
+              ``MODEL_TOL``·max |want| of its row's, the tokens identical
+              on both ranks of a row and in the second run, flash
+              attention launched once a layer in each prefill on every
+              rank (the counter zeroed just before, read just after); it
+              prints the tokens that agree with the one-process ones, each
+              rank's peak allocation, prefill s, ms a decode step, the
+              combine's all_reduce ms (alone, at the prefill's and a
+              decode step's shape) and the world's dropped share.  (b)
+              ``launch.train`` on the grid, reduced qwen3-moe in float32, 6
+              steps of B=8 × 128 with ``--kill-device-at 3`` ((2, 2) → (1,
+              2) on ranks 0-1; rank 2 idle, rank 3 lost), then the same on
+              the CPU in the same world, both from parameters drawn on
+              the CPU: the card's losses within ``TRAIN_LOSS_RTOL`` of the
+              CPU's, the survivors' final leaves within
+              ``TRAIN_TOL``·max |want| (elements whose gradient was
+              float32 noise in the same step in both runs, ``MR_NOISE``,
+              within ``MR_NOISE_MOVE``), every rank the leader's losses; s a step before and after the kill,
+              the migration s, the gradients' all_reduce ms alone.  A failing or hung rank fails the phase.
 
 10. analysis — the dry-run accounting (``launch/op_analysis.py``)
               against the card.  (a) Five steps that phases 8 and 9 ran
@@ -1485,9 +1518,6 @@ ROAD_SIDE = 1024        # grid_road(1024): 1,048,576 vertices, a metro road net
 ROAD_SEED = 1
 ROAD_ITERATIONS = 60
 OOCORE_EPS_S = 2e-6     # a copy's two events' grain (0.5 µs each, twice)
-# (d)'s two runs, whose per-iteration counters 5e' (c) is held to
-OOCORE_D_RUNS = ("sssp_bf/oocore/kill/gas",
-                 "sssp_bf/oocore/kill/replan-half/gas")
 _OOCORE_SUMS = ("iterations", "transfer_s", "wait_s", "hidden_s", "hot_hits",
                 "cold_misses", "uploads", "upload_bytes", "skipped")
 
@@ -1646,11 +1676,7 @@ def oocore_run(label, mw, ref, tol, ref_it, resident, *,
            "csr_tile": launched,
            "csr_tile_per_iteration": [i["csr_tile"] for i in its],
            "max_abs_err_vs_reference": max_abs,
-           "max_abs_err_vs_resident": max_abs_res,
-           "counters": [{k: oc[k] for k in ("super_shards", "hot_cols",
-                                             "skipped", "hot_hits",
-                                             "cold_misses")}
-                        for oc in recs]}
+           "max_abs_err_vs_resident": max_abs_res}
     if migs:
         rec["migration"] = {k: migs[0][k] for k in (
             "killed", "devices_before", "devices_after", "seconds")}
@@ -1718,9 +1744,6 @@ def phase_oocore(g, parts, pr, sp, refs, resident4, autotuned) -> tuple:
     def keep(rec, launches, **extra):
         nonlocal launches_tile
         rec.update(extra)
-        counters = rec.pop("counters", None)
-        if rec["run"] in OOCORE_D_RUNS:  # 5e' (c) is held to them
-            out.setdefault("counters", {})[rec["run"]] = counters
         emit({**rec, "phase": "oocore"})
         out["runs"].append(rec["run"])
         launches_tile += launches
@@ -2403,8 +2426,11 @@ def ranks_world(rank, world, tmp, sizes, seed, oocore_budget) -> dict:
     g_e = graphs["elastic"]
     out["epochs"] = rank_epochs(mesh, g_e, sssp_bf(g_e, sources=[0, 1, 2, 3]),
                                 tmp, rank, g_e.num_vertices, seed)
-    out["oocore"] = rank_oocore(mesh, g, programs["sssp_bf"], parts, tmp,
-                                rank, oocore_budget)
+    # (c) on 5g's graph, cut as the parent cuts it for its one-process run
+    out["oocore"] = rank_oocore(
+        mesh, g_e, sssp_bf(g_e, sources=[0, 1, 2, 3]),
+        plug.HostUpperSystem().partition(g_e, SHARDS), tmp, rank,
+        oocore_budget)
     out["serve"] = rank_serve(mesh, g_e, tmp, rank, seed)
     # one iteration's collectives alone, as the fused sssp_bf step makes
     # them: the (N, K) aggregate's MIN and the (N,) counts' SUM; and the
@@ -2604,7 +2630,9 @@ def rank_epochs(mesh, g, prog, tmp, rank, n, seed) -> dict:
 
 
 # 5e' (c): 5h (d) across the ranks — its kill run, then the re-plan at half
-# the budget and a second run
+# the budget and a second run — on 5g's scale-18 graph, at 5h's budget rule
+# (a quarter of the resident CSR bytes a logical device), held to the same
+# two runs on one process
 RANK_OOCORE_RUNS = ("sssp_bf/ranks4/oocore/kill/gas",
                     "sssp_bf/ranks4/oocore/kill/replan-half/gas")
 # an out-of-core record's counters every rank and one process agree on (the
@@ -2612,10 +2640,51 @@ RANK_OOCORE_RUNS = ("sssp_bf/ranks4/oocore/kill/gas",
 OOCORE_WORLD = ("super_shards", "hot_cols", "hot_hits", "cold_misses")
 
 
+def oocore_one_process(g, prog, parts) -> tuple:
+    """5e' (c)'s budget and its one-process twin: 5h's budget rule on
+    ``g`` (a quarter of a resident ``mesh=SHARDS`` middleware's CSR bytes a
+    logical device), then the rank arm's two runs at ``mesh=SHARDS`` on one
+    process — ``OOCORE_KILL`` due at iteration 3, a warm-up iteration and
+    the run, ``oocore_replan`` at half the budget, a warm-up and the run —
+    → (budget, each run's per-iteration ``OOCORE_WORLD`` counters)."""
+    import torch
+
+    from repro_torch import plug
+    from repro_torch.kernels.ops import CSRConfig
+
+    def make(**kw):
+        return plug.Middleware(
+            g, prog, daemon=plug.ShardedDaemon(kernel="cuda", mesh=SHARDS,
+                                               csr_config=CSRConfig()),
+            upper=plug.MeshUpperSystem(mesh=SHARDS), model="gas",
+            partitions=parts, device="cuda", **kw)
+
+    mw = make()
+    budget = sum(t.numel() * t.element_size() for t in
+                 mw.daemon.stacked["csr"].values()) // mw.daemon.m \
+        // OOCORE_DIV
+    del mw
+    mw = make(oocore=plug.OocoreConfig(hbm_budget=budget,
+                                       hot_fraction=OOCORE_HOT),
+              failures=plug.FailureSchedule(kills=OOCORE_KILL))
+    counters = []
+    for b in (budget, budget // 2):
+        if b != budget:
+            mw.oocore_replan(plug.OocoreConfig(hbm_budget=b,
+                                               hot_fraction=OOCORE_HOT))
+        mw.run(max_iterations=1)
+        res = mw.run()
+        counters.append([{k: r["oocore"][k] for k in OOCORE_WORLD}
+                         for r in res.per_iteration])
+    del mw
+    torch.cuda.empty_cache()
+    return budget, counters
+
+
 def rank_oocore(mesh, g, prog, parts, tmp, rank, budget) -> dict:
     """5e' (c) on one rank: sssp_bf GAS out of core over the RankMesh on
-    phase 3's partitions ``parts`` at ``budget`` bytes a logical device
-    (5h's, whose (d) runs on the same partitions), ``OOCORE_KILL`` due at
+    5g's graph and its partitions ``parts`` at ``budget`` bytes a logical
+    device (:func:`oocore_one_process`'s), ``OOCORE_KILL`` due at
     iteration 3, a warm-up iteration, the kill run, ``oocore_replan`` at
     half the budget, a warm-up and the second run — each probed: on every
     step this rank ran, ``csr_tile`` (hot > 0) + uploads and one small
@@ -3059,7 +3128,8 @@ def ranks_oocore_check(tmp, ranks, refs) -> tuple:
     ranks and bit-equal to ``run_reference``, the ranks' world counters,
     migrations and members the same.  Returns the line's entry (each
     rank's seconds, copies and spans; the summed GB/s) and the world
-    counters by run, held to 5h (d)'s by :func:`ranks_oocore_vs_5h`."""
+    counters by run, held to one process's by
+    :func:`ranks_oocore_vs_one_process`."""
     import numpy as np
 
     recs = [r["oocore"] for r in ranks]
@@ -3100,17 +3170,14 @@ def ranks_oocore_check(tmp, ranks, refs) -> tuple:
     return out, world
 
 
-def ranks_oocore_vs_5h(line, world, counters) -> None:
-    """5e' (c)'s world counters against 5h (d)'s one-process records of
-    the same runs (``counters``: 5h label → per-iteration counters), iteration
-    for iteration."""
-    for label, want_label in zip(RANK_OOCORE_RUNS, OOCORE_D_RUNS):
-        want = [{k: c[k] for k in OOCORE_WORLD}
-                for c in counters[want_label]]
+def ranks_oocore_vs_one_process(line, world, counters) -> None:
+    """5e' (c)'s world counters against the same runs on one process
+    (:func:`oocore_one_process`), iteration for iteration."""
+    for label, want in zip(RANK_OOCORE_RUNS, counters):
         if world[label] != want:
-            raise AssertionError(f"{label}: counters {world[label]}, "
-                                 f"{want_label}'s {want}")
-        line["runs"][label]["one_process_run"] = want_label
+            raise AssertionError(f"{label}: counters {world[label]}, one "
+                                 f"process's {want}")
+        line["runs"][label]["one_process_counters_equal"] = True
 
 
 def ranks_serve_check(tmp, ranks) -> tuple:
@@ -3226,6 +3293,7 @@ def phase_ranks(g, refs, resident4, mesh_its, seed, g_e, refs_e) -> tuple:
 
     import numpy as np
 
+    from repro_torch import plug
     from repro_torch.graph import generate
     from repro_torch.graph.algorithms import sssp_bf
     from repro_torch.launch.mesh import spawn_ranks
@@ -3244,7 +3312,11 @@ def phase_ranks(g, refs, resident4, mesh_its, seed, g_e, refs_e) -> tuple:
                 np.save(Path(tmp) / f"{name}.{k}.npy", getattr(graph, k))
         write_s = time.perf_counter() - t1
         sizes = {name: graph.num_vertices for name, graph in graphs.items()}
-        budget = resident4["sssp_bf"][3] // OOCORE_DIV  # 5h's
+        t1 = time.perf_counter()
+        budget, oocore_counters = oocore_one_process(
+            g_e, sssp_bf(g_e, sources=[0, 1, 2, 3]),
+            plug.HostUpperSystem().partition(g_e, SHARDS))
+        oocore_one_s = time.perf_counter() - t1
         ranks = spawn_ranks(ranks_world, RANKS, (tmp, sizes, seed, budget),
                             backend="gloo",
                             init_method=f"file://{tmp}/init",
@@ -3257,7 +3329,12 @@ def phase_ranks(g, refs, resident4, mesh_its, seed, g_e, refs_e) -> tuple:
                              "to keep the smoke well inside its time limit",
                    "road": f"(a) on grid_road({ROAD_SIDE}) runs "
                            f"{ROAD_ITERATIONS} iterations, as 5h's road "
-                           "runs do"},
+                           "runs do",
+                   "oocore": f"(c) runs on 5g's R-MAT of scale "
+                             f"{ELASTIC_SCALE}, not {n.bit_length() - 1}, "
+                             "held to the same runs on one process there, "
+                             "to keep the smoke well inside its time "
+                             "limit"},
                "backend": sorted({r["backend"] for r in ranks}),
                "devices": [r["device"] for r in ranks],
                "shards_by_rank": [r["shards"] for r in ranks],
@@ -3344,8 +3421,12 @@ def phase_ranks(g, refs, resident4, mesh_its, seed, g_e, refs_e) -> tuple:
         out["epochs"] = ranks_epochs_check(tmp, ranks, g_e, refs_e, seed)
         launches += sum(sum(r["csr_tile_launches"])
                         for r in out["epochs"]["runs"].values())
-        out["oocore"], oocore_world = ranks_oocore_check(tmp, ranks, refs)
+        out["oocore"], oocore_world = ranks_oocore_check(tmp, ranks,
+                                                         refs_e)
         out["oocore"]["hbm_budget"] = budget
+        out["oocore"]["one_process_s"] = oocore_one_s
+        ranks_oocore_vs_one_process(out["oocore"], oocore_world,
+                                    oocore_counters)
         launches += sum(sum(r["csr_tile_launches"])
                         for r in out["oocore"]["runs"].values())
         out["serve"], serve_answers = ranks_serve_check(tmp, ranks)
@@ -5540,6 +5621,400 @@ def phase_train(box: list, seed) -> tuple:
     return out, [z_case, m_case, *w_cases]
 
 
+# --------------------------------------------------------------------------
+# phase 9': the model path across ranks
+# --------------------------------------------------------------------------
+# four gloo ranks share the card as a (data, model) grid of (2, 2)
+MR_RANKS, MR_MP = 4, 2
+MR_TIMEOUT_S = 300.0    # the spawned world's limit
+# (a) qwen3-moe at its published width, MOE_LAYERS of its 94 layers, bf16
+# parameters; B=2 prompts of MOE_S tokens, row d on data row d
+MR_B = 2
+# (b) launch.train on the grid, float32 (TF32 off), on the card and then on
+# the CPU, the parameters drawn on the CPU for both (``_init_drawn_on_cpu``);
+# the grid loses rank 3 before step 3
+MR_TRAIN_ARGV = ["--arch", MOE_ARCH, "--reduced", "--steps", "6", "--batch",
+                 "8", "--seq", "128", "--kill-device-at", "3",
+                 "--log-every", "1", "--dtype", "float32"]
+# an element whose gradient was nonzero and within MR_NOISE of its leaf's
+# max in the same step in both runs is float32 noise of the leaf's sums,
+# which Adam's normalisation turns into a move of up to lr whatever its
+# size: it is held within MR_NOISE_MOVE, as tests/test_torch_ranks_train.py
+# holds the same model's ranks to JAX's steps on the CPU
+MR_NOISE = 1e-5
+MR_NOISE_MOVE = 2e-4
+
+
+def moe_ranks_cfg():
+    from repro_torch.configs import get_config
+
+    return get_config(MOE_ARCH).replace(num_layers=MOE_LAYERS,
+                                        param_dtype="bfloat16")
+
+
+def moe_ranks_tokens(cfg, seed, dev):
+    """The (MR_B, MOE_S) prompts, from the seed, on the card."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    return torch.randint(0, cfg.vocab_size, (MR_B, MOE_S), generator=gen,
+                         device=dev, dtype=torch.int32)
+
+
+def model_ranks_world(rank, world, tmp, seed) -> dict:
+    """One rank of phase 9': (a) qwen3-moe's prefill and greedy decode on
+    its row of the grid, twice, its logits written under ``tmp``; the
+    combine's and the gradients' all_reduce timed alone; (b) launch.train
+    with the kill, on the card and then on the CPU, held to each other
+    here."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.sharding import RankGrid
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Model
+    from repro_torch.models import moe as M
+    from repro_torch.train.serve import decode_from, make_prefill_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    grid = RankGrid(MR_MP)  # cuda:{rank % device_count}
+    torch.cuda.set_device(grid.device)
+    dev = grid.device
+    cfg = moe_ranks_cfg()
+    out = {"rank": rank, "coords": grid.coords, "device": str(dev),
+           "backend": grid.backend}
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, mesh=grid).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["parameters"] = model.num_params()
+    tokens = grid.local_rows(moe_ranks_tokens(cfg, seed, dev))
+    prefill = make_prefill_step(model, cache_len=MOE_S + MOE_GEN)
+    rules = shd.make_rules(grid, strategy="serve")
+    stats: dict = {}
+    moe_ffn = M.moe_ffn
+    runs = []
+    with shd.activation_sharding(grid, rules, batch=MR_B):
+        for i in range(2):
+            M.moe_ffn = ((lambda *a, **kw: moe_ffn(*a, stats=stats, **kw))
+                         if i == 0 else moe_ffn)
+            try:
+                fa.flash_attention.launches = 0
+                t0 = time.perf_counter()
+                logits, cache = prefill({"tokens": tokens})
+                torch.cuda.synchronize()
+                prefill_s = time.perf_counter() - t0
+                launches = fa.flash_attention.launches
+            finally:
+                M.moe_ffn = moe_ffn
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            t0 = time.perf_counter()
+            toks = decode_from(model, cache, tok, MOE_S, MOE_GEN)
+            torch.cuda.synchronize()
+            runs.append({"prefill_s": prefill_s, "launches": launches,
+                         "decode_ms_per_step": 1e3 * (time.perf_counter()
+                                                      - t0) / (MOE_GEN - 1),
+                         "tokens": toks.cpu().numpy()})
+            if i == 0:
+                np.save(_rank_file(tmp, "moe_ranks", rank, "logits"),
+                        logits.float().cpu().numpy())
+            del logits, cache
+        out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
+        # the combine's all_reduce over the data row, alone, at the
+        # prefill's (T_loc, D) and a decode step's (1, D) in bf16
+        x = torch.ones((MOE_S, cfg.d_model), dtype=cfg.tdtype, device=dev)
+        out["combine_all_reduce_ms"] = {
+            "prefill": _collective_ms(
+                lambda: grid.all_reduce(x, axis="model")),
+            "decode": _collective_ms(lambda: grid.all_reduce(
+                x[:1].clone(), axis="model"))}
+    out["runs"] = runs
+    out["dropped"] = float(stats["dropped"])
+    out["assignments"] = float(stats["assignments"])
+    del model, prefill, x
+    torch.cuda.empty_cache()
+    # the gradients' all_reduce over the data axis of the (2, 2) grid, alone:
+    # one float32 buffer of the rank's reduced qwen3-moe leaves
+    from repro_torch.configs import get_reduced
+
+    numel = Model(get_reduced(MOE_ARCH), device="meta",
+                  mesh=grid).num_params()
+    g = torch.ones(numel, dtype=torch.float32, device=dev)
+    out["grad_all_reduce_ms"] = _collective_ms(
+        lambda: grid.all_reduce(g, axis="data"))
+    out["grad_all_reduce_bytes"] = numel * 4
+    del g
+    out["train"] = model_ranks_train(world)
+    return out
+
+
+@contextlib.contextmanager
+def _init_drawn_on_cpu():
+    """``Model.init`` draws every leaf (the rank's block of it on a grid)
+    from a CPU generator of the given generator's seed and copies it to
+    the model's device: the card's run and the CPU's start from the same
+    parameters."""
+    import torch
+
+    from repro_torch.models import Model
+
+    init = Model.init
+
+    def drawn(self, gen):
+        cpu = init(Model(self.cfg, kernel=self.kernel, device="cpu",
+                         mesh=self.mesh),
+                   torch.Generator().manual_seed(gen.initial_seed()))
+        self.load_state_dict(cpu.state_dict())
+        return self
+
+    Model.init = drawn
+    try:
+        yield
+    finally:
+        Model.init = init
+
+
+def _train_recording(argv) -> tuple:
+    """``launch.train`` of ``argv`` in this process, its stdout captured,
+    the parameters drawn on the CPU → (its result, its stdout, each
+    step's elements of each leaf whose gradient was nonzero and within
+    ``MR_NOISE`` of the leaf's max)."""
+    import io
+
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.train.optimizer import AdamW
+
+    update = AdamW.update
+    noisy: list = []
+
+    def recording(self, model, grads, state):
+        step = {}
+        for k, g in grads.items():
+            a = g.detach().abs()
+            step[k] = ((a > 0) & (a <= MR_NOISE * a.max())).cpu().numpy()
+        noisy.append(step)
+        return update(self, model, grads, state)
+
+    AdamW.update = recording
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf), _init_drawn_on_cpu():
+            run = tlaunch.train(tlaunch.parse_args(argv))
+    finally:
+        AdamW.update = update
+    return run, buf.getvalue(), noisy
+
+
+def model_ranks_train(world) -> dict:
+    """Phase 9' (b) on one rank: ``launch.train`` with the kill on the
+    card, then on the CPU in the same world, each from the parameters
+    drawn on the CPU; the card's losses and final leaves held to the
+    CPU's here."""
+    import numpy as np
+
+    os.environ["WORLD_SIZE"] = str(world)
+    kill = int(MR_TRAIN_ARGV[MR_TRAIN_ARGV.index("--kill-device-at") + 1])
+    runs = {}
+    for device in ("cuda", "cpu"):
+        run, stdout, noisy = _train_recording(MR_TRAIN_ARGV
+                                              + ["--device", device])
+        runs[device] = {
+            "losses": run["losses"], "stdout": stdout,
+            "grid": dict(run["grid"].shape), "idle": run["grid"].idle,
+            "step_s_before_kill": run["step_s"][:kill],
+            "step_s_after_kill": run["step_s"][kill:],
+            "migrate_s": run["migrate_s"],
+            "params": {k: v.detach().float().cpu().numpy()
+                       for k, v in run["model"].state_dict().items()},
+            "noisy": noisy}
+        del run
+    got, want = runs["cuda"], runs["cpu"]
+    out = {k: got[k] for k in ("losses", "grid", "idle", "migrate_s",
+                               "step_s_before_kill", "step_s_after_kill",
+                               "stdout")}
+    out["cpu_losses"] = want["losses"]
+    out["cpu_step_s"] = want["step_s_before_kill"] + want["step_s_after_kill"]
+    out["loss_max_rel_diff"] = max(abs(a - b) / abs(b) for a, b in
+                                   zip(got["losses"], want["losses"]))
+    if not got["idle"]:
+        worst, noisy_n, noisy_worst = 0.0, 0, 0.0
+        for k, w in want["params"].items():
+            diff = np.abs(got["params"][k] - w)
+            noise = np.zeros(diff.shape, dtype=bool)
+            for mine, theirs in zip(got["noisy"], want["noisy"]):
+                if k in mine:
+                    noise |= mine[k] & theirs[k]
+            scale = float(np.abs(w).max())
+            if (~noise).any():
+                worst = max(worst, float(diff[~noise].max()) / scale)
+            if noise.any():
+                noisy_n += int(noise.sum())
+                noisy_worst = max(noisy_worst, float(diff[noise].max()))
+        out["leaf_max_rel_err"] = worst
+        out["noisy_elements"] = noisy_n
+        out["noisy_max_abs_err"] = noisy_worst
+    return out
+
+
+def phase_model_ranks(seed) -> tuple:
+    """Phase 9' (see the module docstring) → its line and each rank's
+    flash-attention launches in its first prefill."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import Model
+    from repro_torch.models import moe as M
+    from repro_torch.train.serve import decode_from, make_prefill_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = moe_ranks_cfg()
+    # the one-process B=1 prefill and decode of each row, on the same
+    # parameters (the init a rank keeps its block of)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    tokens = moe_ranks_tokens(cfg, seed, dev)
+    one = []
+    with torch.no_grad():
+        for d in range(MR_B):
+            logits, cache = make_prefill_step(
+                model, cache_len=MOE_S + MOE_GEN)({"tokens": tokens[d:d + 1]})
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            toks = decode_from(model, cache, tok, MOE_S, MOE_GEN)
+            one.append((logits.float().cpu().numpy(), toks.cpu().numpy()))
+            del logits, cache
+    one_s = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    out = {"phase": "model_ranks", "world": MR_RANKS,
+           "grid": {"data": MR_RANKS // MR_MP, "model": MR_MP},
+           "arch": cfg.name, "B": MR_B, "S": MOE_S, "gen": MOE_GEN,
+           "capacity": M.capacity_for(MOE_S, cfg),
+           "decode_capacity": M.capacity_for(1, cfg),
+           "reduced": {
+               "depth": f"{MOE_LAYERS} of the published 94 layers "
+                        "(published widths)",
+               "param_dtype": "bfloat16 (the config's is float32): four "
+                              "ranks' blocks share one card",
+               "train": "(b) trains the reduced config: AdamW state at "
+                        "published width needs >= 20 GB a rank"},
+           "caveat": RANKS_CAVEAT, "one_process_s": one_s}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_model_ranks_")
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(model_ranks_world, MR_RANKS, (tmp, seed),
+                            backend="gloo", init_method=f"file://{tmp}/init",
+                            timeout_s=MR_TIMEOUT_S)
+        out["world_s"] = time.perf_counter() - t0
+        # (a) each rank against its row's one-process run
+        rows = []
+        for r in ranks:
+            d = r["coords"]["data"]
+            got = np.load(_rank_file(tmp, "moe_ranks", r["rank"], "logits"))
+            want, want_toks = one[d]
+            err = float(np.abs(got - want).max())
+            scale = float(np.abs(want).max())
+            if not err <= MODEL_TOL * scale:
+                raise AssertionError(f"model_ranks: rank {r['rank']}'s "
+                                     f"logits {err} from row {d}'s, > "
+                                     f"{MODEL_TOL} · {scale}")
+            a, b = (run["tokens"] for run in r["runs"])
+            if not np.array_equal(a, b):
+                raise AssertionError(f"model_ranks: rank {r['rank']}'s two "
+                                     "generations differ")
+            if any(run["launches"] != MOE_LAYERS for run in r["runs"]):
+                raise AssertionError(
+                    f"model_ranks: rank {r['rank']} launched flash "
+                    f"attention {[run['launches'] for run in r['runs']]} "
+                    f"times a prefill, expected {MOE_LAYERS}")
+            rows.append({
+                "rank": r["rank"], "coords": r["coords"],
+                "parameters": r["parameters"], "init_s": r["init_s"],
+                "logits_max_abs_err": err, "logits_tol": MODEL_TOL * scale,
+                "tokens_agreeing_with_one_process": int(
+                    (a == want_toks).sum()),
+                "peak_allocated_bytes": r["peak_allocated_bytes"],
+                "prefill_s": [run["prefill_s"] for run in r["runs"]],
+                "decode_ms_per_step": [run["decode_ms_per_step"]
+                                       for run in r["runs"]],
+                "combine_all_reduce_ms": r["combine_all_reduce_ms"],
+                "flash_attention_launches": [run["launches"]
+                                             for run in r["runs"]],
+                "first_row": a[0].tolist()})
+        for d in range(MR_RANKS // MR_MP):
+            toks = [r["runs"][0]["tokens"] for r in ranks
+                    if r["coords"]["data"] == d]
+            if any(not np.array_equal(t, toks[0]) for t in toks[1:]):
+                raise AssertionError(f"model_ranks: data row {d}'s ranks "
+                                     "decoded different tokens")
+        # every rank of a row counts the row's drops; the rows' counts are
+        # summed over data, so each rank holds the world's
+        out["dropped_share"] = ranks[0]["dropped"] / ranks[0]["assignments"]
+        out["serve"] = rows
+        out["backend"] = sorted({r["backend"] for r in ranks})
+        out["devices"] = [r["device"] for r in ranks]
+        # (b) the launcher with the kill, the card against the CPU
+        trains = [r["train"] for r in ranks]
+        lead = trains[0]
+        if "device lost → survivor mesh {'data': 1, 'model': 2} over 2/4 " \
+                "devices, live state migrated checkpoint-free" \
+                not in lead["stdout"]:
+            raise AssertionError(f"model_ranks/train: no migration line in "
+                                 f"{lead['stdout']!r}")
+        for r, t in zip(ranks, trains):
+            if t["losses"] != lead["losses"] or t["idle"] != (r["rank"] >= 2):
+                raise AssertionError(f"model_ranks/train: rank {r['rank']} "
+                                     f"{t['losses']} idle={t['idle']}")
+            if not all(math.isfinite(x) for x in t["losses"]):
+                raise AssertionError("model_ranks/train: a loss is not "
+                                     "finite")
+            if t["loss_max_rel_diff"] > TRAIN_LOSS_RTOL:
+                raise AssertionError(
+                    f"model_ranks/train: rank {r['rank']}'s losses "
+                    f"{t['losses']} against the CPU's {t['cpu_losses']}")
+            if not t["idle"] and (t["leaf_max_rel_err"] > TRAIN_TOL or
+                                  t["noisy_max_abs_err"] > MR_NOISE_MOVE):
+                raise AssertionError(
+                    f"model_ranks/train: rank {r['rank']}'s leaves "
+                    f"{t['leaf_max_rel_err']} of max (noise elements "
+                    f"{t['noisy_elements']}, {t['noisy_max_abs_err']}) "
+                    f"from the CPU's")
+        out["train"] = {
+            "argv": MR_TRAIN_ARGV, "grid_after_kill": lead["grid"],
+            "losses": lead["losses"], "cpu_losses": lead["cpu_losses"],
+            "loss_max_rel_diff": max(t["loss_max_rel_diff"]
+                                     for t in trains),
+            "loss_rtol": TRAIN_LOSS_RTOL,
+            "leaf_max_rel_err": max(t["leaf_max_rel_err"] for t in trains
+                                    if not t["idle"]),
+            "leaf_tol": TRAIN_TOL,
+            "noisy_elements": [t.get("noisy_elements") for t in trains],
+            "noisy_max_abs_err": max(t["noisy_max_abs_err"] for t in trains
+                                     if not t["idle"]),
+            "noisy_move_bound": MR_NOISE_MOVE,
+            "step_s_before_kill": [t["step_s_before_kill"] for t in trains],
+            "step_s_after_kill": [t["step_s_after_kill"] for t in trains],
+            "cpu_step_s": [t["cpu_step_s"] for t in trains],
+            "migrate_s": [t["migrate_s"] for t in trains],
+            "grad_all_reduce_ms": [r["grad_all_reduce_ms"] for r in ranks],
+            "grad_all_reduce_bytes": ranks[0]["grad_all_reduce_bytes"],
+            "last_line": lead["stdout"].strip().splitlines()[-1]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, [r["flash_attention_launches"][0] for r in rows]
+
+
 def analysis_steps() -> dict:
     """Phase 10 (a): each step phases 8 and 9 measured, as the dry run's
     ``build_step`` builds it on the meta device: name → its arguments."""
@@ -5951,11 +6426,8 @@ def main(argv=None) -> int:
     oocore_rec, oocore_launches = phase_oocore(
         g, parts, pr, sp, refs, resident4,
         (tuned, tune_rec[tuned]["per_iteration_s"]))
-    oocore_counters = oocore_rec.pop("counters")
     emit(oocore_rec)
     e2e_launches["csr_tile"] += oocore_launches
-    # 5e' (c) against (d)'s one-process runs
-    ranks_oocore_vs_5h(ranks_rec["oocore"], ranks_later[0], oocore_counters)
     torch.cuda.empty_cache()
 
     # -- 5i. online graph-query serving -------------------------------------
@@ -5998,6 +6470,13 @@ def main(argv=None) -> int:
     del model
     train_rec, train_cases = phase_train(box, args.seed)
     emit({**train_rec, "attention_cases": train_cases})
+    torch.cuda.empty_cache()
+
+    # -- 9'. the model path across four gloo ranks: qwen3-moe's expert
+    # layout at published width, launch.train through a kill -------------
+    ranks_model_rec, ranks_model_launches = phase_model_ranks(args.seed)
+    emit(ranks_model_rec)
+    torch.cuda.empty_cache()
 
     # -- 10. the dry-run accounting against the card; the GXEngine shim ----
     t_phase = time.perf_counter()
@@ -6076,6 +6555,7 @@ def main(argv=None) -> int:
         "launches_whisper_prefill": train_rec["whisper"]["launches"],
         "launches_whisper_train":
             train_rec["whisper"]["train_launches"]["flash_attention"],
+        "launches_model_ranks": ranks_model_launches,
         "gradient": "autograd.Function, plain backward (29)",
         "design": {
             "bf16": "flash_attention_sm90.cu: 3-stage TMA ring of "

@@ -34,7 +34,7 @@ def program_inputs(program, graph, *, device="cuda"):
             torch.as_tensor(np.asarray(aux, np.float32), device=dev))
 
 
-def model_params_from_jax(params, axes, cfg) -> dict:
+def model_params_from_jax(params, axes, cfg, *, mesh=None) -> dict:
     """A JAX-package model's parameters as the port's ``state_dict``.
 
     ``params`` is the JAX parameter tree with NumPy leaves (e.g.
@@ -46,7 +46,12 @@ def model_params_from_jax(params, axes, cfg) -> dict:
     encoder-decoder's ``encoder`` and ``decoder``).  The port keeps every
     weight at the JAX shape (the einsum weights ``wq`` (d, H, hd), ``wo``
     (H, hd, d), the experts' (E, d, f), …), so nothing else is reshaped;
-    leaves keep their dtype (``cfg.param_dtype`` in both packages)."""
+    leaves keep their dtype (``cfg.param_dtype`` in both packages).
+
+    With ``mesh`` a ``dist.sharding.RankGrid``, each leaf is the rank's
+    block of it (``RankGrid.param_spec`` of the leaf's own axes — those
+    after ``"layers"`` for a stacked one — cut by ``local_slice``): the
+    state dict of ``Model(cfg, mesh=grid)`` on that rank."""
     depth = {"layers": cfg.num_layers, "decoder": cfg.num_layers,
              "encoder": cfg.num_encoder_layers}
     out: dict = {}
@@ -69,9 +74,16 @@ def model_params_from_jax(params, axes, cfg) -> dict:
                                  f"the stacks {depth}")
             for i in range(arr.shape[0]):
                 key = ".".join((path[0], str(i)) + path[1:])
-                out[key] = torch.from_numpy(np.array(arr[i]))
+                out[key] = local(arr[i], a[1:])
         else:
-            out[".".join(path)] = torch.from_numpy(np.array(arr))
+            out[".".join(path)] = local(arr, a)
+
+    def local(arr, a):
+        if mesh is not None:
+            spec = mesh.param_spec(arr.shape, a)
+            if spec:
+                arr = arr[mesh.local_slice(arr.shape, spec)]
+        return torch.from_numpy(np.array(arr))
 
     walk(params, axes, ())
     return out

@@ -4,9 +4,10 @@ by the paper's three optimization horizons:
 * ``sharding``    — intra-iteration: logical-axis partitioning rules that
                     place every tensor dimension on a mesh axis, as specs
                     and ``torch.distributed.tensor`` placements (on one
-                    card every tensor lies whole on the device); and
+                    card every tensor lies whole on the device);
                     ``RankMesh``, the graph path's shard axis across
-                    ``torch.distributed`` ranks;
+                    ``torch.distributed`` ranks; and ``RankGrid``, the
+                    model path's (data, model) grid of ranks;
 * ``collectives`` — inter-iteration: compressed synchronization (int8/int4
                     quantization with error feedback) over the port's m
                     logical devices or a RankMesh, which
@@ -16,15 +17,17 @@ by the paper's three optimization horizons:
                     planning after a device loss, and the deterministic
                     fault-injection seam.
 
-The graph merge across ranks runs over a RankMesh; the model-side layouts
-across cards are ROADMAP Queue A item 13d's."""
+The graph merge across ranks runs over a RankMesh, the MoE's expert
+layout and the train step over a RankGrid; the dense layers' FSDP × TP
+layout across ranks is ROADMAP Queue A item 13d.6's."""
 from repro_torch.dist import collectives, fault, sharding
 from repro_torch.dist.fault import (FailureSchedule, FleetMonitor, MeshPlan,
                                     detect_stragglers, elastic_plan,
                                     reassign_shards)
-from repro_torch.dist.sharding import RankMesh
+from repro_torch.dist.sharding import RankGrid, RankMesh
 
-__all__ = ["FailureSchedule", "FleetMonitor", "MeshPlan", "RankMesh",
+__all__ = ["FailureSchedule", "FleetMonitor", "MeshPlan", "RankGrid",
+           "RankMesh",
            "collectives",
            "detect_stragglers", "elastic_plan", "fault", "reassign_shards",
            "sharding"]

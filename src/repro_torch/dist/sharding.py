@@ -20,11 +20,17 @@ mesh axis).  Every function takes any mesh that has ``axis_names`` and
 ``shape`` (a name → size mapping); a ``DeviceMesh`` is read through
 ``mesh_dim_names`` and its size.
 
-``constrain`` is the activation-side entry point.  The port runs a model
-on one card, where every tensor lies whole on the one device: ``constrain``
-returns the very same tensor, outside and inside an
-``activation_sharding`` context (which only records the active mesh and
-rules, thread-locally, for code that asks ``active_context``).
+``constrain`` is the activation-side entry point.  A rank's activations
+are its own tensors, whole on its device: ``constrain`` returns the very
+same tensor, outside and inside an ``activation_sharding`` context (which
+records the active mesh, rules and global batch rows, thread-locally, for
+code that asks ``active_context`` / ``active_batch``).
+
+:class:`RankGrid` is the model path's (data, model) mesh across ranks: it
+places the experts' dim on ``model`` and the batch's rows on the data
+axes, and replicates every other dim; the autograd Functions below
+(``copy_to`` / ``reduce_from``, Megatron's "f" and "g", and
+``take_block`` / ``gather_blocks``) carry the MoE's collectives.
 
 :class:`RankMesh` is the graph path's shard axis across
 ``torch.distributed`` ranks, the counterpart of the JAX package's device
@@ -221,16 +227,29 @@ def active_context():
     """The innermost ``(mesh, rules)`` pushed by ``activation_sharding``,
     or None outside any context."""
     stack = getattr(_local, "stack", None)
-    return stack[-1] if stack else None
+    return stack[-1][:2] if stack else None
+
+
+def active_batch():
+    """The global batch rows the innermost ``activation_sharding`` context
+    was given (``batch=``), or None."""
+    stack = getattr(_local, "stack", None)
+    return stack[-1][2] if stack else None
 
 
 @contextlib.contextmanager
-def activation_sharding(mesh, rules):
-    """Records ``(mesh, rules)`` as the active context for this thread."""
+def activation_sharding(mesh, rules, *, batch: int | None = None):
+    """Records ``(mesh, rules)`` as the active context for this thread.
+
+    Under a :class:`RankGrid` the activations are a rank's own: ``batch``
+    names the rows of the global batch they belong to, and a rank holds
+    its data shard of them when the data axes divide ``batch``
+    (:meth:`RankGrid.rows_split`), else all of them.  The MoE's layout and
+    the loss's normalisation read it (``active_batch``)."""
     stack = getattr(_local, "stack", None)
     if stack is None:
         stack = _local.stack = []
-    stack.append((mesh, rules))
+    stack.append((mesh, rules, batch))
     try:
         yield
     finally:
@@ -253,7 +272,35 @@ _REDUCE_OPS = ("sum", "min", "max")
 IDLE_WAIT_S = 3600.0
 
 
-class RankMesh:
+class _WorldPost:
+    """Messages from a group's leader to the idle ranks through the
+    world's rendezvous store: an idle rank waits there, for as long as the
+    survivors run, without holding a collective open."""
+
+    _store = None
+
+    def post(self, key: str, obj) -> None:
+        """Leaves ``obj`` under ``key`` in the world's store for
+        :meth:`wait_post` (the leader's message to the idle ranks)."""
+        self._world_store().set(f"repro_torch/{key}", pickle.dumps(obj))
+
+    def wait_post(self, key: str):
+        """The object posted under ``key``, once it is there (at most
+        ``IDLE_WAIT_S``)."""
+        store = self._world_store()
+        key = f"repro_torch/{key}"
+        store.wait([key], datetime.timedelta(seconds=IDLE_WAIT_S))
+        return pickle.loads(store.get(key))
+
+    def _world_store(self):
+        if self._store is None:
+            from torch.distributed import distributed_c10d
+
+            self._store = distributed_c10d._get_default_store()
+        return self._store
+
+
+class RankMesh(_WorldPost):
     """The shard axis across ``torch.distributed`` ranks.
 
     The W ranks of the default group (the world) each hold ``local``
@@ -325,7 +372,6 @@ class RankMesh:
         # member ranks: the ranks make the same calls in the same order, so
         # a hit on one rank is a hit on every rank
         self._groups = {self.members: (self.group, self.cpu_group)}
-        self._store = None
 
     @property
     def size(self) -> int:
@@ -442,26 +488,6 @@ class RankMesh:
         dist.broadcast_object_list(box, src=src, group=self.cpu_group)
         return box[0]
 
-    def post(self, key: str, obj) -> None:
-        """Leaves ``obj`` under ``key`` in the world's store for
-        :meth:`wait_post` (the leader's message to the idle ranks)."""
-        self._world_store().set(f"repro_torch/{key}", pickle.dumps(obj))
-
-    def wait_post(self, key: str):
-        """The object posted under ``key``, once it is there (at most
-        ``IDLE_WAIT_S``)."""
-        store = self._world_store()
-        key = f"repro_torch/{key}"
-        store.wait([key], datetime.timedelta(seconds=IDLE_WAIT_S))
-        return pickle.loads(store.get(key))
-
-    def _world_store(self):
-        if self._store is None:
-            from torch.distributed import distributed_c10d
-
-            self._store = distributed_c10d._get_default_store()
-        return self._store
-
     def __repr__(self) -> str:
         return (f"RankMesh(rank={self.rank}, world={self.world}, "
                 f"local={self.local}, devices={list(self.device_ids)}, "
@@ -498,3 +524,361 @@ class LocalMesh:
 
 
 LOCAL_MESH = LocalMesh()
+
+
+# --------------------------------------------------------------------------
+# the (data, model) grid of ranks
+# --------------------------------------------------------------------------
+#: the data-parallel axes of a grid, outermost first
+DATA_AXES = ("pod", "data")
+#: the logical dims a RankGrid places on its axes, and the axes each may
+#: take; every other dim (FSDP, TENSOR, HEADS, KV_HEADS, KV_SEQ, VOCAB)
+#: replicates on every rank
+GRID_PLACED = {EXPERT: ("model",), BATCH: DATA_AXES, BATCH_DP: DATA_AXES,
+               CAPACITY: DATA_AXES}
+
+
+class RankGrid(_WorldPost):
+    """The model path's ``(data, model)`` mesh across ``torch.distributed``
+    ranks: the world's first ``prod(shape)`` ranks, row-major as
+    ``jax.make_mesh`` lays out devices (rank = d·mp + r), with a leading
+    ``"pod"`` axis where ``elastic_plan`` gives one.
+
+    ``axis_names`` and ``shape`` (a name → size mapping) are what
+    :func:`make_rules`, :func:`spec_for` and :func:`placements_for` read.
+    :meth:`param_spec` places a parameter's ``EXPERT`` dim on ``model`` and
+    :meth:`batch_spec` an activation's batch rows on the data axes
+    (``GRID_PLACED``); the other logical dims replicate on every rank —
+    equal numbers, only the memory differs from the JAX package's layout.
+    :meth:`local_shape` and :meth:`local_slice` cut a spec's claimed dims
+    to this rank's block.
+
+    Groups: one per data row (its ``mp`` ranks: the ``"model"`` axis) and
+    one per model column (its ranks over the data axes: ``"data"``), made
+    at construction by every world rank in the same order, as
+    ``torch.distributed.new_group`` requires; one-rank axes make none.
+    :meth:`all_reduce` reduces over one of them, or over the grid.
+    :meth:`survivors` gives the grid of a smaller plan on the world's
+    first ranks; a rank past it is *idle* and stays in the world (it joins
+    every group the survivors make and may wait for the leader's
+    :meth:`post`).
+
+    ``device`` is where the rank computes: ``cuda:{rank % device_count}``
+    when None or ``"cuda"`` (which raises without a GPU), or what the
+    caller passes.  The grid never picks the world's backend: gloo lets
+    several ranks share one card (it takes CUDA tensors for
+    ``all_reduce`` and ``broadcast``, the only collectives the model path
+    makes), NCCL wants a card a rank.
+    """
+
+    def __init__(self, model_parallel: int = 1, *, device=None,
+                 shape: Mapping[str, int] | None = None, _groups=None):
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError("RankGrid needs an initialized process group "
+                               "(torch.distributed.init_process_group)")
+        self.world = dist.get_world_size()
+        self.rank = dist.get_rank()
+        if shape is None:
+            mp = model_parallel
+            if isinstance(mp, bool) or not isinstance(mp, (int, np.integer)) \
+                    or mp < 1 or self.world % mp:
+                raise ValueError(f"model_parallel must be an int >= 1 that "
+                                 f"divides the {self.world} ranks, got {mp!r}")
+            shape = {"data": self.world // mp, "model": int(mp)}
+        self.shape = {k: int(v) for k, v in shape.items()}
+        self.axis_names = tuple(self.shape)
+        if self.axis_names[-1] != "model" or not set(self.axis_names[:-1]) \
+                <= set(DATA_AXES):
+            raise ValueError(f"a grid's axes are (pod,) data, model; got "
+                             f"{self.axis_names}")
+        self.size = int(np.prod(list(self.shape.values())))
+        if self.size > self.world:
+            raise ValueError(f"a {self.shape} grid needs {self.size} ranks, "
+                             f"the world has {self.world}")
+        self.mp = self.shape["model"]
+        self.dp = self.size // self.mp
+        if device is None or str(device) == "cuda":
+            device = (f"cuda:{self.rank % torch.cuda.device_count()}"
+                      if torch.cuda.is_available() else "cuda")
+        self.device = resolve_device(device)
+        self.backend = str(dist.get_backend())
+        self._groups = {} if _groups is None else _groups
+        rows = [tuple(range(i * self.mp, (i + 1) * self.mp))
+                for i in range(self.dp)]
+        cols = [tuple(range(r, self.size, self.mp)) for r in range(self.mp)]
+        for members in rows + cols + [tuple(range(self.size))]:
+            self._group(members)
+        self.idle = self.rank >= self.size
+        if self.idle:
+            self.data_index = self.model_index = None
+            self.coords = {}
+            self._axis_members = {}
+            return
+        self.data_index, self.model_index = divmod(self.rank, self.mp)
+        rest, self.coords = self.rank, {}
+        for name in reversed(self.axis_names):
+            rest, self.coords[name] = divmod(rest, self.shape[name])
+        self.coords = {k: self.coords[k] for k in self.axis_names}
+        self._axis_members = {"model": rows[self.data_index],
+                              "data": cols[self.model_index],
+                              None: tuple(range(self.size))}
+
+    def _group(self, members: tuple):
+        """The process group of ``members`` (None for one rank), made once
+        for every grid that shares this one's groups."""
+        if len(members) > 1 and members not in self._groups:
+            self._groups[members] = (
+                dist.group.WORLD if len(members) == self.world
+                else dist.new_group(list(members), backend=self.backend))
+        return self._groups.get(members)
+
+    @property
+    def leader(self) -> int:
+        """Rank 0: it posts to the idle ranks."""
+        return 0
+
+    def axis_size(self, axis: str | None) -> int:
+        """Ranks along ``axis`` (``"model"``, ``"data"`` — every data axis
+        — or None, the grid)."""
+        return {"model": self.mp, "data": self.dp, None: self.size}[axis]
+
+    def axis_index(self, axis: str | None) -> int:
+        """This rank's index along ``axis`` (as :meth:`axis_size`)."""
+        self._member()
+        return {"model": self.model_index, "data": self.data_index,
+                None: self.rank}[axis]
+
+    def _member(self):
+        if self.idle:
+            raise RuntimeError(f"rank {self.rank} is idle: it is outside the "
+                               f"{self.shape} grid")
+
+    def all_reduce(self, tensor: torch.Tensor, op: str = "sum", *,
+                   axis: str | None = "model"):
+        """Reduces ``tensor`` in place over ``axis`` (``"model"``: this
+        rank's data row; ``"data"``: its model column over every data
+        axis; None: the grid) with ``op`` and returns it."""
+        self._member()
+        members = self._axis_members[axis]
+        if len(members) > 1:
+            dist.all_reduce(tensor, op=RankMesh._op(op),
+                            group=self._groups[members])
+        return tensor
+
+    def survivors(self, plan) -> "RankGrid":
+        """The grid of ``plan`` (a ``dist.fault.MeshPlan``: its shape and
+        axis names) on the world's first ``plan.size`` ranks, the model
+        axis kept.  Every world rank must call it, idle ones included."""
+        shape = dict(zip(plan.axis_names, plan.shape))
+        if shape.get("model") != self.mp:
+            raise ValueError(f"the plan {shape} must keep the model axis "
+                             f"({self.mp})")
+        return RankGrid(shape=shape, device=self.device,
+                        _groups=self._groups)
+
+    # -- placement --------------------------------------------------------
+    def placed_rules(self, rules: Mapping | None = None) -> dict:
+        """``rules`` (default ``make_rules(self)``) cut to what the grid
+        places (``GRID_PLACED``): the others map to no axis."""
+        rules = make_rules(self) if rules is None else rules
+        out = {}
+        for name in LOGICAL_AXES:
+            allowed = GRID_PLACED.get(name, ())
+            out[name] = tuple(a for a in _mesh_axes_for(rules, name)
+                              if a in allowed)
+        return out
+
+    def param_spec(self, shape: Sequence[int], axes) -> tuple:
+        """The spec of a parameter on the grid: ``EXPERT`` on ``model``
+        when it divides the dim, every other dim replicated."""
+        return spec_for(shape, axes, self, self.placed_rules())
+
+    def local_shape(self, shape: Sequence[int], spec) -> tuple:
+        """``shape`` with each dim ``spec`` claims divided by its axes'
+        size."""
+        out = list(shape)
+        for i, part in enumerate(spec):
+            if part is not None:
+                out[i] //= self._span(part)[0]
+        return tuple(out)
+
+    def local_slice(self, shape: Sequence[int], spec) -> tuple:
+        """This rank's block of ``shape`` under ``spec``: a slice per dim
+        (the whole dim where ``spec`` claims none)."""
+        self._member()
+        out = [slice(None)] * len(shape)
+        for i, part in enumerate(spec):
+            if part is not None:
+                n, idx = self._span(part)
+                per = shape[i] // n
+                out[i] = slice(idx * per, (idx + 1) * per)
+        return tuple(out)
+
+    def _span(self, part) -> tuple:
+        """(size, this rank's row-major index) over the axes of a spec
+        entry."""
+        axes = part if isinstance(part, tuple) else (part,)
+        n, idx = 1, 0
+        for a in axes:
+            n *= self.shape[a]
+            idx = idx * self.shape[a] + self.coords.get(a, 0)
+        return n, idx
+
+    def rows_split(self, rows: int) -> bool:
+        """Whether a batch of ``rows`` global rows is split over the data
+        axes (each rank holding its shard), rather than held whole by
+        every rank: more than one data rank, and they divide ``rows``."""
+        return self.dp > 1 and rows % self.dp == 0
+
+    def local_rows(self, x, rows: int | None = None, *,
+                   microbatches: int = 1):
+        """This rank's rows of a global batch ``x`` (a tensor or array whose
+        leading dim is the batch): its data shard of each of
+        ``microbatches`` slices when the data axes divide a slice, else
+        all of ``x``."""
+        self._member()
+        b = x.shape[0]
+        if b % microbatches:
+            raise ValueError(f"batch {b} does not split into {microbatches} "
+                             f"microbatches")
+        per = b // microbatches
+        if not self.rows_split(per):
+            return x
+        r = per // self.dp
+        parts = [x[i * per + self.data_index * r:
+                   i * per + (self.data_index + 1) * r]
+                 for i in range(microbatches)]
+        if len(parts) == 1:
+            return parts[0]
+        if isinstance(x, torch.Tensor):
+            return torch.cat(parts)
+        return np.concatenate(parts)
+
+    def __repr__(self) -> str:
+        return (f"RankGrid(rank={self.rank}, world={self.world}, "
+                f"shape={self.shape}, coords={self.coords}, "
+                f"device={self.device}, backend={self.backend})")
+
+
+def rows_share(local_rows: int) -> float:
+    """The share of the global batch's rows that ``local_rows`` are: the
+    rank's rows over the active context's ``batch`` under a RankGrid that
+    splits them over data, else 1.  A mean over the rank's tokens times
+    it is the rank's part of the global batch's mean."""
+    ctx = active_context()
+    rows = active_batch()
+    if ctx is None or grid_of(ctx[0]) is None or rows is None \
+            or not ctx[0].rows_split(rows):
+        return 1.0
+    return local_rows / rows
+
+
+def grid_of(mesh) -> "RankGrid | None":
+    """``mesh`` if it is a RankGrid, else None."""
+    return mesh if isinstance(mesh, RankGrid) else None
+
+
+class _SumForward(torch.autograd.Function):
+    """SUM over a grid axis forward, the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, grid, axis):
+        out = x.contiguous().clone()
+        return grid.all_reduce(out, "sum", axis=axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _SumBackward(torch.autograd.Function):
+    """The identity forward, SUM over a grid axis backward."""
+
+    @staticmethod
+    def forward(ctx, x, grid, axis):
+        ctx.grid, ctx.axis = grid, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.contiguous().clone()
+        return ctx.grid.all_reduce(out, "sum", axis=ctx.axis), None, None
+
+
+def copy_to(x, grid: RankGrid, axis: str = "model"):
+    """Megatron's "f": ``x`` as is, its gradient summed over ``axis``
+    (each rank of the axis computed a part of it)."""
+    if grid.axis_size(axis) == 1:
+        return x
+    return _SumBackward.apply(x, grid, axis)
+
+
+def reduce_from(x, grid: RankGrid, axis: str = "model"):
+    """Megatron's "g": ``x`` summed over ``axis``, its gradient passed on
+    as is (every rank of the axis holds the whole sum, and each uses it
+    alike).  Not ``torch.distributed.nn.functional.all_reduce``, whose
+    backward sums again."""
+    if grid.axis_size(axis) == 1:
+        return x
+    return _SumForward.apply(x, grid, axis)
+
+
+def copy_to_model(x, grid: RankGrid):
+    return copy_to(x, grid, "model")
+
+
+def reduce_from_model(x, grid: RankGrid):
+    return reduce_from(x, grid, "model")
+
+
+class _TakeBlock(torch.autograd.Function):
+    """Block i of n of dim 0 (i: this rank's index on the axis) forward;
+    backward, the gradient placed in its block of zeros and summed over
+    the axis, so every rank holds the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, grid, axis):
+        n, i = grid.axis_size(axis), grid.axis_index(axis)
+        per = x.shape[0] // n
+        ctx.grid, ctx.axis, ctx.shape, ctx.lo = grid, axis, x.shape, i * per
+        return x[i * per:(i + 1) * per].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        full = g.new_zeros(ctx.shape)
+        full[ctx.lo:ctx.lo + g.shape[0]] = g
+        return ctx.grid.all_reduce(full, "sum", axis=ctx.axis), None, None
+
+
+class _GatherBlocks(torch.autograd.Function):
+    """Every rank's block along dim 0 in axis order (a SUM of zero-padded
+    blocks: exact) forward; backward, this rank's block of the
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, grid, axis):
+        n, i = grid.axis_size(axis), grid.axis_index(axis)
+        full = x.new_zeros((n * x.shape[0], *x.shape[1:]))
+        full[i * x.shape[0]:(i + 1) * x.shape[0]] = x
+        ctx.lo, ctx.per = i * x.shape[0], x.shape[0]
+        return grid.all_reduce(full, "sum", axis=axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.lo:ctx.lo + ctx.per].clone(), None, None
+
+
+def take_block(x, grid: RankGrid, axis: str = "data"):
+    """This rank's block of dim 0 over ``axis``; the gradient comes back
+    whole on every rank."""
+    if grid.axis_size(axis) == 1:
+        return x
+    return _TakeBlock.apply(x, grid, axis)
+
+
+def gather_blocks(x, grid: RankGrid, axis: str = "data"):
+    """The ranks' blocks of dim 0 over ``axis``, concatenated in order; the
+    gradient of this rank's block comes back."""
+    if grid.axis_size(axis) == 1:
+        return x
+    return _GatherBlocks.apply(x, grid, axis)

@@ -33,8 +33,11 @@ Usage:
       --shape train_4k --reduced
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all   # 32 cells
 
-A mesh across cards (``--multi-pod``, ``--strategy fsdp|serve``) is ROADMAP
-Queue A item 13d's and raises.
+The dry run over a mesh across cards (``--multi-pod``, ``--strategy
+fsdp|serve``) needs the dense layers' FSDP × TP layout on a
+``dist.sharding.RankGrid`` and an account of its collectives over 256 or
+512 ranks: it raises ``NotImplementedError`` naming ROADMAP Queue A item
+13d.6.
 """
 from __future__ import annotations
 
@@ -288,14 +291,14 @@ def main(argv=None):
     ap.add_argument("--tag", default="")
     ap.add_argument("--out-dir", default=None)
     ap.add_argument("--multi-pod", action="store_true",
-                    help="a mesh across cards: not ported (item 13d)")
+                    help="a mesh across cards: not ported (item 13d.6)")
     ap.add_argument("--strategy", default="2d",
                     choices=("2d", "fsdp", "serve"))
     args = ap.parse_args(argv)
     if args.multi_pod or args.strategy != "2d":
         raise not_ported_error(
             "the dry run over a mesh across cards (--multi-pod, "
-            "--strategy fsdp|serve)", 13)
+            "--strategy fsdp|serve)", "13d.6")
 
     if args.all:
         cells = [(a, s) for a in ARCH_NAMES for s in shape_cells(a)]

@@ -5,6 +5,9 @@
   against it and every spec replicates.
 * :func:`make_rank_mesh` — the graph path's shard axis across the ranks
   ``torchrun`` started (``dist.sharding.RankMesh``).
+* :func:`make_rank_grid` — the model path's (data, model) mesh across the
+  same ranks (``dist.sharding.RankGrid``), sized as the JAX package's
+  ``make_host_mesh`` sizes its mesh over the host's devices.
 * :func:`spawn_ranks` — W ranks spawned from one process, each joining a
   process group of the caller's backend and running an entry function; a
   rank's exception or a rank past the time limit fails the caller.
@@ -18,7 +21,7 @@ import queue
 import time
 import traceback
 
-from repro_torch.dist.sharding import RankMesh
+from repro_torch.dist.sharding import RankGrid, RankMesh
 
 COLLECTIVE_TIMEOUT_S = 60.0
 
@@ -50,6 +53,17 @@ def make_rank_mesh(backend: str | None = None, *, device=None) -> RankMesh:
     one card, ``"nccl"`` for one card a rank.  A collective waits at most
     ``COLLECTIVE_TIMEOUT_S``."""
     import torch
+
+    _init_group(backend)
+    mesh = RankMesh(device=device)
+    if mesh.device.type == "cuda":
+        torch.cuda.set_device(mesh.device)
+    return mesh
+
+
+def _init_group(backend: str | None) -> None:
+    """Initializes the default group from the ``torchrun`` environment
+    unless one is initialized already."""
     import torch.distributed as dist
 
     if not dist.is_initialized():
@@ -59,10 +73,31 @@ def make_rank_mesh(backend: str | None = None, *, device=None) -> RankMesh:
         dist.init_process_group(
             backend, init_method="env://",
             timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
-    mesh = RankMesh(device=device)
-    if mesh.device.type == "cuda":
-        torch.cuda.set_device(mesh.device)
-    return mesh
+
+
+def default_model_parallel(world: int) -> int:
+    """The JAX package's ``make_host_mesh`` default: 2 when the world is
+    even and larger than 1, else 1."""
+    return 2 if world % 2 == 0 and world > 1 else 1
+
+
+def make_rank_grid(model_parallel: int | None = None, backend: str | None
+                   = None, *, device=None) -> RankGrid:
+    """A :class:`~repro_torch.dist.sharding.RankGrid` of the world's ranks,
+    (W // mp, mp) over ("data", "model"); ``mp`` defaults to
+    :func:`default_model_parallel`.  Unless a group is initialized already
+    (``spawn_ranks``), it is initialized from the ``torchrun`` environment
+    with ``backend``, as :func:`make_rank_mesh` does."""
+    import torch
+    import torch.distributed as dist
+
+    _init_group(backend)
+    mp_ = (default_model_parallel(dist.get_world_size())
+           if model_parallel is None else model_parallel)
+    grid = RankGrid(mp_, device=device)
+    if grid.device.type == "cuda":
+        torch.cuda.set_device(grid.device)
+    return grid
 
 
 def _rank_main(entry, rank, world, backend, init_method, args, results):

@@ -11,6 +11,18 @@ chunk kernels; ``--device cpu`` runs their plain versions (``--reduced``
 makes that feasible).  It prints the prefill and decode times, the
 tokens/s and the peak allocation beside the card's name and power limit
 as ``nvidia-smi`` gives them.
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) the ranks form a
+``dist.sharding.RankGrid`` (``--model-parallel``, ``--backend`` gloo so
+that ranks may share a card, nccl for a card a rank) under the
+``"serve"`` rules: a MoE's experts live on the model axis, every rank
+draws the same prompts and keeps its rows (its data shard when the data
+axis divides ``--batch``, else all of them), and every rank of a data row
+decodes the same tokens.  Rank 0 prints; each rank returns its rows'
+tokens::
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch qwen3-moe-235b-a22b --reduced --batch 2 --prompt-len 64
 """
 from __future__ import annotations
 
@@ -23,7 +35,7 @@ from repro_torch.configs import ARCH_NAMES, get_config, get_reduced
 from repro_torch.device import resolve_device
 from repro_torch.dist import sharding as shd
 from repro_torch.launch.graph_serve import card_line
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import make_host_mesh, make_rank_grid, world_size
 from repro_torch.models.model import Model
 from repro_torch.train.serve import decode_from, make_prefill_step
 
@@ -43,13 +55,22 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--model-parallel", type=int, default=None,
+                    help="the grid's model axis under torchrun")
+    ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"),
+                    help="the process group's backend under torchrun")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    model = Model(cfg, device=dev).init(
+    grid = None
+    if world_size() > 1:
+        grid = make_rank_grid(args.model_parallel, args.backend,
+                              device=args.device)
+        dev, mesh = grid.device, grid
+    else:
+        dev, mesh = resolve_device(args.device), make_host_mesh()
+    model = Model(cfg, device=dev, mesh=grid).init(
         torch.Generator(device=dev).manual_seed(args.seed))
-    mesh = make_host_mesh()
     rules = shd.make_rules(mesh, strategy="serve")
 
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
@@ -64,10 +85,12 @@ def main(argv=None):
         batch["frames"] = 0.02 * torch.randn(
             (args.batch, cfg.encoder_seq, cfg.d_model), generator=gen,
             device=dev)
+    if grid is not None:  # this rank's rows
+        batch = {k: grid.local_rows(v) for k, v in batch.items()}
     cache_len = args.prompt_len + args.gen
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    with shd.activation_sharding(mesh, rules):
+    with shd.activation_sharding(mesh, rules, batch=args.batch):
         t0 = time.perf_counter()
         logits, cache = make_prefill_step(model, cache_len=cache_len)(batch)
         tok = torch.argmax(logits[:, -1, :], -1).to(torch.int32)[:, None]
@@ -80,7 +103,10 @@ def main(argv=None):
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else 0)
     steps = args.gen - 1
-    print(f"{cfg.name}: {model.num_params():,} parameters; prefill "
+    if grid is not None and grid.rank != grid.leader:
+        return out
+    where = "" if grid is None else f" on a {dict(grid.shape)} grid"
+    print(f"{cfg.name}: {model.num_params():,} parameters{where}; prefill "
           f"{args.batch}×{args.prompt_len} in {t_prefill:.3f}s; decode "
           f"{steps} steps in {t_decode:.3f}s "
           f"({1e3 * t_decode / max(steps, 1):.2f} ms a step, "

@@ -26,8 +26,8 @@ class DecoderLayer(L.ParamNode):
     """Self-attention, cross-attention and the FFN, each after an
     RMSNorm (``ln1``, ``lnx``, ``ln2``)."""
 
-    def __init__(self, cfg: ModelConfig, *, device):
-        kw = dict(cfg=cfg, device=device)
+    def __init__(self, cfg: ModelConfig, *, device, mesh=None):
+        kw = dict(cfg=cfg, device=device, mesh=mesh)
         super().__init__(children={
             "ln1": T._node(L.rmsnorm_leaves(cfg.d_model), **kw),
             "attn": T._node(A.attention_leaves(cfg), **kw),
@@ -39,16 +39,16 @@ class DecoderLayer(L.ParamNode):
         })
 
 
-def build(cfg: ModelConfig, *, device) -> dict:
+def build(cfg: ModelConfig, *, device, mesh=None) -> dict:
     """The root's children, in the JAX package's key order."""
-    kw = dict(cfg=cfg, device=device)
+    kw = dict(cfg=cfg, device=device, mesh=mesh)
     return {
         "embed": T._node(L.embed_leaves(cfg.padded_vocab, cfg.d_model), **kw),
         "enc_pos": T._node({"table": L.normal(
             (cfg.encoder_seq, cfg.d_model), (None, shd.FSDP), 0.02)}, **kw),
-        "encoder": T.Stack([T.DenseLayer(cfg, device=device)
+        "encoder": T.Stack([T.DenseLayer(**kw)
                             for _ in range(cfg.num_encoder_layers)]),
-        "decoder": T.Stack([DecoderLayer(cfg, device=device)
+        "decoder": T.Stack([DecoderLayer(**kw)
                             for _ in range(cfg.num_layers)]),
         "enc_norm": T._node(L.rmsnorm_leaves(cfg.d_model), **kw),
         "final_norm": T._node(L.rmsnorm_leaves(cfg.d_model), **kw),
@@ -108,10 +108,18 @@ def forward(params, tokens, frames, cfg: ModelConfig, *, kernel: str):
     return T.lm_logits(params, h, cfg), aux
 
 
-def train_loss(params, batch, cfg: ModelConfig, *, kernel: str):
+def train_loss(params, batch, cfg: ModelConfig, *, kernel: str,
+               parts=None):
     logits, _ = forward(params, batch["tokens"], batch["frames"], cfg,
                         kernel=kernel)
-    return L.cross_entropy(logits, batch["labels"])
+    ce = L.cross_entropy(logits, batch["labels"])
+    share = shd.rows_share(batch["tokens"].shape[0])
+    if share != 1.0:
+        ce = ce * share
+    if parts is not None:
+        parts["ce"] = ce.detach()
+        parts["aux"] = torch.zeros((), dtype=torch.float32, device=ce.device)
+    return ce
 
 
 # --------------------------------------------------------------------------

@@ -40,19 +40,30 @@ class Leaf:
 
 class ParamNode(nn.Module):
     """A node of the parameter tree: leaf parameters and child nodes, in
-    the order they were given, read by key like the JAX package's dicts."""
+    the order they were given, read by key like the JAX package's dicts.
+
+    On a ``dist.sharding.RankGrid`` (``mesh=``) each leaf is held at its
+    local shape, the block of the rank's coordinates under
+    ``RankGrid.param_spec`` (the experts' dim on the model axis); the
+    init fills it with that block of the one-process init's draw."""
 
     def __init__(self, leaves: dict | None = None,
                  children: dict | None = None, *, dtype=torch.float32,
-                 device="cpu"):
+                 device="cpu", mesh=None):
         super().__init__()
         self._leaves: dict[str, Leaf] = {}
         self._order: list[str] = []
+        self._slices: dict[str, tuple] = {}
         for name, leaf in (leaves or {}).items():
             self._leaves[name] = leaf
             self._order.append(name)
+            shape = leaf.shape
+            spec = () if mesh is None else mesh.param_spec(shape, leaf.axes)
+            if spec:
+                self._slices[name] = mesh.local_slice(shape, spec)
+                shape = mesh.local_shape(shape, spec)
             self.register_parameter(name, nn.Parameter(
-                torch.empty(leaf.shape, dtype=dtype, device=device),
+                torch.empty(shape, dtype=dtype, device=device),
                 requires_grad=False))
         for name, child in (children or {}).items():
             self._order.append(name)
@@ -77,26 +88,37 @@ class ParamNode(nn.Module):
                     if k in self._leaves else self[k].abstract())
                 for k in self._order}
 
+    def sliced(self) -> dict:
+        """The leaves held as a block of their shape (on a grid): name →
+        the block's slices."""
+        return dict(self._slices)
+
     @torch.no_grad()
     def init_(self, gen: torch.Generator) -> None:
-        """Fills every parameter under this node from ``gen``, in order."""
+        """Fills every parameter under this node from ``gen``, in order.  A
+        sliced leaf draws its whole shape and keeps its block, so the
+        generator advances as on one process."""
         for k in self._order:
             if k not in self._leaves:
                 self[k].init_(gen)
                 continue
-            p, rule = getattr(self, k), self._leaves[k].init
+            p, leaf = getattr(self, k), self._leaves[k]
+            rule, block = leaf.init, self._slices.get(k)
             if rule[0] == "normal":
-                p.copy_(rule[1] * torch.randn(p.shape, generator=gen,
-                                              dtype=torch.float32,
-                                              device=p.device))
+                full = rule[1] * torch.randn(leaf.shape, generator=gen,
+                                             dtype=torch.float32,
+                                             device=p.device)
+                p.copy_(full if block is None else full[block])
+                del full
             elif rule[0] == "zeros":
                 p.zero_()
             elif rule[0] == "ones":
                 p.fill_(1.0)
             elif rule[0] == "log_linspace":
-                p.copy_(torch.log(torch.linspace(
-                    rule[1], rule[2], p.shape[0], dtype=torch.float32,
-                    device=p.device)))
+                full = torch.log(torch.linspace(
+                    rule[1], rule[2], leaf.shape[0], dtype=torch.float32,
+                    device=p.device))
+                p.copy_(full if block is None else full[block])
             else:
                 raise ValueError(f"unknown init rule {rule!r}")
 

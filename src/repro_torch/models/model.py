@@ -13,6 +13,13 @@ parameters held by the model (an ``nn.Module`` tree)::
 ``batch`` keys: tokens, labels (+ frames for encdec, patch_embeds for
 vlm).
 
+``mesh=`` a ``dist.sharding.RankGrid`` holds each parameter at its local
+shape on the grid (``RankGrid.param_spec``: the experts' dim on the model
+axis, every other dim whole) and runs under
+``activation_sharding(grid, rules, batch=B)`` on the rank's rows of a
+global batch of B rows; the init from a seed gives each rank the block of
+the one-process init.
+
 ``kernel="cuda"`` (the default) runs prefill and the forward pass through
 the flash-attention and SSD chunk kernels — on CPU tensors their plain
 versions, as every kernel entry point does; on the card it launches them
@@ -44,7 +51,7 @@ KERNELS = ("cuda", "reference")
 
 class Model(L.ParamNode):
     def __init__(self, cfg: ModelConfig, *, kernel: str = "cuda",
-                 device="cuda"):
+                 device="cuda", mesh=None):
         if kernel not in KERNELS:
             raise ValueError(f"kernel must be one of {KERNELS}, got "
                              f"{kernel!r}")
@@ -53,9 +60,10 @@ class Model(L.ParamNode):
         dev = (torch.device("meta") if str(device) == "meta"
                else resolve_device(device))
         family = encdec if cfg.family == "encdec" else transformer
-        super().__init__(children=family.build(cfg, device=dev))
+        super().__init__(children=family.build(cfg, device=dev, mesh=mesh))
         self.cfg = cfg
         self.kernel = kernel
+        self.mesh = mesh
         # the served tree (compute-dtype copies), made at first use
         self._compute: dict = {}
 
@@ -87,12 +95,30 @@ class Model(L.ParamNode):
         return out
 
     def num_params(self) -> int:
+        """The parameters this process holds (its blocks on a grid)."""
         return sum(p.numel() for p in self.parameters())
+
+    def sharded_names(self) -> set:
+        """Names of the parameters held as a block of their shape on the
+        grid (the experts' weights on the model axis); empty off a grid."""
+        out = set()
+        for prefix, mod in self.named_modules():
+            if isinstance(mod, L.ParamNode):
+                out.update(f"{prefix}.{k}" if prefix else k
+                           for k in mod.sliced())
+        return out
+
+    def remesh(self, mesh) -> None:
+        """Runs the same local parameters on ``mesh``, a survivor grid that
+        keeps this rank's coordinates on the placed axes (the model axis:
+        ``RankGrid.survivors``); the compute-dtype copies are dropped."""
+        self.mesh = mesh
+        self._compute.clear()
 
     def with_kernel(self, kernel: str) -> "Model":
         """The same model (the very same parameters and compute-dtype
         copies) through ``kernel``."""
-        twin = Model(self.cfg, kernel=kernel, device="meta")
+        twin = Model(self.cfg, kernel=kernel, device="meta", mesh=self.mesh)
         twin.load_state_dict(self.state_dict(keep_vars=True), assign=True)
         twin._compute = self._compute
         return twin
@@ -103,7 +129,8 @@ class Model(L.ParamNode):
         made on the first call and kept."""
         tree = self._compute.get("tree")
         if tree is None:
-            tree = Model(self.cfg, kernel=self.kernel, device="meta")
+            tree = Model(self.cfg, kernel=self.kernel, device="meta",
+                         mesh=self.mesh)
             nn.Module.load_state_dict(
                 tree, L.compute_state(self, self.cfg.tdtype),
                 assign=True)
@@ -130,14 +157,14 @@ class Model(L.ParamNode):
                                    kernel=self.kernel,
                                    patch_embeds=batch.get("patch_embeds"))
 
-    def train_loss(self, batch):
+    def train_loss(self, batch, *, parts=None):
         """The training loss of one batch (``train.step`` differentiates
-        it)."""
+        it); ``parts`` receives its cross-entropy and MoE terms."""
         if self.cfg.family == "encdec":
             return encdec.train_loss(self, batch, self.cfg,
-                                     kernel=self.kernel)
+                                     kernel=self.kernel, parts=parts)
         return transformer.train_loss(self, batch, self.cfg,
-                                      kernel=self.kernel)
+                                      kernel=self.kernel, parts=parts)
 
     # -- serve ----------------------------------------------------------------
     def prefill(self, batch, *, cache_len: int | None = None):

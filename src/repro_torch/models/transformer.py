@@ -36,16 +36,16 @@ from repro_torch.models.common import ModelConfig
 # --------------------------------------------------------------------------
 # the parameter tree
 # --------------------------------------------------------------------------
-def _node(leaves=None, children=None, *, cfg, device):
+def _node(leaves=None, children=None, *, cfg, device, mesh=None):
     return L.ParamNode(leaves, children, dtype=cfg.tparam_dtype,
-                       device=device)
+                       device=device, mesh=mesh)
 
 
 class DenseLayer(L.ParamNode):
     """Attention + FFN with two RMSNorms."""
 
-    def __init__(self, cfg: ModelConfig, *, device):
-        kw = dict(cfg=cfg, device=device)
+    def __init__(self, cfg: ModelConfig, *, device, mesh=None):
+        kw = dict(cfg=cfg, device=device, mesh=mesh)
         super().__init__(children={
             "ln1": _node(L.rmsnorm_leaves(cfg.d_model), **kw),
             "attn": _node(A.attention_leaves(cfg), **kw),
@@ -58,8 +58,8 @@ class DenseLayer(L.ParamNode):
 class MoELayer(L.ParamNode):
     """Attention + MoE FFN (routed experts, an optional shared expert)."""
 
-    def __init__(self, cfg: ModelConfig, *, device):
-        kw = dict(cfg=cfg, device=device)
+    def __init__(self, cfg: ModelConfig, *, device, mesh=None):
+        kw = dict(cfg=cfg, device=device, mesh=mesh)
         moe = {}
         if cfg.shared_expert:
             moe["shared"] = _node(L.ffn_leaves(cfg.d_model, cfg.d_ff,
@@ -75,8 +75,8 @@ class MoELayer(L.ParamNode):
 class SSMLayer(L.ParamNode):
     """RMSNorm + Mamba2 block."""
 
-    def __init__(self, cfg: ModelConfig, *, device):
-        kw = dict(cfg=cfg, device=device)
+    def __init__(self, cfg: ModelConfig, *, device, mesh=None):
+        kw = dict(cfg=cfg, device=device, mesh=mesh)
         super().__init__(children={
             "ln1": _node(L.rmsnorm_leaves(cfg.d_model), **kw),
             "ssm": _node(S.ssm_leaves(cfg), **kw),
@@ -114,21 +114,21 @@ def layer_kind(cfg: ModelConfig) -> str:
 LAYERS = {"dense": DenseLayer, "moe": MoELayer, "ssm": SSMLayer}
 
 
-def build(cfg: ModelConfig, *, device) -> dict:
-    """The root's children, in the JAX package's key order."""
-    kw = dict(cfg=cfg, device=device)
+def build(cfg: ModelConfig, *, device, mesh=None) -> dict:
+    """The root's children, in the JAX package's key order (each leaf at
+    its local shape on a ``RankGrid`` ``mesh``)."""
+    kw = dict(cfg=cfg, device=device, mesh=mesh)
     layer = LAYERS[layer_kind(cfg)]
     children: dict[str, Any] = {
         "embed": _node(L.embed_leaves(cfg.padded_vocab, cfg.d_model), **kw),
-        "layers": Stack([layer(cfg, device=device)
-                         for _ in range(cfg.num_layers)]),
+        "layers": Stack([layer(**kw) for _ in range(cfg.num_layers)]),
         "final_norm": _node(L.rmsnorm_leaves(cfg.d_model), **kw),
     }
     if not cfg.tie_embeddings:
         children["unembed"] = _node(
             L.embed_leaves(cfg.padded_vocab, cfg.d_model), **kw)
     if cfg.family == "hybrid":
-        children["shared_attn"] = DenseLayer(cfg, device=device)
+        children["shared_attn"] = DenseLayer(**kw)
     if cfg.family == "vlm":
         children["patch_proj"] = _node(L.dense_leaves(
             cfg.d_model, cfg.d_model, shd.FSDP, shd.TENSOR), **kw)
@@ -173,10 +173,22 @@ def _groups(cfg: ModelConfig):
 def maybe_remat(fn, cfg: ModelConfig):
     """``fn`` rematerialized in the backward pass where ``cfg.remat`` is set
     and grad is enabled (nothing of it is saved but its inputs), else
-    ``fn`` itself."""
+    ``fn`` itself.  The recomputation runs under the ``activation_sharding``
+    context of the forward pass: on the card autograd runs the backward in
+    a thread of its own, where the thread-local context is not."""
     def run(*args):
         if cfg.remat and torch.is_grad_enabled():
-            return checkpoint(fn, *args, use_reentrant=False,
+            ctx = shd.active_context()
+            if ctx is None:
+                return checkpoint(fn, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
+            batch = shd.active_batch()
+
+            def in_context(*a):
+                with shd.activation_sharding(*ctx, batch=batch):
+                    return fn(*a)
+
+            return checkpoint(in_context, *args, use_reentrant=False,
                               preserve_rng_state=False)
         return fn(*args)
     return run
@@ -259,10 +271,20 @@ def forward(params, tokens, cfg: ModelConfig, *, kernel: str,
 
 
 def train_loss(params, batch, cfg: ModelConfig, *, kernel: str,
-               aux_weight: float = 0.01):
+               aux_weight: float = 0.01, parts=None):
+    """The cross-entropy (the rank's part of the global batch's mean under
+    a RankGrid: ``dist.sharding.rows_share``) plus the weighted MoE loss
+    (the global batch's on every rank).  ``parts``, a dict if given,
+    receives both, detached (``"ce"``, ``"aux"``)."""
     logits, aux = forward(params, batch["tokens"], cfg, kernel=kernel,
                           patch_embeds=batch.get("patch_embeds"))
-    return L.cross_entropy(logits, batch["labels"]) + aux_weight * aux
+    ce = L.cross_entropy(logits, batch["labels"])
+    share = shd.rows_share(batch["tokens"].shape[0])
+    if share != 1.0:
+        ce = ce * share
+    if parts is not None:
+        parts["ce"], parts["aux"] = ce.detach(), (aux_weight * aux).detach()
+    return ce + aux_weight * aux
 
 
 # --------------------------------------------------------------------------

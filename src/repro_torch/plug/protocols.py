@@ -436,7 +436,7 @@ class ComputationModel(Protocol):
         ...
 
 
-def not_ported_error(what: str, item: int) -> NotImplementedError:
+def not_ported_error(what: str, item: int | str) -> NotImplementedError:
     """The error for a component the port does not have yet, naming the
     ROADMAP item that ports it."""
     return NotImplementedError(

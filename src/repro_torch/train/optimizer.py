@@ -20,6 +20,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.dist import sharding as shd
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -70,23 +72,36 @@ def opt_state_axes(param_axes) -> dict:
     return {"m": param_axes, "v": param_axes, "step": ()}
 
 
-def global_norm(tree) -> torch.Tensor:
-    leaves = tree.values() if isinstance(tree, dict) else tree
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in leaves))
+def global_norm(tree, *, sharded=frozenset(), grid=None) -> torch.Tensor:
+    """The L2 norm over every leaf.  On a ``RankGrid`` (``grid``) the
+    leaves named in ``sharded`` are a rank's blocks of the model axis:
+    their squares are summed over it, the replicated leaves' counted
+    once."""
+    if grid is None or not sharded:
+        leaves = tree.values() if isinstance(tree, dict) else tree
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                              for x in leaves))
+    own, rep = [], []
+    for k, x in tree.items():
+        (own if k in sharded else rep).append(
+            torch.sum(torch.square(x.to(torch.float32))))
+    own_sq = grid.all_reduce(sum(own), axis="model")
+    return torch.sqrt(sum(rep, torch.zeros_like(own_sq)) + own_sq)
 
 
 @torch.no_grad()
 def apply_updates(params, grads, opt_state, cfg: AdamWConfig, *,
-                  stacked=frozenset()):
+                  stacked=frozenset(), sharded=frozenset(), grid=None):
     """One AdamW step, in place: ``params`` (dict name → tensor, or a
     module), m and v are overwritten.  Grads may be bf16 (accumulated); the
     math is float32.  ``stacked``: names that carry one more dim in the
-    JAX package (its stacked layers).  Returns ``(state, metrics)``."""
+    JAX package (its stacked layers); ``sharded`` and ``grid``: the clip's
+    norm over a RankGrid (:func:`global_norm`).  Returns ``(state,
+    metrics)``."""
     params = named(params)
     step = opt_state["step"] + 1
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, sharded=sharded, grid=grid)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     stepf = step.to(torch.float32)
@@ -121,7 +136,10 @@ class AdamW:
     def update(self, model, grads, state):
         """Updates ``model``'s parameters in place and drops its
         compute-dtype copies; returns ``(state, metrics)``."""
-        state, metrics = apply_updates(model, grads, state, self.cfg,
-                                       stacked=model.stacked_names())
+        grid = shd.grid_of(model.mesh)
+        state, metrics = apply_updates(
+            model, grads, state, self.cfg, stacked=model.stacked_names(),
+            sharded=model.sharded_names() if grid is not None else (),
+            grid=grid)
         model.params_changed()
         return state, metrics

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core import pipeline as pl
 from repro_torch.dist import collectives as coll
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels import accounting
 from repro_torch.models.model import Model
 from repro_torch.train.optimizer import AdamW
@@ -52,13 +53,14 @@ def as_batch(batch, device) -> dict:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
-def loss_and_grads(model: Model, batch) -> tuple:
+def loss_and_grads(model: Model, batch, *, parts=None) -> tuple:
     """``(loss, grads)`` of ``model.train_loss`` on one batch; grads is a
     dict keyed by the model's parameter names (zeros for a parameter the
-    loss does not read, as JAX gives)."""
+    loss does not read, as JAX gives).  ``parts`` receives the loss's
+    cross-entropy and MoE terms."""
     names, params = zip(*model.named_parameters())
     with _requiring_grad(params):
-        loss = model.train_loss(batch)
+        loss = model.train_loss(batch, parts=parts)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
     return loss.detach(), {
         k: (g if g is not None else torch.zeros_like(p))
@@ -74,9 +76,17 @@ def make_train_step(model: Model, optimizer: AdamW, *, microbatches: int = 1,
     ``microbatches`` splits the batch into that many slices, accumulates
     their gradients in the parameter dtype (float32 zeros for float32
     parameters, bf16 for bf16 ones) and scales loss and gradients by
-    ``1/microbatches``.  ``microbatch_shardings`` is accepted for the JAX
-    signature and has no effect: on one card ``dist.sharding.constrain``
-    is the identity.
+    ``1/microbatches``.
+
+    On a ``dist.sharding.RankGrid`` (``model.mesh``, read at each call, so
+    a ``Model.remesh`` takes effect) every rank is handed the same global
+    batch and keeps its rows (``RankGrid.local_rows``: its data shard of
+    each microbatch, as the JAX package reshapes and then shards); the
+    loss is normalised by the global token count, every leaf's gradient
+    summed over the data axes when the rows are split there, and the
+    logged loss is the global one.  ``microbatch_shardings`` is accepted
+    for the JAX signature and has no effect: ``dist.sharding.constrain``
+    is the identity (a rank's activations lie whole on its device).
 
     ``grad_wire="int8"`` puts the gradient through the compressed-wire
     round of ``dist.collectives`` before the optimizer sees it: each tensor
@@ -90,33 +100,63 @@ def make_train_step(model: Model, optimizer: AdamW, *, microbatches: int = 1,
     if grad_wire not in GRAD_WIRES:
         raise ValueError(f"grad_wire must be one of {GRAD_WIRES}, got "
                          f"{grad_wire!r}")
-    del microbatch_shardings  # the identity on one card
+    del microbatch_shardings  # constrain is the identity
     device = model.embed.table.device
 
     def compute_grads(batch):
-        batch = as_batch(batch, device)
-        if microbatches == 1:
-            return loss_and_grads(model, batch)
+        """The loss and gradients of one global batch: each microbatch's
+        accumulated and scaled by ``1/microbatches``.  On a RankGrid, this
+        rank's rows (its data shard of each microbatch) and then, when the
+        rows are split over data, every leaf summed over the data axes in
+        one flattened buffer per dtype and the global loss (the ranks'
+        cross-entropy parts summed, the MoE term once)."""
         b = next(iter(batch.values())).shape[0]
         if b % microbatches:
             raise ValueError(f"batch {b} does not split into "
                              f"{microbatches} microbatches")
-        acc = {k: torch.zeros(p.shape, device=p.device, dtype=(
-            p.dtype if p.dtype == torch.bfloat16 else torch.float32))
-            for k, p in model.named_parameters()}
-        loss_acc = torch.zeros((), dtype=torch.float32, device=device)
-        # a dry run's counter on meta samples this loop
-        # (accounting.trips), as hlo_analysis multiplies the JAX package's
-        # scan by its trips
-        for i in accounting.trips(microbatches):
-            mb = {k: v.reshape(microbatches, b // microbatches,
-                               *v.shape[1:])[i] for k, v in batch.items()}
-            loss, grads = loss_and_grads(model, mb)
-            for k, g in grads.items():
-                acc[k] = acc[k] + g.to(acc[k].dtype)
-            loss_acc = loss_acc + loss
-        inv = 1.0 / microbatches
-        return loss_acc * inv, {k: g * inv for k, g in acc.items()}
+        rows = b // microbatches
+        grid = shd.grid_of(model.mesh)
+        scope = contextlib.nullcontext()
+        if grid is not None:
+            batch = {k: grid.local_rows(v, microbatches=microbatches)
+                     for k, v in batch.items()}
+            ctx = shd.active_context()
+            rules = (ctx[1] if ctx is not None and ctx[0] is grid
+                     else shd.make_rules(grid))
+            scope = shd.activation_sharding(grid, rules, batch=rows)
+        batch = as_batch(batch, device)
+        per = next(iter(batch.values())).shape[0] // microbatches
+        acc: dict = {}
+        ce = torch.zeros((), dtype=torch.float32, device=device)
+        aux = torch.zeros((), dtype=torch.float32, device=device)
+        with scope:
+            # a dry run's counter on meta samples this loop
+            # (accounting.trips), as hlo_analysis multiplies the JAX
+            # package's scan by its trips
+            for i in accounting.trips(microbatches):
+                mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+                parts: dict = {}
+                _, grads = loss_and_grads(model, mb, parts=parts)
+                for k, g in grads.items():
+                    if microbatches == 1:
+                        acc[k] = g
+                        continue
+                    a = acc.get(k)
+                    if a is None:  # the parameter dtype: f32, or bf16
+                        a = torch.zeros(g.shape, device=g.device, dtype=(
+                            g.dtype if g.dtype == torch.bfloat16
+                            else torch.float32))
+                    acc[k] = a + g.to(a.dtype)
+                ce = ce + parts["ce"].to(torch.float32)
+                aux = aux + parts["aux"].to(torch.float32)
+        if microbatches > 1:
+            inv = 1.0 / microbatches
+            acc = {k: g * inv for k, g in acc.items()}
+            ce, aux = ce * inv, aux * inv
+        if grid is not None and grid.rows_split(rows):
+            acc = sum_over_data(grid, acc)
+            ce = grid.all_reduce(ce, axis="data")
+        return ce + aux, acc
 
     def train_step(opt_state, batch):
         loss, grads = compute_grads(batch)
@@ -144,6 +184,24 @@ def make_train_step(model: Model, optimizer: AdamW, *, microbatches: int = 1,
                                       **metrics}
 
     return train_step_wire
+
+
+def sum_over_data(grid, grads: dict) -> dict:
+    """``grads`` summed over ``grid``'s data axes: one flattened buffer
+    (one all_reduce) per dtype, in the dict's order."""
+    by_dtype: dict = {}
+    for k, g in grads.items():
+        by_dtype.setdefault(g.dtype, []).append(k)
+    out = dict(grads)
+    for keys in by_dtype.values():
+        flat = torch.cat([grads[k].reshape(-1) for k in keys])
+        grid.all_reduce(flat, axis="data")
+        at = 0
+        for k in keys:
+            n = grads[k].numel()
+            out[k] = flat[at:at + n].view(grads[k].shape)
+            at += n
+    return out
 
 
 def suggest_microbatches(global_batch: int, *, bytes_per_sample: int,

@@ -20,9 +20,9 @@ not reach yet; its share of the same cases at the single-process
 * the compressed host loop equals the single-process one bit for bit, and
   the rank wire (bits 8 and 4, both formats) equals the stacked wire at m
   and its oracle bit for bit;
-* bad meshes raise ``ValueError``; what is left for ROADMAP item 13d raises
-  ``NotImplementedError`` naming item 13; a bad monitor or mutation
-  schedule fails as on one process.
+* bad meshes raise ``ValueError``; the MoE under a RankMesh takes the
+  local path, as in the JAX package; a bad monitor or mutation schedule
+  fails as on one process.
 """
 import concurrent.futures
 import datetime
@@ -260,12 +260,15 @@ def test_rank_wire_equals_the_stacked_wire_and_its_oracle(worlds, bits, fmt,
 # run (tests/test_torch_ranks_async.py, tests/test_torch_ranks_epoch.py,
 # tests/test_torch_ranks_oocore.py, tests/test_torch_ranks_serve.py); a bad
 # monitor or mutation schedule, and migrate() without a monitor, fail as on
-# one process (test_bad_epoch_wiring_fails_as_on_one_process)
+# one process (test_bad_epoch_wiring_fails_as_on_one_process).  The MoE
+# under a RankMesh (no "model" axis) takes the local path, as in the JAX
+# package: None, it runs and equals the one-process result bit for bit
+# (the expert layout runs over a RankGrid: tests/test_torch_ranks_moe.py)
 REFUSALS = {
     "bad_monitor": (AttributeError, "num_hosts"),
     "bad_mutations": (AttributeError, "due_at"),
     "migrate_without_monitor": (ValueError, "monitor"),
-    "moe": (NotImplementedError, "item 13"),
+    "moe": None,
     "shards_not_divisible": (ValueError, "must divide"),
     "host_upper": (ValueError, "MeshUpperSystem"),
     "int_daemon_mesh": (ValueError, "is not the upper"),
@@ -275,10 +278,13 @@ REFUSALS = {
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_rank_mesh_refusals(worlds, case):
     ranks, _ = worlds
-    error, match = REFUSALS[case]
     for name in WORLDS:
         for r in ranks[name]:
             got = r["refusals"][case]
+            if REFUSALS[case] is None:
+                assert got is None, (name, r["rank"], case, got)
+                continue
+            error, match = REFUSALS[case]
             assert got is not None, (name, r["rank"], case)
             assert got[0] == error.__name__ and match in got[1], got
 

@@ -149,12 +149,24 @@ def _refusals(graphs, shards, mesh) -> dict:
 
 
 def _moe_under(mesh):
+    """``moe_ffn`` under an activation_sharding context over the RankMesh
+    (no "model" axis: the local path, as in the JAX package) → raises
+    unless it equals the one-process result bit for bit."""
     from repro_torch.configs import get_reduced
+    from repro_torch.models import layers as L
     from repro_torch.models import moe
 
-    cfg = get_reduced("qwen3-moe-235b-a22b")
+    cfg = get_reduced("qwen3-moe-235b-a22b").replace(dtype="float32")
+    p = L.ParamNode(moe.moe_leaves(cfg))
+    p.init_(torch.Generator().manual_seed(0))
+    x = torch.randn((2, 8, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    want = moe.moe_ffn(p, x, cfg, return_aux=True)
     with shd.activation_sharding(mesh, {}):
-        return moe.moe_ffn({}, torch.zeros(1, 2, cfg.d_model), cfg)
+        got = moe.moe_ffn(p, x, cfg, return_aux=True)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("moe_ffn under the RankMesh differs from the "
+                             "local path")
 
 
 def cpu_world(rank, world, graphs, shards, local):
