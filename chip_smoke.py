@@ -463,13 +463,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
               restored state bit-equal to the saved one, the resumed
               losses within its ``LOSS_RTOL`` of an uninterrupted run).
 
-9'. model_ranks — the model path across ``torch.distributed`` ranks:
+9'. model_ranks — the model path across ``torch.distributed`` ranks
+              (run right after the build phase, on a card and
+              host nothing else has used yet):
               4 gloo ranks share the card as a (2, 2) ``RankGrid`` (data,
-              model), spawned once.  (a) qwen3-moe-235b-a22b at its
+              model), spawned once: every parameter is a rank's block of
+              the JAX layout of the arm's rules.  (a) (``"serve"``: the
+              weights whole over data; heads, the vocabulary and the
+              experts on model) qwen3-moe-235b-a22b at its
               published width, 2 of its 94 layers with bf16 parameters
               (both in ``reduced``), from ``--seed`` (each rank draws the
               one-process init and keeps its block: 64 of the 128 experts
-              of each layer on each model rank): a prefill of B=2 × 4096
+              of each layer on each model rank, half the q heads, its KV
+              cache by sequence): a prefill of B=2 × 4096
               (row d on data row d) through the kernels, then 16 greedy
               tokens, twice.  Before the world is spawned the script runs
               each row's one-process B=1 prefill and decode on the same
@@ -492,13 +498,35 @@ Phases, each printing one JSON line; any failure exits non-zero:
               ``TRAIN_TOL``·max |want| (elements whose gradient was
               float32 noise in the same step in both runs, ``MR_NOISE``,
               within ``MR_NOISE_MOVE``), every rank the leader's losses; s a step before and after the kill,
-              the migration s, the gradients' all_reduce ms alone.  A failing or hung rank fails the phase.
+              the migration s (every block re-laid onto the survivors),
+              the gradients' all_reduce ms alone ((b) and (c) under the
+              ``"2d"`` rules: FSDP on data, heads, the FFN's hidden dim,
+              the vocabulary and the experts on model).  (c) zamba2-2.7b
+              at its published widths, ``ZR_LAYERS`` (2) Mamba2 layers
+              and one shared-block invocation after them (in
+              ``reduced``), bf16 compute: a prefill of B=2 × 4096 (row d on data row d) and
+              16 greedy tokens, then a second prefill, against each row's
+              one-process B=1 run made before the spawn: each rank's
+              logits (its vocabulary block) and every cache block within
+              ``MODEL_TOL``·max |want|, the tokens equal on a row's ranks,
+              1 flash attention and 2 ``ssd_chunk`` launches in each
+              prefill on every rank; it prints prefill s, ms a decode step
+              (each gathers every FSDP block over data), the second
+              prefill's peak above its start (phase 10 predicts it), the
+              parameters a rank holds against one process's,
+              and the layout's all_reduce, FSDP gather and re-lay timed
+              alone.  Then ``ssd_chunk`` at a rank's 40 heads (G=1) and
+              flash attention at its 16 q / 16 KV heads (D=80, bf16,
+              causal) against their plain versions.  A failing or hung
+              rank fails the phase.
 
 10. analysis — the dry-run accounting (``launch/op_analysis.py``)
-              against the card.  (a) Five steps that phases 8 and 9 ran
-              and measured — zamba2-2.7b's second kernel prefill (B=2,
+              against the card.  (a) Nine steps that phases 8, 9 and 9'
+              ran and measured — zamba2-2.7b's second kernel prefill (B=2,
               S=4096) and one decode step, its last AdamW step (B=1,
-              S=4096), qwen3-moe's and whisper-base's second prefill — are
+              S=4096), qwen3-moe's and whisper-base's second prefill, and
+              9' (c)'s second prefill on each of the four ranks (a traced
+              (2, 2) grid of the gloo transport, ``TracedGrid``) — are
               built again by ``launch/dryrun.py``'s ``build_step``, the
               code that writes the dry run's records, and traced on the
               meta device (the model kernels' launches planned, not
@@ -5626,7 +5654,7 @@ def phase_train(box: list, seed) -> tuple:
 # --------------------------------------------------------------------------
 # four gloo ranks share the card as a (data, model) grid of (2, 2)
 MR_RANKS, MR_MP = 4, 2
-MR_TIMEOUT_S = 300.0    # the spawned world's limit
+MR_TIMEOUT_S = 600.0    # the spawned world's limit
 # (a) qwen3-moe at its published width, MOE_LAYERS of its 94 layers, bf16
 # parameters; B=2 prompts of MOE_S tokens, row d on data row d
 MR_B = 2
@@ -5643,6 +5671,13 @@ MR_TRAIN_ARGV = ["--arch", MOE_ARCH, "--reduced", "--steps", "6", "--batch",
 # holds the same model's ranks to JAX's steps on the CPU
 MR_NOISE = 1e-5
 MR_NOISE_MOVE = 2e-4
+# (c) zamba2-2.7b at its published widths under the "2d" rules (FSDP on
+# data, heads and the FFN's hidden dim on model), bf16 compute as in phase
+# 8, ZR_LAYERS Mamba2 layers and one shared-block invocation after them
+# (the published config's block comes after every 6: cut to 2 for the
+# smoke's time); B=2 prompts of MODEL_S tokens, row d on data row d, then
+# ZR_GEN greedy tokens
+ZR_LAYERS, ZR_B, ZR_GEN = 2, 2, 16
 
 
 def moe_ranks_cfg():
@@ -5661,12 +5696,129 @@ def moe_ranks_tokens(cfg, seed, dev):
                          device=dev, dtype=torch.int32)
 
 
+def zamba_ranks_cfg():
+    from repro_torch.configs import get_config
+
+    return get_config(MODEL_ARCH).replace(num_layers=ZR_LAYERS,
+                                          attn_every=ZR_LAYERS)
+
+
+def zamba_ranks_tokens(cfg, seed, dev):
+    """The (ZR_B, MODEL_S) prompts of arm (c), from the seed, on the
+    card."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    return torch.randint(0, cfg.vocab_size, (ZR_B, MODEL_S), generator=gen,
+                         device=dev, dtype=torch.int32)
+
+
+def cache_host(cache) -> dict:
+    """A cache's tensors as float32 NumPy arrays (``cache_len`` left
+    out)."""
+    return {k: v.float().cpu().numpy() for k, v in cache.items()
+            if not isinstance(v, int)}
+
+
+def zamba_ranks_arm(grid, tmp, seed) -> dict:
+    """Phase 9' (c) on one rank: zamba2's prefill of its row and ZR_GEN
+    greedy tokens under the dense layout, then a second prefill (the
+    kernels' launches counted in each; the second's peak above its start
+    measured for phase 10: the first makes the compute-dtype copies), its
+    logits and cache blocks written under ``tmp``; the layout's
+    collectives timed alone.  Each decode step gathers every FSDP block
+    over data, as the ``"2d"`` rules have it, so the tokens are decoded
+    once."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import Model
+    from repro_torch.models import layers as L
+    from repro_torch.train.serve import decode_from, make_prefill_step
+
+    dev = grid.device
+    cfg = zamba_ranks_cfg()
+    out = {}
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, mesh=grid).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["parameters"] = model.num_params()
+    tokens = grid.local_rows(zamba_ranks_tokens(cfg, seed, dev))
+    prefill = make_prefill_step(model, cache_len=MODEL_S + ZR_GEN)
+    runs = []
+    with shd.activation_sharding(grid, grid.rules, batch=ZR_B):
+        for i in range(2):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            fa.flash_attention.launches = ssd.ssd_chunk.launches = 0
+            t0 = time.perf_counter()
+            logits, cache = prefill({"tokens": tokens})
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            launches = {"flash_attention": fa.flash_attention.launches,
+                        "ssd_chunk": ssd.ssd_chunk.launches}
+            peak = torch.cuda.max_memory_allocated(dev) - before
+            if i == 0:
+                out["compute_bytes"] = model.compute_bytes()
+                np.save(_rank_file(tmp, "zamba_ranks", grid.rank, "logits"),
+                        logits.float().cpu().numpy())
+                for k, v in cache_host(cache).items():
+                    np.save(_rank_file(tmp, "zamba_ranks", grid.rank,
+                                       f"cache_{k}"), v)
+            run = {"prefill_s": prefill_s, "launches": launches,
+                   "peak_delta_bytes": peak}
+            if i == 0:
+                tok = L.vocab_argmax(logits[:, -1], cfg.padded_vocab).to(
+                    torch.int32)[:, None]
+                t0 = time.perf_counter()
+                toks = decode_from(model, cache, tok, MODEL_S, ZR_GEN)
+                torch.cuda.synchronize()
+                run["decode_ms_per_step"] = 1e3 * (
+                    time.perf_counter() - t0) / (ZR_GEN - 1)
+                run["tokens"] = toks.cpu().numpy()
+            runs.append(run)
+            del logits, cache
+        out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
+        # the layout's collectives alone, at the prefill's shapes in bf16:
+        # a row-parallel product's all_reduce over model, the FSDP gather
+        # of in_proj's block over data, the packed projection's re-lay
+        # (its column blocks gathered over model)
+        d, width = cfg.d_model, 2 * cfg.d_inner + 2 * cfg.ssm_groups \
+            * cfg.ssm_state + cfg.ssm_heads
+        act = torch.ones((MODEL_S, d), dtype=cfg.tdtype, device=dev)
+        w = torch.ones((d // grid.dp, width // grid.mp), dtype=cfg.tdtype,
+                       device=dev)
+        cols = torch.ones((1, MODEL_S, width // grid.mp), dtype=cfg.tdtype,
+                          device=dev)
+        out["collective_ms"] = {
+            "all_reduce_model": _collective_ms(
+                lambda: grid.all_reduce(act, axis="model")),
+            "gather_fsdp_in_proj": _collective_ms(
+                lambda: grid.all_gather(w, 0, axis="data")),
+            "relay_in_proj_columns": _collective_ms(
+                lambda: grid.all_gather(cols, -1, axis="model")),
+            "shapes": {"all_reduce_model": list(act.shape),
+                       "gather_fsdp_in_proj": list(w.shape),
+                       "relay_in_proj_columns": list(cols.shape)}}
+        del act, w, cols
+    out["runs"] = runs
+    del model, prefill
+    torch.cuda.empty_cache()
+    return out
+
+
 def model_ranks_world(rank, world, tmp, seed) -> dict:
     """One rank of phase 9': (a) qwen3-moe's prefill and greedy decode on
     its row of the grid, twice, its logits written under ``tmp``; the
-    combine's and the gradients' all_reduce timed alone; (b) launch.train
-    with the kill, on the card and then on the CPU, held to each other
-    here."""
+    combine's and the gradients' all_reduce timed alone; (c) zamba2 under
+    the dense layout (``zamba_ranks_arm``); (b) launch.train with the
+    kill, on the card and then on the CPU, held to each other here."""
     import numpy as np
     import torch
 
@@ -5674,13 +5826,16 @@ def model_ranks_world(rank, world, tmp, seed) -> dict:
     from repro_torch.dist.sharding import RankGrid
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import Model
+    from repro_torch.models import layers as L
     from repro_torch.models import moe as M
     from repro_torch.train.serve import decode_from, make_prefill_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    grid = RankGrid(MR_MP)  # cuda:{rank % device_count}
+    # (a) serves: the "serve" rules (weights whole over data, split over
+    # model); (c) and (b) run the "2d" rules
+    grid = RankGrid(MR_MP, strategy="serve")  # cuda:{rank % device_count}
     torch.cuda.set_device(grid.device)
     dev = grid.device
     cfg = moe_ranks_cfg()
@@ -5695,11 +5850,10 @@ def model_ranks_world(rank, world, tmp, seed) -> dict:
     out["parameters"] = model.num_params()
     tokens = grid.local_rows(moe_ranks_tokens(cfg, seed, dev))
     prefill = make_prefill_step(model, cache_len=MOE_S + MOE_GEN)
-    rules = shd.make_rules(grid, strategy="serve")
     stats: dict = {}
     moe_ffn = M.moe_ffn
     runs = []
-    with shd.activation_sharding(grid, rules, batch=MR_B):
+    with shd.activation_sharding(grid, grid.rules, batch=MR_B):
         for i in range(2):
             M.moe_ffn = ((lambda *a, **kw: moe_ffn(*a, stats=stats, **kw))
                          if i == 0 else moe_ffn)
@@ -5712,7 +5866,8 @@ def model_ranks_world(rank, world, tmp, seed) -> dict:
                 launches = fa.flash_attention.launches
             finally:
                 M.moe_ffn = moe_ffn
-            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            tok = L.vocab_argmax(logits[:, -1], cfg.padded_vocab).to(
+                torch.int32)[:, None]
             t0 = time.perf_counter()
             toks = decode_from(model, cache, tok, MOE_S, MOE_GEN)
             torch.cuda.synchronize()
@@ -5749,6 +5904,8 @@ def model_ranks_world(rank, world, tmp, seed) -> dict:
         lambda: grid.all_reduce(g, axis="data"))
     out["grad_all_reduce_bytes"] = numel * 4
     del g
+    out["zamba"] = zamba_ranks_arm(
+        RankGrid(MR_MP, strategy="2d", _groups=grid._groups), tmp, seed)
     out["train"] = model_ranks_train(world)
     return out
 
@@ -5783,7 +5940,8 @@ def _train_recording(argv) -> tuple:
     """``launch.train`` of ``argv`` in this process, its stdout captured,
     the parameters drawn on the CPU → (its result, its stdout, each
     step's elements of each leaf whose gradient was nonzero and within
-    ``MR_NOISE`` of the leaf's max)."""
+    ``MR_NOISE`` of the leaf's max, with the step's layout: the kill
+    re-lays the blocks)."""
     import io
 
     from repro_torch.launch import train as tlaunch
@@ -5797,7 +5955,7 @@ def _train_recording(argv) -> tuple:
         for k, g in grads.items():
             a = g.detach().abs()
             step[k] = ((a > 0) & (a <= MR_NOISE * a.max())).cpu().numpy()
-        noisy.append(step)
+        noisy.append((step, leaf_layout(model)))
         return update(self, model, grads, state)
 
     AdamW.update = recording
@@ -5808,6 +5966,45 @@ def _train_recording(argv) -> tuple:
     finally:
         AdamW.update = update
     return run, buf.getvalue(), noisy
+
+
+def leaf_layout(model) -> dict:
+    """Each parameter's whole shape and the rank's block of it (its
+    slices; None for a whole leaf), by ``state_dict`` name."""
+    from repro_torch.models import layers as L
+
+    out = {}
+    for prefix, mod in model.named_modules():
+        if isinstance(mod, L.ParamNode):
+            sliced = mod.sliced()
+            for k in mod._leaves:
+                out[f"{prefix}.{k}" if prefix else k] = (
+                    mod.leaf(k).shape, sliced.get(k))
+    return out
+
+
+def whole_noise(noisy) -> list:
+    """Each step's noise masks over the whole leaves: every world rank's
+    blocks (``all_gather_object`` over the world; each rank calls it),
+    OR-ed into place."""
+    import numpy as np
+    import torch.distributed as dist
+
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, noisy)
+    steps = []
+    for i in range(max(len(n) for n in every)):
+        masks: dict = {}
+        for n in every:
+            if i >= len(n):
+                continue
+            step, layout = n[i]
+            for k, m in step.items():
+                shape, sl = layout[k]
+                full = masks.setdefault(k, np.zeros(shape, dtype=bool))
+                full[(slice(None),) if sl is None else sl] |= m
+        steps.append(masks)
+    return steps
 
 
 def model_ranks_train(world) -> dict:
@@ -5831,7 +6028,7 @@ def model_ranks_train(world) -> dict:
             "migrate_s": run["migrate_s"],
             "params": {k: v.detach().float().cpu().numpy()
                        for k, v in run["model"].state_dict().items()},
-            "noisy": noisy}
+            "layout": leaf_layout(run["model"]), "noisy": whole_noise(noisy)}
         del run
     got, want = runs["cuda"], runs["cpu"]
     out = {k: got[k] for k in ("losses", "grid", "idle", "migrate_s",
@@ -5846,9 +6043,11 @@ def model_ranks_train(world) -> dict:
         for k, w in want["params"].items():
             diff = np.abs(got["params"][k] - w)
             noise = np.zeros(diff.shape, dtype=bool)
+            sl = got["layout"][k][1]
             for mine, theirs in zip(got["noisy"], want["noisy"]):
                 if k in mine:
-                    noise |= mine[k] & theirs[k]
+                    both = mine[k] & theirs[k]
+                    noise |= both if sl is None else both[sl]
             scale = float(np.abs(w).max())
             if (~noise).any():
                 worst = max(worst, float(diff[~noise].max()) / scale)
@@ -5896,6 +6095,28 @@ def phase_model_ranks(seed) -> tuple:
     one_s = time.perf_counter() - t0
     del model
     torch.cuda.empty_cache()
+    # (c)'s one-process B=1 prefill and decode of each row
+    zcfg = zamba_ranks_cfg()
+    t0 = time.perf_counter()
+    model = Model(zcfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    ztokens = zamba_ranks_tokens(zcfg, seed, dev)
+    zone = []
+    with torch.no_grad():
+        for d in range(ZR_B):
+            logits, cache = make_prefill_step(
+                model, cache_len=MODEL_S + ZR_GEN)({"tokens": ztokens[d:d + 1]})
+            held = cache_host(cache)  # the prefill's: decode writes in place
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            toks = decode_from(model, cache, tok, MODEL_S, ZR_GEN)
+            zone.append((logits.float().cpu().numpy(), held,
+                         toks.cpu().numpy()))
+            del logits, cache, held
+    zone_bytes = {"parameters": model.num_params(),
+                  "compute_bytes": model.compute_bytes()}
+    zone_s = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
     out = {"phase": "model_ranks", "world": MR_RANKS,
            "grid": {"data": MR_RANKS // MR_MP, "model": MR_MP},
            "arch": cfg.name, "B": MR_B, "S": MOE_S, "gen": MOE_GEN,
@@ -5922,8 +6143,9 @@ def phase_model_ranks(seed) -> tuple:
             d = r["coords"]["data"]
             got = np.load(_rank_file(tmp, "moe_ranks", r["rank"], "logits"))
             want, want_toks = one[d]
-            err = float(np.abs(got - want).max())
             scale = float(np.abs(want).max())
+            want = vocab_block(want, got, r["coords"]["model"])
+            err = float(np.abs(got - want).max())
             if not err <= MODEL_TOL * scale:
                 raise AssertionError(f"model_ranks: rank {r['rank']}'s "
                                      f"logits {err} from row {d}'s, > "
@@ -5961,6 +6183,8 @@ def phase_model_ranks(seed) -> tuple:
         # summed over data, so each rank holds the world's
         out["dropped_share"] = ranks[0]["dropped"] / ranks[0]["assignments"]
         out["serve"] = rows
+        out["zamba2"] = zamba_ranks_check(tmp, ranks, zcfg, zone,
+                                          zone_bytes, zone_s)
         out["backend"] = sorted({r["backend"] for r in ranks})
         out["devices"] = [r["device"] for r in ranks]
         # (b) the launcher with the kill, the card against the CPU
@@ -6011,8 +6235,160 @@ def phase_model_ranks(seed) -> tuple:
             "last_line": lead["stdout"].strip().splitlines()[-1]}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    out["rank_kernels"] = phase_rank_kernels(seed)
     out["seconds"] = time.perf_counter() - t_phase
     return out, [r["flash_attention_launches"][0] for r in rows]
+
+
+def vocab_block(want, got, model_index):
+    """``want``'s block of the vocabulary (last dim) that a rank's ``got``
+    holds: the model axis' ``model_index``-th."""
+    v = got.shape[-1]
+    if v == want.shape[-1]:
+        return want
+    return want[..., model_index * v:(model_index + 1) * v]
+
+
+def zamba_ranks_check(tmp, ranks, cfg, one, one_bytes, one_s) -> dict:
+    """Phase 9' (c) held: each rank's logits (its vocabulary block) and
+    every cache block within MODEL_TOL·max |want| of its row's one-process
+    run, its tokens equal to its row's other rank's, one flash-attention
+    and ZR_LAYERS ssd_chunk launches in each prefill."""
+    import numpy as np
+
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import Model
+
+    _, axes = Model(cfg, device="meta").init_cache(1, MODEL_S + ZR_GEN)
+    want_launches = {"flash_attention": ZR_LAYERS // cfg.attn_every,
+                     "ssd_chunk": ZR_LAYERS}
+    rows = []
+    for r in ranks:
+        z = r["zamba"]
+        d, rank = r["coords"]["data"], r["rank"]
+        want_logits, want_cache, want_toks = one[d]
+        got = np.load(_rank_file(tmp, "zamba_ranks", rank, "logits"))
+        scale = float(np.abs(want_logits).max())
+        err = float(np.abs(got - vocab_block(want_logits, got,
+                                             r["coords"]["model"])).max())
+        if not err <= MODEL_TOL * scale:
+            raise AssertionError(f"model_ranks/zamba2: rank {rank}'s logits "
+                                 f"{err} > {MODEL_TOL} · {scale}")
+        grid = shd.TracedGrid({"data": MR_RANKS // MR_MP, "model": MR_MP},
+                              rank=rank)
+        cache_err = {}
+        for name, full in want_cache.items():
+            ax = tuple(None if a == shd.BATCH else a for a in axes[name])
+            spec = grid.param_spec(full.shape, ax)
+            block = full[grid.local_slice(full.shape, spec)] if spec else full
+            mine = np.load(_rank_file(tmp, "zamba_ranks", rank,
+                                      f"cache_{name}"))
+            if mine.shape != block.shape:
+                raise AssertionError(f"model_ranks/zamba2: rank {rank}'s "
+                                     f"cache {name} {mine.shape}, its block "
+                                     f"{block.shape}")
+            c_scale = float(np.abs(full).max())
+            cache_err[name] = float(np.abs(mine - block).max())
+            if not cache_err[name] <= MODEL_TOL * c_scale:
+                raise AssertionError(
+                    f"model_ranks/zamba2: rank {rank}'s cache {name} "
+                    f"{cache_err[name]} > {MODEL_TOL} · {c_scale}")
+        a = z["runs"][0]["tokens"]
+        for run in z["runs"]:
+            if run["launches"] != want_launches:
+                raise AssertionError(
+                    f"model_ranks/zamba2: rank {rank} launched "
+                    f"{run['launches']} in a prefill, expected "
+                    f"{want_launches}")
+        rows.append({
+            "rank": rank, "coords": r["coords"],
+            "parameters": z["parameters"],
+            "parameters_one_process": one_bytes["parameters"],
+            "compute_bytes": z["compute_bytes"],
+            "compute_bytes_one_process": one_bytes["compute_bytes"],
+            "init_s": z["init_s"], "logits_max_abs_err": err,
+            "logits_tol": MODEL_TOL * scale, "cache_max_abs_err": cache_err,
+            "tokens_agreeing_with_one_process": int((a == want_toks).sum()),
+            "launches": [run["launches"] for run in z["runs"]],
+            "prefill_s": [run["prefill_s"] for run in z["runs"]],
+            "decode_ms_per_step": z["runs"][0]["decode_ms_per_step"],
+            "peak_delta_bytes": [run["peak_delta_bytes"]
+                                 for run in z["runs"]],
+            "peak_allocated_bytes": z["peak_allocated_bytes"],
+            "collective_ms": z["collective_ms"]})
+    for d in range(MR_RANKS // MR_MP):
+        toks = [r["zamba"]["runs"][0]["tokens"] for r in ranks
+                if r["coords"]["data"] == d]
+        if any(not np.array_equal(t, toks[0]) for t in toks[1:]):
+            raise AssertionError(f"model_ranks/zamba2: data row {d}'s ranks "
+                                 "decoded different tokens")
+    return {"arch": cfg.name, "strategy": "2d", "B": ZR_B, "S": MODEL_S,
+            "gen": ZR_GEN, "one_process_s": one_s,
+            "reduced": {"depth": f"{ZR_LAYERS} of the published 54 Mamba2 "
+                                 "layers and 1 of 9 shared-block "
+                                 f"invocations, after {ZR_LAYERS} layers, "
+                                 "not 6 (published widths): cut from 6 "
+                                 "layers for the smoke's time"},
+            "ranks": rows}
+
+
+def phase_rank_kernels(seed) -> dict:
+    """The model kernels at the shapes a rank of phase 9' (c) gives them:
+    ``ssd_chunk`` at zamba2's 40 heads a rank (G=1, N=64, P=64, chunks of
+    256 over 4096 positions) against ``ssd_chunk_plain`` on all four
+    outputs, and flash attention at 16 q / 16 KV heads of D=80 (bf16,
+    causal, S=4096) through ``phase_attention``."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan as ssd
+
+    cfg = zamba_ranks_cfg()
+    h = cfg.ssm_heads // MR_MP
+    p, n, g, chunk = (cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups,
+                      cfg.ssm_chunk)
+    nc = MODEL_S // chunk
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    args = (0.5 * randn(1, nc, chunk, h, p),
+            torch.nn.functional.softplus(randn(1, nc, chunk, h)),
+            -torch.exp(0.3 * randn(h)), 0.3 * randn(1, nc, chunk, g, n),
+            0.3 * randn(1, nc, chunk, g, n))
+    got, want = ssd.ssd_chunk(*args), ssd.ssd_chunk_plain(*args)
+    torch.cuda.synchronize()
+    checks = {name: check_close(f"rank_kernels/ssd_chunk {name}", a, b)
+              for name, a, b in zip(("y", "state", "decay", "gate"), got,
+                                    want)}
+    del got, want
+    # as phase_ssd counts them: C·Bᵀ once per (chunk, group), per (chunk,
+    # head) the gated product with x and the state; three TF32 products
+    tri = chunk * (chunk + 1) // 2
+    ops_count = nc * g * 2 * n * tri + nc * h * (2 * p * tri + 2 * chunk
+                                                  * n * p)
+    nbytes = 4 * (2 * MODEL_S * h * p + nc * h * n * p + 2 * MODEL_S * h
+                  + 2 * MODEL_S * g * n + nc * h + h)
+    ssd_rec = {"case": f"{cfg.name}/rank/H{h}", "H": h, "P": p, "N": n,
+               "G": g, "L": chunk, "NC": nc,
+               "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
+               "checks": checks,
+               "kernel_ms": cuda_time_ms(lambda: ssd.ssd_chunk(*args)),
+               "plain_ms": cuda_time_ms(lambda: ssd.ssd_chunk_plain(*args),
+                                        reps=3, warmup=1),
+               **bound(nbytes, TF32_PRODUCTS * ops_count, TF32_OPS_PER_S)}
+    del args
+    attn = phase_attention(
+        f"{cfg.name}/rank/H{cfg.num_heads // MR_MP}", 1,
+        cfg.num_heads // MR_MP, cfg.num_kv_heads // MR_MP, MODEL_S,
+        cfg.resolved_head_dim, "bfloat16", True, seed)
+    torch.cuda.empty_cache()
+    return {"ssd_chunk": ssd_rec, "flash_attention": {
+        k: attn[k] for k in ("case", "B", "Hq", "Hkv", "S", "D", "dtype",
+                             "max_abs_err", "check", "kernel_ms",
+                             "plain_ms", "library_ms", "bound_ms",
+                             "bound_by")}}
 
 
 def analysis_steps() -> dict:
@@ -6033,7 +6409,18 @@ def analysis_steps() -> dict:
             num_layers=MOE_LAYERS, cache_len=MOE_S + MOE_GEN),
         f"{WHISPER_ARCH}/prefill/B{WHISPER_B}": dict(
             arch=WHISPER_ARCH, shape_name="prefill_32k", batch=WHISPER_B,
-            seq=WHISPER_PROMPT, cache_len=WHISPER_PROMPT + WHISPER_GEN)}
+            seq=WHISPER_PROMPT, cache_len=WHISPER_PROMPT + WHISPER_GEN),
+        **{zamba_ranks_step(r): dict(
+            arch=MODEL_ARCH, shape_name="prefill_32k", batch=ZR_B,
+            seq=MODEL_S, num_layers=ZR_LAYERS, attn_every=ZR_LAYERS,
+            cache_len=MODEL_S + ZR_GEN, grid=("gloo", r))
+          for r in range(MR_RANKS)}}
+
+
+def zamba_ranks_step(rank: int) -> str:
+    """Phase 10's name of phase 9' (c)'s prefill on ``rank``."""
+    return (f"{MODEL_ARCH}/{ZR_LAYERS}L/grid{MR_RANKS // MR_MP}x{MR_MP}"
+            f"/rank{rank}/prefill/B{ZR_B}")
 
 
 def phase_analysis(measured: dict, smi: str) -> dict:
@@ -6051,8 +6438,15 @@ def phase_analysis(measured: dict, smi: str) -> dict:
     out = {"phase": "analysis", "peak_tol": PEAK_TOL, "card": smi,
            "steps": {}}
     lib_launches = (fa.flash_attention.launches, ssd.ssd_chunk.launches)
+    from repro_torch.dist import sharding as shd
+
     for name, kwargs in analysis_steps().items():
         t0 = time.perf_counter()
+        if "grid" in kwargs:  # a rank of phase 9' (c): its traced grid
+            backend, rank = kwargs["grid"]
+            kwargs = {**kwargs, "grid": shd.TracedGrid(
+                {"data": MR_RANKS // MR_MP, "model": MR_MP}, rank=rank,
+                backend=backend)}
         step = dryrun.build_step(**kwargs)
         with op_analysis.OpCounter() as counter:
             result = step.run()
@@ -6201,6 +6595,13 @@ def main(argv=None) -> int:
           "nvcc_seconds": build.build_seconds, "ptxas": regs,
           "attn_sm90_sass": sass, "attn_tf32_hmma": tf32_sass,
           "ssd_tf32_hmma": ssd_sass, "edge_block_sum_k1_reductions": reds})
+
+    # -- 9'. the model path across four gloo ranks (run first, on a card
+    # and host nothing else has used yet): qwen3-moe served, zamba2 under
+    # the dense layout, launch.train through a kill -----------------------
+    ranks_model_rec, ranks_model_launches = phase_model_ranks(args.seed)
+    emit(ranks_model_rec)
+    torch.cuda.empty_cache()
 
     # -- 3. data -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -6472,11 +6873,6 @@ def main(argv=None) -> int:
     emit({**train_rec, "attention_cases": train_cases})
     torch.cuda.empty_cache()
 
-    # -- 9'. the model path across four gloo ranks: qwen3-moe's expert
-    # layout at published width, launch.train through a kill -------------
-    ranks_model_rec, ranks_model_launches = phase_model_ranks(args.seed)
-    emit(ranks_model_rec)
-    torch.cuda.empty_cache()
 
     # -- 10. the dry-run accounting against the card; the GXEngine shim ----
     t_phase = time.perf_counter()
@@ -6490,6 +6886,11 @@ def main(argv=None) -> int:
             train_rec["moe"]["measured_prefill"],
         f"{WHISPER_ARCH}/prefill/B{WHISPER_B}":
             train_rec["whisper"]["measured_prefill"]}
+    for row in ranks_model_rec["zamba2"]["ranks"]:  # the second prefill
+        measured[zamba_ranks_step(row["rank"])] = {
+            "s": row["prefill_s"][1],
+            "peak_delta_bytes": row["peak_delta_bytes"][1],
+            "launches": row["launches"][1]}
     analysis = phase_analysis(measured, smi)
     engine = phase_engine(args.seed)
     emit({"phase": "analysis", "seconds": time.perf_counter() - t_phase,
@@ -6543,8 +6944,10 @@ def main(argv=None) -> int:
         "launches": model_rec["launches"]["flash_attention"],
         "launches_dryrun": analysis["planned"]["flash_attention"],
         "launches_entry_point": attn[0]["launches"],
-        "max_abs_err": max([model_attn["max_abs_err"]]
-                           + [c["max_abs_err"] for c in attn]),
+        "max_abs_err": max(
+            [model_attn["max_abs_err"],
+             ranks_model_rec["rank_kernels"]["flash_attention"][
+                 "max_abs_err"]] + [c["max_abs_err"] for c in attn]),
         "ms": model_attn["kernel_ms"], "plain_ms": model_attn["plain_ms"],
         "bound_ms": model_attn["bound_ms"],
         "bound_by": model_attn["bound_by"],
@@ -6556,6 +6959,10 @@ def main(argv=None) -> int:
         "launches_whisper_train":
             train_rec["whisper"]["train_launches"]["flash_attention"],
         "launches_model_ranks": ranks_model_launches,
+        "launches_model_ranks_zamba2": [
+            row["launches"][0]["flash_attention"]
+            for row in ranks_model_rec["zamba2"]["ranks"]],
+        "rank_case": ranks_model_rec["rank_kernels"]["flash_attention"],
         "gradient": "autograd.Function, plain backward (29)",
         "design": {
             "bf16": "flash_attention_sm90.cu: 3-stage TMA ring of "
@@ -6591,7 +6998,9 @@ def main(argv=None) -> int:
         "launches_dryrun": analysis["planned"]["ssd_chunk"],
         "launches_entry_point": ssd_rec["launches"],
         "max_abs_err": max(ssd_rec["max_abs_err"],
-                           model_ssd_rec["max_abs_err"]),
+                           model_ssd_rec["max_abs_err"],
+                           ranks_model_rec["rank_kernels"]["ssd_chunk"][
+                               "max_abs_err"]),
         "ms": model_ssd_rec["kernel_ms"],
         "plain_ms": model_ssd_rec["plain_ms"],
         "bound_ms": model_ssd_rec["bound_ms"],
@@ -6600,6 +7009,10 @@ def main(argv=None) -> int:
         "fma_bound_ms": model_ssd_rec["fma_bound_ms"],
         "model_case": f"{MODEL_ARCH}/prefill/B{MODEL_B}/S{MODEL_S}",
         "launches_train": train_rec["zamba2"]["launches"]["ssd_chunk"],
+        "launches_model_ranks_zamba2": [
+            row["launches"][0]["ssd_chunk"]
+            for row in ranks_model_rec["zamba2"]["ranks"]],
+        "rank_case": ranks_model_rec["rank_kernels"]["ssd_chunk"],
         "gradient": "autograd.Function, plain backward (29)",
         "cases": {ssd_rec["case"]: {k: ssd_rec[k] for k in (
             "kernel_ms", "entry_ms", "plain_ms", "bound_ms", "fma_bound_ms",

@@ -26,11 +26,20 @@ same tensor, outside and inside an ``activation_sharding`` context (which
 records the active mesh, rules and global batch rows, thread-locally, for
 code that asks ``active_context`` / ``active_batch``).
 
-:class:`RankGrid` is the model path's (data, model) mesh across ranks: it
-places the experts' dim on ``model`` and the batch's rows on the data
-axes, and replicates every other dim; the autograd Functions below
-(``copy_to`` / ``reduce_from``, Megatron's "f" and "g", and
-``take_block`` / ``gather_blocks``) carry the MoE's collectives.
+:class:`RankGrid` is the model path's (pod, data, model) mesh across
+ranks, and :class:`TracedGrid` one rank of such a grid with no process
+group, for the dry run.  Both lay every parameter out as the JAX rules
+say under the grid's strategy (``param_spec``, divisibility fallback
+included): FSDP on the data axes and TENSOR, HEADS, KV_HEADS, KV_SEQ,
+VOCAB and EXPERT on ``model`` under ``"2d"``; the batch's rows split over
+BATCH's axes.  Their collectives (``all_reduce``, ``all_gather``,
+``reduce_scatter`` along an axis) report themselves to the op counters as
+NCCL's kinds; the autograd Functions below carry them through the
+models: ``copy_to`` / ``reduce_from`` (Megatron's "f" and "g"),
+``gather`` (the FSDP gather: its backward reduce-scatters, or takes the
+rank's block where every rank used the whole alike), ``take_block`` /
+``gather_blocks``, and ``gather_leaf`` / ``fit_block``, which cut a
+leaf's block to what a rank computes with.
 
 :class:`RankMesh` is the graph path's shard axis across
 ``torch.distributed`` ranks, the counterpart of the JAX package's device
@@ -241,11 +250,12 @@ def active_batch():
 def activation_sharding(mesh, rules, *, batch: int | None = None):
     """Records ``(mesh, rules)`` as the active context for this thread.
 
-    Under a :class:`RankGrid` the activations are a rank's own: ``batch``
+    Under a grid of ranks the activations are a rank's own: ``batch``
     names the rows of the global batch they belong to, and a rank holds
-    its data shard of them when the data axes divide ``batch``
-    (:meth:`RankGrid.rows_split`), else all of them.  The MoE's layout and
-    the loss's normalisation read it (``active_batch``)."""
+    its shard of them when the batch axes divide ``batch``
+    (:meth:`RankGrid.rows_split`), else all of them.  The layers (whether
+    a gradient is a part), the MoE's layout and the loss's normalisation
+    read it (``active_batch``)."""
     stack = getattr(_local, "stack", None)
     if stack is None:
         stack = _local.stack = []
@@ -531,106 +541,74 @@ LOCAL_MESH = LocalMesh()
 # --------------------------------------------------------------------------
 #: the data-parallel axes of a grid, outermost first
 DATA_AXES = ("pod", "data")
-#: the logical dims a RankGrid places on its axes, and the axes each may
-#: take; every other dim (FSDP, TENSOR, HEADS, KV_HEADS, KV_SEQ, VOCAB)
-#: replicates on every rank
-GRID_PLACED = {EXPERT: ("model",), BATCH: DATA_AXES, BATCH_DP: DATA_AXES,
-               CAPACITY: DATA_AXES}
+#: ranks a node of the card's machines holds (a DGX H100's eight GPUs),
+#: for the links a group of ranks spans
+RANKS_PER_NODE = 8
 
 
-class RankGrid(_WorldPost):
-    """The model path's ``(data, model)`` mesh across ``torch.distributed``
-    ranks: the world's first ``prod(shape)`` ranks, row-major as
-    ``jax.make_mesh`` lays out devices (rank = d·mp + r), with a leading
-    ``"pod"`` axis where ``elastic_plan`` gives one.
+def axis_key(grid, mesh_axes) -> str | None:
+    """The grid axis a spec entry's mesh axes name: ``"model"``,
+    ``"data"`` (every data axis) or None (every axis)."""
+    got = set(mesh_axes)
+    if got == set(grid.axis_names):
+        return None
+    if got == {"model"}:
+        return "model"
+    if got == set(grid.axis_names) - {"model"}:
+        return "data"
+    raise ValueError(f"mesh axes {tuple(mesh_axes)} name no axis of a "
+                     f"{grid.shape} grid")
 
-    ``axis_names`` and ``shape`` (a name → size mapping) are what
-    :func:`make_rules`, :func:`spec_for` and :func:`placements_for` read.
-    :meth:`param_spec` places a parameter's ``EXPERT`` dim on ``model`` and
-    :meth:`batch_spec` an activation's batch rows on the data axes
-    (``GRID_PLACED``); the other logical dims replicate on every rank —
-    equal numbers, only the memory differs from the JAX package's layout.
-    :meth:`local_shape` and :meth:`local_slice` cut a spec's claimed dims
-    to this rank's block.
 
-    Groups: one per data row (its ``mp`` ranks: the ``"model"`` axis) and
-    one per model column (its ranks over the data axes: ``"data"``), made
-    at construction by every world rank in the same order, as
-    ``torch.distributed.new_group`` requires; one-rank axes make none.
-    :meth:`all_reduce` reduces over one of them, or over the grid.
-    :meth:`survivors` gives the grid of a smaller plan on the world's
-    first ranks; a rank past it is *idle* and stays in the world (it joins
-    every group the survivors make and may wait for the leader's
-    :meth:`post`).
+class _Grid:
+    """The layout and the collectives a (pod, data, model) grid of ranks
+    shares, whether its ranks are processes (:class:`RankGrid`) or one
+    rank traced on the meta device (:class:`TracedGrid`).
 
-    ``device`` is where the rank computes: ``cuda:{rank % device_count}``
-    when None or ``"cuda"`` (which raises without a GPU), or what the
-    caller passes.  The grid never picks the world's backend: gloo lets
-    several ranks share one card (it takes CUDA tensors for
-    ``all_reduce`` and ``broadcast``, the only collectives the model path
-    makes), NCCL wants a card a rank.
-    """
+    Ranks are row-major, as ``jax.make_mesh`` lays out devices (rank =
+    d·mp + r).  ``strategy`` picks the rule table (:func:`make_rules`):
+    a parameter's spec is :func:`spec_for` of its shape and logical axes
+    under the grid's own rules (:meth:`param_spec`), with the JAX
+    package's divisibility fallback, and a rank holds its block of it
+    (:meth:`local_slice`).  A batch's rows split over the axes ``BATCH``
+    maps to (the data axes, every axis under ``"fsdp"``) when they divide
+    them (:meth:`rows_split`, :meth:`local_rows`).
 
-    def __init__(self, model_parallel: int = 1, *, device=None,
-                 shape: Mapping[str, int] | None = None, _groups=None):
-        if not (dist.is_available() and dist.is_initialized()):
-            raise RuntimeError("RankGrid needs an initialized process group "
-                               "(torch.distributed.init_process_group)")
-        self.world = dist.get_world_size()
-        self.rank = dist.get_rank()
-        if shape is None:
-            mp = model_parallel
-            if isinstance(mp, bool) or not isinstance(mp, (int, np.integer)) \
-                    or mp < 1 or self.world % mp:
-                raise ValueError(f"model_parallel must be an int >= 1 that "
-                                 f"divides the {self.world} ranks, got {mp!r}")
-            shape = {"data": self.world // mp, "model": int(mp)}
+    Collectives over an axis (``"model"``: the rank's data row;
+    ``"data"``: its model column over every data axis; None: the grid):
+    :meth:`all_reduce` (in place), :meth:`all_gather` and
+    :meth:`reduce_scatter` along any dim.  Under gloo, which takes CUDA
+    tensors for ``all_reduce`` and ``broadcast`` only, the gather is a SUM
+    of zero-padded blocks (exact) and the reduce-scatter an ``all_reduce``
+    and the rank's block; under NCCL they are ``all_gather_into_tensor``
+    and ``reduce_scatter_tensor``.  Both give the same numbers.  Each
+    reports itself to the open op counters (``kernels/accounting``) as
+    the collective NCCL runs — its kind, result bytes, group size and
+    axis — and the emulation's tensor work is traced as it runs."""
+
+    def _layout(self, shape: Mapping[str, int], strategy: str) -> None:
         self.shape = {k: int(v) for k, v in shape.items()}
         self.axis_names = tuple(self.shape)
         if self.axis_names[-1] != "model" or not set(self.axis_names[:-1]) \
-                <= set(DATA_AXES):
+                <= set(DATA_AXES) or "data" not in self.axis_names:
             raise ValueError(f"a grid's axes are (pod,) data, model; got "
                              f"{self.axis_names}")
         self.size = int(np.prod(list(self.shape.values())))
-        if self.size > self.world:
-            raise ValueError(f"a {self.shape} grid needs {self.size} ranks, "
-                             f"the world has {self.world}")
         self.mp = self.shape["model"]
         self.dp = self.size // self.mp
-        if device is None or str(device) == "cuda":
-            device = (f"cuda:{self.rank % torch.cuda.device_count()}"
-                      if torch.cuda.is_available() else "cuda")
-        self.device = resolve_device(device)
-        self.backend = str(dist.get_backend())
-        self._groups = {} if _groups is None else _groups
-        rows = [tuple(range(i * self.mp, (i + 1) * self.mp))
-                for i in range(self.dp)]
-        cols = [tuple(range(r, self.size, self.mp)) for r in range(self.mp)]
-        for members in rows + cols + [tuple(range(self.size))]:
-            self._group(members)
-        self.idle = self.rank >= self.size
-        if self.idle:
-            self.data_index = self.model_index = None
-            self.coords = {}
-            self._axis_members = {}
-            return
-        self.data_index, self.model_index = divmod(self.rank, self.mp)
-        rest, self.coords = self.rank, {}
-        for name in reversed(self.axis_names):
-            rest, self.coords[name] = divmod(rest, self.shape[name])
-        self.coords = {k: self.coords[k] for k in self.axis_names}
-        self._axis_members = {"model": rows[self.data_index],
-                              "data": cols[self.model_index],
-                              None: tuple(range(self.size))}
+        self.strategy = strategy
+        self.rules = make_rules(self, strategy=strategy)
+        batch_axes = _mesh_axes_for(self.rules, BATCH)
+        self.row_axis = axis_key(self, batch_axes) if batch_axes else None
+        self.row_size = int(np.prod([self.shape[a] for a in batch_axes]))
 
-    def _group(self, members: tuple):
-        """The process group of ``members`` (None for one rank), made once
-        for every grid that shares this one's groups."""
-        if len(members) > 1 and members not in self._groups:
-            self._groups[members] = (
-                dist.group.WORLD if len(members) == self.world
-                else dist.new_group(list(members), backend=self.backend))
-        return self._groups.get(members)
+    def _place(self, rank: int) -> None:
+        self.data_index, self.model_index = divmod(rank, self.mp)
+        rest, coords = rank, {}
+        for name in reversed(self.axis_names):
+            rest, coords[name] = divmod(rest, self.shape[name])
+        self.coords = {k: coords[k] for k in self.axis_names}
+        self.row_index = self.axis_index(self.row_axis)
 
     @property
     def leader(self) -> int:
@@ -648,50 +626,32 @@ class RankGrid(_WorldPost):
         return {"model": self.model_index, "data": self.data_index,
                 None: self.rank}[axis]
 
+    def axis_members(self, axis: str | None) -> tuple:
+        """The grid ranks of this rank's group along ``axis``."""
+        if axis == "model":
+            lo = self.data_index * self.mp
+            return tuple(range(lo, lo + self.mp))
+        if axis == "data":
+            return tuple(range(self.model_index, self.size, self.mp))
+        return tuple(range(self.size))
+
+    def link(self, axis: str | None) -> str:
+        """``"nvlink"`` when this rank's group along ``axis`` lies in one
+        node of ``RANKS_PER_NODE`` ranks (row-major), else
+        ``"infiniband"``."""
+        nodes = {r // RANKS_PER_NODE for r in self.axis_members(axis)}
+        return "nvlink" if len(nodes) == 1 else "infiniband"
+
     def _member(self):
         if self.idle:
             raise RuntimeError(f"rank {self.rank} is idle: it is outside the "
                                f"{self.shape} grid")
 
-    def all_reduce(self, tensor: torch.Tensor, op: str = "sum", *,
-                   axis: str | None = "model"):
-        """Reduces ``tensor`` in place over ``axis`` (``"model"``: this
-        rank's data row; ``"data"``: its model column over every data
-        axis; None: the grid) with ``op`` and returns it."""
-        self._member()
-        members = self._axis_members[axis]
-        if len(members) > 1:
-            dist.all_reduce(tensor, op=RankMesh._op(op),
-                            group=self._groups[members])
-        return tensor
-
-    def survivors(self, plan) -> "RankGrid":
-        """The grid of ``plan`` (a ``dist.fault.MeshPlan``: its shape and
-        axis names) on the world's first ``plan.size`` ranks, the model
-        axis kept.  Every world rank must call it, idle ones included."""
-        shape = dict(zip(plan.axis_names, plan.shape))
-        if shape.get("model") != self.mp:
-            raise ValueError(f"the plan {shape} must keep the model axis "
-                             f"({self.mp})")
-        return RankGrid(shape=shape, device=self.device,
-                        _groups=self._groups)
-
     # -- placement --------------------------------------------------------
-    def placed_rules(self, rules: Mapping | None = None) -> dict:
-        """``rules`` (default ``make_rules(self)``) cut to what the grid
-        places (``GRID_PLACED``): the others map to no axis."""
-        rules = make_rules(self) if rules is None else rules
-        out = {}
-        for name in LOGICAL_AXES:
-            allowed = GRID_PLACED.get(name, ())
-            out[name] = tuple(a for a in _mesh_axes_for(rules, name)
-                              if a in allowed)
-        return out
-
     def param_spec(self, shape: Sequence[int], axes) -> tuple:
-        """The spec of a parameter on the grid: ``EXPERT`` on ``model``
-        when it divides the dim, every other dim replicated."""
-        return spec_for(shape, axes, self, self.placed_rules())
+        """The spec of a parameter on the grid: :func:`spec_for` under the
+        grid's rules (the divisibility fallback included)."""
+        return spec_for(shape, axes, self, self.rules)
 
     def local_shape(self, shape: Sequence[int], spec) -> tuple:
         """``shape`` with each dim ``spec`` claims divided by its axes'
@@ -724,18 +684,20 @@ class RankGrid(_WorldPost):
             idx = idx * self.shape[a] + self.coords.get(a, 0)
         return n, idx
 
-    def rows_split(self, rows: int) -> bool:
-        """Whether a batch of ``rows`` global rows is split over the data
+    def rows_split(self, rows) -> bool:
+        """Whether a batch of ``rows`` global rows is split over the batch
         axes (each rank holding its shard), rather than held whole by
-        every rank: more than one data rank, and they divide ``rows``."""
-        return self.dp > 1 and rows % self.dp == 0
+        every rank: more than one rank on them, and they divide
+        ``rows``."""
+        return rows is not None and self.row_size > 1 \
+            and rows % self.row_size == 0
 
     def local_rows(self, x, rows: int | None = None, *,
                    microbatches: int = 1):
         """This rank's rows of a global batch ``x`` (a tensor or array whose
-        leading dim is the batch): its data shard of each of
-        ``microbatches`` slices when the data axes divide a slice, else
-        all of ``x``."""
+        leading dim is the batch): its shard over the batch axes of each
+        of ``microbatches`` slices when they divide a slice, else all of
+        ``x``."""
         self._member()
         b = x.shape[0]
         if b % microbatches:
@@ -744,9 +706,9 @@ class RankGrid(_WorldPost):
         per = b // microbatches
         if not self.rows_split(per):
             return x
-        r = per // self.dp
-        parts = [x[i * per + self.data_index * r:
-                   i * per + (self.data_index + 1) * r]
+        r = per // self.row_size
+        parts = [x[i * per + self.row_index * r:
+                   i * per + (self.row_index + 1) * r]
                  for i in range(microbatches)]
         if len(parts) == 1:
             return parts[0]
@@ -754,30 +716,274 @@ class RankGrid(_WorldPost):
             return torch.cat(parts)
         return np.concatenate(parts)
 
+    # -- collectives ------------------------------------------------------
+    def _report(self, kind: str, result: torch.Tensor, axis, nbytes_in):
+        from repro_torch.kernels import accounting
+
+        accounting.collective(
+            kind, result.numel() * result.element_size(),
+            self.axis_size(axis), "grid" if axis is None else axis,
+            nbytes_in)
+
+    def _comm(self, fn: str, tensor: torch.Tensor, axis, **kw) -> None:
+        """The transport of a collective into ``tensor`` (in place):
+        nothing on a traced grid."""
+
+    def all_reduce(self, tensor: torch.Tensor, op: str = "sum", *,
+                   axis: str | None = "model"):
+        """Reduces ``tensor`` in place over ``axis`` with ``op`` ("sum",
+        "min", "max") and returns it."""
+        self._member()
+        if self.axis_size(axis) > 1:
+            nbytes = tensor.numel() * tensor.element_size()
+            self._report("all-reduce", tensor, axis, nbytes)
+            self._comm("all_reduce", tensor, axis, op=op)
+        return tensor
+
+    def all_gather(self, x: torch.Tensor, dim: int = 0, *,
+                   axis: str | None = "data") -> torch.Tensor:
+        """The blocks of every rank along ``axis``, concatenated in order
+        along ``dim`` (a new tensor; ``x`` itself on a one-rank axis)."""
+        self._member()
+        n = self.axis_size(axis)
+        if n == 1:
+            return x
+        dim = dim % x.dim()
+        xm = x.movedim(dim, 0).contiguous()
+        per = xm.shape[0]
+        if self.backend == "nccl":
+            buf = xm.new_empty((n * per, *xm.shape[1:]))
+            self._report("all-gather", buf, axis, xm.numel()
+                         * xm.element_size())
+            self._comm("all_gather_into_tensor", buf, axis, src=xm)
+        else:
+            i = self.axis_index(axis)
+            buf = xm.new_zeros((n * per, *xm.shape[1:]))
+            buf[i * per:(i + 1) * per] = xm
+            self._report("all-gather", buf, axis, xm.numel()
+                         * xm.element_size())
+            self._comm("all_reduce", buf, axis, op="sum")
+        return buf.movedim(0, dim)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int = 0, *,
+                       axis: str | None = "data") -> torch.Tensor:
+        """``x`` summed over ``axis``, and this rank's block of the sum
+        along ``dim`` (a new tensor)."""
+        self._member()
+        n = self.axis_size(axis)
+        if n == 1:
+            return x
+        dim = dim % x.dim()
+        xm = x.movedim(dim, 0).contiguous()
+        per = xm.shape[0] // n
+        i = self.axis_index(axis)
+        if self.backend == "nccl":
+            out = xm.new_empty((per, *xm.shape[1:]))
+            self._report("reduce-scatter", out, axis, xm.numel()
+                         * xm.element_size())
+            self._comm("reduce_scatter_tensor", out, axis, src=xm)
+        else:
+            full = xm.clone()
+            out = xm.new_empty((per, *xm.shape[1:]))
+            self._report("reduce-scatter", out, axis, xm.numel()
+                         * xm.element_size())
+            self._comm("all_reduce", full, axis, op="sum")
+            out.copy_(full[i * per:(i + 1) * per])
+            del full
+        return out.movedim(0, dim)
+
+    def gather_whole(self, block: torch.Tensor, spec) -> torch.Tensor:
+        """A leaf whole from this rank's block of it under ``spec``: the
+        blocks gathered along each claimed dim over its axes."""
+        for dim, part in enumerate(spec):
+            if part is not None:
+                axes = part if isinstance(part, tuple) else (part,)
+                block = self.all_gather(block, dim,
+                                        axis=axis_key(self, axes))
+        return block
+
+
+class RankGrid(_WorldPost, _Grid):
+    """The model path's ``(data, model)`` mesh across ``torch.distributed``
+    ranks: the world's first ``prod(shape)`` ranks, row-major as
+    ``jax.make_mesh`` lays out devices (rank = d·mp + r), with a leading
+    ``"pod"`` axis where ``elastic_plan`` gives one, under the rule table
+    of ``strategy`` (``"2d"``: FSDP × TP, ``"fsdp"``, ``"serve"``; see
+    :class:`_Grid` for the layout and the collectives).
+
+    Groups: one per data row (its ``mp`` ranks: the ``"model"`` axis) and
+    one per model column (its ranks over the data axes: ``"data"``), made
+    at construction by every world rank in the same order, as
+    ``torch.distributed.new_group`` requires; one-rank axes make none.
+    :meth:`survivors` gives the grid of a smaller plan on the world's
+    first ranks; a rank past it is *idle* and stays in the world (it joins
+    every group the survivors make and may wait for the leader's
+    :meth:`post`).
+
+    ``device`` is where the rank computes: ``cuda:{rank % device_count}``
+    when None or ``"cuda"`` (which raises without a GPU), or what the
+    caller passes.  The grid never picks the world's backend: gloo lets
+    several ranks share one card, NCCL wants a card a rank.  A collective
+    that fails raises.
+    """
+
+    def __init__(self, model_parallel: int = 1, *, device=None,
+                 shape: Mapping[str, int] | None = None,
+                 strategy: str = "2d", _groups=None):
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError("RankGrid needs an initialized process group "
+                               "(torch.distributed.init_process_group)")
+        self.world = dist.get_world_size()
+        self.rank = dist.get_rank()
+        if shape is None:
+            mp = model_parallel
+            if isinstance(mp, bool) or not isinstance(mp, (int, np.integer)) \
+                    or mp < 1 or self.world % mp:
+                raise ValueError(f"model_parallel must be an int >= 1 that "
+                                 f"divides the {self.world} ranks, got {mp!r}")
+            shape = {"data": self.world // mp, "model": int(mp)}
+        self._layout(shape, strategy)
+        if self.size > self.world:
+            raise ValueError(f"a {self.shape} grid needs {self.size} ranks, "
+                             f"the world has {self.world}")
+        if device is None or str(device) == "cuda":
+            device = (f"cuda:{self.rank % torch.cuda.device_count()}"
+                      if torch.cuda.is_available() else "cuda")
+        self.device = resolve_device(device)
+        self.backend = str(dist.get_backend())
+        self._groups = {} if _groups is None else _groups
+        rows = [tuple(range(i * self.mp, (i + 1) * self.mp))
+                for i in range(self.dp)]
+        cols = [tuple(range(r, self.size, self.mp)) for r in range(self.mp)]
+        for members in rows + cols + [tuple(range(self.size))]:
+            self._group(members)
+        self.idle = self.rank >= self.size
+        if self.idle:
+            self.data_index = self.model_index = self.row_index = None
+            self.coords = {}
+            return
+        self._place(self.rank)
+
+    def _group(self, members: tuple):
+        """The process group of ``members`` (None for one rank), made once
+        for every grid that shares this one's groups."""
+        if len(members) > 1 and members not in self._groups:
+            self._groups[members] = (
+                dist.group.WORLD if len(members) == self.world
+                else dist.new_group(list(members), backend=self.backend))
+        return self._groups.get(members)
+
+    def _comm(self, fn: str, tensor: torch.Tensor, axis, *, op="sum",
+              src=None) -> None:
+        """The ``torch.distributed`` call, its dispatch hidden from the op
+        counters (the collective reported itself)."""
+        from repro_torch.kernels import accounting
+
+        group = self._groups[self.axis_members(axis)]
+        with accounting.paused():
+            if fn == "all_reduce":
+                dist.all_reduce(tensor, op=RankMesh._op(op), group=group)
+            elif fn == "all_gather_into_tensor":
+                dist.all_gather_into_tensor(tensor, src, group=group)
+            else:
+                dist.reduce_scatter_tensor(tensor, src, group=group)
+
+    def survivors(self, plan) -> "RankGrid":
+        """The grid of ``plan`` (a ``dist.fault.MeshPlan``: its shape and
+        axis names) on the world's first ``plan.size`` ranks, the model
+        axis and the strategy kept.  Every world rank must call it, idle
+        ones included."""
+        shape = dict(zip(plan.axis_names, plan.shape))
+        if shape.get("model") != self.mp:
+            raise ValueError(f"the plan {shape} must keep the model axis "
+                             f"({self.mp})")
+        return RankGrid(shape=shape, device=self.device,
+                        strategy=self.strategy, _groups=self._groups)
+
     def __repr__(self) -> str:
         return (f"RankGrid(rank={self.rank}, world={self.world}, "
-                f"shape={self.shape}, coords={self.coords}, "
-                f"device={self.device}, backend={self.backend})")
+                f"shape={self.shape}, strategy={self.strategy}, "
+                f"coords={self.coords}, device={self.device}, "
+                f"backend={self.backend})")
+
+
+class TracedGrid(_Grid):
+    """One rank of a grid with no process group, for the dry run: rank
+    ``rank`` of a ``shape`` grid (``{"pod": 2, "data": 16, "model": 16}``,
+    say) under ``strategy``, computing on the meta device.  Its layout is
+    :class:`RankGrid`'s; its collectives move nothing — each returns a
+    tensor of the right shape (uninitialised) and reports itself to the
+    open op counters as :class:`RankGrid`'s do.  ``backend`` is the
+    transport whose tensor work the trace carries: ``"nccl"`` (none, the
+    production grid's) or ``"gloo"`` (the zero-padded gather, the
+    all_reduce's copy), to hold a trace against a gloo world's."""
+
+    idle = False
+
+    def __init__(self, shape: Mapping[str, int], *, rank: int = 0,
+                 strategy: str = "2d", backend: str = "nccl",
+                 device="meta"):
+        if backend not in ("nccl", "gloo"):
+            raise ValueError(f"backend must be 'nccl' or 'gloo', got "
+                             f"{backend!r}")
+        self._layout(shape, strategy)
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} is outside a {self.shape} grid")
+        self.rank = rank
+        self.world = self.size
+        self.backend = backend
+        self.device = torch.device(device)
+        self._place(rank)
+
+    def __repr__(self) -> str:
+        return (f"TracedGrid(rank={self.rank}, shape={self.shape}, "
+                f"strategy={self.strategy}, backend={self.backend})")
+
+
+def rows_block_shape(shape, axes, grid) -> tuple:
+    """The local shape on ``grid`` of a tensor of ``shape`` and logical
+    ``axes`` whose BATCH dim holds the rank's rows already (a cache): its
+    spec with the BATCH dim left out, applied; ``shape`` off a grid."""
+    if grid is None:
+        return tuple(shape)
+    axes = tuple(None if a == BATCH else a for a in axes)
+    return grid.local_shape(shape, grid.param_spec(shape, axes))
+
+
+def grid_of(mesh) -> "_Grid | None":
+    """``mesh`` if it is a grid of ranks (real or traced), else None."""
+    return mesh if isinstance(mesh, _Grid) else None
+
+
+def active_grid() -> "_Grid | None":
+    """The grid of the innermost ``activation_sharding`` context, or
+    None."""
+    ctx = active_context()
+    return None if ctx is None else grid_of(ctx[0])
 
 
 def rows_share(local_rows: int) -> float:
     """The share of the global batch's rows that ``local_rows`` are: the
-    rank's rows over the active context's ``batch`` under a RankGrid that
-    splits them over data, else 1.  A mean over the rank's tokens times
-    it is the rank's part of the global batch's mean."""
-    ctx = active_context()
+    rank's rows over the active context's ``batch`` under a grid that
+    splits them, else 1.  A mean over the rank's tokens times it is the
+    rank's part of the global batch's mean."""
+    grid = active_grid()
     rows = active_batch()
-    if ctx is None or grid_of(ctx[0]) is None or rows is None \
-            or not ctx[0].rows_split(rows):
+    if grid is None or not grid.rows_split(rows):
         return 1.0
     return local_rows / rows
 
 
-def grid_of(mesh) -> "RankGrid | None":
-    """``mesh`` if it is a RankGrid, else None."""
-    return mesh if isinstance(mesh, RankGrid) else None
+def rows_partial() -> bool:
+    """Whether the active grid splits the batch's rows: a rank's loss is
+    then a part of the global one, and so is each gradient it takes."""
+    grid = active_grid()
+    return grid is not None and grid.rows_split(active_batch())
 
 
+# --------------------------------------------------------------------------
+# the grid's autograd Functions
+# --------------------------------------------------------------------------
 class _SumForward(torch.autograd.Function):
     """SUM over a grid axis forward, the identity backward."""
 
@@ -805,70 +1011,83 @@ class _SumBackward(torch.autograd.Function):
         return ctx.grid.all_reduce(out, "sum", axis=ctx.axis), None, None
 
 
-def copy_to(x, grid: RankGrid, axis: str = "model"):
+def copy_to(x, grid, axis: str = "model"):
     """Megatron's "f": ``x`` as is, its gradient summed over ``axis``
     (each rank of the axis computed a part of it)."""
-    if grid.axis_size(axis) == 1:
+    if grid is None or grid.axis_size(axis) == 1:
         return x
     return _SumBackward.apply(x, grid, axis)
 
 
-def reduce_from(x, grid: RankGrid, axis: str = "model"):
+def reduce_from(x, grid, axis: str = "model"):
     """Megatron's "g": ``x`` summed over ``axis``, its gradient passed on
     as is (every rank of the axis holds the whole sum, and each uses it
     alike).  Not ``torch.distributed.nn.functional.all_reduce``, whose
     backward sums again."""
-    if grid.axis_size(axis) == 1:
+    if grid is None or grid.axis_size(axis) == 1:
         return x
     return _SumForward.apply(x, grid, axis)
 
 
-def copy_to_model(x, grid: RankGrid):
+def copy_to_model(x, grid):
     return copy_to(x, grid, "model")
 
 
-def reduce_from_model(x, grid: RankGrid):
+def reduce_from_model(x, grid):
     return reduce_from(x, grid, "model")
+
+
+class _Gather(torch.autograd.Function):
+    """The blocks of ``axis`` gathered along ``dim`` forward; backward,
+    the gradient reduce-scattered (``partial``: each rank's use of the
+    whole was a part of the loss's) or this rank's block of it (every rank
+    used the whole alike)."""
+
+    @staticmethod
+    def forward(ctx, x, grid, axis, dim, partial):
+        ctx.grid, ctx.axis, ctx.dim, ctx.partial = grid, axis, dim, partial
+        ctx.per = x.shape[dim]
+        return grid.all_gather(x, dim, axis=axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            out = ctx.grid.reduce_scatter(g, ctx.dim, axis=ctx.axis)
+        else:
+            lo = ctx.grid.axis_index(ctx.axis) * ctx.per
+            out = g.narrow(ctx.dim, lo, ctx.per).contiguous()
+        return out, None, None, None, None
 
 
 class _TakeBlock(torch.autograd.Function):
     """Block i of n of dim 0 (i: this rank's index on the axis) forward;
-    backward, the gradient placed in its block of zeros and summed over
-    the axis, so every rank holds the whole gradient."""
-
-    @staticmethod
-    def forward(ctx, x, grid, axis):
-        n, i = grid.axis_size(axis), grid.axis_index(axis)
-        per = x.shape[0] // n
-        ctx.grid, ctx.axis, ctx.shape, ctx.lo = grid, axis, x.shape, i * per
-        return x[i * per:(i + 1) * per].clone()
-
-    @staticmethod
-    def backward(ctx, g):
-        full = g.new_zeros(ctx.shape)
-        full[ctx.lo:ctx.lo + g.shape[0]] = g
-        return ctx.grid.all_reduce(full, "sum", axis=ctx.axis), None, None
-
-
-class _GatherBlocks(torch.autograd.Function):
-    """Every rank's block along dim 0 in axis order (a SUM of zero-padded
-    blocks: exact) forward; backward, this rank's block of the
+    backward, the ranks' gradients gathered, so every rank holds the whole
     gradient."""
 
     @staticmethod
     def forward(ctx, x, grid, axis):
         n, i = grid.axis_size(axis), grid.axis_index(axis)
-        full = x.new_zeros((n * x.shape[0], *x.shape[1:]))
-        full[i * x.shape[0]:(i + 1) * x.shape[0]] = x
-        ctx.lo, ctx.per = i * x.shape[0], x.shape[0]
-        return grid.all_reduce(full, "sum", axis=axis)
+        per = x.shape[0] // n
+        ctx.grid, ctx.axis = grid, axis
+        return x[i * per:(i + 1) * per].clone()
 
     @staticmethod
     def backward(ctx, g):
-        return g[ctx.lo:ctx.lo + ctx.per].clone(), None, None
+        return (ctx.grid.all_gather(g.contiguous(), 0, axis=ctx.axis),
+                None, None)
 
 
-def take_block(x, grid: RankGrid, axis: str = "data"):
+def gather(x, grid, axis: str | None = "data", dim: int = 0, *,
+           partial: bool = False):
+    """The ranks' blocks of ``x`` along ``dim`` over ``axis``, whole; the
+    gradient comes back reduce-scattered when ``partial``, else as this
+    rank's block (see :class:`_Gather`)."""
+    if grid is None or grid.axis_size(axis) == 1:
+        return x
+    return _Gather.apply(x, grid, axis, dim % x.dim(), partial)
+
+
+def take_block(x, grid, axis: str = "data"):
     """This rank's block of dim 0 over ``axis``; the gradient comes back
     whole on every rank."""
     if grid.axis_size(axis) == 1:
@@ -876,9 +1095,53 @@ def take_block(x, grid: RankGrid, axis: str = "data"):
     return _TakeBlock.apply(x, grid, axis)
 
 
-def gather_blocks(x, grid: RankGrid, axis: str = "data"):
+def gather_blocks(x, grid, axis: str = "data"):
     """The ranks' blocks of dim 0 over ``axis``, concatenated in order; the
     gradient of this rank's block comes back."""
-    if grid.axis_size(axis) == 1:
-        return x
-    return _GatherBlocks.apply(x, grid, axis)
+    return gather(x, grid, axis, 0)
+
+
+def gather_leaf(w, spec, axes, grid, *, partial: bool | None = None):
+    """A parameter block ``w`` (its ``spec`` and logical ``axes``) as a
+    rank uses it: gathered along every dim placed on an axis the batch's
+    rows split over (FSDP; VOCAB under ``"fsdp"``), so that only its
+    tensor-parallel dims (on ``model``) and the experts' dim stay blocks.
+    ``partial`` (default: whether the active grid splits the rows) makes
+    the gradient come back reduce-scattered."""
+    if partial is None:
+        partial = rows_partial()
+    rows = set(_mesh_axes_for(grid.rules, BATCH))
+    for dim, (part, name) in enumerate(zip(spec, axes)):
+        if part is None or name == EXPERT:
+            continue
+        mesh_axes = part if isinstance(part, tuple) else (part,)
+        if not set(mesh_axes) & rows:
+            continue
+        w = gather(w, grid, axis_key(grid, mesh_axes), dim, partial=partial)
+    return w
+
+
+def fit_block(w, grid, dim: int, ranges, full: int, *, partial: bool):
+    """The ranges ``[(lo, hi), …]`` of a leaf's ``dim`` (``full`` long),
+    concatenated, from ``w``: the whole dim, or this rank's block of it on
+    ``model``.  A block that is not what is asked for is gathered over
+    ``model`` first; ``partial``: the ranks use different ranges, so a
+    whole leaf's gradient is summed over ``model`` and a gathered one's
+    reduce-scattered."""
+    dim = dim % w.dim()
+    n = w.shape[dim]
+    if n != full:
+        per = full // grid.mp
+        if n != per:
+            raise ValueError(f"a block of {n} of a dim of {full} on a "
+                             f"model axis of {grid.mp}")
+        lo = grid.model_index * per
+        if list(ranges) == [(lo, lo + per)]:
+            return w
+        w = gather(w, grid, "model", dim, partial=partial)
+    elif partial:
+        w = copy_to(w, grid, "model")
+    if list(ranges) == [(0, full)]:
+        return w
+    return torch.cat([w.narrow(dim, lo, hi - lo) for lo, hi in ranges],
+                     dim=dim)

@@ -7,7 +7,9 @@ A counter registers itself in :func:`counters` while it is open and
 offers ``device`` (a device type), ``paused`` (nonzero while it lets an
 inner count run), ``weight`` (the factor its events carry),
 ``note(event)`` and ``planned_launch(name, io_bytes, plain, args,
-kwargs)``.
+kwargs)``.  The grids of ranks (``dist/sharding.py``) report each
+collective through :func:`collective` and hide their transport's own
+dispatch under :func:`paused`.
 """
 from __future__ import annotations
 
@@ -42,6 +44,31 @@ def launch(name: str, outputs: tuple, plain, *args, **kwargs) -> None:
                  if isinstance(t, torch.Tensor))
     for c in live:
         c.planned_launch(name, nbytes, plain, args, kwargs)
+
+
+def collective(kind: str, result_bytes: int, group: int, axis: str,
+               in_bytes: int) -> None:
+    """Reports one collective of ``kind`` (``"all-reduce"``,
+    ``"all-gather"``, ``"reduce-scatter"``: what NCCL runs) over a group of
+    ``group`` ranks along the grid axis ``axis``, whose result holds
+    ``result_bytes`` and whose input ``in_bytes``."""
+    for c in _live():
+        c.note(["collective", kind, int(result_bytes), int(group),
+                int(in_bytes) + int(result_bytes), c.weight, axis])
+
+
+@contextlib.contextmanager
+def paused():
+    """The ops inside reach no counter (a collective's transport, which
+    reported itself)."""
+    live = _live()
+    for c in live:
+        c.paused += 1
+    try:
+        yield
+    finally:
+        for c in live:
+            c.paused -= 1
 
 
 @contextlib.contextmanager

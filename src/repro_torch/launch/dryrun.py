@@ -28,20 +28,33 @@ them, 3.35 TB/s of HBM; the compute term takes the cell's compute dtype
 from the card (``torch.cuda.get_device_properties``) and written with its
 name and power limit; without a card, ``fits`` is null.
 
+Across a grid of ranks (``--single-pod``: JAX's default 16×16 ``("data",
+"model")``, 256 ranks; ``--multi-pod``: 2×16×16 ``("pod", "data",
+"model")``, 512; ``--strategy 2d|fsdp|serve`` the rule table, and a
+strategy other than ``2d`` alone selects 16×16) the step is built for rank
+0 of a ``dist.sharding.TracedGrid`` — the code the real ranks run, each
+parameter the rank's block under the grid's rules — and the record is one
+rank's: its argument, temp and peak bytes against one card's memory, its
+dot FLOPs, planned launches and the collectives it takes part in, by kind
+and by grid axis (NCCL's ring wire bytes).  The roofline's collective term
+is the sum over axes of bytes / rate, at the DGX H100 data sheet's rates:
+NVLink 450 GB/s a direction between the 8 GPUs of a node, InfiniBand NDR
+400 Gb/s (50 GB/s) a GPU between nodes; a group whose ranks (row-major,
+8 to a node) span nodes takes the InfiniBand rate.  They are the data
+sheet's, not measured.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch zamba2-2.7b \\
       --shape train_4k --reduced
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all   # 32 cells
-
-The dry run over a mesh across cards (``--multi-pod``, ``--strategy
-fsdp|serve``) needs the dense layers' FSDP × TP layout on a
-``dist.sharding.RankGrid`` and an account of its collectives over 256 or
-512 ranks: it raises ``NotImplementedError`` naming ROADMAP Queue A item
-13d.6.
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-72b \\
+      --shape train_4k --multi-pod [--strategy fsdp]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --single-pod
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -52,11 +65,11 @@ import torch
 
 from repro_torch.configs import (ARCH_NAMES, SHAPES, get_config, get_reduced,
                                  shape_cells)
+from repro_torch.dist import sharding as shd
 from repro_torch.launch import op_analysis
 from repro_torch.launch.graph_serve import card_line
 from repro_torch.launch.specs import batch_specs, choose_microbatches
 from repro_torch.models.model import Model
-from repro_torch.plug.protocols import not_ported_error
 from repro_torch.train.optimizer import AdamW, AdamWConfig
 from repro_torch.train.serve import make_decode_step, make_prefill_step
 from repro_torch.train.step import make_train_step
@@ -64,11 +77,21 @@ from repro_torch.train.step import make_train_step
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun_torch")
 MESH = "h100x1"
+#: the grids of ranks: mesh tag → shape (JAX's production meshes)
+GRIDS = {"h100_16x16": {"data": 16, "model": 16},
+         "h100_2x16x16": {"pod": 2, "data": 16, "model": 16}}
 
 # one H100 (SXM): dense peak rates by compute dtype, HBM and NVLink
 PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 HBM_BW = 3.35e12  # bytes/s
 NVLINK_BW = 450e9  # bytes/s a direction
+# a GPU's InfiniBand NDR port between nodes: 400 Gb/s
+IB_BW = 50e9  # bytes/s
+LINK_RATES = {"nvlink": NVLINK_BW, "infiniband": IB_BW}
+RATES_SOURCE = ("NVIDIA DGX H100 data sheet: NVLink 900 GB/s bidirectional "
+                "(450 GB/s a direction) between a node's 8 GPUs; 8 x 400 "
+                "Gb/s ConnectX-7 InfiniBand NDR, one a GPU, between nodes; "
+                "not measured")
 
 
 @dataclasses.dataclass
@@ -86,17 +109,27 @@ def build_step(arch: str, shape_name: str, *, reduced: bool = False,
                serve_dtype: str | None = None,
                param_dtype: str | None = None, kernel: str = "cuda",
                device="meta", num_layers: int | None = None,
-               cache_len: int | None = None) -> Step:
+               attn_every: int | None = None,
+               cache_len: int | None = None, grid=None) -> Step:
     """The counterpart of the JAX package's ``build_lowerable``: the step
     of one cell — the published or reduced config, the shape with
     ``batch`` / ``seq`` put in where given, cut to ``num_layers`` where
-    given — on ``device`` (``"meta"``: nothing computed), with every input
+    given (a hybrid's shared block every ``attn_every`` layers where
+    given) — on ``device`` (``"meta"``: nothing computed), with every input
     made, as ``launch/train.py`` and ``launch/serve.py`` make it.  A
     prefill fills a cache of ``cache_len`` positions, a decode step reads
-    one and writes its last (default: the shape's sequence length)."""
+    one and writes its last (default: the shape's sequence length).
+
+    ``grid`` (a ``dist.sharding`` grid: a ``TracedGrid``, or a
+    ``RankGrid``) builds one rank's step: the model's blocks on it, the
+    global batch cut to the rank's rows, under ``activation_sharding``;
+    the step's arguments are the rank's.  Under ``"fsdp"`` the embedding
+    is the one-hot product (``iota_embed``), as the JAX dry run sets it."""
     cfg = get_reduced(arch) if reduced else get_config(arch)
     if num_layers:
         cfg = cfg.replace(num_layers=num_layers)
+    if attn_every:
+        cfg = cfg.replace(attn_every=attn_every)
     shape = SHAPES[shape_name]
     if batch:
         shape = dataclasses.replace(shape, global_batch=batch)
@@ -106,8 +139,19 @@ def build_step(arch: str, shape_name: str, *, reduced: bool = False,
         cfg = cfg.replace(param_dtype=param_dtype)
     if serve_dtype and shape.kind in ("prefill", "decode"):
         cfg = cfg.replace(param_dtype=serve_dtype)
+    if grid is not None and grid.strategy == "fsdp":
+        cfg = cfg.replace(iota_embed=True)
     dev = torch.device(device)
-    model = Model(cfg, kernel=kernel, device=dev)
+    model = Model(cfg, kernel=kernel, device=dev, mesh=grid)
+    b = shape.global_batch
+
+    def rows(tree, microbatches=1):
+        """The rank's rows of a global batch, in storages of their own (a
+        rank holds no more)."""
+        return tree if grid is None else {
+            k: grid.local_rows(v, microbatches=microbatches).clone()
+            for k, v in tree.items()}
+
     meta = {"arch": arch, "shape": shape_name, "kind": shape.kind,
             "reduced": reduced, "batch": shape.global_batch,
             "seq": shape.seq_len, "kernel": kernel,
@@ -121,8 +165,12 @@ def build_step(arch: str, shape_name: str, *, reduced: bool = False,
             v if dev.type == "meta" else torch.zeros_like(v, device=dev))
             for k, v in tree.items()}
 
+    if grid is not None:
+        meta.update(world=grid.size, grid=dict(grid.shape),
+                    strategy=grid.strategy, rank=grid.rank)
     if shape.kind == "train":
-        mb = microbatches or choose_microbatches(cfg, shape, data_shards=1)
+        mb = microbatches or choose_microbatches(
+            cfg, shape, data_shards=1 if grid is None else grid.row_size)
         meta["microbatches"] = mb
         opt = AdamW(AdamWConfig(
             state_dtype="bfloat16" if cfg.param_dtype == "bfloat16"
@@ -131,36 +179,45 @@ def build_step(arch: str, shape_name: str, *, reduced: bool = False,
         data = on_device(batch_specs(cfg, shape, with_labels=True).args)
         step = make_train_step(model, opt, microbatches=mb)
         return Step(lambda: step(state, data),
-                    (list(model.parameters()), state, data), meta)
+                    (list(model.parameters()), state, rows(data, mb)), meta)
 
     meta["microbatches"] = 1
     model.served()  # the compute-dtype copies, made once before serving
     served = list(model.served().parameters())
     if shape.kind == "prefill":
-        data = on_device(batch_specs(cfg, shape, with_labels=False).args)
+        data = rows(on_device(batch_specs(cfg, shape,
+                                          with_labels=False).args))
         prefill = make_prefill_step(model,
                                     cache_len=cache_len or shape.seq_len)
 
         def run_prefill():
-            with torch.no_grad():
+            with torch.no_grad(), scope_of(grid, b):
                 return prefill(data)
 
         return Step(run_prefill, (list(model.parameters()), served, data),
                     meta)
     cache_len = cache_len or shape.seq_len
-    cache, _ = model.init_cache(shape.global_batch, cache_len)
-    token = torch.zeros((shape.global_batch, 1), dtype=torch.int32,
-                        device=dev)
+    cache, _ = model.init_cache(b, cache_len)
+    token = rows({"t": torch.zeros((b, 1), dtype=torch.int32,
+                                   device=dev)})["t"]
     pos = cache_len - 1  # the cost of a step does not depend on it
     decode = make_decode_step(model)
 
     def run_decode():
-        with torch.no_grad():
+        with torch.no_grad(), scope_of(grid, b):
             nxt, new_cache, _ = decode(cache, token, pos)
             return nxt, new_cache
 
     return Step(run_decode, (list(model.parameters()), served, cache, token),
                 meta)
+
+
+def scope_of(grid, batch: int):
+    """``activation_sharding`` of ``grid`` for a global batch of ``batch``
+    rows (nothing off a grid)."""
+    if grid is None:
+        return contextlib.nullcontext()
+    return shd.activation_sharding(grid, grid.rules, batch=batch)
 
 
 def tensor_bytes(tree) -> int:
@@ -201,6 +258,7 @@ def apply_stats(record: dict, stats: op_analysis.OpStats) -> dict:
         "bytes_accessed_per_device": stats.bytes_accessed,
         "collective_wire_bytes_per_device": stats.collective_bytes,
         "collective_by_kind": stats.collective_by_kind,
+        "collective_by_axis": stats.collective_by_axis,
         "collective_sites": stats.collective_count,
         "kernel_launches": stats.kernel_launches,
         "kernel_dot_flops": stats.kernel_dot_flops,
@@ -219,28 +277,46 @@ def apply_stats(record: dict, stats: op_analysis.OpStats) -> dict:
     return record
 
 
+def traced_grid(mesh: str, strategy: str = "2d"):
+    """Rank 0 of the grid the mesh tag names (``GRIDS``), None for
+    ``h100x1``."""
+    if mesh == MESH:
+        return None
+    return shd.TracedGrid(GRIDS[mesh], strategy=strategy)
+
+
 def run_cell(arch: str, shape_name: str, *, reduced: bool = False,
              batch: int | None = None, seq: int | None = None,
              microbatches: int | None = None,
              out_dir: str | None = None, serve_dtype: str | None = None,
-             param_dtype: str | None = None, tag: str = "") -> dict:
+             param_dtype: str | None = None, tag: str = "",
+             mesh: str = MESH, strategy: str = "2d") -> dict:
     t0 = time.perf_counter()
+    grid = traced_grid(mesh, strategy)
     step = build_step(arch, shape_name, reduced=reduced, batch=batch,
                       seq=seq, microbatches=microbatches,
-                      serve_dtype=serve_dtype, param_dtype=param_dtype)
+                      serve_dtype=serve_dtype, param_dtype=param_dtype,
+                      grid=grid)
+    world = 1 if grid is None else grid.size
     with op_analysis.OpCounter() as counter:
         out = step.run()
     trace_s = time.perf_counter() - t0
     del out
     record = dict(step.meta)
-    record.update({"mesh": MESH, "world": 1, "trace_s": trace_s,
+    record.update({"mesh": mesh, "world": world, "trace_s": trace_s,
                    "device": card(),
                    "memory": {"argument_bytes": tensor_bytes(step.args)}})
-    apply_stats(record, counter.stats(world=1))
+    if grid is not None:
+        record["links"] = {ax: grid.link(None if ax == "grid" else ax)
+                           for ax in ("model", "data", "grid")}
+        record["link_rates"] = {**LINK_RATES, "source": RATES_SOURCE}
+    apply_stats(record, counter.stats(world=world))
     if out_dir is None:
         out_dir = os.path.abspath(RESULTS_DIR)
     os.makedirs(out_dir, exist_ok=True)
-    stem = f"{arch}__{shape_name}__{MESH}"
+    stem = f"{arch}__{shape_name}__{mesh}"
+    if grid is not None and strategy != "2d":
+        stem += f"__{strategy}"
     if reduced:
         stem += "__reduced"
     if tag:
@@ -266,13 +342,21 @@ def roofline_terms(record: dict) -> dict:
     compute_s = (ops["dot_flops_per_device"]
                  + ops["conv_flops_per_device"]) / peak
     memory_s = bytes_dev / HBM_BW
-    collective_s = ops["collective_wire_bytes_per_device"] / NVLINK_BW
+    # the collectives: each grid axis's wire bytes over its link's rate
+    links = record.get("links", {})
+    by_axis = ops.get("collective_by_axis") or {
+        "world": ops["collective_wire_bytes_per_device"]}
+    collective_s = sum(b / LINK_RATES[links.get(ax, "nvlink")]
+                       for ax, b in by_axis.items())
     dominant = max(
         ("compute", compute_s), ("memory", memory_s),
         ("collective", collective_s), key=lambda kv: kv[1])[0]
     return {"compute_s": compute_s, "memory_s": memory_s,
             "collective_s": collective_s, "dominant": dominant,
-            "peak_flops": peak}
+            "peak_flops": peak,
+            "collective_s_by_axis": {
+                ax: b / LINK_RATES[links.get(ax, "nvlink")]
+                for ax, b in by_axis.items()}}
 
 
 def main(argv=None):
@@ -291,14 +375,22 @@ def main(argv=None):
     ap.add_argument("--tag", default="")
     ap.add_argument("--out-dir", default=None)
     ap.add_argument("--multi-pod", action="store_true",
-                    help="a mesh across cards: not ported (item 13d.6)")
+                    help="rank 0 of the 2x16x16 (pod, data, model) grid, "
+                         "512 ranks")
+    ap.add_argument("--single-pod", action="store_true",
+                    help="rank 0 of the 16x16 (data, model) grid, 256 "
+                         "ranks")
     ap.add_argument("--strategy", default="2d",
-                    choices=("2d", "fsdp", "serve"))
+                    choices=("2d", "fsdp", "serve"),
+                    help="the grid's rule table (other than 2d alone: the "
+                         "16x16 grid)")
     args = ap.parse_args(argv)
-    if args.multi_pod or args.strategy != "2d":
-        raise not_ported_error(
-            "the dry run over a mesh across cards (--multi-pod, "
-            "--strategy fsdp|serve)", "13d.6")
+    if args.multi_pod:
+        mesh = "h100_2x16x16"
+    elif args.single_pod or args.strategy != "2d":
+        mesh = "h100_16x16"
+    else:
+        mesh = MESH
 
     if args.all:
         cells = [(a, s) for a in ARCH_NAMES for s in shape_cells(a)]
@@ -309,30 +401,37 @@ def main(argv=None):
 
     t_all = time.perf_counter()
     failures = []
+    fits = 0
     for arch, shape in cells:
-        label = f"{arch} × {shape} × {MESH}"
+        label = f"{arch} × {shape} × {mesh}"
+        if mesh != MESH:
+            label += f" × {args.strategy}"
         try:
             rec = run_cell(arch, shape, reduced=args.reduced,
                            batch=args.batch, seq=args.seq,
                            microbatches=args.microbatches,
                            out_dir=args.out_dir,
                            serve_dtype=args.serve_dtype,
-                           param_dtype=args.param_dtype, tag=args.tag)
+                           param_dtype=args.param_dtype, tag=args.tag,
+                           mesh=mesh, strategy=args.strategy)
+            fits += bool(rec["fits"])
             r, o = rec["roofline"], rec["ops"]
             print(f"OK   {label}: trace={rec['trace_s']:.1f}s "
                   f"flops={o['dot_flops_per_device']:.4g} "
                   f"peak={rec['memory']['peak_estimate_bytes'] / 2**30:.2f}"
                   f"GiB fits={rec['fits']} launches={o['kernel_launches']} "
                   f"compute={r['compute_s'] * 1e3:.2f}ms "
-                  f"mem={r['memory_s'] * 1e3:.2f}ms dom={r['dominant']}",
-                  flush=True)
+                  f"mem={r['memory_s'] * 1e3:.2f}ms "
+                  f"coll={r['collective_s'] * 1e3:.2f}ms "
+                  f"dom={r['dominant']}", flush=True)
         except Exception as e:  # noqa: BLE001 — record and continue
             failures.append((label, repr(e)))
             print(f"FAIL {label}: {e}", flush=True)
             traceback.print_exc()
     dev = card()
     print(f"{len(cells) - len(failures)} of {len(cells)} cells in "
-          f"{time.perf_counter() - t_all:.1f}s; sized against "
+          f"{time.perf_counter() - t_all:.1f}s on {mesh}; {fits} fit one "
+          f"card a rank; sized against "
           f"{dev['nvidia_smi'] or 'no card'} "
           f"({dev['total_memory']} bytes)", flush=True)
     if failures:

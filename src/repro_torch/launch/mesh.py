@@ -82,10 +82,10 @@ def default_model_parallel(world: int) -> int:
 
 
 def make_rank_grid(model_parallel: int | None = None, backend: str | None
-                   = None, *, device=None) -> RankGrid:
+                   = None, *, device=None, strategy: str = "2d") -> RankGrid:
     """A :class:`~repro_torch.dist.sharding.RankGrid` of the world's ranks,
-    (W // mp, mp) over ("data", "model"); ``mp`` defaults to
-    :func:`default_model_parallel`.  Unless a group is initialized already
+    (W // mp, mp) over ("data", "model"), under ``strategy``'s rules;
+    ``mp`` defaults to :func:`default_model_parallel`.  Unless a group is initialized already
     (``spawn_ranks``), it is initialized from the ``torchrun`` environment
     with ``backend``, as :func:`make_rank_mesh` does."""
     import torch
@@ -94,7 +94,7 @@ def make_rank_grid(model_parallel: int | None = None, backend: str | None
     _init_group(backend)
     mp_ = (default_model_parallel(dist.get_world_size())
            if model_parallel is None else model_parallel)
-    grid = RankGrid(mp_, device=device)
+    grid = RankGrid(mp_, device=device, strategy=strategy)
     if grid.device.type == "cuda":
         torch.cuda.set_device(grid.device)
     return grid

@@ -24,9 +24,12 @@ under changed rules (``launch/reanalyze.py``).  The rules, as
   nothing, so every op's traffic is its own;
 * ``convolution``: 2 × |result| × (input channels per group × window),
   kept apart as ``conv_flops``;
-* c10d functional collectives: per-device wire bytes under ring
-  algorithms (:func:`wire_bytes`, the formulas of
-  ``hlo_analysis._wire_bytes``), by kind; 0 on one card;
+* collectives: per-device wire bytes under ring algorithms
+  (:func:`wire_bytes`, the formulas of ``hlo_analysis._wire_bytes``), by
+  kind and by grid axis — c10d functional collectives, and those a grid
+  of ranks reports through ``kernels/accounting.collective`` (the kind
+  NCCL runs, the result's bytes, the group's size and the axis); 0 on one
+  card;
 * kernel launches: the kernel wrappers report each launch through
   ``kernels/accounting.launch``.  A launch counts the dot FLOPs of the
   kernel's plain version on the same shapes (traced on ``meta``), so a
@@ -133,6 +136,7 @@ class OpStats:
     bytes_accessed: float = 0.0  # every op's arguments + outputs
     collective_bytes: float = 0.0
     collective_by_kind: dict = dataclasses.field(default_factory=dict)
+    collective_by_axis: dict = dataclasses.field(default_factory=dict)
     collective_count: int = 0
     kernel_launches: dict = dataclasses.field(default_factory=dict)
     kernel_dot_flops: float = 0.0  # the part of dot_flops launches carry
@@ -181,13 +185,16 @@ def analyze(trace: list, *, world: int = 1) -> OpStats:
             st.bytes_accessed += float(acc) * w
             st.conv_flops += 2.0 * out_numel * window * w
         elif kind == "collective":
-            _, ckind, result, g, acc, w = ev
+            _, ckind, result, g, acc, w, *axis = ev
             st.op_count += w
             st.bytes_accessed += float(acc) * w
             wire = wire_bytes(ckind, result, world if g is None else g) * w
             st.collective_bytes += wire
             st.collective_by_kind[ckind] = (
                 st.collective_by_kind.get(ckind, 0.0) + wire)
+            ax = axis[0] if axis else "world"
+            st.collective_by_axis[ax] = (
+                st.collective_by_axis.get(ax, 0.0) + wire)
             st.collective_count += w
         elif kind == "launch":
             _, name, flops, nbytes, w = ev

@@ -15,10 +15,12 @@ as ``nvidia-smi`` gives them.
 Under ``torchrun`` (``WORLD_SIZE`` > 1) the ranks form a
 ``dist.sharding.RankGrid`` (``--model-parallel``, ``--backend`` gloo so
 that ranks may share a card, nccl for a card a rank) under the
-``"serve"`` rules: a MoE's experts live on the model axis, every rank
-draws the same prompts and keeps its rows (its data shard when the data
-axis divides ``--batch``, else all of them), and every rank of a data row
-decodes the same tokens.  Rank 0 prints; each rank returns its rows'
+``"serve"`` rules: the weights replicate over data and
+split over ``model`` (heads, the FFN's hidden dim, the vocabulary, a
+MoE's experts), every rank draws the same prompts and keeps its rows (its
+data shard when the data axis divides ``--batch``, else all of them), and
+every rank of a data row decodes the same tokens (the argmax over the
+vocabulary's blocks).  Rank 0 prints; each rank returns its rows'
 tokens::
 
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
@@ -36,6 +38,7 @@ from repro_torch.device import resolve_device
 from repro_torch.dist import sharding as shd
 from repro_torch.launch.graph_serve import card_line
 from repro_torch.launch.mesh import make_host_mesh, make_rank_grid, world_size
+from repro_torch.models import layers as L
 from repro_torch.models.model import Model
 from repro_torch.train.serve import decode_from, make_prefill_step
 
@@ -65,7 +68,7 @@ def main(argv=None):
     grid = None
     if world_size() > 1:
         grid = make_rank_grid(args.model_parallel, args.backend,
-                              device=args.device)
+                              device=args.device, strategy="serve")
         dev, mesh = grid.device, grid
     else:
         dev, mesh = resolve_device(args.device), make_host_mesh()
@@ -93,7 +96,8 @@ def main(argv=None):
     with shd.activation_sharding(mesh, rules, batch=args.batch):
         t0 = time.perf_counter()
         logits, cache = make_prefill_step(model, cache_len=cache_len)(batch)
-        tok = torch.argmax(logits[:, -1, :], -1).to(torch.int32)[:, None]
+        tok = L.vocab_argmax(logits[:, -1, :], cfg.padded_vocab).to(
+            torch.int32)[:, None]
         _sync(dev)
         t_prefill = time.perf_counter() - t0
         t0 = time.perf_counter()

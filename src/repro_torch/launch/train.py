@@ -16,22 +16,28 @@ with the card's name and power limit as ``nvidia-smi`` gives them.
 Under ``torchrun`` (``WORLD_SIZE`` > 1) the ranks form a
 ``dist.sharding.RankGrid`` of (W / mp, mp) over ("data", "model"),
 ``--model-parallel`` mp (default: 2 when W is even, as the JAX package's
-``make_host_mesh``); the experts live on the model axis, every rank draws
-the global batch and keeps its rows, and the gradients are summed over the
-data axes (``train.step``)::
+``make_host_mesh``), under the ``"2d"`` rules (FSDP on data × TP on
+model, as the JAX package's launcher): each rank holds
+its block of every parameter and of the optimizer state, draws the global
+batch and keeps its rows, and the gradients' parts are summed
+(``train.step``)::
 
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch qwen3-moe-235b-a22b --reduced --steps 6 --kill-device-at 3
 
 (``--backend gloo``, the default, lets the ranks share one card; ``nccl``
 wants a card a rank.)  ``--kill-device-at K`` keeps the JAX package's
-checkpoint-free elasticity: at step K the grid loses its last rank and
-:func:`remesh_live_state` re-plans it from the survivors with
-``dist.fault.elastic_plan`` (the model axis kept, the data axis shrunk):
-a survivor keeps its expert block, the replicated leaves, the optimizer
-state and the step count, and the data rows split again over the new data
-axis; the ranks past the survivor grid sit out and return the leader's
-losses.  On one card the mesh is (data=1, model=1): no device survives,
+checkpoint-free elasticity, whose kill is simulated (XLA's resharding
+reads every old shard, the killed device's included): at step K the grid
+loses its last rank and :func:`remesh_live_state` re-plans it from the
+survivors with ``dist.fault.elastic_plan`` (the model axis kept, the data
+axis shrunk).  The lost rank hands its blocks of the parameters and the
+optimizer state over before it goes idle: every rank of the old grid
+gathers each leaf whole and keeps its block on the survivor grid
+(``Model.remesh``), so the FSDP dims are re-laid over the new data axis;
+the step count is kept and the data rows split again.  This is not a
+recovery from lost memory.  The ranks past the survivor grid sit out and
+return the leader's losses.  On one card the mesh is (data=1, model=1): no device survives,
 and the plan raises ``ValueError``.  Checkpoints and ``--grad-wire`` across
 ranks are not ported (ROADMAP Queue A items 13d.8 and 13d.9).
 """
@@ -63,8 +69,8 @@ def remesh_live_state(mesh, survivors):
     On a ``RankGrid`` ``survivors`` are the world ranks still alive; the
     plan's grid takes the first of them (``RankGrid.survivors``, which
     every world rank calls) and is returned.  Rank (d, r) of it is world
-    rank d·mp + r, as before the loss, so it keeps its expert block, and
-    the live parameters and optimizer state stay where they are.  On the
+    rank d·mp + r, as before the loss; the caller re-lays the parameters
+    and the optimizer state onto it (``Model.remesh``).  On the
     one-card host mesh the plan is all there is to it: it raises
     ``ValueError`` when the survivors cannot host one model replica (one
     card: none survives); it is returned otherwise."""
@@ -147,9 +153,9 @@ def train(args) -> dict:
         cfg = cfg.replace(dtype=args.dtype)
     if ranks:
         grid = make_rank_grid(args.model_parallel, args.backend,
-                              device=args.device)
+                              device=args.device, strategy="2d")
         dev, mesh = grid.device, grid
-        rules = shd.make_rules(grid)
+        rules = grid.rules
     else:
         grid = None
         dev = resolve_device(args.device)
@@ -232,10 +238,9 @@ def train(args) -> dict:
             print(f"step {kill:5d} device lost → survivor mesh "
                   f"{new.shape}", flush=True)
         else:
+            model.remesh(new, opt_state)  # every old rank, the lost one too
             grid = mesh = new
-            rules = shd.make_rules(grid)
-            if not grid.idle:
-                model.remesh(grid)
+            rules = grid.rules
             migrate_s = time.perf_counter() - t_mig
             if lead:
                 print(f"step {kill:5d} device lost → survivor mesh "

@@ -9,7 +9,10 @@ encoder's output (no RoPE) and a GELU MLP; the embedding table is tied.
 Both self-attentions run at equal lengths through the flash-attention
 kernel (``attention.self_attention``: ``causal=False`` for the encoder);
 cross-attention (Sq ≠ Sk) and decode are plain PyTorch, as no kernel
-computes them.
+computes them.  On a grid of ranks the layers take the dense layout
+(``models/layers.py``, ``models/attention.py``): ``enc_pos`` is (None,
+FSDP), cross-attention reads the rank's heads, and the cross-attention
+cache is laid out as the self-attention one.
 """
 from __future__ import annotations
 
@@ -59,7 +62,7 @@ def encode(params, frames, cfg: ModelConfig, *, kernel: str):
     """frames (B, S_enc, D), the stub frontend's embeddings."""
     b, s, _ = frames.shape
     dt = cfg.tdtype
-    h = frames.to(dt) + L.cast(params["enc_pos"]["table"][:s], dt)
+    h = frames.to(dt) + L.use(params["enc_pos"], "table", dt)[:s]
     positions = T._positions(b, s, frames.device)
     body = T.maybe_remat(lambda hh, lp: T.dense_layer_fwd(
         lp, hh, positions, cfg, kernel=kernel, causal=False)[0], cfg)
@@ -68,27 +71,37 @@ def encode(params, frames, cfg: ModelConfig, *, kernel: str):
     return L.rmsnorm(params["enc_norm"], h, cfg.norm_eps)
 
 
-def _cross_kv(p, enc_out):
-    dt = enc_out.dtype
-    return (L.matmul_in(enc_out, L.cast(p["wk"], dt)),
-            L.matmul_in(enc_out, L.cast(p["wv"], dt)))
-
-
-def _cross(p, h, xk, xv, cfg):
-    """Cross-attention on the encoder's keys/values, plain."""
+def _cross_q(p, h, cfg):
+    """The cross-attention's input norm and the rank's q heads."""
     x = L.rmsnorm(p["lnx"], h, cfg.norm_eps)
-    q = L.matmul_in(x, L.cast(p["xattn"]["wq"], x.dtype))
-    return h + A.out_project(p["xattn"], A.full_attention(q, xk, xv))
+    wq = L.use(p["xattn"], "wq", x.dtype)
+    tp = L.tp_split(p["xattn"], "wq", wq, 1)
+    return L.matmul_in(shd.copy_to(x, tp), wq), tp
+
+
+def _cross_kv(p, enc_out, tp=None):
+    """The encoder's keys/values: the rank's KV heads (``tp``: the grid
+    when the q heads are split, so the encoder's output enters through
+    ``copy_to``)."""
+    return A.kv_project(p, shd.copy_to(enc_out, tp), tp=tp)
+
+
+def _cross(p, h, enc_out, cfg):
+    """Cross-attention on the encoder's output, plain."""
+    q, tp = _cross_q(p, h, cfg)
+    xk, xv = _cross_kv(p["xattn"], enc_out, tp)
+    o = A.full_attention(q, *A.kv_for_q(q, xk, xv, cfg))
+    return h + A.out_project(p["xattn"], o), (xk, xv)
 
 
 def _decoder_layer(p, h, enc_out, positions, cfg, *, kernel: str):
     """Returns ``(h, (k, v, xk, xv))``."""
     x = L.rmsnorm(p["ln1"], h, cfg.norm_eps)
     q, k, v = A.qkv_project(p["attn"], x, positions, cfg)
-    o = A.self_attention(q, k, v, causal=True, kernel=kernel)
+    o = A.self_attention(q, *A.kv_for_q(q, k, v, cfg), causal=True,
+                         kernel=kernel)
     h = h + A.out_project(p["attn"], o)
-    xk, xv = _cross_kv(p["xattn"], enc_out)
-    h = _cross(p, h, xk, xv, cfg)
+    h, (xk, xv) = _cross(p, h, enc_out, cfg)
     x = L.rmsnorm(p["ln2"], h, cfg.norm_eps)
     return h + L.ffn(p["ffn"], x, cfg.activation), (k, v, xk, xv)
 
@@ -112,7 +125,7 @@ def train_loss(params, batch, cfg: ModelConfig, *, kernel: str,
                parts=None):
     logits, _ = forward(params, batch["tokens"], batch["frames"], cfg,
                         kernel=kernel)
-    ce = L.cross_entropy(logits, batch["labels"])
+    ce = T.loss_ce(logits, batch["labels"], cfg)
     share = shd.rows_share(batch["tokens"].shape[0])
     if share != 1.0:
         ce = ce * share
@@ -125,18 +138,24 @@ def train_loss(params, batch, cfg: ModelConfig, *, kernel: str,
 # --------------------------------------------------------------------------
 # serving
 # --------------------------------------------------------------------------
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device,
+               grid=None):
     """Self-attention keys/values (``k``, ``v``) and the encoder's
-    cross-attention ones (``xk``, ``xv``), stacked over decoder layers."""
+    cross-attention ones (``xk``, ``xv``), stacked over decoder layers —
+    on ``grid``, the rank's rows and blocks, and ``"cache_len"``."""
     hd, hkv = cfg.resolved_head_dim, cfg.num_kv_heads
     dt = cfg.tdtype
     kv_axes = T.kv_cache_axes(cfg)
     self_shape = (cfg.num_layers, batch, cache_len, hkv, hd)
     cross_shape = (cfg.num_layers, batch, cfg.encoder_seq, hkv, hd)
-    cache = {name: torch.zeros(shape, dtype=dt, device=device)
+    cache = {name: torch.zeros(shd.rows_block_shape(shape, kv_axes, grid),
+                               dtype=dt, device=device)
              for name, shape in (("k", self_shape), ("v", self_shape),
                                  ("xk", cross_shape), ("xv", cross_shape))}
-    return cache, {name: kv_axes for name in cache}
+    axes = {name: kv_axes for name in cache}
+    if grid is not None:
+        cache["cache_len"] = cache_len
+    return cache, axes
 
 
 def prefill(params, tokens, frames, cfg: ModelConfig, *, kernel: str,
@@ -151,18 +170,29 @@ def prefill(params, tokens, frames, cfg: ModelConfig, *, kernel: str,
                          f"prompt ({s})")
     positions = T._positions(b, s, tokens.device)
     h = T.embed_tokens(params, tokens, cfg)
-    kv = {"k": [], "v": [], "xk": [], "xv": []}
-    for lp in params["decoder"]:
-        h, (k, v, xk, xv) = _decoder_layer(lp, h, enc_out, positions, cfg,
-                                           kernel=kernel)
-        for name, t in (("k", k), ("v", v), ("xk", xk), ("xv", xv)):
-            kv[name].append(t)
-    cache = {name: torch.stack(ts) for name, ts in kv.items()}
-    for name in ("k", "v"):
-        pad = torch.zeros((cfg.num_layers, b, cache_len, *k.shape[2:]),
-                          dtype=k.dtype, device=k.device)
-        pad[:, :, :s] = cache[name]
-        cache[name] = pad
+    grid = shd.active_grid()
+    if grid is None:
+        kv = {"k": [], "v": [], "xk": [], "xv": []}
+        for lp in params["decoder"]:
+            h, (k, v, xk, xv) = _decoder_layer(lp, h, enc_out, positions,
+                                               cfg, kernel=kernel)
+            for name, t in (("k", k), ("v", v), ("xk", xk), ("xv", xv)):
+                kv[name].append(t)
+        cache = {name: torch.stack(ts) for name, ts in kv.items()}
+        for name in ("k", "v"):
+            pad = torch.zeros((cfg.num_layers, b, cache_len, *k.shape[2:]),
+                              dtype=k.dtype, device=k.device)
+            pad[:, :, :s] = cache[name]
+            cache[name] = pad
+    else:  # the rank's blocks, written as the layers run
+        cache, _ = init_cache(cfg, b, cache_len, tokens.device, grid)
+        for i, lp in enumerate(params["decoder"]):
+            h, (k, v, xk, xv) = _decoder_layer(lp, h, enc_out, positions,
+                                               cfg, kernel=kernel)
+            A.write_cache(cache["k"][i], cache["v"][i], k, v, 0, cfg,
+                          cache_len)
+            A.write_cache(cache["xk"][i], cache["xv"][i], xk, xv, 0, cfg,
+                          cfg.encoder_seq)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return T.lm_logits(params, h[:, -1:, :], cfg), cache
 
@@ -173,13 +203,22 @@ def decode_step(params, cache, token, pos: int, cfg: ModelConfig):
     h = T.embed_tokens(params, token, cfg)
     positions = torch.full((token.shape[0], 1), pos, dtype=torch.int32,
                            device=token.device)
+    cache_len = cache.get("cache_len", cache["k"].shape[2])
     for i, lp in enumerate(params["decoder"]):
         x = L.rmsnorm(lp["ln1"], h, cfg.norm_eps)
         q, k, v = A.qkv_project(lp["attn"], x, positions, cfg)
-        A.update_cache(cache["k"][i], cache["v"][i], k, v, pos)
-        o = A.decode_attention(q, cache["k"][i], cache["v"][i], pos + 1)
+        A.write_cache(cache["k"][i], cache["v"][i], k, v, pos, cfg,
+                      cache_len)
+        o = A.cached_attention(q, cache["k"][i], cache["v"][i], pos + 1,
+                               cfg, cache_len)
         h = h + A.out_project(lp["attn"], o)
-        h = _cross(lp, h, cache["xk"][i], cache["xv"][i], cfg)
+        q, _ = _cross_q(lp, h, cfg)
+        if shd.active_grid() is None:
+            o = A.full_attention(q, cache["xk"][i], cache["xv"][i])
+        else:
+            o = A.cached_attention(q, cache["xk"][i], cache["xv"][i],
+                                   cfg.encoder_seq, cfg, cfg.encoder_seq)
+        h = h + A.out_project(lp["xattn"], o)
         x = L.rmsnorm(lp["ln2"], h, cfg.norm_eps)
         h = h + L.ffn(lp["ffn"], x, cfg.activation)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)

@@ -5,10 +5,18 @@ A model's parameters form a tree of :class:`ParamNode` modules that mirrors
 the JAX package's parameter dict key for key: a node holds named leaf
 parameters (each with its logical axes and its init rule) and child nodes,
 and reads like a dict (``p["wq"]``, ``"bq" in p``).  The compute functions
-are plain functions on tensors and on such nodes; each casts a weight to
-the compute dtype where the JAX package does (:func:`cast`).  A served
+are plain functions on tensors and on such nodes; each reads a weight in
+the compute dtype where the JAX package casts it (:func:`use`).  A served
 model reads a tree whose weights are already in the compute dtype
 (:func:`compute_state`, kept by the model), so those casts are no-ops.
+
+On a grid of ranks (``dist.sharding.RankGrid`` or ``TracedGrid``) a node
+holds each leaf's block under the grid's rules, and :func:`use` casts the
+block and then gathers its FSDP dims (the wire carries the compute
+dtype), leaving the tensor-parallel dims on ``model`` as blocks: the
+products are Megatron's column- and row-parallel ones (``copy_to`` in,
+``reduce_from`` out), the embedding a vocab-parallel lookup and the loss
+a cross-entropy over vocab shards.
 """
 from __future__ import annotations
 
@@ -42,10 +50,10 @@ class ParamNode(nn.Module):
     """A node of the parameter tree: leaf parameters and child nodes, in
     the order they were given, read by key like the JAX package's dicts.
 
-    On a ``dist.sharding.RankGrid`` (``mesh=``) each leaf is held at its
-    local shape, the block of the rank's coordinates under
-    ``RankGrid.param_spec`` (the experts' dim on the model axis); the
-    init fills it with that block of the one-process init's draw."""
+    On a grid of ranks (``mesh=``) each leaf is held at its local shape,
+    the block of the rank's coordinates under the grid's ``param_spec``
+    (the JAX rules' spec, divisibility fallback included); the init fills
+    it with that block of the one-process init's draw."""
 
     def __init__(self, leaves: dict | None = None,
                  children: dict | None = None, *, dtype=torch.float32,
@@ -54,20 +62,60 @@ class ParamNode(nn.Module):
         self._leaves: dict[str, Leaf] = {}
         self._order: list[str] = []
         self._slices: dict[str, tuple] = {}
+        self._specs: dict[str, tuple] = {}
         for name, leaf in (leaves or {}).items():
             self._leaves[name] = leaf
             self._order.append(name)
-            shape = leaf.shape
-            spec = () if mesh is None else mesh.param_spec(shape, leaf.axes)
-            if spec:
-                self._slices[name] = mesh.local_slice(shape, spec)
-                shape = mesh.local_shape(shape, spec)
             self.register_parameter(name, nn.Parameter(
-                torch.empty(shape, dtype=dtype, device=device),
-                requires_grad=False))
+                torch.empty(self._place(name, mesh), dtype=dtype,
+                            device=device), requires_grad=False))
         for name, child in (children or {}).items():
             self._order.append(name)
             self.add_module(name, child)
+
+    def _place(self, name: str, mesh) -> tuple:
+        """Records leaf ``name``'s spec and block on ``mesh`` → its local
+        shape."""
+        leaf = self._leaves[name]
+        spec = () if mesh is None else mesh.param_spec(leaf.shape, leaf.axes)
+        self._specs[name] = spec
+        self._slices.pop(name, None)
+        if not spec:
+            return leaf.shape
+        self._slices[name] = mesh.local_slice(leaf.shape, spec)
+        return mesh.local_shape(leaf.shape, spec)
+
+    def spec(self, name: str) -> tuple:
+        """Leaf ``name``'s spec on the node's grid (() off a grid)."""
+        return self._specs.get(name, ())
+
+    def leaf(self, name: str) -> Leaf:
+        return self._leaves[name]
+
+    @torch.no_grad()
+    def relayout_(self, old, new, extra=()) -> None:
+        """Re-lays every leaf under this node from grid ``old`` onto grid
+        ``new`` (None on a rank outside it): each leaf whole from the
+        blocks of every rank of ``old`` (``gather_whole``, collective over
+        ``old``: every one of its ranks calls it), then its block on
+        ``new``.  ``extra`` (dicts name → block, keyed as
+        ``named_parameters``) are re-laid alike, in place."""
+        for prefix, mod in self.named_modules():
+            if not isinstance(mod, ParamNode):
+                continue
+            for k in mod._leaves:
+                name = f"{prefix}.{k}" if prefix else k
+                spec = mod.spec(k)
+                blocks = [getattr(mod, k)] + [d[name] for d in extra]
+                whole = [old.gather_whole(b, spec) for b in blocks]
+                shape = mod._place(k, new)
+                if new is None:
+                    continue
+                sl = mod._slices.get(k, (slice(None),) * len(shape))
+                mod._parameters[k] = nn.Parameter(
+                    whole[0][sl].contiguous(), requires_grad=False)
+                for d, w in zip(extra, whole[1:]):
+                    d[name] = w[sl].contiguous()
 
     def __getitem__(self, key):
         if key not in self._order:
@@ -133,6 +181,43 @@ def cast(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return p if p.dtype == dtype else p.to(dtype)
 
 
+def use(p, name: str, dtype=None, *, partial: bool | None = None):
+    """Leaf ``name`` of node ``p`` (a :class:`ParamNode`, or a dict of
+    tensors) in ``dtype``, as a rank uses it: on a grid, its block cast
+    and then gathered over the axes the batch's rows split over
+    (``dist.sharding.gather_leaf``; ``partial`` overrides whether its
+    gradient comes back reduce-scattered), its tensor-parallel dims left
+    as blocks."""
+    w = p[name]
+    if dtype is not None:
+        w = cast(w, dtype)
+    spec = p.spec(name) if isinstance(p, ParamNode) else ()
+    if not spec:
+        return w
+    grid = shd.active_grid()
+    if grid is None:
+        raise ValueError(f"{name} is a rank's block of a grid: run the model "
+                         f"under activation_sharding(grid, rules, batch=...)")
+    return shd.gather_leaf(w, spec, p.leaf(name).axes, grid,
+                           partial=partial)
+
+
+def full_dim(p, name: str, dim: int) -> int:
+    """The whole size of dim ``dim`` of leaf ``name`` of ``p``."""
+    if isinstance(p, ParamNode):
+        return p.leaf(name).shape[dim]
+    return p[name].shape[dim]
+
+
+def tp_split(p, name: str, w, dim: int):
+    """The active grid when ``w`` (leaf ``name`` of ``p`` as :func:`use`
+    gives it) is a block of ``dim`` on ``model`` — a tensor-parallel
+    product — else None."""
+    grid = shd.active_grid()
+    if grid is None or w.shape[dim] == full_dim(p, name, dim):
+        return None
+    return grid
+
 def compute_state(node: ParamNode, dtype: torch.dtype) -> dict:
     """The state dict of ``node``'s tree with every parameter that its uses
     cast to ``dtype`` copied once into ``dtype``; the ``keep_float32`` ones
@@ -167,8 +252,15 @@ def matmul_in(x, w):
 
 
 def dense(p, x):
-    """x (..., d) against kernel (d, *out) → (..., *out)."""
-    return matmul_in(x, cast(p["kernel"], x.dtype))
+    """x (..., d) against kernel (d, *out) → (..., *out).  Column-parallel
+    on a grid where the kernel's output dims are a block on ``model``: the
+    output is gathered whole."""
+    w = use(p, "kernel", x.dtype)
+    grid = tp_split(p, "kernel", w, -1)
+    if grid is None:
+        return matmul_in(x, w)
+    out = matmul_in(shd.copy_to(x, grid), w)
+    return shd.gather(out, grid, "model", -1)
 
 
 # --------------------------------------------------------------------------
@@ -184,7 +276,7 @@ def rmsnorm(p, x, eps: float):
     xf = x.to(torch.float32)
     var = (xf * xf).sum(dim=-1, keepdim=True) / x.shape[-1]
     inv = torch.rsqrt(var + eps).to(x.dtype)  # (..., 1), rowwise
-    return x * inv * cast(p["scale"], x.dtype)
+    return x * inv * use(p, "scale", x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -224,14 +316,21 @@ _BSF = (shd.BATCH, None, shd.TENSOR)  # ffn hidden
 
 
 def ffn(p, x, activation: str):
+    """Column-parallel ``wi`` / ``wg`` and row-parallel ``wo`` on a grid
+    where d_ff is a block on ``model``."""
     dt = x.dtype
+    wi = use(p, "wi", dt)
+    grid = tp_split(p, "wi", wi, -1)
+    x = shd.copy_to(x, grid)
     if activation == "swiglu":
-        h = F.silu(matmul_in(x, cast(p["wi"], dt)))
-        g = matmul_in(x, cast(p["wg"], dt))
-        return matmul_in(shd.constrain(h * g, _BSF), cast(p["wo"], dt))
-    # jax.nn.gelu's default is the tanh approximation
-    h = F.gelu(matmul_in(x, cast(p["wi"], dt)), approximate="tanh")
-    return matmul_in(shd.constrain(h, _BSF), cast(p["wo"], dt))
+        h = F.silu(matmul_in(x, wi))
+        g = matmul_in(x, use(p, "wg", dt))
+        out = matmul_in(shd.constrain(h * g, _BSF), use(p, "wo", dt))
+    else:
+        # jax.nn.gelu's default is the tanh approximation
+        h = F.gelu(matmul_in(x, wi), approximate="tanh")
+        out = matmul_in(shd.constrain(h, _BSF), use(p, "wo", dt))
+    return shd.reduce_from(out, grid)
 
 
 # --------------------------------------------------------------------------
@@ -241,17 +340,44 @@ def embed_leaves(vocab: int, d: int) -> dict:
     return {"table": normal((vocab, d), (shd.VOCAB, None), 1.0)}
 
 
+def vocab_lo(p, table) -> int:
+    """The first vocabulary row of ``table`` (leaf ``table`` of ``p`` as
+    :func:`use` gives it): 0 unless it is a block on ``model``."""
+    grid = tp_split(p, "table", table, 0)
+    return 0 if grid is None else grid.model_index * table.shape[0]
+
+
 def embed(p, tokens, dtype, *, iota: bool = False):
-    table = cast(p["table"], dtype)
+    """The lookup; on a grid whose ``model`` axis holds a block of the
+    vocabulary, vocab-parallel: a token outside the rank's rows reads 0,
+    and the rows are summed over ``model`` (exact: one term is
+    nonzero)."""
+    table = use(p, "table", dtype)
+    grid = tp_split(p, "table", table, 0)
+    ids = tokens.long()
+    if grid is None:
+        if iota:
+            # the one-hot matmul form (the JAX package's GSPMD-friendly
+            # lookup)
+            oh = F.one_hot(ids, table.shape[0]).to(dtype)
+            return oh @ table
+        return table[ids]
+    n = table.shape[0]
+    local = ids - vocab_lo(p, table)
     if iota:
-        # the one-hot matmul form (the JAX package's GSPMD-friendly lookup)
-        oh = F.one_hot(tokens.long(), table.shape[0]).to(dtype)
-        return oh @ table
-    return table[tokens.long()]
+        oh = (local[..., None] == torch.arange(n, device=ids.device))
+        out = oh.to(dtype) @ table
+    else:
+        inside = (local >= 0) & (local < n)
+        out = table[local.clamp(0, n - 1)] * inside[..., None].to(dtype)
+    return shd.reduce_from(out, grid)
 
 
 def unembed(p, x):
-    return x @ cast(p["table"], x.dtype).T
+    """Logits ``x @ tableᵀ``: on a grid, the rank's vocabulary block
+    (``vocab_lo``), ``x`` entering through ``copy_to``."""
+    table = use(p, "table", x.dtype)
+    return shd.copy_to(x, tp_split(p, "table", table, 0)) @ table.T
 
 
 class BF16Cotangent(torch.autograd.Function):
@@ -272,14 +398,55 @@ def maybe_bf16_cotangent(x, enabled: bool):
     return BF16Cotangent.apply(x) if enabled else x
 
 
-def cross_entropy(logits, labels, *, z_loss: float = 1e-4):
-    """Mean CE over tokens with a z-loss, in float32."""
+def cross_entropy(logits, labels, *, z_loss: float = 1e-4, grid=None,
+                  lo: int = 0):
+    """Mean CE over tokens with a z-loss, in float32.  With ``grid``,
+    ``logits`` are the rank's vocabulary block from row ``lo``: the
+    logsumexp's max is a MAX over ``model``, the exp-sum and the target
+    logit SUMs (``reduce_from``)."""
     lf = logits.to(torch.float32)
     m = lf.amax(dim=-1, keepdim=True).detach()  # JAX's stop_gradient
+    if grid is not None:
+        m = grid.all_reduce(m.contiguous(), "max", axis="model")
     shifted = lf - m
-    lse = torch.log(torch.exp(shifted).sum(dim=-1)) + m[..., 0]
-    gold = torch.take_along_dim(lf, labels.long()[..., None], dim=-1)[..., 0]
+    se = torch.exp(shifted).sum(dim=-1)
+    ids = labels.long()
+    if grid is None:
+        gold = torch.take_along_dim(lf, ids[..., None], dim=-1)[..., 0]
+    else:
+        n = lf.shape[-1]
+        local = ids - lo
+        inside = ((local >= 0) & (local < n)).to(lf.dtype)
+        gold = torch.take_along_dim(lf, local.clamp(0, n - 1)[..., None],
+                                    dim=-1)[..., 0] * inside
+        se, gold = shd.reduce_from(se, grid), shd.reduce_from(gold, grid)
+    lse = torch.log(se) + m[..., 0]
     loss = (lse - gold).mean()
     if z_loss:
         loss = loss + z_loss * (lse * lse).mean()
     return loss
+
+
+def vocab_argmax(logits, full: int):
+    """The index of the largest logit over the last dim, ties to the
+    smallest index (``torch.argmax``'s): on a grid whose ``model`` axis
+    holds a block of the ``full`` vocabulary, a MAX over ``model`` of the
+    ranks' largest values and a MIN of the indices that reach it."""
+    grid = shd.active_grid()
+    n = logits.shape[-1]
+    if grid is None or n == full:
+        return torch.argmax(logits, dim=-1)
+    val, idx = torch.max(logits, dim=-1)
+    best = grid.all_reduce(val.clone(), "max", axis="model")
+    idx = torch.where(val == best, idx + grid.model_index * n,
+                      torch.full_like(idx, full))
+    return grid.all_reduce(idx, "min", axis="model")
+
+
+def vocab_whole(logits, full: int):
+    """``logits`` over the whole ``full`` vocabulary: a block on ``model``
+    gathered."""
+    grid = shd.active_grid()
+    if grid is None or logits.shape[-1] == full:
+        return logits
+    return shd.gather(logits, grid, "model", -1)

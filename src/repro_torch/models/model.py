@@ -13,12 +13,16 @@ parameters held by the model (an ``nn.Module`` tree)::
 ``batch`` keys: tokens, labels (+ frames for encdec, patch_embeds for
 vlm).
 
-``mesh=`` a ``dist.sharding.RankGrid`` holds each parameter at its local
-shape on the grid (``RankGrid.param_spec``: the experts' dim on the model
-axis, every other dim whole) and runs under
-``activation_sharding(grid, rules, batch=B)`` on the rank's rows of a
-global batch of B rows; the init from a seed gives each rank the block of
-the one-process init.
+``mesh=`` a grid of ranks (``dist.sharding.RankGrid``, or the dry run's
+``TracedGrid``) holds each parameter at its local shape on the grid (its
+``param_spec``: the JAX rules' spec under the grid's strategy, so FSDP on
+the data axes and TENSOR, HEADS, KV_HEADS, VOCAB and EXPERT on ``model``
+under ``"2d"``) and runs under ``activation_sharding(grid, rules,
+batch=B)`` on the rank's rows of a global batch of B rows: FSDP dims are
+gathered at use, the tensor-parallel ones computed Megatron's way
+(``models/layers.py``); logits are the rank's vocabulary block and caches
+its blocks.  The init from a seed gives each rank the block of the
+one-process init.
 
 ``kernel="cuda"`` (the default) runs prefill and the forward pass through
 the flash-attention and SSD chunk kernels — on CPU tensors their plain
@@ -40,6 +44,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.models import encdec, transformer
 from repro_torch.models import layers as L
@@ -98,20 +103,27 @@ class Model(L.ParamNode):
         """The parameters this process holds (its blocks on a grid)."""
         return sum(p.numel() for p in self.parameters())
 
-    def sharded_names(self) -> set:
-        """Names of the parameters held as a block of their shape on the
-        grid (the experts' weights on the model axis); empty off a grid."""
-        out = set()
+    def leaf_specs(self) -> dict:
+        """Each parameter's spec on the grid, by ``state_dict`` name (()
+        for a whole one; every one off a grid)."""
+        out = {}
         for prefix, mod in self.named_modules():
             if isinstance(mod, L.ParamNode):
-                out.update(f"{prefix}.{k}" if prefix else k
-                           for k in mod.sliced())
+                for k in mod._leaves:
+                    out[f"{prefix}.{k}" if prefix else k] = mod.spec(k)
         return out
 
-    def remesh(self, mesh) -> None:
-        """Runs the same local parameters on ``mesh``, a survivor grid that
-        keeps this rank's coordinates on the placed axes (the model axis:
-        ``RankGrid.survivors``); the compute-dtype copies are dropped."""
+    def remesh(self, mesh, opt_state=None) -> None:
+        """Re-lays the parameters (and ``opt_state``'s m and v, in place)
+        from this model's grid onto ``mesh``, a survivor grid
+        (``RankGrid.survivors``): every rank of the old grid calls it, the
+        ranks outside ``mesh`` included — each leaf is gathered whole from
+        every old rank's block (``ParamNode.relayout_``) and the rank keeps
+        its block on ``mesh``.  The compute-dtype copies are dropped."""
+        extra = () if opt_state is None else (opt_state["m"],
+                                              opt_state["v"])
+        new = None if getattr(mesh, "idle", False) else mesh
+        self.relayout_(self.mesh, new, extra)
         self.mesh = mesh
         self._compute.clear()
 
@@ -181,9 +193,14 @@ class Model(L.ParamNode):
         return family.decode_step(self.served(), cache, token, pos, self.cfg)
 
     def init_cache(self, batch: int, cache_len: int):
+        """The decode cache of a global batch of ``batch`` rows (on a grid,
+        the rank's rows and blocks)."""
         family = encdec if self.cfg.family == "encdec" else transformer
+        grid = shd.grid_of(self.mesh)
+        if grid is not None and grid.rows_split(batch):
+            batch //= grid.row_size
         return family.init_cache(self.cfg, batch, cache_len,
-                                 self.embed.table.device)
+                                 self.embed.table.device, grid)
 
 
 def check_kernel_shapes(cfg: ModelConfig) -> None:

@@ -24,6 +24,11 @@ and sums the combine over its data row (``reduce_from_model``), the one
 collective JAX's psum is.  The tokens and gates enter through
 ``copy_to_model``, so their gradient is summed over the row.  The aux
 loss is the global batch's, as JAX computes it before its ``shard_map``.
+The router (FSDP, None) and the experts' FSDP dim are gathered over data
+before use (``layers.use``).  Under ``"fsdp"``, where the rows split over
+``model`` too, a rank routes its own tokens and the row's are gathered
+over ``model`` (the data shard's, as JAX's layout takes them); it keeps
+its own rows of the output.
 """
 from __future__ import annotations
 
@@ -60,13 +65,14 @@ def capacity_for(tokens: int, cfg) -> int:
 
 def _route(p, xf, cfg, grid=None, t=None):
     """Router: top-k experts, normalized gates and the Switch aux loss.
-    With ``grid`` the rank's tokens are its data shard of ``t`` tokens:
-    the loss's per-expert mean probability and assignment share are the
-    global batch's, summed over the data axes (the probabilities' sum
-    with the gradient passed on as is, the counts without one)."""
+    With ``grid`` the rank's tokens are its shard of ``t`` tokens over the
+    grid's batch axes: the loss's per-expert mean probability and
+    assignment share are the global batch's, summed over them (the
+    probabilities' sum with the gradient passed on as is, the counts
+    without one)."""
     e, k = cfg.num_experts, cfg.experts_per_token
     t = xf.shape[0] if t is None else t
-    logits = xf.to(torch.float32) @ p["router"].to(torch.float32)
+    logits = xf.to(torch.float32) @ L.use(p, "router", torch.float32)
     probs = torch.softmax(logits, dim=-1)
     # jax.lax.top_k: the k largest, ties toward the lower index — a stable
     # descending sort gives the same order
@@ -84,9 +90,9 @@ def _route(p, xf, cfg, grid=None, t=None):
     if grid is None:
         me = probs.mean(dim=0)
     else:
-        me = shd.reduce_from(probs.sum(dim=0), grid, "data") / t
+        me = shd.reduce_from(probs.sum(dim=0), grid, grid.row_axis) / t
         with torch.no_grad():
-            counts = grid.all_reduce(counts, axis="data")
+            counts = grid.all_reduce(counts, axis=grid.row_axis)
     aux = e * torch.sum(me * (counts / (t * k)))
     return gate_vals, expert_ids, aux
 
@@ -124,14 +130,15 @@ def _combine_local(ye, ids, gates, rank, kept, d: int):
                      * gates.reshape(t, k, 1).to(ye.dtype), dim=1)
 
 
-def _expert_compute(p, xe, cfg):
+def _expert_compute(p, xe, cfg, partial=None):
+    """The experts' batched products; ``partial`` as ``layers.use``."""
     dt = xe.dtype
-    h = torch.bmm(xe, L.cast(p["wi"], dt))
+    h = torch.bmm(xe, L.use(p, "wi", dt, partial=partial))
     if cfg.activation == "swiglu":
-        h = F.silu(h) * torch.bmm(xe, L.cast(p["wg"], dt))
+        h = F.silu(h) * torch.bmm(xe, L.use(p, "wg", dt, partial=partial))
     else:
         h = F.gelu(h, approximate="tanh")
-    return torch.bmm(h, L.cast(p["wo"], dt))
+    return torch.bmm(h, L.use(p, "wo", dt, partial=partial))
 
 
 def moe_ffn(p, x, cfg, *, return_aux: bool = False, stats=None):
@@ -201,9 +208,9 @@ def _moe_ranks(p, xf, bsz: int, cfg, grid, stats):
       rank's tokens are its data shard, capacity ``capacity_for(t/dp)``;
     * rows held whole, dp divides t (dp > 1): the rank takes its block of
       the tokens (``take_block``: the gradient comes back whole) and the
-      experts' gradient is summed over data (``copy_to``), so every leaf's
-      gradient is whole on every rank, as for replicated rows; the blocks'
-      outputs are gathered over data;
+      experts' gradient, a part on each data rank, is reduce-scattered by
+      their FSDP gather (``partial``), so every leaf's gradient is whole,
+      as for replicated rows; the blocks' outputs are gathered over data;
     * rows held whole otherwise: every token, capacity ``capacity_for(t)``
       (JAX's local path, its experts summed over the row).
 
@@ -217,13 +224,29 @@ def _moe_ranks(p, xf, bsz: int, cfg, grid, stats):
         raise ValueError("a RankGrid's activation_sharding needs batch= "
                          "(the rows of the global batch)")
     split = grid.rows_split(rows)
-    want = rows // grid.dp if split else rows
+    want = rows // grid.row_size if split else rows
     if bsz != want:
         raise ValueError(f"{bsz} rows on rank {grid.rank}, expected {want} "
                          f"of a {rows}-row batch on {grid.shape}")
+    t = xf.shape[0] * grid.row_size if split else xf.shape[0]
+    gates, ids, aux = _route(p, xf, cfg, grid if split else None, t)
+    if split and grid.row_axis != "data" and grid.mp > 1:
+        # "fsdp": the row's tokens, the data shard's
+        own = xf.shape[0]
+        xf, gates, ids = (shd.gather_blocks(a, grid, "model")
+                          for a in (xf, gates, ids))
+        out = _moe_data_shards(p, xf, gates, ids, cfg, grid, True, stats)
+        assert out.shape[0] == own * grid.mp
+        return shd.take_block(out, grid, "model"), aux
+    return _moe_data_shards(p, xf, gates, ids, cfg, grid, split, stats), aux
+
+
+def _moe_data_shards(p, xf, gates, ids, cfg, grid, split, stats):
+    """:func:`_moe_ranks` once the rank holds its data shard's tokens
+    (``split``) or every token → its output rows."""
+    e = cfg.num_experts
     t_loc = xf.shape[0]
     t = t_loc * grid.dp if split else t_loc
-    gates, ids, aux = _route(p, xf, cfg, grid if split else None, t)
     layout = e % grid.mp == 0
     want_e = e // grid.mp if layout else e
     if p["wi"].shape[0] != want_e:
@@ -232,26 +255,28 @@ def _moe_ranks(p, xf, bsz: int, cfg, grid, stats):
     if not layout:
         if not split:
             return _moe_local(p, xf, gates, ids, cfg, capacity_for(t, cfg),
-                              stats), aux
+                              stats)
         lo = grid.data_index * t_loc
         out = _moe_local(p, shd.gather_blocks(xf, grid), shd.gather_blocks(
             gates, grid), shd.gather_blocks(ids, grid), cfg,
             capacity_for(t, cfg), stats)
-        return out[lo:lo + t_loc], aux
+        return out[lo:lo + t_loc]
     if split:
         return _expert_layout(p, xf, gates, ids, cfg, grid,
-                              capacity_for(t_loc, cfg), stats, True), aux
+                              capacity_for(t_loc, cfg), stats, True)
     if grid.dp > 1 and t % grid.dp == 0:
         per = t // grid.dp
         lo = grid.data_index * per
-        pp = {name: shd.copy_to(p[name], grid, "data")
+        # each data rank computes the experts on its block of the tokens:
+        # their gradients are parts, reduce-scattered over data
+        pp = {name: L.use(p, name, xf.dtype, partial=True)
               for name in ("wi", "wg", "wo") if name in p}
         out = _expert_layout(pp, shd.take_block(xf, grid),
                              shd.take_block(gates, grid), ids[lo:lo + per],
                              cfg, grid, capacity_for(per, cfg), stats, True)
-        return shd.gather_blocks(out, grid), aux
+        return shd.gather_blocks(out, grid)
     return _expert_layout(p, xf, gates, ids, cfg, grid, capacity_for(t, cfg),
-                          stats, False), aux
+                          stats, False)
 
 
 def _expert_layout(p, xf, gates, ids, cfg, grid, cap: int, stats,

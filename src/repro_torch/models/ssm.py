@@ -59,6 +59,68 @@ def _split_proj(cfg, zxbcdt):
     return torch.split(zxbcdt, [di, di, g * n, g * n, nh], dim=-1)
 
 
+def _heads(cfg):
+    """``(grid, lo, hi)``: the rank's SSD heads [lo, hi) — its block where
+    the active grid puts TENSOR on ``model`` and ``model`` divides the
+    heads (d_inner's blocks are then head-aligned), with the grid — else
+    every head and None.  Raises ``ValueError`` for heads split so with
+    more than one SSM group (a rank's local head would map to its group
+    by its local index)."""
+    grid = shd.active_grid()
+    nh = cfg.ssm_heads
+    if grid is None or grid.mp == 1 or nh % grid.mp \
+            or "model" not in shd._mesh_axes_for(grid.rules, shd.TENSOR):
+        return None, 0, nh
+    if cfg.ssm_groups > 1:
+        raise ValueError(f"{cfg.name}: {cfg.ssm_groups} SSM groups cannot "
+                         f"be laid over heads split on the model axis")
+    per = nh // grid.mp
+    return grid, grid.model_index * per, (grid.model_index + 1) * per
+
+
+def _fit(p, name, w, dim, ranges, grid, partial):
+    """Leaf ``name`` (``w`` as ``layers.use`` gives it) cut to ``ranges``
+    of ``dim`` (``dist.sharding.fit_block``); as is off a grid."""
+    grid = grid or shd.active_grid()
+    if grid is None:
+        return w
+    return shd.fit_block(w, grid, dim, ranges, L.full_dim(p, name, dim),
+                         partial=partial)
+
+
+def _proj(p, hidden, cfg, tp):
+    """The packed ``[z, x, B, C, dt]`` projection, whole on every rank.
+    ``in_proj`` is (FSDP, TENSOR): a rank computes its contiguous column
+    block and the blocks are gathered over ``model`` (JAX's HLO re-lays
+    them with a collective-permute and an all-to-all); ``tp``: the grid
+    when the ranks then read different heads of it."""
+    w = L.use(p, "in_proj", hidden.dtype)
+    col = L.tp_split(p, "in_proj", w, 1)
+    grid = col or tp
+    if grid is not None:
+        hidden = shd.copy_to(hidden, grid)
+        if col is None:
+            w = shd.copy_to(w, grid)
+    zxbcdt = L.matmul_in(hidden, w)
+    if col is not None:
+        zxbcdt = shd.gather(zxbcdt, col, "model", -1,
+                            partial=tp is not None)
+    return zxbcdt
+
+
+def _conv_block(t, cfg):
+    """The rank's block of the conv tail's channels, as the SSM cache
+    holds it (TENSOR on ``model``, where it divides the channels)."""
+    grid = shd.active_grid()
+    ch = conv_channels(cfg)
+    if grid is None:
+        return t
+    n = shd.rows_block_shape(t.shape, ssm_cache_axes(cfg)["conv"], grid)[-1]
+    if n == ch:
+        return t
+    return t[..., grid.model_index * n:(grid.model_index + 1) * n]
+
+
 def _causal_conv(xbc, conv_w):
     """Depthwise causal conv: xbc (B, S, C), conv_w (K, C)."""
     k = conv_w.shape[0]
@@ -68,9 +130,17 @@ def _causal_conv(xbc, conv_w):
     return F.silu(out)
 
 
-def _gated_norm(x, z, scale, eps):
+def _gated_norm(x, z, scale, eps, tp=None, width=None):
+    """RMS norm of x·silu(z) over d_inner: with ``tp`` the rank holds a
+    block of ``width`` channels, so its sum of squares is summed over
+    ``model`` — and so is its gradient, since each rank's output reads the
+    sum."""
     xf = (x * F.silu(z)).to(torch.float32)
-    var = (xf * xf).mean(dim=-1, keepdim=True)
+    if tp is None:
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+    else:
+        var = shd.copy_to(shd.reduce_from(
+            (xf * xf).sum(dim=-1, keepdim=True), tp), tp) / width
     return (xf * torch.rsqrt(var + eps)
             * scale.to(torch.float32)).to(x.dtype)
 
@@ -88,46 +158,84 @@ def chunk_for(cfg, s: int) -> int:
     return chunk
 
 
+def _head_params(p, cfg, tp, lo, hi):
+    """a (the decay rates), dt_bias and d_skip of heads [lo, hi), float32;
+    summed over ``model`` in the backward where the ranks read different
+    heads."""
+    out = []
+    for name in ("a_log", "dt_bias", "d_skip"):
+        w = L.use(p, name, torch.float32)
+        out.append(_fit(p, name, w, 0, [(lo, hi)], tp, tp is not None))
+    a_log, dt_bias, d_skip = out
+    return -torch.exp(a_log), dt_bias, d_skip
+
+
+def _out(p, y, z, cfg, tp, lo, hi):
+    """The gated norm and ``out_proj`` ((TENSOR, FSDP): row-parallel over
+    the heads' channels) of the rank's heads."""
+    hd = cfg.ssm_head_dim
+    rng = [(lo * hd, hi * hd)]
+    scale = _fit(p, "norm_scale", L.use(p, "norm_scale"), 0, rng, tp,
+                 tp is not None)
+    y = _gated_norm(y, z, scale, cfg.norm_eps, tp, cfg.d_inner)
+    w = _fit(p, "out_proj", L.use(p, "out_proj", y.dtype), 0, rng, tp,
+             tp is not None)
+    return shd.reduce_from(L.matmul_in(y, w), tp)
+
+
 def _ssd(p, hidden, cfg, kernel: str, final_state: bool):
-    """The block up to the gated norm's input: ``(y, z, tail, state)``."""
+    """The block up to the gated norm's input: ``(y, z, tail, state, tp,
+    lo, hi)`` — on a grid, of the rank's heads [lo, hi) (:func:`_heads`;
+    ``tp`` the grid when they are a block), the conv tail its block of the
+    cache's channels."""
     bsz, s, _ = hidden.shape
     di, n, g, nh, hd = (cfg.d_inner, cfg.ssm_state, cfg.ssm_groups,
                         cfg.ssm_heads, cfg.ssm_head_dim)
-    zxbcdt = L.matmul_in(hidden, L.cast(p["in_proj"], hidden.dtype))
+    tp, lo, hi = _heads(cfg)
+    zxbcdt = _proj(p, hidden, cfg, tp)
     zxbcdt = shd.constrain(zxbcdt, (shd.BATCH, None, shd.TENSOR))
     z, x, b, c, dt = _split_proj(cfg, zxbcdt)
-    xbc_raw = torch.cat([x, b, c], dim=-1)
-    tail = xbc_raw[:, s - (cfg.ssm_conv - 1):, :] if final_state else None
-    xbc = _causal_conv(xbc_raw, L.cast(p["conv_w"], hidden.dtype))
-    x, b, c = torch.split(xbc, [di, g * n, g * n], dim=-1)
+    tail = None
+    if final_state:
+        tail = _conv_block(torch.cat([x, b, c], dim=-1)[
+            :, s - (cfg.ssm_conv - 1):, :], cfg)
+    conv_w = L.use(p, "conv_w", hidden.dtype)
+    if tp is not None:
+        z, x = z[..., lo * hd:hi * hd], x[..., lo * hd:hi * hd]
+        dt = dt[..., lo:hi]
+    conv_w = _fit(p, "conv_w", conv_w, 1,
+                  [(lo * hd, hi * hd), (di, di + 2 * g * n)], tp,
+                  tp is not None)
+    xbc = _causal_conv(torch.cat([x, b, c], dim=-1), conv_w)
+    dl = (hi - lo) * hd
+    x, b, c = torch.split(xbc, [dl, g * n, g * n], dim=-1)
 
-    dt = _softplus(dt.to(torch.float32) + p["dt_bias"].to(torch.float32))
-    a = -torch.exp(p["a_log"].to(torch.float32))  # (H,)
-    xh = x.reshape(bsz, s, nh, hd)
+    a, dt_bias, d_skip = _head_params(p, cfg, tp, lo, hi)
+    dt = _softplus(dt.to(torch.float32) + dt_bias)
+    xh = x.reshape(bsz, s, hi - lo, hd)
     bm = b.reshape(bsz, s, g, n)
     cm = c.reshape(bsz, s, g, n)
     out = ops.ssd_scan(xh, dt, a, bm, cm, chunk=chunk_for(cfg, s),
                        impl=kernel, return_final_state=final_state)
     y, state = out if final_state else (out, None)
-    y = y + p["d_skip"].to(torch.float32)[None, None, :, None] * xh
-    y = y.reshape(bsz, s, di).to(hidden.dtype)
-    return y, z, tail, state
+    y = y + d_skip[None, None, :, None] * xh
+    y = y.reshape(bsz, s, dl).to(hidden.dtype)
+    return y, z, tail, state, tp, lo, hi
 
 
 def ssm_forward(p, hidden, cfg, *, kernel: str = "cuda"):
     """Training/prefill SSD pass. hidden (B, S, D) -> (B, S, D)."""
-    y, z, _, _ = _ssd(p, hidden, cfg, kernel, final_state=False)
-    y = _gated_norm(y, z, p["norm_scale"], cfg.norm_eps)
-    return L.matmul_in(y, L.cast(p["out_proj"], y.dtype))
+    y, z, _, _, tp, lo, hi = _ssd(p, hidden, cfg, kernel, final_state=False)
+    return _out(p, y, z, cfg, tp, lo, hi)
 
 
 def ssm_prefill(p, hidden, cfg, *, kernel: str = "cuda"):
     """Like ``ssm_forward`` but also returns the decode cache: the SSM
     state after the last position (from the kernel path) and the conv tail
     (the raw projections' last d_conv − 1 rows)."""
-    y, z, tail, state = _ssd(p, hidden, cfg, kernel, final_state=True)
-    y = _gated_norm(y, z, p["norm_scale"], cfg.norm_eps)
-    out = L.matmul_in(y, L.cast(p["out_proj"], y.dtype))
+    y, z, tail, state, tp, lo, hi = _ssd(p, hidden, cfg, kernel,
+                                         final_state=True)
+    out = _out(p, y, z, cfg, tp, lo, hi)
     return out, {"ssm": state, "conv": tail.to(hidden.dtype)}
 
 
@@ -148,33 +256,48 @@ def ssm_cache_axes(cfg) -> dict:
 
 
 def ssm_decode_step(p, hidden, cache, cfg):
-    """One-token decode. hidden (B, 1, D); cache from init_ssm_cache.
-    Returns ``(out (B, 1, D), new cache)``."""
+    """One-token decode. hidden (B, 1, D); cache from init_ssm_cache (on a
+    grid, the rank's blocks: its heads' state, its block of the conv
+    tail's channels).  Returns ``(out (B, 1, D), new cache)``."""
     bsz = hidden.shape[0]
     di, n, g, nh, hd = (cfg.d_inner, cfg.ssm_state, cfg.ssm_groups,
                         cfg.ssm_heads, cfg.ssm_head_dim)
-    zxbcdt = L.matmul_in(hidden, L.cast(p["in_proj"], hidden.dtype))[:, 0]
+    tp, lo, hi = _heads(cfg)
+    zxbcdt = _proj(p, hidden, cfg, tp)[:, 0]
     z, x, b, c, dt = _split_proj(cfg, zxbcdt)
     xbc = torch.cat([x, b, c], dim=-1)  # (B, C)
-    window = torch.cat([cache["conv"], xbc[:, None, :]], dim=1)
-    conv_w = L.cast(p["conv_w"], hidden.dtype)
+    conv = cache["conv"]
+    grid = shd.active_grid()
+    if grid is not None and conv.shape[-1] != conv_channels(cfg):
+        conv = shd.gather(conv, grid, "model", -1)
+    window = torch.cat([conv, xbc[:, None, :]], dim=1)
+    new_conv = _conv_block(window[:, 1:, :], cfg)
+    if tp is not None:
+        z, dt = z[..., lo * hd:hi * hd], dt[..., lo:hi]
+        window = torch.cat([window[..., lo * hd:hi * hd],
+                            window[..., di:]], dim=-1)
+    conv_w = _fit(p, "conv_w", L.use(p, "conv_w", hidden.dtype), 1,
+                  [(lo * hd, hi * hd), (di, di + 2 * g * n)], tp,
+                  tp is not None)
     out = torch.einsum("bkc,kc->bc", window, conv_w)
     xbc = F.silu(out)
-    new_conv = window[:, 1:, :]
-    x, b, c = torch.split(xbc, [di, g * n, g * n], dim=-1)
+    dl = (hi - lo) * hd
+    x, b, c = torch.split(xbc, [dl, g * n, g * n], dim=-1)
 
-    dt = _softplus(dt.to(torch.float32) + p["dt_bias"].to(torch.float32))
-    a = -torch.exp(p["a_log"].to(torch.float32))
+    a, dt_bias, d_skip = _head_params(p, cfg, tp, lo, hi)
+    dt = _softplus(dt.to(torch.float32) + dt_bias)
     decay = torch.exp(a[None] * dt)  # (B, H)
-    xh = x.reshape(bsz, nh, hd).to(torch.float32)
+    h_loc = hi - lo
+    xh = x.reshape(bsz, h_loc, hd).to(torch.float32)
     rep = nh // g
-    bm = b.reshape(bsz, g, n).repeat_interleave(rep, dim=1).to(torch.float32)
-    cm = c.reshape(bsz, g, n).repeat_interleave(rep, dim=1).to(torch.float32)
+    bm = b.reshape(bsz, g, n).repeat_interleave(
+        h_loc if g == 1 else rep, dim=1).to(torch.float32)
+    cm = c.reshape(bsz, g, n).repeat_interleave(
+        h_loc if g == 1 else rep, dim=1).to(torch.float32)
     state = cache["ssm"] * decay[..., None, None] + (
         (dt[..., None] * bm)[..., :, None] * xh[..., None, :])  # (B,H,N,P)
     y = torch.einsum("bhn,bhnp->bhp", cm, state)
-    y = y + p["d_skip"].to(torch.float32)[None, :, None] * xh
-    y = y.reshape(bsz, 1, di).to(hidden.dtype)
-    y = _gated_norm(y, z[:, None, :], p["norm_scale"], cfg.norm_eps)
-    out = L.matmul_in(y, L.cast(p["out_proj"], y.dtype))
-    return out, {"ssm": state, "conv": new_conv}
+    y = y + d_skip[None, :, None] * xh
+    y = y.reshape(bsz, 1, dl).to(hidden.dtype)
+    return _out(p, y, z[:, None, :], cfg, tp, lo, hi), {"ssm": state,
+                                                        "conv": new_conv}

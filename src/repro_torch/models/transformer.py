@@ -16,6 +16,13 @@ each layer (each group in the hybrid family) is rematerialized in the
 backward pass (``torch.utils.checkpoint``, non-reentrant) as the JAX
 package's ``jax.checkpoint`` does; its kernels then launch twice a step.
 Serving runs without grad and is unchanged.
+
+On a grid of ranks (``dist.sharding.RankGrid``, or the dry run's
+``TracedGrid``) the stack runs on the rank's rows and parameter blocks
+(``models/layers.py``), its logits are the rank's vocabulary block, and
+its caches are the rank's blocks of the JAX layout (:func:`init_cache`;
+the dict then also holds the whole ``"cache_len"``); greedy decoding
+takes the argmax over the vocabulary's blocks (``layers.vocab_argmax``).
 """
 from __future__ import annotations
 
@@ -144,7 +151,8 @@ def dense_layer_fwd(p, h, positions, cfg: ModelConfig, *, kernel: str,
     and its MoE load loss (0 for a dense FFN)."""
     x = L.rmsnorm(p["ln1"], h, cfg.norm_eps)
     q, k, v = A.qkv_project(p["attn"], x, positions, cfg)
-    o = A.self_attention(q, k, v, causal=causal, kernel=kernel)
+    o = A.self_attention(q, *A.kv_for_q(q, k, v, cfg), causal=causal,
+                         kernel=kernel)
     h = h + A.out_project(p["attn"], o)
     x = L.rmsnorm(p["ln2"], h, cfg.norm_eps)
     if "ffn" in p:
@@ -243,15 +251,34 @@ def embed_tokens(params, tokens, cfg: ModelConfig, *, patch_embeds=None):
     return shd.constrain(h, (shd.BATCH_DP, None, None))
 
 
+def logits_lo(logits, cfg: ModelConfig) -> int:
+    """The first vocabulary column of ``logits``: the rank's block's on a
+    grid whose ``model`` axis splits the vocabulary, else 0."""
+    n = logits.shape[-1]
+    grid = shd.active_grid()
+    return 0 if grid is None or n == cfg.padded_vocab \
+        else grid.model_index * n
+
+
 def lm_logits(params, h, cfg: ModelConfig):
     h = L.maybe_bf16_cotangent(h, cfg.bf16_cotangent)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     logits = L.unembed(table, h)
     if cfg.padded_vocab != cfg.vocab_size:
         # padding columns carry no probability mass
-        col = torch.arange(cfg.padded_vocab, device=logits.device)
+        lo = logits_lo(logits, cfg)
+        col = torch.arange(lo, lo + logits.shape[-1], device=logits.device)
         logits = logits.masked_fill(col >= cfg.vocab_size, -1e30)
     return shd.constrain(logits, (shd.BATCH_DP, None, shd.VOCAB))
+
+
+def loss_ce(logits, labels, cfg: ModelConfig):
+    """The cross-entropy of ``logits`` (the rank's vocabulary block on a
+    grid that splits it)."""
+    lo = logits_lo(logits, cfg)
+    sharded = logits.shape[-1] != cfg.padded_vocab
+    return L.cross_entropy(logits, labels, lo=lo,
+                           grid=shd.active_grid() if sharded else None)
 
 
 def _positions(b: int, s: int, device):
@@ -278,7 +305,7 @@ def train_loss(params, batch, cfg: ModelConfig, *, kernel: str,
     receives both, detached (``"ce"``, ``"aux"``)."""
     logits, aux = forward(params, batch["tokens"], cfg, kernel=kernel,
                           patch_embeds=batch.get("patch_embeds"))
-    ce = L.cross_entropy(logits, batch["labels"])
+    ce = loss_ce(logits, batch["labels"], cfg)
     share = shd.rows_share(batch["tokens"].shape[0])
     if share != 1.0:
         ce = ce * share
@@ -302,29 +329,39 @@ def kv_cache_axes(cfg: ModelConfig, *,
     return ("layers", shd.BATCH, shd.KV_SEQ, None, None)
 
 
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
-    """Decode cache skeleton (zeros) and its logical axes."""
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device,
+               grid=None):
+    """Decode cache skeleton (zeros) and its logical axes: ``batch`` rows
+    of ``cache_len`` positions — on ``grid``, the rank's rows and its
+    block of the rest, and ``"cache_len"`` beside the tensors."""
     hd, hkv = cfg.resolved_head_dim, cfg.num_kv_heads
     dt = cfg.tdtype
     kv_axes = kv_cache_axes(cfg)
     cache: dict[str, Any] = {}
     axes: dict[str, Any] = {}
+
+    def zeros(shape, ax, dtype=dt):
+        return torch.zeros(shd.rows_block_shape(shape, ax, grid), dtype=dtype,
+                           device=device)
+
     if layer_kind(cfg) in ("dense", "moe"):
         shape = (cfg.num_layers, batch, cache_len, hkv, hd)
-        cache = {"k": torch.zeros(shape, dtype=dt, device=device),
-                 "v": torch.zeros(shape, dtype=dt, device=device)}
+        cache = {"k": zeros(shape, kv_axes), "v": zeros(shape, kv_axes)}
         axes = {"k": kv_axes, "v": kv_axes}
-        return cache, axes
-    one = S.init_ssm_cache(cfg, batch, dt, device)
-    cache = {k: torch.zeros((cfg.num_layers, *x.shape), dtype=x.dtype,
-                            device=device) for k, x in one.items()}
-    axes = {k: ("layers", *ax) for k, ax in S.ssm_cache_axes(cfg).items()}
-    if cfg.family == "hybrid":
-        shape = (cfg.num_layers // cfg.attn_every, batch, cache_len, hkv, hd)
-        cache["k"] = torch.zeros(shape, dtype=dt, device=device)
-        cache["v"] = torch.zeros(shape, dtype=dt, device=device)
-        axes["k"] = kv_axes
-        axes["v"] = kv_axes
+    else:
+        one = S.init_ssm_cache(cfg, batch, dt, device)
+        axes = {k: ("layers", *ax) for k, ax in S.ssm_cache_axes(cfg).items()}
+        cache = {k: zeros((cfg.num_layers, *x.shape), axes[k], x.dtype)
+                 for k, x in one.items()}
+        if cfg.family == "hybrid":
+            shape = (cfg.num_layers // cfg.attn_every, batch, cache_len, hkv,
+                     hd)
+            cache["k"] = zeros(shape, kv_axes)
+            cache["v"] = zeros(shape, kv_axes)
+            axes["k"] = kv_axes
+            axes["v"] = kv_axes
+    if grid is not None:
+        cache["cache_len"] = cache_len
     return cache, axes
 
 
@@ -339,7 +376,8 @@ def prefill(params, tokens, cfg: ModelConfig, *, kernel: str,
                          f"prompt ({s})")
     positions = _positions(b, s, tokens.device)
     h = embed_tokens(params, tokens, cfg, patch_embeds=patch_embeds)
-    cache, _ = init_cache(cfg, b, cache_len, tokens.device)
+    cache, _ = init_cache(cfg, b, cache_len, tokens.device,
+                          shd.active_grid())
     layers = params["layers"]
 
     def ssm_prefill_layer(i, hh):
@@ -355,12 +393,14 @@ def prefill(params, tokens, cfg: ModelConfig, *, kernel: str,
                 h = ssm_prefill_layer(i, h)
             h, (k, v), _ = dense_layer_fwd(params["shared_attn"], h,
                                            positions, cfg, kernel=kernel)
-            A.update_cache(cache["k"][g], cache["v"][g], k, v, 0)
+            A.write_cache(cache["k"][g], cache["v"][g], k, v, 0, cfg,
+                          cache_len)
     elif layer_kind(cfg) in ("dense", "moe"):
         for i, lp in enumerate(layers):
             h, (k, v), _ = dense_layer_fwd(lp, h, positions, cfg,
                                            kernel=kernel)
-            A.update_cache(cache["k"][i], cache["v"][i], k, v, 0)
+            A.write_cache(cache["k"][i], cache["v"][i], k, v, 0, cfg,
+                          cache_len)
     else:  # ssm
         for i in range(len(layers)):
             h = ssm_prefill_layer(i, h)
@@ -369,14 +409,15 @@ def prefill(params, tokens, cfg: ModelConfig, *, kernel: str,
     return lm_logits(params, h[:, -1:, :], cfg), cache
 
 
-def _attn_decode(p, h, k_cache, v_cache, pos: int, cfg: ModelConfig):
+def _attn_decode(p, h, k_cache, v_cache, pos: int, cfg: ModelConfig,
+                 cache_len: int):
     """One-token attention with the cache updated in place. h (B, 1, D)."""
     x = L.rmsnorm(p["ln1"], h, cfg.norm_eps)
     positions = torch.full((h.shape[0], 1), pos, dtype=torch.int32,
                            device=h.device)
     q, k, v = A.qkv_project(p["attn"], x, positions, cfg)
-    A.update_cache(k_cache, v_cache, k, v, pos)
-    o = A.decode_attention(q, k_cache, v_cache, pos + 1)
+    A.write_cache(k_cache, v_cache, k, v, pos, cfg, cache_len)
+    o = A.cached_attention(q, k_cache, v_cache, pos + 1, cfg, cache_len)
     h = h + A.out_project(p["attn"], o)
     x = L.rmsnorm(p["ln2"], h, cfg.norm_eps)
     if "ffn" in p:
@@ -390,6 +431,9 @@ def decode_step(params, cache, token, pos: int, cfg: ModelConfig):
     package's ``launch/serve.py`` donates it to the step)."""
     h = embed_tokens(params, token, cfg)
     layers = params["layers"]
+    cache_len = cache.get("cache_len")
+    if cache_len is None and "k" in cache:
+        cache_len = cache["k"].shape[2]
 
     def ssm_decode_layer(i, hh):
         x = L.rmsnorm(layers[i]["ln1"], hh, cfg.norm_eps)
@@ -405,10 +449,11 @@ def decode_step(params, cache, token, pos: int, cfg: ModelConfig):
             for i in idx:
                 h = ssm_decode_layer(i, h)
             h = _attn_decode(params["shared_attn"], h, cache["k"][g],
-                             cache["v"][g], pos, cfg)
+                             cache["v"][g], pos, cfg, cache_len)
     elif layer_kind(cfg) in ("dense", "moe"):
         for i, lp in enumerate(layers):
-            h = _attn_decode(lp, h, cache["k"][i], cache["v"][i], pos, cfg)
+            h = _attn_decode(lp, h, cache["k"][i], cache["v"][i], pos, cfg,
+                             cache_len)
     else:  # ssm
         for i in range(len(layers)):
             h = ssm_decode_layer(i, h)

@@ -72,36 +72,46 @@ def opt_state_axes(param_axes) -> dict:
     return {"m": param_axes, "v": param_axes, "step": ()}
 
 
-def global_norm(tree, *, sharded=frozenset(), grid=None) -> torch.Tensor:
-    """The L2 norm over every leaf.  On a ``RankGrid`` (``grid``) the
-    leaves named in ``sharded`` are a rank's blocks of the model axis:
-    their squares are summed over it, the replicated leaves' counted
-    once."""
-    if grid is None or not sharded:
+def global_norm(tree, *, specs=None, grid=None) -> torch.Tensor:
+    """The L2 norm over every leaf.  On a grid of ranks (``grid``) each
+    leaf is the rank's block under its spec in ``specs``: its squares are
+    summed over exactly the axes its spec claims (data, model, both), a
+    whole leaf's counted once."""
+    if grid is None or not specs or not any(specs.values()):
         leaves = tree.values() if isinstance(tree, dict) else tree
         return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
                               for x in leaves))
-    own, rep = [], []
+    from repro_torch.dist.sharding import axis_key
+
+    groups: dict = {}
     for k, x in tree.items():
-        (own if k in sharded else rep).append(
+        axes = [a for part in specs.get(k, ()) if part is not None
+                for a in (part if isinstance(part, tuple) else (part,))]
+        key = axis_key(grid, tuple(axes)) if axes else "none"
+        groups.setdefault(key, []).append(
             torch.sum(torch.square(x.to(torch.float32))))
-    own_sq = grid.all_reduce(sum(own), axis="model")
-    return torch.sqrt(sum(rep, torch.zeros_like(own_sq)) + own_sq)
+    total = None
+    for key in sorted(groups, key=str):
+        sq = sum(groups[key])
+        if key != "none":
+            sq = grid.all_reduce(sq, axis=key)
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
 def apply_updates(params, grads, opt_state, cfg: AdamWConfig, *,
-                  stacked=frozenset(), sharded=frozenset(), grid=None):
+                  stacked=frozenset(), specs=None, grid=None):
     """One AdamW step, in place: ``params`` (dict name → tensor, or a
     module), m and v are overwritten.  Grads may be bf16 (accumulated); the
     math is float32.  ``stacked``: names that carry one more dim in the
-    JAX package (its stacked layers); ``sharded`` and ``grid``: the clip's
-    norm over a RankGrid (:func:`global_norm`).  Returns ``(state,
+    JAX package (its stacked layers); ``specs`` and ``grid``: the clip's
+    norm over a grid of ranks (:func:`global_norm`).  Returns ``(state,
     metrics)``."""
     params = named(params)
     step = opt_state["step"] + 1
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads, sharded=sharded, grid=grid)
+    gnorm = global_norm(grads, specs=specs, grid=grid)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     stepf = step.to(torch.float32)
@@ -139,7 +149,7 @@ class AdamW:
         grid = shd.grid_of(model.mesh)
         state, metrics = apply_updates(
             model, grads, state, self.cfg, stacked=model.stacked_names(),
-            sharded=model.sharded_names() if grid is not None else (),
+            specs=model.leaf_specs() if grid is not None else None,
             grid=grid)
         model.params_changed()
         return state, metrics

@@ -1,10 +1,14 @@
 """Serving steps: prefill and single-token decode (greedy / temperature),
 as in the JAX package's ``train/serve.py``.  The model holds its
-parameters, so the steps take none; a step runs eagerly (no ``jit``)."""
+parameters, so the steps take none; a step runs eagerly (no ``jit``).  On
+a grid of ranks the logits are the rank's vocabulary block: greedy
+decoding takes the argmax over the blocks (``layers.vocab_argmax``, ties
+to the smallest index) and sampling gathers them whole."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models import layers as L
 from repro_torch.models.model import Model
 
 
@@ -23,12 +27,14 @@ def make_decode_step(model: Model, *, greedy: bool = True,
     def decode_step(cache, token, pos, generator=None):
         logits, cache = model.decode_step(cache, token, pos)
         logits = logits[:, -1, :]
+        vocab = model.cfg.padded_vocab
         if greedy:
-            nxt = torch.argmax(logits, dim=-1)
+            nxt = L.vocab_argmax(logits, vocab)
         else:
             if generator is None:
                 raise ValueError("sampling needs an explicit generator")
-            probs = torch.softmax(logits.float() / temperature, dim=-1)
+            probs = torch.softmax(
+                L.vocab_whole(logits, vocab).float() / temperature, dim=-1)
             nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
         return nxt.to(torch.int32)[:, None], cache, logits
 
@@ -46,7 +52,8 @@ def generate(model: Model, prompt_tokens, *, steps: int,
     if batch_extra:
         batch.update(batch_extra)
     logits, cache = make_prefill_step(model, cache_len=cache_len)(batch)
-    tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+    tok = L.vocab_argmax(logits[:, -1, :], model.cfg.padded_vocab).to(
+        torch.int32)[:, None]
     return decode_from(model, cache, tok, s, steps)
 
 

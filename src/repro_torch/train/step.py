@@ -78,13 +78,15 @@ def make_train_step(model: Model, optimizer: AdamW, *, microbatches: int = 1,
     parameters, bf16 for bf16 ones) and scales loss and gradients by
     ``1/microbatches``.
 
-    On a ``dist.sharding.RankGrid`` (``model.mesh``, read at each call, so
-    a ``Model.remesh`` takes effect) every rank is handed the same global
-    batch and keeps its rows (``RankGrid.local_rows``: its data shard of
-    each microbatch, as the JAX package reshapes and then shards); the
-    loss is normalised by the global token count, every leaf's gradient
-    summed over the data axes when the rows are split there, and the
-    logged loss is the global one.  ``microbatch_shardings`` is accepted
+    On a grid of ranks (``model.mesh``, read at each call, so a
+    ``Model.remesh`` takes effect) every rank is handed the same global
+    batch and keeps its rows (``local_rows``: its shard of each
+    microbatch over the batch axes, as the JAX package reshapes and then
+    shards); the loss is normalised by the global token count, and when
+    the rows are split each leaf's gradient is summed over the batch axes
+    its spec does not claim (:func:`sum_partial_grads`: an FSDP leaf's
+    came back reduce-scattered from its gather); the logged loss is the
+    global one.  ``microbatch_shardings`` is accepted
     for the JAX signature and has no effect: ``dist.sharding.constrain``
     is the identity (a rank's activations lie whole on its device).
 
@@ -105,11 +107,11 @@ def make_train_step(model: Model, optimizer: AdamW, *, microbatches: int = 1,
 
     def compute_grads(batch):
         """The loss and gradients of one global batch: each microbatch's
-        accumulated and scaled by ``1/microbatches``.  On a RankGrid, this
-        rank's rows (its data shard of each microbatch) and then, when the
-        rows are split over data, every leaf summed over the data axes in
-        one flattened buffer per dtype and the global loss (the ranks'
-        cross-entropy parts summed, the MoE term once)."""
+        accumulated and scaled by ``1/microbatches``.  On a grid, this
+        rank's rows (its shard of each microbatch) and then, when the rows
+        are split, the leaves' parts summed (:func:`sum_partial_grads`)
+        and the global loss (the ranks' cross-entropy parts summed, the
+        MoE term once)."""
         b = next(iter(batch.values())).shape[0]
         if b % microbatches:
             raise ValueError(f"batch {b} does not split into "
@@ -120,10 +122,7 @@ def make_train_step(model: Model, optimizer: AdamW, *, microbatches: int = 1,
         if grid is not None:
             batch = {k: grid.local_rows(v, microbatches=microbatches)
                      for k, v in batch.items()}
-            ctx = shd.active_context()
-            rules = (ctx[1] if ctx is not None and ctx[0] is grid
-                     else shd.make_rules(grid))
-            scope = shd.activation_sharding(grid, rules, batch=rows)
+            scope = shd.activation_sharding(grid, grid.rules, batch=rows)
         batch = as_batch(batch, device)
         per = next(iter(batch.values())).shape[0] // microbatches
         acc: dict = {}
@@ -154,8 +153,8 @@ def make_train_step(model: Model, optimizer: AdamW, *, microbatches: int = 1,
             acc = {k: g * inv for k, g in acc.items()}
             ce, aux = ce * inv, aux * inv
         if grid is not None and grid.rows_split(rows):
-            acc = sum_over_data(grid, acc)
-            ce = grid.all_reduce(ce, axis="data")
+            acc = sum_partial_grads(grid, acc, model.leaf_specs())
+            ce = grid.all_reduce(ce, axis=grid.row_axis)
         return ce + aux, acc
 
     def train_step(opt_state, batch):
@@ -186,16 +185,33 @@ def make_train_step(model: Model, optimizer: AdamW, *, microbatches: int = 1,
     return train_step_wire
 
 
-def sum_over_data(grid, grads: dict) -> dict:
-    """``grads`` summed over ``grid``'s data axes: one flattened buffer
-    (one all_reduce) per dtype, in the dict's order."""
-    by_dtype: dict = {}
+def partial_axis(grid, spec):
+    """The grid axis (``"data"``, ``"model"``, None: both, or ``"none"``)
+    over which a leaf of ``spec`` holds a part of its gradient when the
+    rows split: the batch axes its spec does not claim."""
+    rows = set(shd._mesh_axes_for(grid.rules, shd.BATCH))
+    for part in spec:
+        if part is not None:
+            rows -= set(part if isinstance(part, tuple) else (part,))
+    if not rows:
+        return "none"
+    return shd.axis_key(grid, tuple(rows))
+
+
+def sum_partial_grads(grid, grads: dict, specs: dict | None = None) -> dict:
+    """``grads`` summed over the batch axes each leaf's spec does not claim
+    (:func:`partial_axis`; every batch axis for a leaf ``specs`` does not
+    name): one flattened buffer (one all_reduce) per axis and dtype, in
+    the dict's order."""
+    groups: dict = {}
     for k, g in grads.items():
-        by_dtype.setdefault(g.dtype, []).append(k)
+        axis = partial_axis(grid, (specs or {}).get(k, ()))
+        if axis != "none":
+            groups.setdefault((axis, g.dtype), []).append(k)
     out = dict(grads)
-    for keys in by_dtype.values():
+    for (axis, _), keys in groups.items():
         flat = torch.cat([grads[k].reshape(-1) for k in keys])
-        grid.all_reduce(flat, axis="data")
+        grid.all_reduce(flat, axis=axis)
         at = 0
         for k in keys:
             n = grads[k].numel()

@@ -150,16 +150,30 @@ def test_reanalyze_restores_a_perturbed_record(tmp_path):
 
 def test_cli_runs_a_reduced_cell_and_refuses_a_mesh_across_cards(tmp_path,
                                                                   capsys):
+    """The CLI writes one reduced cell's record on one card, and — where it
+    once refused a mesh across cards — one for rank 0 of each grid:
+    ``--multi-pod`` (2x16x16, 512 ranks), ``--single-pod`` (16x16, 256)
+    and ``--strategy fsdp|serve`` (16x16), each with its world, mesh tag
+    and strategy in the record and the stem."""
     dryrun.main(["--arch", "mamba2-1.3b", "--shape", "decode_32k",
                  "--reduced", "--seq", "64", "--out-dir", str(tmp_path)])
     assert "1 of 1 cells" in capsys.readouterr().out
     assert (tmp_path / "mamba2-1.3b__decode_32k__h100x1__reduced.json"
             ).exists()
-    for argv in (["--multi-pod"], ["--strategy", "fsdp"],
-                 ["--strategy", "serve"]):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            dryrun.main(["--arch", "mamba2-1.3b", "--shape", "train_4k",
-                         *argv])
+    for argv, stem, world, strategy in (
+            (["--multi-pod"], "h100_2x16x16", 512, "2d"),
+            (["--single-pod"], "h100_16x16", 256, "2d"),
+            (["--strategy", "fsdp"], "h100_16x16__fsdp", 256, "fsdp"),
+            (["--strategy", "serve"], "h100_16x16__serve", 256, "serve")):
+        dryrun.main(["--arch", "mamba2-1.3b", "--shape", "train_4k",
+                     "--reduced", "--out-dir", str(tmp_path), *argv])
+        assert "1 of 1 cells" in capsys.readouterr().out
+        rec = json.loads((tmp_path / f"mamba2-1.3b__train_4k__{stem}"
+                          "__reduced.json").read_text())
+        assert (rec["world"], rec["strategy"]) == (world, strategy)
+        assert rec["mesh"] == stem.split("__")[0]
+        assert set(rec["ops"]["collective_by_axis"]) <= {"data", "model",
+                                                         "grid"}
 
 
 def test_moe_assignment_count_equals_bincount_and_traces_on_meta():

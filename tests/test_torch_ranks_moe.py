@@ -156,9 +156,10 @@ def test_sharded_tokens_differ_from_the_local_path(runs, case):
 @pytest.mark.parametrize("world", sorted(W.MOE_GRIDS))
 def test_experts_live_on_the_model_axis(runs, world):
     """Rank (d, r) holds experts [r·E/mp, (r+1)·E/mp) of wi, wg, wo (the
-    whole of them where mp does not divide E), the router and the shared
-    expert whole; the ranks are row-major, as jax.make_mesh lays out
-    devices; no rank imported the JAX package."""
+    whole of them where mp does not divide E); every leaf — the router and
+    the shared expert too — has the JAX rules' spec for the grid (the
+    router's FSDP dim on data where dp > 1); the ranks are row-major, as
+    jax.make_mesh lays out devices; no rank imported the JAX package."""
     ranks, _ = runs
     dp, mp = W.MOE_GRIDS[world]
     for r in ranks[world]:
@@ -171,11 +172,12 @@ def test_experts_live_on_the_model_axis(runs, world):
             for name in ("wi", "wg", "wo"):
                 shape = got["local_shapes"][name]
                 if e % mp:
-                    assert name not in got["slices"]
+                    assert got["slices"].get(name, (slice(None),))[0] \
+                        == slice(None)
                     assert shape[0] == e
                     continue
                 lo = (r["rank"] % mp) * (e // mp)
                 assert got["slices"][name][0] == slice(lo, lo + e // mp)
                 assert shape[0] == e // mp
-            assert "router" not in got["slices"]
-            assert not any(k.startswith("shared") for k in got["slices"])
+            assert got["specs"] == got["jax_specs"], case
+            assert got["specs"]["router"] == ("data",), case

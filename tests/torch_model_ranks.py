@@ -18,7 +18,7 @@ from repro_torch.dist import sharding as shd
 from repro_torch.dist.sharding import RankGrid
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
-from repro_torch.train.step import sum_over_data
+from repro_torch.train.step import sum_partial_grads
 
 SEED = 0
 MOE_ARCHS = {"qwen3": "qwen3-moe-235b-a22b", "llama4": "llama4-scout-17b-a16e"}
@@ -138,9 +138,10 @@ def _moe_case(grid, case) -> dict:
         loss = (out * cot).sum() + aux
         grads = torch.autograd.grad(loss, (x, *params))
     grads = dict(zip(("x", *names), (g.detach() for g in grads)))
-    if grid.rows_split(b):  # the parameters' gradients summed over data
+    specs = _specs(node)
+    if grid.rows_split(b):  # the parameters' gradients' parts summed
         x_grad = grads.pop("x")
-        grads = {"x": x_grad, **sum_over_data(grid, grads)}
+        grads = {"x": x_grad, **sum_partial_grads(grid, grads, specs)}
     rows = np.arange(b)
     return {
         "out": out.detach().numpy(), "aux": float(aux),
@@ -148,9 +149,21 @@ def _moe_case(grid, case) -> dict:
         "grads": {k: v.numpy() for k, v in grads.items()},
         "rows": grid.local_rows(rows),
         "slices": _sliced(node),
+        "specs": specs,
+        "jax_specs": {k: shd.spec_for(shape, axes, grid, shd.make_rules(grid))
+                      for k, (shape, axes) in _leaf_axes(node).items()},
         "local_shapes": {k: tuple(v.shape) for k, v in
                          node.state_dict().items()},
     }
+
+
+def _specs(node) -> dict:
+    out = {}
+    for prefix, mod in node.named_modules():
+        if isinstance(mod, L.ParamNode):
+            for k in mod._leaves:
+                out[f"{prefix}.{k}" if prefix else k] = mod.spec(k)
+    return out
 
 
 def _sliced(node) -> dict:
@@ -364,10 +377,12 @@ def _launcher(world) -> dict:
     os.environ["WORLD_SIZE"] = str(world)
     buf = io.StringIO()
     seen: list = []
+    seen_slices: list = []
     update = AdamW.update
 
     def recording(self, model, grads, state):  # the launcher's gradients
         seen.append({k: g.detach().numpy().copy() for k, g in grads.items()})
+        seen_slices.append(_sliced(model))  # the blocks of that step's grid
         return update(self, model, grads, state)
 
     AdamW.update = recording
@@ -381,7 +396,8 @@ def _launcher(world) -> dict:
             "idle": grid.idle, "grid": dict(grid.shape),
             "params": {k: v.detach().numpy().copy()
                        for k, v in model.state_dict().items()},
-            "grads": seen, "slices": _sliced(model)}
+            "grads": seen, "grad_slices": seen_slices,
+            "slices": _sliced(model)}
 
 
 def _launcher_refusals(world) -> dict:
@@ -400,3 +416,215 @@ def _launcher_refusals(world) -> dict:
         except Exception as e:  # reported to the parent, which asserts
             out[flag] = (type(e).__name__, str(e))
     return out
+
+
+# --------------------------------------------------------------------------
+# the dense layers' layout (tests/test_torch_ranks_dense.py)
+# --------------------------------------------------------------------------
+DENSE_GRIDS = {"2x2": (2, 2), "4x2": (4, 2), "1x4": (1, 4)}
+DENSE_ALL = ("stablelm-1.6b", "qwen2-72b", "zamba2-2.7b", "mamba2-1.3b",
+             "whisper-base", "qwen3-moe-235b-a22b")
+#: grid → the archs it runs
+DENSE_CASES = {"2x2": ("stablelm-1.6b", "zamba2-2.7b", "whisper-base"),
+               "4x2": ("qwen2-72b", "mamba2-1.3b", "qwen3-moe-235b-a22b"),
+               "1x4": ("qwen2-72b", "zamba2-2.7b", "qwen3-moe-235b-a22b")}
+#: the forward and loss under the other rule tables: (grid, arch)
+DENSE_STRATEGY_CASE = ("2x2", "stablelm-1.6b")
+DENSE_B, DENSE_S, DENSE_GEN = 4, 8, 4
+DENSE_TRAIN_B, DENSE_TRAIN_STEPS = 8, 2
+# the KV cache by KV heads (Hkv divides 16): reduced stablelm with 16
+# heads of 16, held against the one-process port
+HEADS_CFG = dict(num_heads=16, num_kv_heads=16, head_dim=16)
+
+
+def dense_cfg(arch, **over):
+    return get_reduced(arch).replace(dtype="float32", **over)
+
+
+def dense_inputs(cfg, b, seed):
+    """tokens, labels (and frames) of ``b`` rows of DENSE_S, NumPy."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (b, DENSE_S),
+                                  dtype=np.int32),
+           "labels": rng.integers(0, cfg.vocab_size, (b, DENSE_S),
+                                  dtype=np.int32)}
+    if cfg.family == "encdec":
+        out["frames"] = 0.02 * rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def _tree_np(t):
+    return {k: v if isinstance(v, int) else v.detach().numpy().copy()
+            for k, v in t.items()}
+
+
+def _dense_serve(model, grid, cfg, inputs, b):
+    """forward logits, the loss, the prefill's logits and cache, and the
+    greedy tokens of the rank's rows."""
+    from repro_torch.train.serve import generate
+
+    batch = {k: torch.from_numpy(grid.local_rows(v))
+             for k, v in inputs.items()}
+    serve = {k: v for k, v in batch.items() if k != "labels"}
+    extra = {k: v for k, v in serve.items() if k != "tokens"}
+    parts: dict = {}
+    with torch.no_grad(), shd.activation_sharding(grid, grid.rules,
+                                                  batch=b):
+        logits, _ = model.forward(batch)
+        model.train_loss(batch, parts=parts)
+        pl, cache = model.prefill(serve, cache_len=DENSE_S + DENSE_GEN)
+        toks = generate(model, batch["tokens"], steps=DENSE_GEN,
+                        batch_extra=extra)
+    return {"logits": logits.numpy(), "ce": float(parts["ce"]),
+            "aux": float(parts["aux"]),
+            "prefill": pl.numpy(), "cache": _tree_np(cache),
+            "tokens": toks.numpy()}
+
+
+def _dense_train(model, cfg, inputs) -> dict:
+    from repro_torch.train.optimizer import AdamW, AdamWConfig
+    from repro_torch.train.step import make_train_step
+
+    seen: list = []
+
+    class Recording(AdamW):
+        def update(self, model, grads, state):
+            seen.append({k: g.detach().numpy().copy()
+                         for k, g in grads.items()})
+            return super().update(model, grads, state)
+
+    opt = Recording(AdamWConfig(**TRAIN_OPT))
+    state = opt.init(model)
+    step = make_train_step(model, opt)
+    losses, gnorms, params = [], [], []
+    for batch in inputs:
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        params.append({k: v.detach().numpy().copy()
+                       for k, v in model.state_dict().items()})
+    return {"losses": losses, "grad_norms": gnorms, "grads": seen,
+            "params": params}
+
+
+def train_batches(cfg):
+    return [dense_inputs(cfg, DENSE_TRAIN_B, 100 + i)
+            for i in range(DENSE_TRAIN_STEPS)]
+
+
+def _dense_case(grid, arch) -> dict:
+    from repro_torch.convert import model_params_from_jax
+    from repro_torch.models import Model
+
+    cfg = dense_cfg(arch)
+    model = Model(cfg, device="cpu", mesh=grid).init(
+        torch.Generator().manual_seed(SEED))
+    out = {"specs": model.leaf_specs(), "slices": _sliced(model),
+           "init": {k: v.detach().numpy().copy()
+                    for k, v in model.state_dict().items()}}
+    full = Model(cfg, device="cpu").init(torch.Generator().manual_seed(SEED))
+    out["convert"] = {k: v.numpy() for k, v in model_params_from_jax(
+        jax_style_tree(full), full.axes(), cfg, mesh=grid).items()}
+    out["serve"] = _dense_serve(model, grid, cfg,
+                                dense_inputs(cfg, DENSE_B, 7), DENSE_B)
+    out["train"] = _dense_train(model, cfg, train_batches(cfg))
+    return out
+
+
+def dense_world(rank, world, mp, archs, extras) -> dict:
+    """One rank of a dense-layout world: each arch on a (world/mp, mp)
+    grid (specs, init and convert blocks, serving, two AdamW steps); with
+    ``extras``, the other rule tables' forward and loss and the cache laid
+    out by KV heads."""
+    torch.set_num_threads(1)
+    grid = RankGrid(mp, device="cpu")
+    out = {"rank": rank, "coords": dict(grid.coords), "cases": {}}
+    for arch in archs:
+        out["cases"][arch] = _dense_case(grid, arch)
+    if extras:
+        from repro_torch.models import Model
+
+        arch = DENSE_STRATEGY_CASE[1]
+        cfg = dense_cfg(arch)
+        inputs = dense_inputs(cfg, DENSE_B, 7)
+        out["strategies"] = {}
+        for strategy in ("fsdp", "serve"):
+            g = RankGrid(mp, device="cpu", strategy=strategy,
+                         _groups=grid._groups)
+            model = Model(cfg, device="cpu", mesh=g).init(
+                torch.Generator().manual_seed(SEED))
+            batch = {k: torch.from_numpy(g.local_rows(v))
+                     for k, v in inputs.items()}
+            parts: dict = {}
+            with torch.no_grad(), shd.activation_sharding(g, g.rules,
+                                                          batch=DENSE_B):
+                logits, _ = model.forward(batch)
+                model.train_loss(batch, parts=parts)
+            out["strategies"][strategy] = {
+                "specs": model.leaf_specs(), "logits": logits.numpy(),
+                "ce": float(parts["ce"]),
+                "rows": g.local_rows(np.arange(DENSE_B)),
+                "vocab": (g.model_index, logits.shape[-1])}
+        cfg = dense_cfg(arch, **HEADS_CFG)
+        model = Model(cfg, kernel="reference", device="cpu", mesh=grid).init(
+            torch.Generator().manual_seed(SEED))
+        out["heads"] = _dense_serve(model, grid, cfg, inputs, DENSE_B)
+    out["imports"] = sorted(name for name in sys.modules
+                            if name.split(".")[0] in ("jax", "jaxlib",
+                                                      "repro"))
+    return out
+
+
+def heads_one_process() -> dict:
+    """The KV-heads cache case on one process (the port's own run)."""
+    from repro_torch.models import Model
+
+    cfg = dense_cfg(DENSE_STRATEGY_CASE[1], **HEADS_CFG)
+    model = Model(cfg, kernel="reference", device="cpu").init(
+        torch.Generator().manual_seed(SEED))
+    inputs = dense_inputs(cfg, DENSE_B, 7)
+    from repro_torch.train.serve import generate
+
+    batch = {k: torch.from_numpy(v) for k, v in inputs.items()}
+    serve = {k: v for k, v in batch.items() if k != "labels"}
+    with torch.no_grad():
+        logits, _ = model.forward(batch)
+        pl, cache = model.prefill(serve, cache_len=DENSE_S + DENSE_GEN)
+        toks = generate(model, batch["tokens"], steps=DENSE_GEN)
+    return {"logits": logits.numpy(), "prefill": pl.numpy(),
+            "cache": _tree_np(cache), "tokens": toks.numpy()}
+
+
+# --------------------------------------------------------------------------
+# the dry run's account of a grid (tests/test_torch_dryrun_grid.py)
+# --------------------------------------------------------------------------
+def trace_summary(trace) -> dict:
+    """An op counter's trace as its dots (op, result elements,
+    contraction, weight) and its collectives (kind, result bytes, group,
+    axis), in order."""
+    return {"dots": [tuple(ev[1:4]) + (ev[-1],) for ev in trace
+                     if ev[0] == "dot"],
+            "collectives": [(ev[1], ev[2], ev[3], ev[6]) for ev in trace
+                            if ev[0] == "collective"]}
+
+
+def grid_trace_world(rank, world, mp, cells, b, s) -> dict:
+    """One rank of a gloo world: each (arch, shape) cell's step built by
+    ``dryrun.build_step`` on the rank's ``RankGrid`` (the reduced config,
+    the reference kernels, on the CPU) and run once under a CPU op
+    counter → its trace summary."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.op_analysis import OpCounter
+
+    torch.set_num_threads(1)
+    grid = RankGrid(mp, device="cpu")
+    out = {}
+    for arch, shape in cells:
+        step = dryrun.build_step(arch, shape, reduced=True, batch=b, seq=s,
+                                 kernel="reference", device="cpu",
+                                 grid=grid)
+        with OpCounter(device="cpu") as counter:
+            step.run()
+        out[arch, shape] = trace_summary(counter.trace)
+    return {"rank": rank, "cells": out}
